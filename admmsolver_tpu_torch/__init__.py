@@ -2,12 +2,15 @@
 
 A second package beside :mod:`admmsolver_tpu` (JAX, the reference), laid
 out file for file like it and keeping its public names.  It covers the
-batched basis-pursuit path: the structured operators, least squares / L1 /
-nonnegativity objectives, the single-instance engine
-(:class:`SimpleOptimizer`), and the fused two-block solver
-(:class:`~admmsolver_tpu_torch.parallel.FusedTwoBlockSolver`) whose chunk
-kernel is a hand-written CUDA kernel for Hopper (sm_90a).  It imports
-``torch`` and numpy, never ``jax``.
+batched basis-pursuit path and the 3-block SpM analytic-continuation path:
+the structured operators, least squares (plain and equality-constrained) /
+L1 / L2 / nonnegativity objectives, the model constructors, the single-instance
+engine (:class:`SimpleOptimizer`), and the fused solvers
+(:class:`~admmsolver_tpu_torch.parallel.FusedTwoBlockSolver`,
+:class:`~admmsolver_tpu_torch.parallel.FusedSpMSolver`) whose chunk kernels
+are hand-written CUDA kernels for Hopper (sm_90a).  Solvers run on ``cuda``
+unless the caller passes ``device="cpu"``.  It imports ``torch`` and numpy,
+never ``jax``.
 """
 
 __version__ = "0.1.0"
@@ -26,11 +29,14 @@ from .ops.linop import (
 from .models.objectivefunc import (
     ObjectiveFunctionBase,
     LeastSquares,
+    ConstrainedLeastSquares,
     L1Regularizer,
+    L2Regularizer,
     NonNegativePenalty,
 )
 from .models.problem import EqualityCondition, Model, Problem
 from .optimizer import SimpleOptimizer
 from .config import ADMMConfig
 from .parallel.fused import FusedTwoBlockSolver, FusedResult
-from .ops.kernels import fused_two_block_chunk
+from .parallel.fused_spm import FusedSpMSolver, FusedSpMResult
+from .ops.kernels import fused_two_block_chunk, fused_spm_chunk

@@ -4,7 +4,8 @@ Importing the package pins full-precision float32 matrix products: TF32
 keeps about 1e-3 relative accuracy, which corrupts the shifted-quadratic
 solve and flips penalty decisions (the same hazard the JAX package pins
 ``Precision.HIGHEST`` against on the TPU).  There is no device fallback:
-every solver takes its ``device=`` from the caller.
+every solver runs on ``cuda`` unless the caller passes another ``device=``,
+and raises where there is no CUDA device.
 """
 from __future__ import annotations
 

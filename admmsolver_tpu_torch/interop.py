@@ -12,7 +12,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .models.objectivefunc import (L1Regularizer, LeastSquares,
+from .models.objectivefunc import (ConstrainedLeastSquares, L1Regularizer,
+                                   L2Regularizer, LeastSquares,
                                    NonNegativePenalty, ObjectiveFunctionBase)
 from .models.problem import Model
 from .ops.linop import (DenseMatrix, DiagonalMatrix, MatrixBase,
@@ -45,6 +46,15 @@ def _objective(f, device, dtype) -> ObjectiveFunctionBase:
         return LeastSquares(float(np.asarray(f._alpha)),
                             _operator(f._A, device, dtype),
                             _tensor(f._y, device, dtype))
+    if name == "ConstrainedLeastSquares":
+        return ConstrainedLeastSquares(float(np.asarray(f._alpha)),
+                                       _operator(f._A, device, dtype),
+                                       _tensor(f._y, device, dtype),
+                                       _operator(f._C, device, dtype),
+                                       _tensor(f._D, device, dtype))
+    if name == "L2Regularizer":
+        return L2Regularizer(float(np.asarray(f._alpha)),
+                             _operator(f._A, device, dtype))
     if name == "L1Regularizer":
         offset = None if f._offset is None else _tensor(f._offset, device, dtype)
         return L1Regularizer(float(np.asarray(f._alpha)), int(f._size_x), offset)
@@ -53,7 +63,7 @@ def _objective(f, device, dtype) -> ObjectiveFunctionBase:
     raise TypeError(f"admmsolver_tpu_torch has no counterpart of objective {name} yet")
 
 
-def from_jax_model(model, device="cpu", dtype: Optional[torch.dtype] = None) -> Model:
+def from_jax_model(model, device="cuda", dtype: Optional[torch.dtype] = None) -> Model:
     """The port's :class:`Model` for an ``admmsolver_tpu.Model``.
 
     Arrays keep their numpy dtype unless ``dtype`` is given; they are placed
@@ -69,7 +79,7 @@ def from_jax_model(model, device="cpu", dtype: Optional[torch.dtype] = None) -> 
     return Model(functions, conditions)
 
 
-def state_from_numpy(x0, x1, h, mu, device="cpu") -> Dict[str, torch.Tensor]:
+def state_from_numpy(x0, x1, h, mu, device="cuda") -> Dict[str, torch.Tensor]:
     """Warm-start keyword arguments for ``FusedTwoBlockSolver.solve`` from
     the numpy arrays of a ``FusedResult`` (x0, x1, h: (B, N); mu: (B,)),
     in float32 on ``device``: ``solve(..., **state_from_numpy(...))``."""

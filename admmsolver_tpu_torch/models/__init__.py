@@ -1,7 +1,11 @@
 from .objectivefunc import (
     ObjectiveFunctionBase,
     LeastSquares,
+    ConstrainedLeastSquares,
     L1Regularizer,
+    L2Regularizer,
     NonNegativePenalty,
 )
 from .problem import EqualityCondition, Model, Problem
+from .applications import (basis_pursuit_model, lasso_model, spm_model,
+                           synthetic_spm_data)

@@ -1,9 +1,9 @@
 """Objective functions and their proximal solvers.
 
 Counterpart of :mod:`admmsolver_tpu.models.objectivefunc` (reference
-``objectivefunc.py:28-355``) for the basis-pursuit slice: least squares,
-L1 and nonnegativity.  Each objective solves its own regularized
-subproblem
+``objectivefunc.py:28-355``) for the basis-pursuit and SpM slices: least
+squares with and without a hard equality constraint, L1, L2 and
+nonnegativity.  Each objective solves its own regularized subproblem
 
     argmin_x  F(x) + h† x + x† h + x† mu x
 
@@ -46,7 +46,9 @@ from ..ops.prox import project_nonneg, soft_threshold
 __all__ = [
     "ObjectiveFunctionBase",
     "LeastSquares",
+    "ConstrainedLeastSquares",
     "L1Regularizer",
+    "L2Regularizer",
     "NonNegativePenalty",
 ]
 
@@ -66,16 +68,24 @@ class SpectralShift(NamedTuple):
     thin: bool
 
 
-def _inv_hpd(m: MatrixBase) -> MatrixBase:
-    """Inverse of a Hermitian positive-definite operator.
-
-    Dense operators go through a Cholesky inverse (the reference calls
+def inv_hpd(a: torch.Tensor) -> torch.Tensor:
+    """Inverse of Hermitian positive-definite matrices ``(..., n, n)`` by a
+    (batched) Cholesky factorization ``a = L L†``: ``a^{-1} = L^{-†} L^{-1}``
+    with ``L^{-1}`` from one batched triangular solve (the reference calls
     ``np.linalg.inv``, ``objectivefunc.py:11,94``); like the reference, a
-    matrix that is not positive definite raises.  Diagonal and
-    scaled-identity operators invert in closed form.
-    """
+    matrix that is not positive definite raises."""
+    L = torch.linalg.cholesky(a)
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device).expand_as(a)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    return Linv.mH @ Linv
+
+
+def _inv_hpd(m: MatrixBase) -> MatrixBase:
+    """Inverse of a Hermitian positive-definite operator: dense operators
+    through :func:`inv_hpd`, diagonal and scaled-identity ones in closed
+    form."""
     if isinstance(m, DenseMatrix):
-        return DenseMatrix(torch.cholesky_inverse(torch.linalg.cholesky(m.data)))
+        return DenseMatrix(inv_hpd(m.data))
     if isinstance(m, (DiagonalMatrix, ScaledIdentityMatrix)):
         return m.inv()
     raise TypeError(f"no HPD inverse for {type(m).__name__}")
@@ -217,6 +227,13 @@ class _ShiftedQuadratic:
             cache[key] = (_match_precision(lam, like), _match_precision(U, like))
         return cache[key]
 
+    def _get_B(self, mu: MatrixBase):
+        """Factors for ``mu`` through the eager path's one-entry cache."""
+        key = matrix_hash(mu)
+        if self._B_cache[0] != key:
+            self._B_cache = (key, self.make_factors(mu))
+        return self._B_cache[1]
+
     def make_factors(self, mu_op: MatrixBase):
         """B = (alpha A†A + mu)^{-1}: spectral shift or explicit inverse."""
         if isinstance(mu_op, ScaledIdentityMatrix) and self._spectral_ok():
@@ -268,12 +285,6 @@ class LeastSquares(_ShiftedQuadratic, ObjectiveFunctionBase):
         return float(self._alpha * torch.vdot(diff, diff).real)
 
     # --- eager path ----------------------------------------------------
-    def _get_B(self, mu: MatrixBase) -> MatrixBase:
-        key = matrix_hash(mu)
-        if self._B_cache[0] != key:
-            self._B_cache = (key, self.make_factors(mu))
-        return self._B_cache[1]
-
     def solve(self, h=None, mu: Optional[MatrixBase] = None):
         if h is None:
             h = torch.zeros(self._Nx, dtype=self._Acy.dtype, device=self._Acy.device)
@@ -289,6 +300,44 @@ class LeastSquares(_ShiftedQuadratic, ObjectiveFunctionBase):
     def prox_with_factors(self, factors, h):
         Acy = _match_precision(self._Acy, h)
         return self._apply_B(factors, self._alpha * Acy - h)
+
+
+class ConstrainedLeastSquares(LeastSquares):
+    """``alpha * ||y - A x||² s.t. C x = D`` exactly, by Lagrange block
+    elimination (reference ``objectivefunc.py:113-157``)."""
+
+    def __init__(self, alpha, A, y, C, D) -> None:
+        C = asmatrixtype(C)
+        D = _asarray(D)
+        if D.ndim != 1 or C.shape[0] != D.shape[0] or A.shape[1] != C.shape[1]:
+            raise ValueError(f"constraint C {C.shape}, D {tuple(D.shape)} does not "
+                             f"match A {tuple(A.shape)}")
+        super().__init__(alpha, A, y)
+        self._C = C
+        self._D = D
+
+    def solve(self, h=None, mu: Optional[MatrixBase] = None):
+        if mu is None:
+            mu = ScaledIdentityMatrix(self._Nx, 0.0)
+        return super().solve(h, mu)
+
+    def make_factors(self, mu_op: MatrixBase):
+        """(B, xi2 = -B C†, S^{-1} = (C xi2)^{-1}).  The reference recomputes
+        ``xi2`` and the small (Nc×Nc) inverse on every call
+        (``objectivefunc.py:148-157``); both depend only on B, so they are
+        made when the penalty changes."""
+        B = super().make_factors(mu_op)
+        xi2 = -self._apply_B(B, self._C.conjugate().T.asmatrix())
+        S = self._C @ xi2
+        # S = -C B C† with B positive definite, so -S is too.
+        return (B, xi2, -inv_hpd(-S))
+
+    def prox_with_factors(self, factors, h):
+        B, xi2, Sinv = factors
+        xi1 = super().prox_with_factors(B, h)
+        D = _match_precision(self._D, xi1)
+        nu = _mm(_match_precision(Sinv, xi1), D - (self._C @ xi1))
+        return xi1 + _mm(_match_precision(xi2, xi1), nu)
 
 
 class L1Regularizer(ObjectiveFunctionBase):
@@ -335,6 +384,38 @@ class L1Regularizer(ObjectiveFunctionBase):
             return soft_threshold(-(h / mu_diag), thr)
         y = _match_precision(_real_if_complex(self._offset), h)
         return y + soft_threshold(-(h / mu_diag) - y, thr)
+
+
+class L2Regularizer(_ShiftedQuadratic, ObjectiveFunctionBase):
+    """``F(x) = alpha |A x|_2^2`` — generalized ridge / smoothness
+    (reference ``objectivefunc.py:198-242``)."""
+
+    is_quadratic = True
+
+    def __init__(self, alpha: float, A: Union[np.ndarray, MatrixBase]) -> None:
+        A = asmatrixtype(A)
+        super().__init__(A.shape[1])
+        if not alpha > 0:
+            raise ValueError("alpha must be positive")
+        self._alpha = alpha
+        self._A = A
+        self._AcA = matmul(A.conjugate().T, A)
+        self._B_cache = (None, None)
+
+    def __call__(self, x) -> float:
+        Ax = self._A @ _asarray(x)
+        return float(self._alpha * torch.vdot(Ax, Ax).real)
+
+    def solve(self, h=None, mu: Optional[MatrixBase] = None):
+        n = self._A.shape[1]
+        if mu is None:
+            mu = ScaledIdentityMatrix(n, 0.0)
+        if h is None:
+            return torch.zeros(n, dtype=torch.float64)
+        return self.prox_with_factors(self._get_B(mu), _asarray(h))
+
+    def prox_with_factors(self, factors, h):
+        return -self._apply_B(factors, h)
 
 
 class NonNegativePenalty(ObjectiveFunctionBase):

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of the port.
 
-``nvcc`` compiles ``csrc/fused_two_block.cu`` at first use into a shared
-library with a plain C interface under ``admmsolver_tpu_torch/_build/``,
-named by a hash of the source and flags, and ``ctypes`` loads it.  Nothing
-else is built or fetched; a missing compiler, a failed build or a failed
-load raises.  Importing this module builds nothing.
+Every ``csrc/*.cu`` of the package is one shared library with a plain C
+interface.  At first use ``nvcc`` compiles all of them at once (one
+process per source, started together) into ``admmsolver_tpu_torch/_build/``,
+each named by a hash of its source and the flags, and ``ctypes`` loads
+them.  Nothing else is built or fetched; a missing compiler, a failed
+build or a failed load raises.  Importing this module builds nothing.
 """
 from __future__ import annotations
 
@@ -15,12 +16,25 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fused_two_block.cu"
+SOURCE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# C interface of each library: function -> (argument types, result type).
+# Every library <name> also has <name>_smem_bytes, <name>_max_smem and
+# <name>_error_string, declared in _declare.
+_CHUNK_ARGTYPES = {
+    # device, 9 inputs, 4 outputs, B, N, R, n_iters, prox, thin, tb, stream
+    "fused_two_block": [_INT] + [_PTR] * 13 + [_INT] * 7 + [_PTR],
+    # device, 10 inputs, 6 outputs, B, nl, nw, n_iters, lanes per warp,
+    # warps per block, stream
+    "fused_spm": [_INT] + [_PTR] * 16 + [_INT] * 6 + [_PTR],
+}
 
 
 def _nvcc() -> str:
@@ -33,33 +47,60 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+def _declare(lib: ctypes.CDLL, name: str) -> None:
+    chunk = getattr(lib, f"{name}_chunk")
+    chunk.argtypes = _CHUNK_ARGTYPES[name]
+    chunk.restype = _INT
+    smem = getattr(lib, f"{name}_smem_bytes")
+    smem.argtypes = [_INT, _INT, _INT]
+    smem.restype = ctypes.c_size_t
+    limit = getattr(lib, f"{name}_max_smem")
+    limit.argtypes = [_INT, ctypes.POINTER(_INT)]
+    limit.restype = _INT
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [_INT]
+    err.restype = ctypes.c_char_p
+
+
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if this source has no build.
+def load_libraries() -> Dict[str, ctypes.CDLL]:
+    """The loaded kernel libraries by source name (``fused_two_block``,
+    ``fused_spm``), each built first if its source has no build.
 
     The compiler's report (registers, shared memory, spills) is kept
-    beside the library as ``<name>.log``.
+    beside each library as ``<name>_<hash>.log``.
     """
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib_path = BUILD_DIR / f"fused_two_block_{digest.hexdigest()[:16]}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = BUILD_DIR / f"{lib_path.name}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        lib_path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    flags = " ".join(NVCC_FLAGS).encode()
+    paths, running = {}, []
+    for src in sorted(SOURCE_DIR.glob("*.cu")):
+        if src.stem not in _CHUNK_ARGTYPES:
+            raise RuntimeError(f"{src} has no declared C interface")
+        digest = hashlib.sha256(src.read_bytes() + flags).hexdigest()[:16]
+        lib_path = BUILD_DIR / f"{src.stem}_{digest}.so"
+        paths[src.stem] = lib_path
+        if not lib_path.exists():
+            BUILD_DIR.mkdir(exist_ok=True)
+            tmp = BUILD_DIR / f"{lib_path.name}.{os.getpid()}.tmp"
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
+            running.append((proc, tmp, lib_path))
+    failed = []
+    for proc, tmp, lib_path in running:
+        out, err = proc.communicate()
+        lib_path.with_suffix(".log").write_text(out + err)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                               f"{proc.stderr}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    ptr, cint = ctypes.c_void_p, ctypes.c_int
-    lib.fused_two_block_chunk.argtypes = ([cint] + [ptr] * 13 + [cint] * 7 + [ptr])
-    lib.fused_two_block_chunk.restype = cint
-    lib.fused_two_block_smem_bytes.argtypes = [cint, cint, cint]
-    lib.fused_two_block_smem_bytes.restype = ctypes.c_size_t
-    lib.fused_two_block_max_smem.argtypes = [cint, ctypes.POINTER(cint)]
-    lib.fused_two_block_max_smem.restype = cint
-    lib.fused_two_block_error_string.argtypes = [cint]
-    lib.fused_two_block_error_string.restype = ctypes.c_char_p
-    return lib
+            failed.append(f"nvcc failed with exit code {proc.returncode} on "
+                          f"{lib_path.name}:\n{err}")
+        else:
+            os.replace(tmp, lib_path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    missing = sorted(set(_CHUNK_ARGTYPES) - set(paths))
+    if missing:
+        raise RuntimeError(f"no source under {SOURCE_DIR} for {missing}")
+    libs = {}
+    for name, lib_path in paths.items():
+        libs[name] = ctypes.CDLL(str(lib_path))
+        _declare(libs[name], name)
+    return libs

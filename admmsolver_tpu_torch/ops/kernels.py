@@ -1,7 +1,9 @@
-"""Fused multi-iteration ADMM for 2-block problems: Hopper kernel + plain version.
+"""Fused multi-iteration ADMM chunks: Hopper kernels + plain versions.
 
-Counterpart of :func:`admmsolver_tpu.ops.kernels.fused_two_block_chunk`
-(a Pallas TPU kernel).  The flagship identity-coupled family (basis
+Counterparts of the two Pallas TPU kernels of
+:mod:`admmsolver_tpu.ops.kernels`.
+
+:func:`fused_two_block_chunk` — the flagship identity-coupled family (basis
 pursuit / LASSO / λ-sweeps) runs ``n_iters`` Gauss–Seidel iterations per
 lane with the lane's state kept on chip:
 
@@ -10,22 +12,34 @@ lane with the lane's state kept on chip:
     x1  = prox(x0 - h/mu)          # soft-threshold or nonneg clip
     h  += mu (x1 - x0)             # dual ascent
 
-On CUDA tensors :func:`fused_two_block_chunk` launches the hand-written
-kernel in ``csrc/fused_two_block.cu``; on CPU tensors it runs
-:func:`fused_two_block_chunk_reference`, the same math in torch ops.
-float32 only.  Penalty updates and convergence checks run between chunks
-(:mod:`admmsolver_tpu_torch.parallel.fused`).
+:func:`fused_spm_chunk` — the 3-block SpM analytic-continuation family
+(constrained least squares folded into a per-lane affine map ``x0 = b2 -
+M hk0``, L1, nonnegativity through a shared projector ``P``):
+
+    hk0 = -h10 - mu1·x1 - Pᵀ(h20 + mu2·x2)
+    x0  = b2 - M hk0
+    x1  = soft_threshold(-(h10 - mu1·x0)/mu1, thr1)
+    x2  = max(-(h20 - mu2·P x0)/mu2, 0)
+    h10 += mu1 (x1 - x0);  h20 += mu2 (x2 - P x0)
+
+On CUDA tensors each wrapper launches its hand-written kernel
+(``csrc/fused_two_block.cu``, ``csrc/fused_spm.cu``); on CPU tensors it
+runs its ``*_reference``, the same math in torch ops.  float32 only.
+Penalty updates and convergence checks run between chunks
+(:mod:`admmsolver_tpu_torch.parallel.fused`,
+:mod:`admmsolver_tpu_torch.parallel.fused_spm`).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["fused_two_block_chunk", "fused_two_block_chunk_reference"]
+__all__ = ["fused_two_block_chunk", "fused_two_block_chunk_reference",
+           "fused_spm_chunk", "fused_spm_chunk_reference"]
 
 _PROX = {"l1": 0, "l1_even": 1, "nonneg": 2, "nonneg_even": 3}
 # Lanes per thread block the CUDA kernel is instantiated for, largest first.
@@ -125,7 +139,7 @@ def fused_two_block_chunk(U, Ut, dinv, acy, mu, thr, x0, x1, h,
         raise ValueError("fused_two_block_chunk needs contiguous tensors")
     B, N = x0.shape
     R = U.shape[1]
-    lib = _build.load_library()
+    lib = _build.load_libraries()["fused_two_block"]
     index = device.index if device.index is not None else torch.cuda.current_device()
     tb = _tile_lanes(lib, index, N, R)
     outs = tuple(torch.empty_like(x0) for _ in range(4))
@@ -141,3 +155,143 @@ def fused_two_block_chunk(U, Ut, dinv, acy, mu, thr, x0, x1, h,
 
 #: Number of kernel launches (CUDA tensors only) since the last reset.
 fused_two_block_chunk.launches = 0
+
+
+# ---------------------------------------------------------------------
+# Fused 3-block SpM chunk
+# ---------------------------------------------------------------------
+
+SpMChunk = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                 torch.Tensor, torch.Tensor]
+
+# Lanes per warp the CUDA kernel is instantiated for, and its limit on
+# warps per block.
+_SPM_LANES_PER_WARP = (1, 2, 4)
+_SPM_MAX_WARPS = 16
+
+
+def fused_spm_chunk_reference(P, M, b2, mu, thr, x0, x1, x2, h10, h20,
+                              n_iters: int) -> SpMChunk:
+    """Plain torch version of :func:`fused_spm_chunk`, on any device."""
+    mu1, mu2 = mu[:, :1], mu[:, 1:]
+    Pt = P.T
+    x0_prev = x0
+    for _ in range(n_iters):
+        hk0 = -h10 - mu1 * x1 - (h20 + mu2 * x2) @ P
+        x0n = b2 - (M @ hk0[:, :, None])[:, :, 0]
+        z1 = -(h10 - mu1 * x0n) / mu1
+        x1 = torch.sign(z1) * torch.clamp_min(torch.abs(z1) - thr, 0.0)
+        Px0 = x0n @ Pt
+        z2 = -(h20 - mu2 * Px0) / mu2
+        x2 = torch.clamp_min(z2, 0.0)
+        h10 = h10 + mu1 * (x1 - x0n)
+        h20 = h20 + mu2 * (x2 - Px0)
+        x0_prev, x0 = x0, x0n
+    return x0, x1, x2, h10, h20, x0_prev
+
+
+def _check_spm(P, M, b2, mu, thr, x0, x1, x2, h10, h20, n_iters):
+    if n_iters < 0:
+        raise ValueError(f"n_iters must be >= 0, got {n_iters}")
+    if x0.ndim != 2 or P.ndim != 2:
+        raise ValueError(f"x0 and P must be 2-D, got {tuple(x0.shape)}, {tuple(P.shape)}")
+    B, nl = x0.shape
+    nw = P.shape[0]
+    if B == 0 or nl == 0 or nw == 0:
+        raise ValueError(f"empty problem: B={B}, nl={nl}, nw={nw}")
+    shapes = {"P": (P, (nw, nl)), "M": (M, (B, nl, nl)), "b2": (b2, (B, nl)),
+              "mu": (mu, (B, 2)), "thr": (thr, (B, 1)), "x1": (x1, (B, nl)),
+              "x2": (x2, (B, nw)), "h10": (h10, (B, nl)), "h20": (h20, (B, nw))}
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    for t in (P, M, b2, mu, thr, x0, x1, x2, h10, h20):
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_spm_chunk is float32 only, got {t.dtype}")
+        if t.device != x0.device:
+            raise ValueError(f"tensors on {t.device} and {x0.device}")
+
+
+def _spm_tiling(lib, device: int, B: int, nl: int, nw: int) -> Tuple[int, int]:
+    """(lanes per warp, warps per block) for a launch.  A block should hold
+    its multiprocessor's share of the batch, so that the batch runs as one
+    wave, within the shared-memory limit; among the lane groups that hold
+    the most of it, the one with the most warps wins (more warps hide more
+    latency), then the narrower one."""
+    limit = ctypes.c_int()
+    err = lib.fused_spm_max_smem(device, ctypes.byref(limit))
+    if err:
+        raise RuntimeError(lib.fused_spm_error_string(err).decode())
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm = -(-B // sms)
+    best = None
+    for lpw in _SPM_LANES_PER_WARP:
+        warps = min(_SPM_MAX_WARPS, -(-per_sm // lpw))
+        while warps > 1 and lib.fused_spm_smem_bytes(warps * lpw, nl, nw) > limit.value:
+            warps -= 1
+        if lib.fused_spm_smem_bytes(warps * lpw, nl, nw) > limit.value:
+            continue
+        key = (min(warps * lpw, per_sm), warps, -lpw)
+        if best is None or key > best[0]:
+            best = (key, (lpw, warps))
+    if best is None:
+        raise ValueError(
+            f"nl={nl}, nw={nw} needs {lib.fused_spm_smem_bytes(1, nl, nw)} bytes of "
+            f"shared memory for P and one lane, above this device's {limit.value}-byte "
+            "limit per block")
+    return best[1]
+
+
+def _spm_launch(args, n_iters: int, tiling: Optional[Tuple[int, int]] = None) -> SpMChunk:
+    """Launch the CUDA kernel on checked, contiguous CUDA tensors.
+    ``tiling`` = (lanes per warp, warps per block) overrides
+    :func:`_spm_tiling`; a tiling that does not fit fails at the launch."""
+    x0, x2 = args[5], args[7]
+    device = x0.device
+    B, nl = x0.shape
+    nw = x2.shape[1]
+    lib = _build.load_libraries()["fused_spm"]
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    lpw, warps = tiling if tiling is not None else _spm_tiling(lib, index, B, nl, nw)
+    outs = tuple(torch.empty_like(t) for t in (x0, x0, x2, x0, x2, x0))
+    err = lib.fused_spm_chunk(
+        index, *(t.data_ptr() for t in tuple(args) + outs), B, nl, nw, int(n_iters),
+        int(lpw), int(warps), torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError("fused_spm_chunk launch failed: "
+                           + lib.fused_spm_error_string(err).decode())
+    fused_spm_chunk.launches += 1
+    return outs
+
+
+def fused_spm_chunk(P, M, b2, mu, thr, x0, x1, x2, h10, h20,
+                    n_iters: int) -> SpMChunk:
+    """Run ``n_iters`` fused SpM 3-block iterations on a batch.
+
+    Batch-major shapes (the TPU kernel is feature-major and padded; this
+    one takes nl, nw and B as they are): shared projector ``P`` (nw, nl);
+    per-lane affine factor ``M`` (B, nl, nl) and ``b2`` (B, nl) with
+    ``x0 = b2 - M hk0``; ``mu`` (B, 2) = [mu1, mu2] for the pairs (1, 0)
+    and (2, 0); ``thr`` (B, 1) = alpha1 / (2 mu1); state ``x0``/``x1``/
+    ``h10`` (B, nl), ``x2``/``h20`` (B, nw); all float32.  Returns
+    (x0, x1, x2, h10, h20, x0_prev), ``x0_prev`` being the x0 the last
+    iteration started from (for the dual residuals).
+
+    CPU tensors run the plain version.  CUDA tensors launch the kernel on
+    the current stream without synchronising (and count it in
+    ``fused_spm_chunk.launches``); they must be contiguous.
+    """
+    args = (P, M, b2, mu, thr, x0, x1, x2, h10, h20)
+    _check_spm(*args, n_iters)
+    device = x0.device
+    if device.type == "cpu":
+        return fused_spm_chunk_reference(*args, n_iters)
+    if device.type != "cuda":
+        raise ValueError(f"no fused_spm_chunk for device {device}")
+    if not all(t.is_contiguous() for t in args):
+        raise ValueError("fused_spm_chunk needs contiguous tensors")
+    return _spm_launch(args, n_iters)
+
+
+#: Number of kernel launches (CUDA tensors only) since the last reset.
+fused_spm_chunk.launches = 0

@@ -54,7 +54,7 @@ class ADMMPlan:
     diagonals of scalar couplings are made there once.
     """
 
-    def __init__(self, model: Model, device="cpu") -> None:
+    def __init__(self, model: Model, device="cuda") -> None:
         self.model = model
         self.nblocks = model.num_func
         self.pairs: List[Tuple[int, int]] = model.pairs
@@ -287,7 +287,7 @@ class ADMMPlan:
         return default_dtype(self.is_complex())
 
     def make_initial_state(self, x0=None, mu0: float = 1.0, dtype=None,
-                           device="cpu"):
+                           device="cuda"):
         """Initial primal/dual state and penalties (optimizer.py:141-160).
         ``mu`` takes the real dtype of the state."""
         if dtype is None:
@@ -316,12 +316,13 @@ class SimpleOptimizer:
     (``optimizer.py:121-341``): ``solve``, ``one_sweep``, ``residual``,
     ``update_mu``, ``check_convergence``, ``__call__``, ``.x``, and the
     ``_primal_residual`` / ``_dual_residual`` histories.  The model is
-    moved to ``device``; ``dtype`` defaults to float64 (complex128 for
-    complex data).
+    moved to ``device`` (default ``cuda``; without a CUDA device that
+    raises, pass ``device="cpu"`` to run on the host); ``dtype`` defaults to
+    float64 (complex128 for complex data).
     """
 
     def __init__(self, model: Model, x0=None, mu=None, max_mu: float = 1e3,
-                 dtype=None, device="cpu") -> None:
+                 dtype=None, device="cuda") -> None:
         if not isinstance(model, Model):
             raise TypeError(f"expected a Model, got {type(model).__name__}")
         self._model = model.to(device)

@@ -1,1 +1,2 @@
 from .fused import FusedTwoBlockSolver, FusedResult
+from .fused_spm import FusedSpMSolver, FusedSpMResult

@@ -80,13 +80,14 @@ def _check_fused_overrides(overrides, path: str) -> Optional[int]:
 class FusedTwoBlockSolver:
     """Fused chunk solver for the flagship 2-block family, in float32.
 
-    ``device`` is where the solve runs: on ``cuda`` every chunk is one
-    launch of the Hopper kernel, on ``cpu`` the kernel's plain version.
+    ``device`` is where the solve runs: on ``cuda`` (the default; without a
+    CUDA device the constructor raises) every chunk is one launch of the
+    Hopper kernel, on ``cpu`` the kernel's plain version.
     ``tile_b`` pads the batch to a multiple (padding lanes start done), as
     the JAX solver does.
     """
 
-    def __init__(self, model: Model, tile_b: int = 128, device="cpu") -> None:
+    def __init__(self, model: Model, tile_b: int = 128, device="cuda") -> None:
         if model.num_func != 2:
             raise ValueError("fused path covers 2-block models")
         if model.pairs != [(1, 0)]:

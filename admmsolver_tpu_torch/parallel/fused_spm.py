@@ -1,0 +1,267 @@
+"""Fused fast path for the 3-block SpM family.
+
+Counterpart of :mod:`admmsolver_tpu.parallel.fused_spm`.  Drives
+:func:`admmsolver_tpu_torch.ops.kernels.fused_spm_chunk`: per chunk the
+kernel runs ``interval_update_mu`` iterations with all per-lane state kept
+on chip; between chunks a torch step computes the pair residuals, the
+convergence predicate, the residual-balancing penalty update (reference
+``optimizer.py:277-299``) and the refreshed per-lane affine factor, at
+chunk granularity like :class:`~admmsolver_tpu_torch.parallel.fused.
+FusedTwoBlockSolver`.  The chunk schedule is a Python loop; after each
+chunk the host checks whether every lane is done.
+
+Scope: ``Model([ConstrainedLeastSquares-or-LeastSquares, L1Regularizer,
+NonNegativePenalty], [(0, 1, I, I), (0, 2, P, I)])`` — the reference's SpM
+analytic-continuation workload (``notebooks/spm.ipynb`` cells 10-11) — in
+float32.  The constrained prox is folded into a per-lane affine map when
+the factors are made:
+
+    x0 = b2 - M hk0,  M = (I - xi2 S^{-1} C) B,  B = (a A†A + mu_op)^{-1}
+    b2 = a M A†y + xi2 S^{-1} D
+
+algebraically identical to the engine's block elimination (reference
+``objectivefunc.py:138-157``); a plain LeastSquares block is the special
+case M = B, b2 = a B A†y.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..models.objectivefunc import (ConstrainedLeastSquares, L1Regularizer,
+                                    LeastSquares, NonNegativePenalty, inv_hpd)
+from ..models.problem import Model
+from ..ops import kernels
+from .fused import _check_fused_overrides, _is_identity_si
+
+__all__ = ["FusedSpMSolver", "FusedSpMResult"]
+
+
+@dataclasses.dataclass
+class FusedSpMResult:
+    """Batch-major final state (x: tuple of (B, n_k))."""
+
+    x: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    h: Tuple[torch.Tensor, torch.Tensor]
+    mu: torch.Tensor              # (B, 2), pair order [(1,0), (2,0)]
+    iterations: torch.Tensor
+    converged: torch.Tensor
+    primal_residual: torch.Tensor  # (B, nchunks) per-chunk samples
+    dual_residual: torch.Tensor
+
+
+def _dense32(op) -> np.ndarray:
+    """An operator or tensor as a float32 numpy matrix; complex data raises."""
+    a = op if isinstance(op, torch.Tensor) else op.asmatrix()
+    a = a.detach().cpu().numpy()
+    if np.iscomplexobj(a):
+        raise ValueError("fused SpM path is real-f32 only")
+    return np.asarray(a, np.float32)
+
+
+class FusedSpMSolver:
+    """Fused chunk solver for the SpM 3-block family, in float32.
+
+    ``device`` is where the solve runs: on ``cuda`` (the default; without a
+    CUDA device the constructor raises) every chunk is one launch of the
+    Hopper kernel, on ``cpu`` the kernel's plain version.  Any batch size
+    and any nl, nw run as they are; nothing is padded.
+    """
+
+    def __init__(self, model: Model, device="cuda") -> None:
+        if model.num_func != 3:
+            raise ValueError("fused SpM path covers 3-block models")
+        if model.pairs != [(1, 0), (2, 0)]:
+            raise ValueError(f"blocks 1 and 2 must each be coupled to block 0, "
+                             f"got pairs {model.pairs}")
+        f0, f1, f2 = model.functions
+        if not isinstance(f0, LeastSquares):
+            raise ValueError("block 0 must be (Constrained)LeastSquares")
+        if not isinstance(f1, L1Regularizer):
+            raise ValueError("block 1 must be L1Regularizer")
+        if f1._offset is not None:
+            raise ValueError(
+                "fused SpM path does not support L1Regularizer offsets "
+                "(the kernel applies the plain soft-threshold)")
+        if not isinstance(f2, NonNegativePenalty):
+            raise ValueError("block 2 must be NonNegativePenalty")
+        if not (_is_identity_si(model.E[(1, 0)])
+                and _is_identity_si(model.E[(0, 1)])
+                and _is_identity_si(model.E[(0, 2)])):
+            raise ValueError("couplings must be (0,1,I,I), (0,2,P,I)")
+
+        self.model = model
+        self.f0, self.f1 = f0, f1
+        self.nl = f0.size_x
+        self.nw = f2.size_x
+        self.device = torch.device(device)
+
+        # Set-up products in float32 numpy on the host, as the JAX package
+        # makes them, so both iterate on the same constants.
+        f32 = dict(dtype=torch.float32, device=self.device)
+        P = _dense32(model.E[(2, 0)])
+        self.P = torch.as_tensor(P, **f32).contiguous()
+        self.W = torch.as_tensor(P.T @ P, **f32)
+        self.AcA = torch.as_tensor(_dense32(f0._AcA), **f32)
+        self.Ac = torch.as_tensor(_dense32(f0._Ac), **f32)
+        self.Acy = torch.as_tensor(_dense32(f0._Acy), **f32)
+        self.is_cls = isinstance(f0, ConstrainedLeastSquares)
+        if self.is_cls:
+            self.C = torch.as_tensor(_dense32(f0._C), **f32)      # (nc, nl)
+            self.D = torch.as_tensor(_dense32(f0._D), **f32)      # (nc,)
+
+    # -- factor refresh (chunk boundaries) -----------------------------
+    def _factors(self, mu1, mu2, alpha_ls, acy):
+        """Per-lane affine factor: M (B, nl, nl) and b2 (B, nl).
+
+        ``mu1``/``mu2``/``alpha_ls``: (B,); ``acy`` = A†y (B, nl).
+        """
+        eye = torch.eye(self.nl, dtype=torch.float32, device=self.device)
+        Mpen = (alpha_ls[:, None, None] * self.AcA
+                + mu1[:, None, None] * eye
+                + mu2[:, None, None] * self.W)
+        M = inv_hpd(Mpen)                                   # (B, nl, nl)
+        b2 = None
+        if self.is_cls:
+            Bf = M
+            xi2 = -(Bf @ self.C.T)                          # (B, nl, nc)
+            Sinv = -inv_hpd(-(self.C @ xi2))                # (B, nc, nc)
+            M = Bf - xi2 @ (Sinv @ (self.C @ Bf))
+            b2 = (xi2 @ (Sinv @ self.D)[:, :, None])[:, :, 0]
+        aMy = alpha_ls[:, None] * (M @ acy[:, :, None])[:, :, 0]
+        return M.contiguous(), (aMy if b2 is None else aMy + b2).contiguous()
+
+    def _step(self, state, acy, alpha_ls, alpha1, tols, knobs,
+              n_iters: int, do_mu: bool):
+        """One chunk: the factor refresh, ``n_iters`` kernel iterations,
+        then residuals, convergence and (if ``do_mu``) the penalty update."""
+        x0, x1, x2, h10, h20, mu, done, count = state
+        rtol, atol = tols
+        fact_incr, th_change, max_mu = knobs
+        mu1, mu2 = mu[:, 0], mu[:, 1]
+
+        M, b2 = self._factors(mu1, mu2, alpha_ls, acy)
+        thr = (0.5 * alpha1 / mu1)[:, None]
+        x0n, x1n, x2n, h10n, h20n, x0p = kernels.fused_spm_chunk(
+            self.P, M, b2, mu, thr, x0, x1, x2, h10, h20, n_iters=n_iters)
+        active = ~done
+        am = active[:, None]
+        x0n = torch.where(am, x0n, x0)
+        x1n = torch.where(am, x1n, x1)
+        x2n = torch.where(am, x2n, x2)
+        h10n = torch.where(am, h10n, h10)
+        h20n = torch.where(am, h20n, h20)
+        x0p = torch.where(am, x0p, x0)
+
+        # pair residuals of the chunk's final iteration (engine semantics;
+        # pairs (1,0) and (2,0))
+        norm = lambda a: torch.linalg.vector_norm(a, dim=1)
+        Px0 = x0n @ self.P.T
+        Px0p = x0p @ self.P.T
+        pn1 = norm(x0n - x1n)
+        dn1 = mu1 * norm(x0n - x0p)
+        pn2 = norm(Px0 - x2n)
+        dn2 = mu2 * norm(Px0 - Px0p)
+        rp1 = pn1 / torch.maximum(norm(x0n), norm(x1n))
+        rd1 = dn1 / torch.maximum(mu1 * norm(x0n), mu1 * norm(x0p))
+        rp2 = pn2 / torch.maximum(norm(Px0), norm(x2n))
+        rd2 = dn2 / torch.maximum(mu2 * norm(Px0), mu2 * norm(Px0p))
+        conv = (rp1 < rtol) & (rd1 < rtol) & (rp2 < rtol) & (rd2 < rtol)
+        pn, dn = pn1 + pn2, dn1 + dn2
+        conv = conv | ((pn < atol) & (dn < atol))
+        done_new = done | (active & conv)
+
+        def balance(m, p, d):
+            m2 = torch.where(p > th_change * d, m * fact_incr, m)
+            m2 = torch.where(d > th_change * p, m2 / fact_incr, m2)
+            return torch.clamp_max(m2, max_mu)
+
+        if do_mu:
+            upd = active & ~done_new
+            mu = torch.stack([torch.where(upd, balance(mu1, pn1, dn1), mu1),
+                              torch.where(upd, balance(mu2, pn2, dn2), mu2)],
+                             dim=1)
+
+        count = count + active.to(count.dtype) * n_iters
+        return (x0n, x1n, x2n, h10n, h20n, mu, done_new, count), (pn, dn)
+
+    def solve(self,
+              overrides: Optional[Dict] = None,
+              batch_size: Optional[int] = None,
+              niter: int = 10000,
+              mu0: float = 1.0,
+              interval_update_mu: int = 100,
+              rtol: float = 1e-12,
+              atol: float = 0.0,
+              fact_incr: float = 2.0,
+              th_change: float = 10.0,
+              max_mu: float = 1e3,
+              done0=None) -> FusedSpMResult:
+        """Solve a batch; overrides ``{(0,'y'): (B, M), (0,'alpha'): (B,),
+        (1,'alpha'): (B,)}`` subsets (numpy arrays or tensors).  ``done0``:
+        (B,) bool mask of lanes that start converged and never iterate."""
+        overrides = dict(overrides or {})
+        B = _check_fused_overrides(overrides, "FusedSpMSolver")
+        if B is None:
+            B = batch_size
+        if B is None:
+            raise ValueError("pass overrides or batch_size")
+        dev = self.device
+        f32 = dict(dtype=torch.float32, device=dev)
+
+        def batch_of(key, default):
+            if key in overrides:
+                return torch.as_tensor(overrides[key], **f32)
+            return torch.full((B,), float(default), **f32)
+
+        ys = overrides.get((0, "y"))
+        if ys is not None:
+            acy = torch.as_tensor(ys, **f32) @ self.Ac.T
+        else:
+            acy = self.Acy.expand(B, self.nl)
+        alpha_ls = batch_of((0, "alpha"), self.f0._alpha)
+        alpha1 = batch_of((1, "alpha"), self.f1._alpha)
+        if done0 is None:
+            d0 = torch.zeros(B, dtype=torch.bool, device=dev)
+        else:
+            d0 = torch.as_tensor(done0, dtype=torch.bool, device=dev)
+            if tuple(d0.shape) != (B,):
+                raise ValueError(f"done0 has shape {tuple(d0.shape)}, expected ({B},)")
+
+        # reference schedule (optimizer.py:319-320): iteration 0, then full
+        # `interval` chunks, then a remainder; the penalty update fires after
+        # iteration 0 and after every full chunk, never after the remainder.
+        interval = int(interval_update_mu)
+        niter = int(niter)
+        nfull = (niter - 1) // interval
+        nrem = (niter - 1) % interval
+        nchunks = 1 + nfull + (1 if nrem else 0)
+        tols = (rtol, atol)
+        knobs = (fact_incr, th_change, max_mu)
+        zeros = lambda n: torch.zeros((B, n), **f32)
+        state = (zeros(self.nl), zeros(self.nl), zeros(self.nw), zeros(self.nl),
+                 zeros(self.nw), torch.full((B, 2), float(mu0), **f32), d0,
+                 torch.zeros(B, dtype=torch.int32, device=dev))
+        pbuf = torch.full((nchunks, B), float("nan"), **f32)
+        dbuf = torch.full((nchunks, B), float("nan"), **f32)
+
+        schedule = [(0, 1, True)]
+        schedule += [(1 + k, interval, True) for k in range(nfull)]
+        if nrem:
+            schedule.append((nchunks - 1, nrem, False))
+        for k, (row, n_iters, do_mu) in enumerate(schedule):
+            if k > 0 and bool(state[6].all()):
+                break
+            state, (pn, dn) = self._step(state, acy, alpha_ls, alpha1, tols,
+                                         knobs, n_iters, do_mu)
+            pbuf[row] = pn
+            dbuf[row] = dn
+
+        x0, x1, x2, h10, h20, mu, done, count = state
+        return FusedSpMResult(
+            x=(x0, x1, x2), h=(h10, h20), mu=mu,
+            iterations=torch.clamp_max(count, niter), converged=done,
+            primal_residual=pbuf.T, dual_residual=dbuf.T)

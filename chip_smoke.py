@@ -1,24 +1,38 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Drives the port's main path, the fused two-block basis-pursuit solver, at
-the bench problem (A 256x512, B=4096, 20-sparse, seed 0, alpha=0.1), one
-phase after another; a phase that fails raises and the script exits
-non-zero without printing a result.
+Drives the port's two fused paths at full width, one phase after another; a
+phase that fails raises and the script exits non-zero without printing a
+result.
 
-1. Card and build: the card's name and power limit; the CUDA kernel is
-   built from ``admmsolver_tpu_torch/csrc/`` at first use, and timed.
-2. Kernel against its plain version at the bench shape (thin basis,
-   N=512, R=256) and at a full-basis shape (N=R=128), all four prox
-   modes, 21 iterations: max abs difference of every output <= 5e-4
-   (f32 sums taken in another order).
-3. The slice: ``FusedTwoBlockSolver.solve`` for 401 iterations goes through
-   the kernel (launch count > 0), recovers every lane's planted signal to
-   1e-2 * max|x*| of the lane, and agrees with the same solve through the
-   plain version within 2e-2.
-4. ``SimpleOptimizer`` in float64 on the GPU recovers one bench instance.
-5. Times: medians of 3 repeats after a warm-up, kernel against plain.
+* basis pursuit: ``FusedTwoBlockSolver`` at the bench problem (A 256x512,
+  B=4096, 20-sparse, seed 0, alpha=0.1), 401 iterations;
+* SpM analytic continuation: ``FusedSpMSolver`` on ``spm_model`` at nl=30 IR
+  coefficients, nw=201 frequencies, B=4096, 500 iterations, mu0=0.1.
 
+1. Card and build: the card's name and power limit; both CUDA kernels are
+   built from ``admmsolver_tpu_torch/csrc/`` (one nvcc per source, started
+   together), timed, with ptxas' register and spill lines.
+2. Each kernel against its plain version on the card, 21 iterations, max abs
+   difference of every output <= 5e-4 (f32 sums taken in another order):
+   the two-block kernel at the bench shape (thin basis, N=512, R=256) and
+   at a full-basis shape (N=R=128), all four prox modes; the SpM kernel at
+   full width and at a ragged shape (nl=12, nw=25, B=37).
+3. The slices.  Each solve goes through its kernel (launch count > 0, set
+   to 0 just before and read just after) and agrees with the same solve
+   through the plain version.  Basis pursuit recovers every lane's planted
+   signal to 1e-2 * max|x*|; SpM gives finite outputs, a nonnegative
+   spectrum and the sum rule (median |x0.prj_sum - 1| <= 1e-3).
+4. ``SimpleOptimizer`` in float64 on the GPU: one bench instance recovered;
+   one SpM instance for 1000 iterations with the sum rule to 1e-6.
+5. Times: medians of 3 timings after a warm-up, kernel against plain, and
+   each kernel's bound: the larger of its bytes (inputs read once, outputs
+   written once) over 3.35 TB/s and its operations over the 67 TFLOP/s f32
+   peak of the CUDA cores (no tensor cores: TF32 is banned for accuracy).
+
+``--variants`` also times the SpM chunk at other lanes-per-warp and block
+sizes and the factor refresh's batched inverse by other routes; ``--profile``
+also prints a torch.profiler breakdown of the SpM solve.
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU,
 ``nvcc`` and no network.
 """
@@ -33,10 +47,14 @@ import numpy as np
 
 M, N, B, SPARSITY, ALPHA = 256, 512, 4096, 20, 0.1
 NITER = 401
-KERNEL_TOL = 5e-4   # tests/test_kernels.py short-horizon bound
+NL, NW, SPM_NITER, SPM_MU0, SPM_ALPHA = 30, 201, 500, 0.1, 1e-4
+KERNEL_TOL = 5e-4   # tests/test_kernels.py, tests/test_fused_spm.py short-horizon bound
 SOLVE_TOL = 2e-2    # benches/kernel_hw_check.py fixed-point bound
 PROX_MODES = ("l1", "l1_even", "nonneg", "nonneg_even")
 REPEATS = 3
+INNER = 4           # calls in a row inside one CUDA-event timing
+PEAK_F32_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
 
 def bench_problem(seed=0):
@@ -67,10 +85,10 @@ def check_recovery(x, xtrue, what):
 
 
 def kernel_inputs(torch, solver, prox, seed):
-    """Chunk inputs on the card: the solver's own eigenbasis, unit-scale
-    random data and state, and per-lane penalties.  (At the bench data's
-    own scale, |alpha A^T y| ~ 500, f32 rounding alone moves either version
-    by ~1e-3 from float64 over 21 iterations.)"""
+    """Two-block chunk inputs on the card: the solver's own eigenbasis,
+    unit-scale random data and state, and per-lane penalties.  (At the bench
+    data's own scale, |alpha A^T y| ~ 500, f32 rounding alone moves either
+    version by ~1e-3 from float64 over 21 iterations.)"""
     rng = np.random.RandomState(seed)
     f32 = dict(dtype=torch.float32, device="cuda")
     mu = torch.as_tensor(rng.uniform(0.5, 2.0, (B, 1)), **f32)
@@ -83,19 +101,49 @@ def kernel_inputs(torch, solver, prox, seed):
     return (solver.U, solver.Ut, dinv.contiguous(), acy, mu, thr.contiguous(), x0, x1, h)
 
 
+def spm_kernel_inputs(torch, solver, ys, seed):
+    """SpM chunk inputs on the card: the solver's projector, its own factors
+    for per-lane penalties in [0.5, 2], unit-scale random state."""
+    rng = np.random.RandomState(seed)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    nb = ys.shape[0]
+    mu = torch.as_tensor(rng.uniform(0.5, 2.0, (nb, 2)), **f32)
+    acy = torch.as_tensor(ys, **f32) @ solver.Ac.T
+    Mf, b2 = solver._factors(mu[:, 0], mu[:, 1], torch.ones(nb, **f32), acy)
+    thr = (0.5 * SPM_ALPHA / mu[:, :1]).contiguous()
+    x0, x1, h10 = (torch.as_tensor(s * rng.randn(nb, solver.nl), **f32)
+                   for s in (0.3, 0.3, 1.0))
+    x2, h20 = (torch.as_tensor(s * rng.randn(nb, solver.nw), **f32) for s in (0.3, 1.0))
+    return (solver.P, Mf, b2, mu, thr, x0, x1, x2, h10, h20)
+
+
+def compare(torch, what, names, got, ref):
+    """Max abs difference of each output, checked against KERNEL_TOL."""
+    torch.cuda.synchronize()
+    errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
+    print(f"kernel vs plain, {what}, 21 iters: max abs diff "
+          + " ".join(f"{n} {e:.3e}" for n, e in zip(names, errs)), flush=True)
+    if not all(e <= KERNEL_TOL for e in errs):
+        raise AssertionError(f"kernel disagrees with its plain version: {errs}")
+    return max(errs)
+
+
 def median_ms(torch, fns):
-    """Median CUDA-event time in ms of each of ``fns`` over REPEATS runs
-    taken in turns, after one warm-up run of each."""
+    """Median CUDA-event time in ms of one call of each of ``fns``: every
+    timing spans INNER calls in a row (so that the host's preparation of a
+    launch overlaps the call before it), REPEATS timings of each taken in
+    turns, after one warm-up turn."""
     times = [[] for _ in fns]
     for rep in range(REPEATS + 1):
         for fn, t in zip(fns, times):
             start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-            fn()
+            for _ in range(INNER):
+                fn()
             stop.record()
             torch.cuda.synchronize()
             if rep:
-                t.append(start.elapsed_time(stop))
+                t.append(start.elapsed_time(stop) / INNER)
     return [float(np.median(t)) for t in times]
 
 
@@ -119,6 +167,41 @@ def plain_chunk_solve(plain_chunk, solve):
         return solve()
 
 
+def bound_ms(ops, tensors):
+    """(least time in ms the card could take, what bounds it): the larger of
+    the operations over the f32 peak and the bytes of ``tensors`` (every
+    input and output once) over the memory rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def profile_spm_solve(torch, solve):
+    """torch.profiler over one SpM solve: wall time, device time in the chunk
+    kernel and in everything else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        solve()   # the first profiled run pays for starting the tracer
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = [(e.key, getattr(e, "device_time_total", 0.0) / 1e3, e.count)
+            for e in prof.key_averages() if getattr(e, "device_time_total", 0.0) > 0
+            and e.device_type.name == "CUDA"]
+    total = sum(r[1] for r in rows)
+    kern = sum(r[1] for r in rows if "fused_spm_kernel" in r[0])
+    print(f"profile, SpM solve: wall {wall:.2f} ms (profiled), device kernels {total:.2f} ms "
+          f"(busy {total / wall:.2f}), chunk kernel {kern:.2f} ms, other kernels "
+          f"{total - kern:.2f} ms in {sum(r[2] for r in rows)} launches")
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
+        print(f"  {ms:8.3f} ms  x{count:<5d} {key[:90]}")
+
+
 def main():
     import torch
 
@@ -128,8 +211,10 @@ def main():
         return 1
     from admmsolver_tpu_torch import (L1Regularizer, LeastSquares, Model,
                                       SimpleOptimizer, identity)
+    from admmsolver_tpu_torch.models.applications import spm_model, synthetic_spm_data
     from admmsolver_tpu_torch.ops import _build, kernels
-    from admmsolver_tpu_torch.parallel import FusedTwoBlockSolver, fused
+    from admmsolver_tpu_torch.parallel import (FusedSpMSolver, FusedTwoBlockSolver, fused,
+                                               fused_spm)
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -139,41 +224,58 @@ def main():
 
     # 1. build
     t0 = time.perf_counter()
-    lib = _build.load_library()
-    print(f"build: {time.perf_counter() - t0:.3f} s ({Path(lib._name).name})", flush=True)
-    for line in Path(lib._name).with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    libs = _build.load_libraries()
+    print(f"build: {time.perf_counter() - t0:.3f} s for {len(libs)} kernels", flush=True)
+    if sorted(libs) != ["fused_spm", "fused_two_block"]:
+        raise AssertionError(f"unexpected kernel libraries {sorted(libs)}")
+    for name, lib in sorted(libs.items()):
+        print(f"  {name}: {Path(lib._name).name}")
+        for line in Path(lib._name).with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    ptxas: {line.strip()}")
 
     A, ys, xtrue = bench_problem()
     model = Model([LeastSquares(1.0, A, ys[0]), L1Regularizer(ALPHA, N)],
                   [(1, 0, identity(N), identity(N))])
-    solver = FusedTwoBlockSolver(model, device="cuda")
-    assert solver.thin and tuple(solver.U.shape) == (N, M), solver.U.shape
+    solver = FusedTwoBlockSolver(model)
+    assert solver.device.type == "cuda" and solver.thin
+    assert tuple(solver.U.shape) == (N, M), solver.U.shape
 
-    # 2. kernel against its plain version
+    s, g, prj_sum, prj_w, _, _ = synthetic_spm_data(nl=NL, nw=NW, noise=1e-5)
+    gs = (g[None, :] + 1e-5 * np.random.RandomState(2).randn(B, g.size)).astype(np.float32)
+    smodel = spm_model(s, g, prj_sum, prj_w, alpha_l1=SPM_ALPHA)
+    spm = FusedSpMSolver(smodel)
+    assert spm.device.type == "cuda" and (spm.nl, spm.nw) == (NL, NW)
+
+    # 2. kernels against their plain versions
     Af = np.random.RandomState(1).randn(192, 128)
     full = FusedTwoBlockSolver(
         Model([LeastSquares(1.0, Af, np.zeros(192)), L1Regularizer(ALPHA, 128)],
-              [(1, 0, identity(128), identity(128))]), device="cuda")
+              [(1, 0, identity(128), identity(128))]))
     assert not full.thin
     max_err = 0.0
-    for name, s in (("thin N=512 R=256", solver), ("full N=R=128", full)):
+    for name, sv in (("thin N=512 R=256", solver), ("full N=R=128", full)):
         for k, prox in enumerate(PROX_MODES):
-            args = kernel_inputs(torch, s, prox, seed=10 + k)
-            got = kernels.fused_two_block_chunk(*args, n_iters=21, prox=prox, thin=s.thin)
+            args = kernel_inputs(torch, sv, prox, seed=10 + k)
+            got = kernels.fused_two_block_chunk(*args, n_iters=21, prox=prox, thin=sv.thin)
             ref = kernels.fused_two_block_chunk_reference(*args, n_iters=21, prox=prox,
-                                                          thin=s.thin)
-            torch.cuda.synchronize()
-            errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
-            print(f"kernel vs plain, {name}, {prox}, B={B}, 21 iters: max abs diff "
-                  f"x0 {errs[0]:.3e} x1 {errs[1]:.3e} h {errs[2]:.3e} x0_prev {errs[3]:.3e}",
-                  flush=True)
-            if not all(e <= KERNEL_TOL for e in errs):
-                raise AssertionError(f"kernel disagrees with its plain version: {errs}")
-            max_err = max(max_err, *errs)
+                                                          thin=sv.thin)
+            max_err = max(max_err, compare(torch, f"two-block {name}, {prox}, B={B}",
+                                           ("x0", "x1", "h", "x0_prev"), got, ref))
 
-    # 3. the slice through the kernel, then through the plain version
+    sr, gr, pr_sum, pr_w, _, _ = synthetic_spm_data(nl=12, nw=25)
+    ragged = FusedSpMSolver(spm_model(sr, gr, pr_sum, pr_w, alpha_l1=SPM_ALPHA))
+    gr_b = gr[None, :] + 1e-4 * np.random.RandomState(0).randn(37, gr.size)
+    spm_names = ("x0", "x1", "x2", "h10", "h20", "x0_prev")
+    spm_err = 0.0
+    for what, sv, data in ((f"SpM nl={NL} nw={NW} B={B}", spm, gs),
+                           ("SpM nl=12 nw=25 B=37", ragged, gr_b)):
+        args = spm_kernel_inputs(torch, sv, data, seed=20)
+        got = kernels.fused_spm_chunk(*args, n_iters=21)
+        ref = kernels.fused_spm_chunk_reference(*args, n_iters=21)
+        spm_err = max(spm_err, compare(torch, what, spm_names, got, ref))
+
+    # 3a. the basis-pursuit slice through the kernel, then through the plain version
     ys_dev = torch.as_tensor(ys, dtype=torch.float32, device="cuda")
     solve = lambda: solver.solve({(0, "y"): ys_dev}, niter=NITER, rtol=0.0)
     kernels.fused_two_block_chunk.launches = 0
@@ -196,13 +298,66 @@ def main():
     if not dev <= SOLVE_TOL:
         raise AssertionError(f"kernel solve departs from plain solve by {dev}")
 
-    # 4. single instance, float64
-    opt_run = lambda: SimpleOptimizer(model, device="cuda").solve(200)
-    opt = SimpleOptimizer(model, device="cuda")
+    # 3b. the SpM slice through the kernel, then through the plain version
+    gs_dev = torch.as_tensor(gs, device="cuda")
+    spm_solve = lambda: spm.solve({(0, "y"): gs_dev}, niter=SPM_NITER, mu0=SPM_MU0, rtol=0.0)
+    kernels.fused_spm_chunk.launches = 0
+    sres = spm_solve()
+    torch.cuda.synchronize()
+    spm_launches = kernels.fused_spm_chunk.launches
+    if spm_launches == 0:
+        raise AssertionError("the fused SpM solve launched no kernel")
+    outs = [*sres.x, *sres.h, sres.mu]
+    if not all(bool(torch.isfinite(t).all()) for t in outs):
+        raise AssertionError("the fused SpM solve gave non-finite values")
+    shapes = [tuple(t.shape) for t in outs]
+    if shapes != [(B, NL), (B, NL), (B, NW), (B, NL), (B, NW), (B, 2)]:
+        raise AssertionError(f"unexpected result shapes {shapes}")
+    min_rho = float(sres.x[2].min())
+    sum_dev = float(np.median(np.abs(sres.x[0].double().cpu().numpy() @ prj_sum - 1.0)))
+    print(f"fused SpM solve, kernel: {spm_launches} launches, B={B}, {SPM_NITER} iters, "
+          f"iterations {int(sres.iterations.max())}, min spectrum {min_rho:.3e}, "
+          f"median |sum rule - 1| {sum_dev:.3e} (bound 1e-3)", flush=True)
+    if min_rho < 0.0 or not sum_dev <= 1e-3 or int(sres.iterations.min()) != SPM_NITER:
+        raise AssertionError("the fused SpM solve misses the model's properties")
+    spm_plain_chunk = mock.patch.object(fused_spm.kernels, "fused_spm_chunk",
+                                        kernels.fused_spm_chunk_reference)
+    sres_plain = plain_chunk_solve(spm_plain_chunk, spm_solve)
+    if kernels.fused_spm_chunk.launches != spm_launches:
+        raise AssertionError("the plain SpM solve launched the kernel")
+    for k in range(3):
+        d = float((sres.x[k] - sres_plain.x[k]).abs().max())
+        scale = float(sres_plain.x[k].abs().max())
+        print(f"fused SpM solve, kernel vs plain: max |x{k} diff| {d:.3e} "
+              f"(bound {SOLVE_TOL} * {scale:.3e})", flush=True)
+        if not d <= SOLVE_TOL * scale:
+            raise AssertionError(f"SpM kernel solve departs from plain solve in x{k} by {d}")
+    ratio = (sres.mu / sres_plain.mu).cpu().numpy()
+    print(f"fused SpM solve, kernel vs plain: mu ratio in [{ratio.min():.3f}, "
+          f"{ratio.max():.3f}], final mu in [{float(sres.mu.min()):.4g}, "
+          f"{float(sres.mu.max()):.4g}]", flush=True)
+    if not np.all((ratio >= 0.49) & (ratio <= 2.01)):
+        raise AssertionError("SpM penalties differ by more than one balancing step")
+
+    # 4. single instances, float64
+    opt_run = lambda: SimpleOptimizer(model).solve(200)
+    opt = SimpleOptimizer(model)
     opt.solve(200)
     assert opt.x[0].dtype == torch.float64 and opt.x[0].is_cuda
     worst = check_recovery(opt.x[0].cpu().numpy()[None], xtrue[:1], "SimpleOptimizer")
     print(f"SimpleOptimizer f64 on cuda, 200 iters: worst err/bound {worst:.4f}", flush=True)
+
+    sopt_run = lambda: SimpleOptimizer(smodel, mu=SPM_MU0).solve(1000)
+    sopt = SimpleOptimizer(smodel, mu=SPM_MU0)
+    sopt.solve(1000)
+    xs = [x.cpu().numpy() for x in sopt.x]
+    sum_one = abs(float(xs[0] @ prj_sum) - 1.0)
+    print(f"SimpleOptimizer f64 on cuda, SpM, 1000 iters: min spectrum {xs[2].min():.3e}, "
+          f"|sum rule - 1| {sum_one:.3e} (bound 1e-6)", flush=True)
+    if not (sopt.x[0].is_cuda and sopt.x[0].dtype == torch.float64
+            and all(np.all(np.isfinite(x)) for x in xs) and xs[2].min() >= 0.0
+            and sum_one <= 1e-6):
+        raise AssertionError("SimpleOptimizer on the SpM model misses its properties")
 
     # 5. times: kernel and plain version in turns on one card, after a warm-up
     args = kernel_inputs(torch, solver, "l1", seed=99)
@@ -210,22 +365,73 @@ def main():
     run_kernel = lambda: kernels.fused_two_block_chunk(*args, **chunk)
     run_plain = lambda: kernels.fused_two_block_chunk_reference(*args, **chunk)
     ms, plain_ms = median_ms(torch, [run_kernel, run_plain])
+    bound, bound_by = bound_ms(100 * B * (4 * N * M + 10 * N), args + run_kernel())
     t_kernel, t_plain = median_wall(torch, [solve, lambda: plain_chunk_solve(plain_chunk, solve)])
     (t_opt,) = median_wall(torch, [opt_run])
     print(f"[{card}] one chunk (B={B}, N={N}, R={M}, 100 iters, l1, thin): "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({bound_by})")
     print(f"[{card}] fused solve (B={B}, {NITER} iters): kernel {t_kernel * 1e3:.1f} ms = "
           f"{B * NITER / t_kernel:.0f} inst-iters/s, plain {t_plain * 1e3:.1f} ms = "
           f"{B * NITER / t_plain:.0f} inst-iters/s")
     print(f"[{card}] SimpleOptimizer f64 solve (1 instance, 200 iters): "
           f"{t_opt * 1e3:.1f} ms")
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_two_block_chunk", "route": "cuda",
-        "source": "admmsolver_tpu_torch/csrc/fused_two_block.cu",
-        "replaces": "admmsolver_tpu/ops/kernels.py:116",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+    sargs = spm_kernel_inputs(torch, spm, gs, seed=98)
+    run_spm = lambda: kernels.fused_spm_chunk(*sargs, n_iters=100)
+    run_spm_plain = lambda: kernels.fused_spm_chunk_reference(*sargs, n_iters=100)
+    mu = sargs[3]
+    ones = torch.ones(B, dtype=torch.float32, device="cuda")
+    acy = gs_dev @ spm.Ac.T
+    run_factors = lambda: spm._factors(mu[:, 0], mu[:, 1], ones, acy)
+    spm_ms, spm_plain_ms, factors_ms = median_ms(torch, [run_spm, run_spm_plain, run_factors])
+    spm_ops = 100 * B * (4 * NL * NW + 2 * NL * NL + 10 * (NL + NW))
+    spm_bound, spm_bound_by = bound_ms(spm_ops, sargs + run_spm())
+    ts_kernel, ts_plain = median_wall(
+        torch, [spm_solve, lambda: plain_chunk_solve(spm_plain_chunk, spm_solve)])
+    (ts_opt,) = median_wall(torch, [sopt_run])
+    print(f"[{card}] one SpM chunk (B={B}, nl={NL}, nw={NW}, 100 iters): kernel "
+          f"{spm_ms:.3f} ms = {spm_ops / spm_ms / 1e9:.2f} TFLOP/s, plain {spm_plain_ms:.3f} ms, "
+          f"bound {spm_bound:.3f} ms ({spm_bound_by})")
+    print(f"[{card}] one SpM factor refresh (B={B}, nl={NL}): {factors_ms:.3f} ms")
+    print(f"[{card}] fused SpM solve (B={B}, {SPM_NITER} iters): kernel "
+          f"{ts_kernel * 1e3:.1f} ms = {B * SPM_NITER / ts_kernel:.0f} inst-iters/s, plain "
+          f"{ts_plain * 1e3:.1f} ms = {B * SPM_NITER / ts_plain:.0f} inst-iters/s")
+    print(f"[{card}] SimpleOptimizer f64 SpM solve (1 instance, 1000 iters): "
+          f"{ts_opt * 1e3:.1f} ms")
+
+    if "--variants" in sys.argv:
+        chosen = kernels._spm_tiling(libs["fused_spm"], 0, B, NL, NW)
+        print(f"[{card}] SpM chunk tilings (lanes per warp, warps per block), 100 iters; "
+              f"the wrapper chooses {chosen}:")
+        for tiling in ((4, 8), (4, 4), (2, 16), (2, 12), (2, 8), (1, 16), (1, 8)):
+            (t_ms,) = median_ms(torch, [lambda: kernels._spm_launch(sargs, 100, tiling)])
+            print(f"  {tiling}: {t_ms:.3f} ms")
+        from admmsolver_tpu_torch.models.objectivefunc import inv_hpd
+        pen = (spm.AcA + mu[:, :1, None] * torch.eye(NL, device="cuda")
+               + mu[:, 1:, None] * spm.W).contiguous()
+        routes = {"inv_hpd (Cholesky + triangular solve, the port's)": lambda: inv_hpd(pen),
+                  "cholesky + cholesky_inverse": lambda: torch.cholesky_inverse(
+                      torch.linalg.cholesky(pen)),
+                  "linalg.inv (LU)": lambda: torch.linalg.inv(pen)}
+        print(f"[{card}] inverse of the {B} penalty matrices ({NL}x{NL}, f32):")
+        for (name, _), t_ms in zip(routes.items(), median_ms(torch, list(routes.values()))):
+            print(f"  {name}: {t_ms:.3f} ms")
+    if "--profile" in sys.argv:
+        profile_spm_solve(torch, spm_solve)
+
+    # No single PyTorch call computes either chunk, so there is no library time.
+    print(json.dumps({"kernels": [
+        {"name": "fused_two_block_chunk", "route": "cuda",
+         "source": "admmsolver_tpu_torch/csrc/fused_two_block.cu",
+         "replaces": "admmsolver_tpu/ops/kernels.py:116",
+         "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bound, "bound_by": bound_by, "library_ms": None},
+        {"name": "fused_spm_chunk", "route": "cuda",
+         "source": "admmsolver_tpu_torch/csrc/fused_spm.cu",
+         "replaces": "admmsolver_tpu/ops/kernels.py:268",
+         "launches": spm_launches, "max_abs_err": spm_err, "ms": spm_ms,
+         "plain_ms": spm_plain_ms, "bound_ms": spm_bound, "bound_by": spm_bound_by,
+         "library_ms": None}]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

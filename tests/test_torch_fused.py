@@ -40,7 +40,8 @@ def _pair(block1="l1", B=8, seed=0, tile_b=4):
         ys = np.abs(ys)
     jm = _bp(J, A, ys[0], block1=block1)
     return (JaxFused(jm, tile_b=tile_b),
-            FusedTwoBlockSolver(interop.from_jax_model(jm), tile_b=tile_b), ys, xt)
+            FusedTwoBlockSolver(interop.from_jax_model(jm, device="cpu"), tile_b=tile_b,
+                                device="cpu"), ys, xt)
 
 
 def _close(rt: FusedResult, rj, atol, fields=("x0", "x1", "h")):
@@ -106,7 +107,8 @@ def test_fused_warm_start_continues_like_jax():
     in the port as the JAX solver continues it."""
     fj, ft, ys, _ = _pair()
     r1 = fj.solve({(0, "y"): ys}, niter=21)
-    state = interop.state_from_numpy(*(np.asarray(a) for a in (r1.x0, r1.x1, r1.h, r1.mu)))
+    state = interop.state_from_numpy(*(np.asarray(a) for a in (r1.x0, r1.x1, r1.h, r1.mu)),
+                                     device="cpu")
     assert state["x0"].dtype == torch.float32
     rj = fj.solve({(0, "y"): ys}, niter=21, x0=r1.x0, x1=r1.x1, h0=r1.h, mu0=r1.mu)
     rt = ft.solve({(0, "y"): ys}, niter=21, **state)
@@ -133,7 +135,7 @@ def test_fused_without_overrides_solves_the_template():
 def test_fused_rejects_unsupported():
     A, ys, _ = _setup()
     B, N = ys.shape[0], A.shape[1]
-    ft = FusedTwoBlockSolver(_bp(T, A, ys[0]), tile_b=2)
+    ft = FusedTwoBlockSolver(_bp(T, A, ys[0]), tile_b=2, device="cpu")
     with pytest.raises(ValueError, match="supports per-instance"):
         ft.solve({(0, "y"): ys, (0, "A"): np.zeros((B,) + A.shape)}, niter=5)
     with pytest.raises(ValueError, match="leading batch axis"):
@@ -143,27 +145,27 @@ def test_fused_rejects_unsupported():
     coupled = T.Model([T.LeastSquares(1.0, A, ys[0]), T.L1Regularizer(0.1, N)],
                       [(1, 0, T.DiagonalMatrix(np.full(N, 2.0)), T.identity(N))])
     with pytest.raises(ValueError, match="identity couplings"):
-        FusedTwoBlockSolver(coupled)
+        FusedTwoBlockSolver(coupled, device="cpu")
     three = T.Model([T.LeastSquares(1.0, A, ys[0]), T.L1Regularizer(0.1, N),
                      T.NonNegativePenalty(N)],
                     [(1, 0, T.identity(N), T.identity(N)),
                      (2, 0, T.identity(N), T.identity(N))])
     with pytest.raises(ValueError, match="2-block"):
-        FusedTwoBlockSolver(three)
+        FusedTwoBlockSolver(three, device="cpu")
     offset = T.Model([T.LeastSquares(1.0, A, ys[0]), T.L1Regularizer(0.1, N, np.ones(N))],
                      [(1, 0, T.identity(N), T.identity(N))])
     with pytest.raises(ValueError, match="offsets"):
-        FusedTwoBlockSolver(offset)
+        FusedTwoBlockSolver(offset, device="cpu")
 
 
 def test_from_jax_model_rejects_missing_counterparts():
     A, ys, _ = _setup()
     N = A.shape[1]
-    jm = J.Model([J.LeastSquares(1.0, A, ys[0]), J.L2Regularizer(0.1, np.eye(N))],
+    jm = J.Model([J.LeastSquares(1.0, A, ys[0]), J.BoxProjectionPenalty(N, 0.0, 1.0)],
                  [(1, 0, J.identity(N), J.identity(N))])
-    with pytest.raises(TypeError, match="L2Regularizer"):
-        interop.from_jax_model(jm)
+    with pytest.raises(TypeError, match="BoxProjectionPenalty"):
+        interop.from_jax_model(jm, device="cpu")
     jm = J.Model([J.LeastSquares(1.0, A, ys[0]), J.L1Regularizer(0.1, N)],
                  [(1, 0, J.PartialDiagonalMatrix(jnp.eye(N // 2), (2,)), J.identity(N))])
     with pytest.raises(TypeError, match="PartialDiagonalMatrix"):
-        interop.from_jax_model(jm)
+        interop.from_jax_model(jm, device="cpu")

@@ -62,7 +62,7 @@ def _assert_same_run(ot, oj, xtol=1e-8):
 @pytest.mark.parametrize("rtol", [1e-12, 1e-6])
 def test_simple_optimizer_matches_jax(kind, rtol):
     oj = J.SimpleOptimizer(_model(J, kind))
-    ot = T.SimpleOptimizer(_model(T, kind))
+    ot = T.SimpleOptimizer(_model(T, kind), device="cpu")
     oj.solve(300, rtol=rtol, interval_update_mu=20)
     ot.solve(300, rtol=rtol, interval_update_mu=20)
     assert ot.x[0].dtype == torch.float64 and ot.mu.dtype == torch.float64
@@ -77,7 +77,8 @@ def test_basis_pursuit_recovers_signal():
     A, y, xt = _bp_data(M=100, N=300, K=10, seed=7)
     N = A.shape[1]
     opt = T.SimpleOptimizer(T.Model([T.LeastSquares(1.0, A, y), T.L1Regularizer(0.1, N)],
-                                    [(1, 0, T.identity(N), T.identity(N))]))
+                                    [(1, 0, T.identity(N), T.identity(N))]),
+                            device="cpu")
     opt.solve(200)
     err = np.abs(opt.x[0].numpy() - xt).max()
     assert err <= 1e-2 * np.abs(xt).max(), err
@@ -85,7 +86,7 @@ def test_basis_pursuit_recovers_signal():
 
 def test_callback_relax_and_reference_api_match_jax():
     oj = J.SimpleOptimizer(_model(J, "bp"), mu=0.7)
-    ot = T.SimpleOptimizer(_model(T, "bp"), mu=0.7)
+    ot = T.SimpleOptimizer(_model(T, "bp"), mu=0.7, device="cpu")
     seen = []
     kw = dict(interval_update_mu=5, relax=1.5)
     oj.solve(30, callback=lambda: None, **kw)
@@ -105,7 +106,7 @@ def test_callback_relax_and_reference_api_match_jax():
 
 def test_converged_solve_stops_and_skips_mu_update():
     oj = J.SimpleOptimizer(_model(J, "bp"))
-    ot = T.SimpleOptimizer(_model(T, "bp"))
+    ot = T.SimpleOptimizer(_model(T, "bp"), device="cpu")
     oj.solve(2000, atol=1e-6)
     ot.solve(2000, atol=1e-6)
     assert ot.iterations < 2000
@@ -113,7 +114,7 @@ def test_converged_solve_stops_and_skips_mu_update():
 
 
 def test_float32_state_keeps_float32_histories():
-    ot = T.SimpleOptimizer(_model(T, "bp"), dtype=torch.float32)
+    ot = T.SimpleOptimizer(_model(T, "bp"), dtype=torch.float32, device="cpu")
     ot.solve(20)
     assert ot.x[0].dtype == torch.float32 and ot.mu.dtype == torch.float32
     assert ot.iterations == 20 and np.all(np.isfinite(ot.primal_residual_history))
@@ -122,7 +123,7 @@ def test_float32_state_keeps_float32_histories():
 def test_from_jax_model_gives_the_same_trajectory():
     jm = _model(J, "3block")
     oj = J.SimpleOptimizer(jm)
-    ot = T.SimpleOptimizer(interop.from_jax_model(jm))
+    ot = T.SimpleOptimizer(interop.from_jax_model(jm, device="cpu"), device="cpu")
     oj.solve(100)
     ot.solve(100)
     _assert_same_run(ot, oj)
@@ -133,13 +134,13 @@ def test_engine_rejects_what_the_reference_rejects():
     N = A.shape[1]
     lonely = T.Model([T.LeastSquares(1.0, A, y), T.L1Regularizer(0.1, N)])
     with pytest.raises(ValueError, match="no couplings"):
-        T.SimpleOptimizer(lonely)
-    three = T.SimpleOptimizer(_model(T, "3block"))
+        T.SimpleOptimizer(lonely, device="cpu")
+    three = T.SimpleOptimizer(_model(T, "3block"), device="cpu")
     with pytest.raises(ValueError, match="single-pair"):
         three.solve(5, relax=1.5)
     with pytest.raises(RuntimeError, match="one_sweep"):
-        T.SimpleOptimizer(_model(T, "bp")).residual()
-    opt = T.SimpleOptimizer(_model(T, "bp"))
+        T.SimpleOptimizer(_model(T, "bp"), device="cpu").residual()
+    opt = T.SimpleOptimizer(_model(T, "bp"), device="cpu")
     opt.solve(0)
     assert opt.iterations == 0
 
