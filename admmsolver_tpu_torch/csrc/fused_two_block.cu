@@ -14,264 +14,1030 @@
 // and returns (x0, x1, h, x0_prev), x0_prev being the x0 the last
 // iteration started from.
 //
-// What bounds it on this card: the two products, 4*B*N*R FLOPs per
-// iteration, run as full f32 FMA on the CUDA cores (TF32 keeps ~1e-3
-// relative accuracy, which corrupts the shifted-quadratic solve), against
-// the L2 reads of U and Ut: at N=512, R=256 each is 512 KiB, more than a
-// block's 227 KB of shared memory, so every block streams both from L2 in
-// k-tiles once per iteration.  That is 2*N*R*4 bytes of L2 traffic for
-// 4*TB*N*R FLOPs, TB/2 FLOP per L2 byte for a tile of TB lanes.
+// Two kernels compute it; the wrapper (ops/kernels.py, _two_block_tiling)
+// takes the tensor-core kernel wherever a block can hold 32 lanes and the
+// FMA kernel otherwise.  Both are full f32 in meaning: plain TF32 keeps
+// ~1e-3 relative accuracy, which corrupts the shifted-quadratic solve.
 //
-// What the design does about it: one block owns TB lanes for the whole
-// chunk and keeps their x0, x1, h, acy, v and the (TB,R) intermediate w in
-// shared memory, so device memory sees the state once per chunk; the host
-// side picks the largest TB whose footprint fits, to raise FLOPs per L2
-// byte.  Each thread accumulates a TM x 4 register tile of each product
-// from k-tiles of U/Ut staged in shared memory; the next k-tile's L2 loads
-// are in flight while the current one is computed on.  Lanes are independent:
-// blocks never synchronise with each other.  Ragged B, N and R edges are
-// masked here; nothing needs padding to the TPU's 128-lane width.
+// What bounds them on this card (NVIDIA H100 80GB HBM3, 700 W; times per
+// 100 iterations at B=4096, N=512, R=256 from `chip_smoke.py --variants`):
+// the two products, 4*B*N*R FLOPs per iteration.
+//  * As f32 FMA they cannot take less than 3.24 ms, and not less than the
+//    shared-memory loads that feed them: a 16-byte load hands 512 bytes to
+//    a warp's registers whether or not its threads share addresses, an SM
+//    moves 128 bytes a clock, and the FMA kernel's 4 x 8 register tile
+//    needs 3 such loads per 32 FMA instructions (12 clocks of loads beside
+//    8 of FMA issue).  The FMA kernel takes 6.6 ms.
+//  * On the tensor cores in split TF32 each product is three mma, 1.30 ms
+//    at the dense TF32 rate, and a warp loads 16 words per 24 mma.  Then U
+//    and Ut come to the fore: no block can hold them (512 KiB each), every
+//    block streams both from L2 once per iteration, and all blocks want the
+//    same rows at the same time.  L2 itself gives 132 such readers 11.6
+//    TB/s; what the copies cost is their latency against a ring of two or
+//    three k-tiles.  The tensor-core kernel takes 5.5 ms.
+//
+// What the design does about it (both kernels):
+//  * A block owns TB = 32 lanes for the whole chunk (B = 4096 is one wave of
+//    128 blocks), so U and Ut cross L2 -> SM 128 times per iteration (64
+//    times with pairs of blocks, below).  Only what an iteration reads stays
+//    in shared memory: v, h (the tensor-core kernel keeps h in device memory
+//    instead) and the (TB, R) intermediate w, stored k-major ([k][lane],
+//    XOR-swizzled against bank conflicts) so that they are the products'
+//    left operands as they lie.
+//    acy and dinv are re-read from L2 while a product runs; x0 and x1 live
+//    in registers and reach device memory in the last iteration only
+//    (x0_prev in the one before it).
+//  * k-tiles of U and Ut (KT rows x 256 columns) arrive in a ring of
+//    shared-memory stages filled by a producer warp with bulk asynchronous
+//    copies (cp.async.bulk) that complete on an mbarrier per stage; a
+//    consumer warp waits on the stage's "full" barrier and releases it on
+//    its "empty" barrier.  There is no block-wide barrier per k-tile and no
+//    register bounce; the consumers meet twice per iteration (after w and
+//    after v are written).  The producer runs ahead across products and
+//    iterations, and the consumers load the next step's operands before
+//    the current step's arithmetic, across k-tiles too.
+//  * With a thread-block cluster of CL blocks each producer fetches 1/CL of
+//    every k-tile and multicasts it into the shared memory of all CL
+//    blocks, cutting the L2 reads by CL.  Pairs gain 10%; clusters of 4 lose
+//    (every stage then waits for four blocks).
+//  * The epilogues are straight-line code over 16 elements at a time, with
+//    the divisions by mu written as a corrected multiplication by 1/mu, so
+//    that independent elements overlap instead of queueing behind one
+//    another's branches.
+//  * FMA kernel: a thread accumulates 4 lanes x 8 columns (two groups of 4
+//    adjacent columns, so a warp's 16-byte loads of a k-tile row are
+//    contiguous); a warp covers 16 lanes x 64 columns, 8 warps a pass of
+//    256 columns.  Sums run over k in ascending order.
+//  * Tensor-core kernel: see its own comment further down.
+//  * Ragged B, N and R are masked here; when N or R is not a multiple of 4
+//    (or a base pointer is not 16-byte aligned) the producer fills the
+//    stages with plain loads instead of bulk copies, and there is no
+//    cluster.
+//
+// Within a kernel the order of every sum is fixed, whatever TB, KT, the
+// stage count and the cluster size: all tilings of one kernel give the
+// same bits, and the two kernels differ by rounding only.
 //
 // Plain C interface, loaded with ctypes (admmsolver_tpu_torch/ops/_build.py).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int TILE = 4096;  // floats in one staged k-tile of U or Ut
-constexpr int KPAD = 32;    // v and w rows are zero-padded to a multiple of this
+constexpr int CW = 256;  // columns of a k-tile and of one pass over the outputs
 
 __host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
 
 template <int TB>
 struct Layout {
-  static constexpr int TM = TB < 4 ? TB : 4;  // rows (lanes) per thread
-  static constexpr int RG = TB / TM;          // row groups
-  static constexpr int CG = THREADS / RG;     // threads per row group
-  static constexpr int TN = 4;                // columns per thread, CG apart
-  static constexpr int CW = CG * TN;          // columns per pass
-  static constexpr int KT = TILE / CW;        // depth of a k-tile
-  static_assert(KPAD % KT == 0, "row padding must cover every k-tile");
-  static_assert(KT % 4 == 0, "lane rows are read as float4 along k");
-  static_assert(CG >= 32, "a warp must share its row group");
+  static constexpr int TM = TB < 4 ? TB : 4;       // lanes per thread
+  static constexpr int RG = TB / TM;               // row groups in the block
+  static constexpr int RTW = RG < 4 ? RG : 4;      // row groups in a warp
+  static constexpr int CTW = 32 / RTW;             // column threads in a warp
+  static constexpr int WCOLS = CTW * 8;            // columns a warp covers
+  static constexpr int WR = RG / RTW;              // warps along the lanes
+  static constexpr int WC = CW / WCOLS;            // warps along the columns
+  static constexpr int WARPS = WR * WC;            // consumer warps
+  static constexpr int CONSUMERS = WARPS * 32;
+  static constexpr int THREADS = CONSUMERS + 32;   // and one producer warp
+  static constexpr int SC = TB < 4 ? 4 : TB;       // floats kept for mu and for thr
+  // Lane state is k-major: row k holds the block's TB lanes.  Its 16-byte
+  // chunks (4 lanes) are XOR-swizzled with k/4, so that the threads of a
+  // warp, whose columns lie 4 apart, hit different banks in the epilogues.
+  static constexpr int SWZ = TB >= 8 ? TB / 4 - 1 : 0;
+  __host__ __device__ static constexpr int swz(int k) { return (k >> 2) & SWZ; }
+  // Offset of lane r of row k.
+  __host__ __device__ static constexpr int at(int k, int r) {
+    return k * TB + ((((r >> 2) ^ swz(k)) << 2) | (r & 3));
+  }
 };
 
-constexpr int PER_THREAD = TILE / THREADS;  // floats of a k-tile each thread fetches
+size_t smem_bytes(int tb, int n, int r, int kt, int stages) {
+  const int sc = tb < 4 ? 4 : tb;
+  return sizeof(float) * ((size_t)stages * kt * CW +
+                          (size_t)(2 * round_up(n, kt) + round_up(r, kt)) * tb + 2 * sc) +
+         (size_t)16 * stages;
+}
 
-// This thread's share of the k-tile of Bg starting at row k0, columns
-// [c0, c0 + CW), zero past K and ncols, into registers.
-template <int TB>
-__device__ __forceinline__ void fetch_tile(float (&pre)[PER_THREAD],
-                                           const float* __restrict__ Bg, int K,
-                                           int ncols, int c0, int k0) {
-  using L = Layout<TB>;
-#pragma unroll
-  for (int p = 0; p < PER_THREAD; ++p) {
-    const int idx = threadIdx.x + p * THREADS;
-    const int k = k0 + idx / L::CW;
-    const int c = c0 + idx % L::CW;
-    pre[p] = (k < K && c < ncols) ? __ldg(Bg + (size_t)k * ncols + c) : 0.f;
+// ---- mbarriers, bulk copies, clusters (PTX) ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+// Arrive on the barrier at the same offset in block `rank` of the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(bar), "r"(rank));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];" ::"r"(remote) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The copy lands at the same offset in every block of `mask` and completes
+// on the barrier at the same offset in each of them.
+__device__ __forceinline__ void bulk_copy_multicast(uint32_t dst, const void* src,
+                                                    uint32_t bytes, uint32_t bar,
+                                                    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+template <int COUNT>
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(COUNT) : "memory");
+}
+
+// The ring of k-tile stages as both sides see it: `full[s]` at bars + 8 s,
+// `empty[s]` at bars + 8 (stages + s); the same walk over stages and phases
+// on the producer's and the consumers' side.
+struct Ring {
+  uint32_t bars;
+  int stages, stage = 0;
+  uint32_t phase = 0;
+  __device__ Ring(uint32_t bars_, int stages_) : bars(bars_), stages(stages_) {}
+  __device__ __forceinline__ uint32_t full() const { return bars + 8 * stage; }
+  __device__ __forceinline__ uint32_t empty() const { return bars + 8 * (stages + stage); }
+  __device__ __forceinline__ void advance() {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+// TM lanes of row `row` (an offset in floats) of the k-major lane state,
+// starting at 16-byte chunk `chunk` before the row's swizzle `s`.
+template <int TM>
+__device__ __forceinline__ void load_lanes(float (&d)[TM], const float* row, int chunk, int s) {
+  if constexpr (TM == 4) {
+    const float* p = row + ((chunk ^ s) << 2);
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    d[0] = t.x, d[1] = t.y, d[2] = t.z, d[3] = t.w;
+  } else if constexpr (TM == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(row);
+    d[0] = t.x, d[1] = t.y;
+  } else {
+    d[0] = *row;
   }
 }
 
-// acc[i][j] = sum_k A_s[row_i * lda + k] * Bg[k * ncols + col_j] over k < K,
-// for row_i = rg*TM + i and col_j = c0 + cg + j*CG, accumulated in k order.
-// A_s lies in shared memory, 16-byte aligned, with rows zero-padded to
-// lda >= round_up(K, KPAD); Bg is a row-major (K, ncols) matrix in global
-// memory, staged through Bs one k-tile at a time while the next k-tile's
-// loads are in flight.
-template <int TB>
-__device__ __forceinline__ void tile_product(
-    const float* __restrict__ A_s, int lda, const float* __restrict__ Bg,
-    int K, int ncols, int c0, float* __restrict__ Bs,
-    float (&acc)[Layout<TB>::TM][Layout<TB>::TN], int rg, int cg) {
-  using L = Layout<TB>;
-#pragma unroll
-  for (int i = 0; i < L::TM; ++i)
-#pragma unroll
-    for (int j = 0; j < L::TN; ++j) acc[i][j] = 0.f;
+template <int TM>
+__device__ __forceinline__ void store_lanes(float* row, int chunk, int s, const float (&d)[TM]) {
+  if constexpr (TM == 4) {
+    *reinterpret_cast<float4*>(row + ((chunk ^ s) << 2)) = make_float4(d[0], d[1], d[2], d[3]);
+  } else if constexpr (TM == 2) {
+    *reinterpret_cast<float2*>(row) = make_float2(d[0], d[1]);
+  } else {
+    *row = d[0];
+  }
+}
 
-  float pre[PER_THREAD];
-  fetch_tile<TB>(pre, Bg, K, ncols, c0, 0);
-  for (int k0 = 0; k0 < K; k0 += L::KT) {
-    // Every thread is done with the previous tile (and with whatever
-    // shared state the caller wrote before this call).
-    __syncthreads();
-#pragma unroll
-    for (int p = 0; p < PER_THREAD; ++p) Bs[threadIdx.x + p * THREADS] = pre[p];
-    __syncthreads();
-    if (k0 + L::KT < K) fetch_tile<TB>(pre, Bg, K, ncols, c0, k0 + L::KT);
-#pragma unroll
-    for (int kk = 0; kk < L::KT; kk += 4) {
-      float a[L::TM][4];
-#pragma unroll
-      for (int i = 0; i < L::TM; ++i) {
-        const float4 t = *reinterpret_cast<const float4*>(A_s + (rg * L::TM + i) * lda + k0 + kk);
-        a[i][0] = t.x;
-        a[i][1] = t.y;
-        a[i][2] = t.z;
-        a[i][3] = t.w;
+// Producer warp: the k-tiles of the row-major (K, ncols) matrix Bg, column
+// pass by column pass, into the ring.  Rows past K are zero-filled; columns
+// past ncols are left as they are (their outputs are never stored).  A
+// stage holds KT rows LDB floats apart.
+template <int KT, int LDB>
+__device__ __forceinline__ void produce(const float* __restrict__ Bg, int K, int ncols,
+                                        bool bulk, int cl, uint32_t rank, float* ring_s,
+                                        Ring& ring, int lane) {
+  for (int c0 = 0; c0 < ncols; c0 += CW) {
+    const int seg = min(CW, ncols - c0);
+    for (int k0 = 0; k0 < K; k0 += KT) {
+      mbar_wait(ring.empty(), ring.phase ^ 1);
+      float* dst = ring_s + ring.stage * (KT * LDB);
+      const int rows = min(KT, K - k0);
+      if (bulk) {
+        if (rows < KT) {
+          for (int idx = rows * LDB + lane; idx < KT * LDB; idx += 32) dst[idx] = 0.f;
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          __syncwarp();
+        }
+        if (lane == 0) mbar_arrive_expect_tx(ring.full(), (uint32_t)(rows * seg) * 4u);
+        for (int r = lane; r < rows; r += 32) {
+          const float* src = Bg + (size_t)(k0 + r) * ncols + c0;
+          if (cl == 1) {
+            bulk_copy(smem_u32(dst + r * LDB), src, (uint32_t)seg * 4u, ring.full());
+          } else if (r % cl == (int)rank) {
+            bulk_copy_multicast(smem_u32(dst + r * LDB), src, (uint32_t)seg * 4u, ring.full(),
+                                (uint16_t)((1u << cl) - 1u));
+          }
+        }
+      } else {
+#pragma unroll 8
+        for (int idx = lane; idx < KT * CW; idx += 32) {
+          const int r = idx / CW, c = idx % CW;
+          dst[r * LDB + c] = (r < rows && c < seg) ? __ldg(Bg + (size_t)(k0 + r) * ncols + c0 + c) : 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(ring.full());
       }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float b[L::TN];
-#pragma unroll
-        for (int j = 0; j < L::TN; ++j) b[j] = Bs[(kk + q) * L::CW + cg + j * L::CG];
-#pragma unroll
-        for (int i = 0; i < L::TM; ++i)
-#pragma unroll
-          for (int j = 0; j < L::TN; ++j) acc[i][j] = fmaf(a[i][q], b[j], acc[i][j]);
-      }
+      ring.advance();
     }
   }
 }
 
-size_t smem_bytes(int tb, int n, int r) {
-  return sizeof(float) * ((size_t)5 * tb * round_up(n, KPAD) +
-                          (size_t)tb * round_up(r, KPAD) + TILE + 2 * (size_t)tb);
+// Consumer: acc[i][j] = sum over k < K, in ascending k, of
+// A_s[k][lane i of this thread] * tile(k)[col_j], with col_j = j for j < 4
+// and CTW*4 + j - 4 above, relative to `ring_s` (which already points at
+// this thread's first column).  `chunk` is the thread's first 16-byte chunk
+// of a lane row.  The operands of step k + 1 are loaded before the FMAs of
+// step k, across k-tiles too, so that a warp never waits for shared memory
+// right behind a stage's barrier.
+template <int TB, int KT>
+__device__ __forceinline__ void product(float (&acc)[Layout<TB>::TM][8],
+                                        const float* __restrict__ A_s, int chunk, int K,
+                                        const float* __restrict__ ring_s, Ring& ring, int cl,
+                                        int lane) {
+  using L = Layout<TB>;
+  constexpr int TM = L::TM;
+  static_assert(KT % 8 == 0, "steps alternate between two operand buffers");
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  float a[2][TM];
+  float4 b[2][2];
+  mbar_wait(ring.full(), ring.phase);
+  const float* Bs = ring_s + ring.stage * (KT * CW);
+  load_lanes<TM>(a[0], A_s, chunk, 0);
+  b[0][0] = *reinterpret_cast<const float4*>(Bs);
+  b[0][1] = *reinterpret_cast<const float4*>(Bs + L::CTW * 4);
+
+  for (int k0 = 0; k0 < K; k0 += KT) {
+    const float* As = A_s + k0 * TB;
+    const int s0 = k0 >> 2;
+    const bool more = k0 + KT < K;
+    int next_stage = ring.stage + 1;
+    uint32_t next_phase = ring.phase;
+    if (next_stage == ring.stages) {
+      next_stage = 0;
+      next_phase ^= 1;
+    }
+    const float* Bn = ring_s + next_stage * (KT * CW);
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      const int cur = kk & 1, nxt = cur ^ 1;
+      if (kk + 1 < KT) {
+        load_lanes<TM>(a[nxt], As + (kk + 1) * TB, chunk, (s0 + ((kk + 1) >> 2)) & L::SWZ);
+        b[nxt][0] = *reinterpret_cast<const float4*>(Bs + (kk + 1) * CW);
+        b[nxt][1] = *reinterpret_cast<const float4*>(Bs + (kk + 1) * CW + L::CTW * 4);
+      } else if (more) {
+        mbar_wait(ring.bars + 8 * next_stage, next_phase);
+        load_lanes<TM>(a[nxt], As + KT * TB, chunk, (s0 + (KT >> 2)) & L::SWZ);
+        b[nxt][0] = *reinterpret_cast<const float4*>(Bn);
+        b[nxt][1] = *reinterpret_cast<const float4*>(Bn + L::CTW * 4);
+      }
+      const float bb[8] = {b[cur][0].x, b[cur][0].y, b[cur][0].z, b[cur][0].w,
+                           b[cur][1].x, b[cur][1].y, b[cur][1].z, b[cur][1].w};
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[cur][i], bb[j], acc[i][j]);
+    }
+    // This warp is done with the stage: tell the producer of every block
+    // that writes into it.
+    __syncwarp();
+    if (cl == 1) {
+      if (lane == 0) mbar_arrive(ring.empty());
+    } else if (lane < cl) {
+      mbar_arrive_cluster(ring.empty(), (uint32_t)lane);
+    }
+    ring.advance();
+    Bs = Bn;
+  }
+}
+
+// x / m from rm = 1 / m rounded to nearest: the quotient estimate x * rm
+// corrected once by its exact remainder, which is the correctly rounded
+// quotient (Markstein) up to rare last-bit cases.  Unlike `x / m` it has no
+// branch to a slow path, so the epilogue's independent elements interleave.
+__device__ __forceinline__ float div_by(float x, float m, float rm) {
+  const float q = x * rm;
+  return fmaf(fmaf(-q, m, x), rm, q);
+}
+
+// One element of the second half of an iteration: x0 from the product's
+// sum `x0n` (+ v/mu when thin), the prox, the dual ascent and the next v.
+__device__ __forceinline__ void update(float& x0n, float& x1n, float& hv, float& vv, float m,
+                                       float rm, float th, float acyv, bool thin, bool nonneg,
+                                       bool zero_x1) {
+  if (thin) x0n += div_by(vv, m, rm);
+  const float z = x0n - div_by(hv, m, rm);
+  if (nonneg) {
+    x1n = z < 0.f ? 0.f : z;
+  } else {
+    const float t = fmaxf(fabsf(z) - th, 0.f);
+    x1n = z > 0.f ? t : (z < 0.f ? -t : z * 0.f);
+  }
+  if (zero_x1) x1n = 0.f;
+  hv = hv + m * (x1n - x0n);
+  vv = acyv + hv + m * x1n;
 }
 
 // prox: bit 1 set = nonneg (else soft-threshold), bit 0 set = `_even` mode.
-template <int TB>
-__global__ void __launch_bounds__(THREADS) fused_two_block_kernel(
+template <int TB, int KT>
+__global__ void __launch_bounds__(Layout<TB>::THREADS, 1) fused_two_block_kernel(
     const float* __restrict__ U, const float* __restrict__ Ut,
     const float* __restrict__ dinv, const float* __restrict__ acy,
     const float* __restrict__ mu, const float* __restrict__ thr,
     const float* __restrict__ x0, const float* __restrict__ x1,
     const float* __restrict__ h, float* __restrict__ x0o,
     float* __restrict__ x1o, float* __restrict__ ho, float* __restrict__ x0p,
-    int B, int N, int R, int n_iters, int prox, int thin) {
+    int B, int N, int R, int n_iters, int prox, int thin, int stages, int cl, int bulk) {
   using L = Layout<TB>;
-  extern __shared__ __align__(16) float smem[];
-  const int Np = round_up(N, KPAD);
-  const int Rp = round_up(R, KPAD);
-  float* acy_s = smem;
-  float* h_s = acy_s + TB * Np;
-  float* x1_s = h_s + TB * Np;
-  float* x0_s = x1_s + TB * Np;
-  float* v_s = x0_s + TB * Np;
-  float* w_s = v_s + TB * Np;
-  float* Bs = w_s + TB * Rp;
-  float* mu_s = Bs + TILE;
-  float* thr_s = mu_s + TB;
+  constexpr int TM = L::TM;
+  extern __shared__ __align__(128) float smem[];
+  const int Nk = round_up(N, KT), Rk = round_up(R, KT);
+  float* ring_s = smem;
+  float* v_s = ring_s + stages * (KT * CW);
+  float* h_s = v_s + Nk * TB;
+  float* w_s = h_s + Nk * TB;
+  float* mu_s = w_s + Rk * TB;
+  float* thr_s = mu_s + L::SC;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(thr_s + L::SC);
 
+  const int tid = threadIdx.x;
   const int b0 = blockIdx.x * TB;
-  const int rg = threadIdx.x / L::CG;
-  const int cg = threadIdx.x % L::CG;
-  const bool nonneg = prox & 2;
-  const bool even = prox & 1;
 
-  // Load the tile.  Lanes past B and columns past N hold zeros (mu = 1),
-  // which stay zero and finite through every iteration.
-  for (int idx = threadIdx.x; idx < TB * Np; idx += THREADS) {
-    const int b = b0 + idx / Np, n = idx % Np;
-    const bool ok = b < B && n < N;
-    const size_t g = (size_t)b * N + n;
-    acy_s[idx] = ok ? acy[g] : 0.f;
-    h_s[idx] = ok ? h[g] : 0.f;
-    x1_s[idx] = ok ? x1[g] : 0.f;
-    x0_s[idx] = ok ? x0[g] : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(bars + s), 1);
+      mbar_init(smem_u32(bars + stages + s), L::WARPS * cl);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int idx = threadIdx.x; idx < TB * Rp; idx += THREADS) w_s[idx] = 0.f;
-  for (int r = threadIdx.x; r < TB; r += THREADS) {
+  // Load the tile.  Lanes past B hold zeros (mu = 1), which stay zero and
+  // finite through every iteration; so do the k-rows past N and R.
+  for (int idx = tid; idx < (2 * Nk + Rk) * TB; idx += L::THREADS) v_s[idx] = 0.f;
+  for (int r = tid; r < TB; r += L::THREADS) {
     const bool ok = b0 + r < B;
     mu_s[r] = ok ? mu[b0 + r] : 1.f;
     thr_s[r] = ok ? thr[b0 + r] : 0.f;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < TB * Np; idx += THREADS)
-    v_s[idx] = acy_s[idx] + h_s[idx] + mu_s[idx / Np] * x1_s[idx];
-
-  for (int it = 0; it < n_iters; ++it) {
-    const bool last = it == n_iters - 1;
-    // w = (v U) * dinv.  tile_product's leading barrier orders these reads
-    // after the writes of v.
-    for (int c0 = 0; c0 < R; c0 += L::CW) {
-      float acc[L::TM][L::TN];
-      tile_product<TB>(v_s, Np, U, N, R, c0, Bs, acc, rg, cg);
-#pragma unroll
-      for (int i = 0; i < L::TM; ++i) {
-        const int r = rg * L::TM + i, b = b0 + r;
-#pragma unroll
-        for (int j = 0; j < L::TN; ++j) {
-          const int c = c0 + cg + j * L::CG;
-          if (c < R) w_s[r * Rp + c] = b < B ? acc[i][j] * dinv[(size_t)b * R + c] : 0.f;
-        }
-      }
-    }
-    // x0 = w Ut (+ v/mu), prox, dual ascent, and the next iteration's v.
-    // Each (lane, column) belongs to one thread, which alone reads and
-    // writes its x0, x1, h and v here.
-    for (int c0 = 0; c0 < N; c0 += L::CW) {
-      float acc[L::TM][L::TN];
-      tile_product<TB>(w_s, Rp, Ut, R, N, c0, Bs, acc, rg, cg);
-#pragma unroll
-      for (int i = 0; i < L::TM; ++i) {
-        const int r = rg * L::TM + i, b = b0 + r;
-        const float m = mu_s[r];
-#pragma unroll
-        for (int j = 0; j < L::TN; ++j) {
-          const int n = c0 + cg + j * L::CG;
-          if (n >= N) continue;
-          const int e = r * Np + n;
-          const float hh = h_s[e];
-          float x0n = acc[i][j];
-          if (thin) x0n += v_s[e] / m;
-          const float z = x0n - hh / m;
-          float x1n;
-          if (nonneg) {
-            x1n = z < 0.f ? 0.f : z;
-          } else {
-            const float s = fmaxf(fabsf(z) - thr_s[r], 0.f);
-            x1n = z > 0.f ? s : (z < 0.f ? -s : z * 0.f);
-          }
-          if (even && (n & 1)) x1n = 0.f;
-          const float hn = hh + m * (x1n - x0n);
-          if (last && b < B) x0p[(size_t)b * N + n] = x0_s[e];
-          x0_s[e] = x0n;
-          x1_s[e] = x1n;
-          h_s[e] = hn;
-          v_s[e] = acy_s[e] + hn + m * x1n;
-        }
-      }
+  for (int idx = tid; idx < TB * N; idx += L::THREADS) {
+    const int r = idx / N, n = idx % N;
+    if (b0 + r >= B) continue;
+    const size_t g = (size_t)(b0 + r) * N + n;
+    const float hv = h[g], x1v = x1[g];
+    h_s[L::at(n, r)] = hv;
+    v_s[L::at(n, r)] = acy[g] + hv + mu_s[r] * x1v;
+    if (n_iters <= 1) x0p[g] = x0[g];
+    if (n_iters == 0) {
+      x0o[g] = x0[g];
+      x1o[g] = x1v;
+      ho[g] = hv;
     }
   }
-  __syncthreads();
+  if (cl > 1) cluster_sync(); else __syncthreads();
 
-  for (int idx = threadIdx.x; idx < TB * Np; idx += THREADS) {
-    const int b = b0 + idx / Np, n = idx % Np;
-    if (b >= B || n >= N) continue;
-    const size_t g = (size_t)b * N + n;
-    x0o[g] = x0_s[idx];
-    x1o[g] = x1_s[idx];
-    ho[g] = h_s[idx];
-    if (n_iters == 0) x0p[g] = x0_s[idx];
+  Ring ring(smem_u32(bars), stages);
+
+  if (tid >= L::CONSUMERS) {
+    // ---- producer warp ----
+    const int lane = tid - L::CONSUMERS;
+    const uint32_t rank = cl > 1 ? cluster_rank() : 0u;
+    for (int it = 0; it < n_iters; ++it) {
+      produce<KT, CW>(U, N, R, bulk, cl, rank, ring_s, ring, lane);
+      produce<KT, CW>(Ut, R, N, bulk, cl, rank, ring_s, ring, lane);
+    }
+  } else {
+    // ---- consumer warps ----
+    const int warp = tid / 32, lane = tid % 32;
+    const int rt = lane / L::CTW, ct = lane % L::CTW;
+    const int row0 = ((warp % L::WR) * L::RTW + rt) * TM;   // first lane of this thread
+    const int chunk = row0 >> 2;                            // its 16-byte chunk in a lane row
+    const int col0 = (warp / L::WR) * L::WCOLS + ct * 4;    // first column, within a pass
+    const bool nonneg = prox & 2;
+    const bool even = prox & 1;
+    float m[TM], rm[TM], th[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      m[i] = mu_s[row0 + i];
+      rm[i] = 1.f / m[i];
+      th[i] = thr_s[row0 + i];
+    }
+
+    for (int it = 0; it < n_iters; ++it) {
+      const bool last = it == n_iters - 1;
+      const bool before_last = it == n_iters - 2;
+
+      // w = (v U) * dinv
+      for (int c0 = 0; c0 < R; c0 += CW) {
+        float pre[TM][8];  // dinv, fetched from L2 while the product runs
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = c0 + col0 + (j < 4 ? j : L::CTW * 4 + j - 4);
+            const int b = b0 + row0 + i;
+            pre[i][j] = (b < B && c < R) ? __ldg(dinv + (size_t)b * R + c) : 0.f;
+          }
+        float acc[TM][8];
+        product<TB, KT>(acc, v_s, chunk, N, ring_s + col0, ring, cl, lane);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = c0 + col0 + (j < 4 ? j : L::CTW * 4 + j - 4);
+          if (c >= R) continue;
+          float wv[TM];
+#pragma unroll
+          for (int i = 0; i < TM; ++i) wv[i] = acc[i][j] * pre[i][j];
+          store_lanes<TM>(w_s + c * TB, chunk, L::swz(c), wv);
+        }
+      }
+      consumer_sync<L::CONSUMERS>();
+
+      // x0 = w Ut (+ v/mu), prox, dual ascent, and the next iteration's v.
+      // Each (lane, column) belongs to one thread, which alone reads and
+      // writes its h and v here.
+      for (int c0 = 0; c0 < N; c0 += CW) {
+        float pre[TM][8];  // acy
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int n = c0 + col0 + (j < 4 ? j : L::CTW * 4 + j - 4);
+            const int b = b0 + row0 + i;
+            pre[i][j] = (b < B && n < N) ? __ldg(acy + (size_t)b * N + n) : 0.f;
+          }
+        float acc[TM][8];
+        product<TB, KT>(acc, w_s, chunk, R, ring_s + col0, ring, cl, lane);
+        // Four columns at a time: loads, then the arithmetic of all 4 TM
+        // elements as one straight line, then the stores.
+#pragma unroll
+        for (int j0 = 0; j0 < 8; j0 += 4) {
+          const int n0 = c0 + col0 + (j0 ? L::CTW * 4 : 0);
+          float hv[4][TM], vv[4][TM], x0r[4][TM], x1r[4][TM];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int i = 0; i < TM; ++i) hv[j][i] = vv[j][i] = 0.f;
+            if (n0 + j < N) {
+              load_lanes<TM>(hv[j], h_s + (n0 + j) * TB, chunk, L::swz(n0 + j));
+              if (thin) load_lanes<TM>(vv[j], v_s + (n0 + j) * TB, chunk, L::swz(n0 + j));
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int i = 0; i < TM; ++i) {
+              x0r[j][i] = acc[i][j0 + j];
+              update(x0r[j][i], x1r[j][i], hv[j][i], vv[j][i], m[i], rm[i], th[i],
+                     pre[i][j0 + j], thin, nonneg, even && ((n0 + j) & 1));
+            }
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (n0 + j < N) {
+              store_lanes<TM>(h_s + (n0 + j) * TB, chunk, L::swz(n0 + j), hv[j]);
+              store_lanes<TM>(v_s + (n0 + j) * TB, chunk, L::swz(n0 + j), vv[j]);
+            }
+          if (last || before_last) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int i = 0; i < TM; ++i) {
+                const int b = b0 + row0 + i;
+                if (b >= B || n0 + j >= N) continue;
+                const size_t g = (size_t)b * N + n0 + j;
+                if (last) {
+                  x0o[g] = x0r[j][i];
+                  x1o[g] = x1r[j][i];
+                  ho[g] = hv[j][i];
+                } else {
+                  x0p[g] = x0r[j][i];
+                }
+              }
+          }
+        }
+      }
+      consumer_sync<L::CONSUMERS>();
+    }
+  }
+  // No block of a cluster may leave while another can still write into its
+  // shared memory or arrive on its barriers.
+  if (cl > 1) cluster_sync();
+}
+
+// ---------------------------------------------------------------------
+// The same chunk with both products on the tensor cores in split TF32
+// ("3xTF32"): every f32 operand x is taken as big + small, big = x rounded
+// to TF32 (10 mantissa bits) and small = x - big (exact in f32, cut to TF32
+// by the tensor core), and a product a*b as a_small*b_big + a_big*b_small +
+// a_big*b_big, three `mma.sync.m16n8k8` with f32 accumulation.  The dropped
+// term is below 2^-21 of the product; plain TF32 (one mma) would keep 2^-11.
+//
+// A block is 32 lanes and 8 consumer warps; a warp computes all 32 lanes
+// (two m16 tiles) of 32 columns (four n8 tiles) per pass of 256 columns.
+// Per 8 steps of k it loads 16 operand words from shared memory for 24 mma,
+// an eighth of the FMA kernel's shared-memory traffic per product.  Lane
+// state is k-major with the lane index XOR-swizzled by k so that fragment
+// loads and the epilogue's scalar accesses spread over the banks; a stage's
+// rows are CW + 8 floats apart for the same reason.  h is not kept in shared
+// memory: its owner reads and writes it in the output array `ho` (through
+// L2) once per iteration, which leaves room for a third k-tile of 32 rows
+// in the ring (5.5 ms against 5.8 with h in shared memory and two k-tiles).
+// ---------------------------------------------------------------------
+
+constexpr int TC_TB = 32;
+constexpr int TC_WARPS = 8;
+constexpr int TC_CONSUMERS = TC_WARPS * 32;
+// The producer is the first warp of a third warpgroup whose other warps
+// idle: a warpgroup of its own lets it hand most of its registers to the
+// consumers (setmaxnreg), which need about 200 each.
+constexpr int TC_THREADS = TC_CONSUMERS + 128;
+constexpr int TC_PRODUCER_REGS = 40, TC_CONSUMER_REGS = 232;
+constexpr int TC_LDB = CW + 8;
+constexpr int TC_FLUSH = 32;  // steps of k summed on the tensor core before a rounded add
+
+// Offset of lane r of row k of the lane state.
+__host__ __device__ constexpr int tc_at(int k, int r) {
+  return k * TC_TB + (r ^ (((k & 3) ^ ((k >> 2) & 1)) << 3));
+}
+
+// x rounded to TF32 (ties away from zero, as cvt.rna does; written out
+// because the instruction expands to twice as much for its special cases).
+// The special cases: a finite x within 2^-12 of the largest float rounds up
+// to inf, and for an inf or NaN x the tail x - big is NaN, so such a lane
+// comes out as NaN where f32 arithmetic may give inf.  Non-finite stays
+// non-finite and within its lane, which is all the solvers' checks read.
+__device__ __forceinline__ uint32_t tf32_big(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Raw operand words of 8 steps of k.  A for the warp's two m16 tiles:
+// pa[4 mt + i] points at this thread's element of fragment register i in
+// row 0 of the lane state (rows t and t + 4 of every 8 carry the same
+// swizzle, so the eight pointers serve every group of 8 rows).  B for its
+// four n8 tiles from the stage rows at Bs (this thread's (t, g) element).
+__device__ __forceinline__ void tc_load(float (&fa)[8], float (&fb)[8],
+                                        const float* const (&pa)[8], int row,
+                                        const float* __restrict__ Bs) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) fa[i] = pa[i][row * TC_TB];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    fb[nt * 2 + 0] = Bs[nt * 8];
+    fb[nt * 2 + 1] = Bs[4 * TC_LDB + nt * 8];
   }
 }
 
-template <int TB>
-int launch(const float* U, const float* Ut, const float* dinv, const float* acy,
-           const float* mu, const float* thr, const float* x0, const float* x1,
-           const float* h, float* x0o, float* x1o, float* ho, float* x0p, int B,
-           int N, int R, int n_iters, int prox, int thin, cudaStream_t stream) {
-  const size_t smem = smem_bytes(TB, N, R);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_two_block_kernel<TB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// acc[mt][nt][c] (the mma's own layout) = sum over k < K of
+// A_s[k][lane] * tile(k)[column]; `Bt` points into stage 0 at this
+// thread's (t, g) element of the warp's first n8 tile.
+template <int KT>
+__device__ __forceinline__ void product_tc(float (&acc)[2][4][4],
+                                           const float* __restrict__ A_s, int K,
+                                           const float* __restrict__ Bt, Ring& ring, int cl,
+                                           int lane, int g, int t) {
+  static_assert(KT % 16 == 0, "8-step groups alternate between two operand buffers");
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+
+  // The tensor core adds into its accumulator by truncation, so a chain of
+  // 3 K / 8 mma would drift by that many half-ulps.  The small terms have
+  // their own chain (`small`; their error is 2^-11 of itself), the big
+  // terms start from zero every TC_FLUSH steps of k (`big`) and are then
+  // added to `acc` by a rounded f32 add.
+  float small[2][4][4], big[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) small[mt][nt][c] = 0.f;
+
+  float fa[2][8], fb[2][8];
+  mbar_wait(ring.full(), ring.phase);
+  const float* Bs = Bt + ring.stage * (KT * TC_LDB);
+  const float* pa[8];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    pa[mt * 4 + 0] = A_s + tc_at(t, mt * 16 + g);
+    pa[mt * 4 + 1] = A_s + tc_at(t, mt * 16 + g + 8);
+    pa[mt * 4 + 2] = A_s + tc_at(t + 4, mt * 16 + g);
+    pa[mt * 4 + 3] = A_s + tc_at(t + 4, mt * 16 + g + 8);
+  }
+  tc_load(fa[0], fb[0], pa, 0, Bs);
+
+  for (int k0 = 0; k0 < K; k0 += KT) {
+    const bool more = k0 + KT < K;
+    int next_stage = ring.stage + 1;
+    uint32_t next_phase = ring.phase;
+    if (next_stage == ring.stages) {
+      next_stage = 0;
+      next_phase ^= 1;
+    }
+    const float* Bn = Bt + next_stage * (KT * TC_LDB);
+    if (k0 % TC_FLUSH == 0) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) big[mt][nt][c] = 0.f;
+    }
+#pragma unroll
+    for (int k8 = 0; k8 < KT / 8; ++k8) {
+      const int cur = k8 & 1, nxt = cur ^ 1;
+      if (k8 + 1 < KT / 8) {
+        tc_load(fa[nxt], fb[nxt], pa, (k8 + 1) * 8, Bs + (k8 + 1) * 8 * TC_LDB);
+      } else if (more) {
+        mbar_wait(ring.bars + 8 * next_stage, next_phase);
+        tc_load(fa[nxt], fb[nxt], pa, KT, Bn);
+      }
+      uint32_t abig[2][4], asmall[2][4], bbig[4][2], bsmall[4][2];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float x = fa[cur][i], y = fb[cur][i];
+        abig[i / 4][i % 4] = tf32_big(x);
+        asmall[i / 4][i % 4] = __float_as_uint(x - __uint_as_float(abig[i / 4][i % 4]));
+        bbig[i / 2][i % 2] = tf32_big(y);
+        bsmall[i / 2][i % 2] = __float_as_uint(y - __uint_as_float(bbig[i / 2][i % 2]));
+      }
+      // Eight independent accumulators per round, so that no mma waits for
+      // the one before it.
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(small[mt][nt], asmall[mt], bbig[nt]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(big[mt][nt], abig[mt], bbig[nt]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_tf32(small[mt][nt], abig[mt], bsmall[nt]);
+    }
+    if ((k0 + KT) % TC_FLUSH == 0 || !more) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[mt][nt][c] += big[mt][nt][c];
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) pa[i] += KT * TC_TB;
+    __syncwarp();
+    if (cl == 1) {
+      if (lane == 0) mbar_arrive(ring.empty());
+    } else if (lane < cl) {
+      mbar_arrive_cluster(ring.empty(), (uint32_t)lane);
+    }
+    ring.advance();
+    Bs = Bn;
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mt][nt][c] += small[mt][nt][c];
+}
+
+size_t smem_bytes_tc(int n, int r, int kt, int stages) {
+  return sizeof(float) * ((size_t)stages * kt * TC_LDB +
+                          (size_t)(round_up(n, kt) + round_up(r, kt)) * TC_TB + 2 * TC_TB) +
+         (size_t)16 * stages;
+}
+
+template <int KT>
+__global__ void __launch_bounds__(TC_THREADS, 1) fused_two_block_tc_kernel(
+    const float* __restrict__ U, const float* __restrict__ Ut,
+    const float* __restrict__ dinv, const float* __restrict__ acy,
+    const float* __restrict__ mu, const float* __restrict__ thr,
+    const float* __restrict__ x0, const float* __restrict__ x1,
+    const float* __restrict__ h, float* __restrict__ x0o,
+    float* __restrict__ x1o, float* __restrict__ ho, float* __restrict__ x0p,
+    int B, int N, int R, int n_iters, int prox, int thin, int stages, int cl, int bulk) {
+  constexpr int TB = TC_TB;
+  extern __shared__ __align__(128) float smem[];
+  const int Nk = round_up(N, KT), Rk = round_up(R, KT);
+  float* ring_s = smem;
+  float* v_s = ring_s + stages * (KT * TC_LDB);
+  float* w_s = v_s + Nk * TB;
+  float* mu_s = w_s + Rk * TB;
+  float* thr_s = mu_s + TB;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(thr_s + TB);
+
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * TB;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(bars + s), 1);
+      mbar_init(smem_u32(bars + stages + s), TC_WARPS * cl);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int idx = tid; idx < (Nk + Rk) * TB; idx += TC_THREADS) v_s[idx] = 0.f;
+  for (int r = tid; r < TB; r += TC_THREADS) {
+    const bool ok = b0 + r < B;
+    mu_s[r] = ok ? mu[b0 + r] : 1.f;
+    thr_s[r] = ok ? thr[b0 + r] : 0.f;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < TB * N; idx += TC_THREADS) {
+    const int r = idx / N, n = idx % N;
+    if (b0 + r >= B) continue;
+    const size_t g = (size_t)(b0 + r) * N + n;
+    const float hv = h[g], x1v = x1[g];
+    ho[g] = hv;  // h lives in its output array, see below
+    v_s[tc_at(n, r)] = acy[g] + hv + mu_s[r] * x1v;
+    if (n_iters <= 1) x0p[g] = x0[g];
+    if (n_iters == 0) {
+      x0o[g] = x0[g];
+      x1o[g] = x1v;
+    }
+  }
+  if (cl > 1) cluster_sync(); else __syncthreads();
+
+  Ring ring(smem_u32(bars), stages);
+
+  // The two roles never meet again (each ends the kernel itself), which is
+  // what lets the compiler give each its own register budget.
+  if (tid >= TC_CONSUMERS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(TC_PRODUCER_REGS));
+    const int lane = tid - TC_CONSUMERS;
+    if (lane < 32) {
+      const uint32_t rank = cl > 1 ? cluster_rank() : 0u;
+      for (int it = 0; it < n_iters; ++it) {
+        produce<KT, TC_LDB>(U, N, R, bulk, cl, rank, ring_s, ring, lane);
+        produce<KT, TC_LDB>(Ut, R, N, bulk, cl, rank, ring_s, ring, lane);
+      }
+    }
+    if (cl > 1) cluster_sync();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(TC_CONSUMER_REGS));
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int col0 = warp * 32;  // the warp's first column within a pass
+    // This thread's elements of a pass: lanes g + 8 li (li < 4), columns
+    // col0 + 8 nt + 2 t + (c & 1); acc[mt][nt][c] is lane li = 2 mt + c / 2.
+    const float* Bt = ring_s + t * TC_LDB + col0 + g;
+    const bool nonneg = prox & 2;
+    const bool even = prox & 1;
+    float m[4], rm[4], th[4];
+#pragma unroll
+    for (int li = 0; li < 4; ++li) {
+      m[li] = mu_s[g + 8 * li];
+      rm[li] = 1.f / m[li];
+      th[li] = thr_s[g + 8 * li];
+    }
+
+    for (int it = 0; it < n_iters; ++it) {
+      const bool last = it == n_iters - 1;
+      const bool before_last = it == n_iters - 2;
+
+      // w = (v U) * dinv
+      for (int c0 = 0; c0 < R; c0 += CW) {
+        float pre[4][8];  // dinv, fetched from L2 while the product runs
+#pragma unroll
+        for (int li = 0; li < 4; ++li)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = c0 + col0 + 8 * (j / 2) + 2 * t + (j & 1);
+            const int b = b0 + g + 8 * li;
+            pre[li][j] = (b < B && c < R) ? __ldg(dinv + (size_t)b * R + c) : 0.f;
+          }
+        float acc[2][4][4];
+        product_tc<KT>(acc, v_s, N, Bt, ring, cl, lane, g, t);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int li = 2 * mt + c / 2, j = 2 * nt + (c & 1);
+              const int col = c0 + col0 + 8 * nt + 2 * t + (c & 1);
+              if (col < R) w_s[tc_at(col, g + 8 * li)] = acc[mt][nt][c] * pre[li][j];
+            }
+      }
+      consumer_sync<TC_CONSUMERS>();
+
+      // x0 = w Ut (+ v/mu), prox, dual ascent, and the next iteration's v.
+      // h is not kept in shared memory, which goes to a third k-tile in the
+      // ring instead: an element's owner reads it from `ho` (through L2)
+      // and writes it back there, once per iteration.
+      for (int c0 = 0; c0 < N; c0 += CW) {
+        float pre[4][8];  // acy
+#pragma unroll
+        for (int li = 0; li < 4; ++li)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int n = c0 + col0 + 8 * (j / 2) + 2 * t + (j & 1);
+            const int b = b0 + g + 8 * li;
+            pre[li][j] = (b < B && n < N) ? __ldg(acy + (size_t)b * N + n) : 0.f;
+          }
+        float acc[2][4][4];
+        product_tc<KT>(acc, w_s, R, Bt, ring, cl, lane, g, t);
+        // One m16 tile (16 elements) at a time: loads, the arithmetic as
+        // one straight line, then the stores.
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          float hv[4][4], vv[4][4], x0r[4][4], x1r[4][4];
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int n = c0 + col0 + 8 * nt + 2 * t + (c & 1);
+              const int b = b0 + g + 8 * (2 * mt + c / 2);
+              hv[nt][c] = n < N && b < B ? __ldcg(ho + (size_t)b * N + n) : 0.f;
+              vv[nt][c] = thin && n < N ? v_s[tc_at(n, g + 8 * (2 * mt + c / 2))] : 0.f;
+            }
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int li = 2 * mt + c / 2;
+              const int n = c0 + col0 + 8 * nt + 2 * t + (c & 1);
+              x0r[nt][c] = acc[mt][nt][c];
+              update(x0r[nt][c], x1r[nt][c], hv[nt][c], vv[nt][c], m[li], rm[li], th[li],
+                     pre[li][2 * nt + (c & 1)], thin, nonneg, even && (n & 1));
+            }
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int n = c0 + col0 + 8 * nt + 2 * t + (c & 1);
+              const int b = b0 + g + 8 * (2 * mt + c / 2);
+              if (n < N) {
+                v_s[tc_at(n, g + 8 * (2 * mt + c / 2))] = vv[nt][c];
+                if (b < B) __stcg(ho + (size_t)b * N + n, hv[nt][c]);
+              }
+            }
+          if (last || before_last) {
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                const int n = c0 + col0 + 8 * nt + 2 * t + (c & 1);
+                const int b = b0 + g + 8 * (2 * mt + c / 2);
+                if (b >= B || n >= N) continue;
+                const size_t gi = (size_t)b * N + n;
+                if (last) {
+                  x0o[gi] = x0r[nt][c];
+                  x1o[gi] = x1r[nt][c];
+                } else {
+                  x0p[gi] = x0r[nt][c];
+                }
+              }
+          }
+        }
+      }
+      consumer_sync<TC_CONSUMERS>();
+    }
+    if (cl > 1) cluster_sync();
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+typedef void (*ChunkKernel)(const float*, const float*, const float*, const float*,
+                            const float*, const float*, const float*, const float*,
+                            const float*, float*, float*, float*, float*, int, int, int, int,
+                            int, int, int, int, int);
+
+struct ChunkArgs {
+  const float *U, *Ut, *dinv, *acy, *mu, *thr, *x0, *x1, *h;
+  float *x0o, *x1o, *ho, *x0p;
+  int B, N, R, n_iters, prox, thin;
+};
+
+int launch(ChunkKernel kernel, int threads, int tb, size_t smem, const ChunkArgs& a,
+           int stages, int cl, cudaStream_t stream) {
+  const int bulk = a.N % 4 == 0 && a.R % 4 == 0 && aligned16(a.U) && aligned16(a.Ut);
+  if (stages < 2 || stages > 16 || cl < 1 || cl > 8 || (cl > 1 && !bulk))
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((B + TB - 1) / TB);
-  fused_two_block_kernel<TB><<<grid, THREADS, smem, stream>>>(
-      U, Ut, dinv, acy, mu, thr, x0, x1, h, x0o, x1o, ho, x0p, B, N, R, n_iters, prox, thin);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(round_up((a.B + tb - 1) / tb, cl));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a.U, a.Ut, a.dinv, a.acy, a.mu, a.thr, a.x0, a.x1, a.h,
+                           a.x0o, a.x1o, a.ho, a.x0p, a.B, a.N, a.R, a.n_iters, a.prox, a.thin,
+                           stages, cl, bulk);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// Measurement only: every block reads the whole buffer `passes` times
+// through L2 (not L1), as every block of the chunk kernels reads all of U
+// and Ut once per iteration; `rotate` starts each block at another offset,
+// where the chunk kernels' blocks all start at the same one.
+__global__ void __launch_bounds__(1024) l2_probe_kernel(const float4* __restrict__ buf, int n4,
+                                                        int passes, int rotate,
+                                                        float* __restrict__ out) {
+  float sum = 0.f;
+  int start = rotate ? (int)((long long)blockIdx.x * n4 / gridDim.x) : 0;
+  for (int p = 0; p < passes; ++p) {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n4; i += 1024) {
+      const int j = i + start < n4 ? i + start : i + start - n4;
+      const float4 v = __ldcg(buf + j);
+      sum += (v.x + v.y) + (v.z + v.w);
+    }
+    start = (start + 1024) % n4;
+  }
+  if (sum == 1.2345e30f) *out = sum;  // keeps the loads alive
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory, in bytes, of a block of `tb` lanes.
-size_t fused_two_block_smem_bytes(int tb, int n, int r) { return smem_bytes(tb, n, r); }
+// Launch the L2 read probe on `stream`: `blocks` blocks each read `n` floats
+// (a multiple of 4, at most 2^30) `passes` times.
+int fused_two_block_l2_probe(int device, const float* buf, int n, int passes, int rotate,
+                             int blocks, float* out, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n < 4 || n % 4 || passes < 1 || blocks < 1 || !aligned16(buf)) return cudaErrorInvalidValue;
+  l2_probe_kernel<<<blocks, 1024, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(buf), n / 4, passes, rotate, out);
+  return cudaGetLastError();
+}
+
+// Dynamic shared memory, in bytes, of a block of `tb` lanes with `stages`
+// k-tiles of depth `kt` in its ring; `tc` = the tensor-core kernel.
+size_t fused_two_block_smem_bytes(int tb, int n, int r, int kt, int stages, int tc) {
+  return tc ? smem_bytes_tc(n, r, kt, stages) : smem_bytes(tb, n, r, kt, stages);
+}
 
 // The device's opt-in shared-memory limit per block, in bytes.
 int fused_two_block_max_smem(int device, int* bytes) {
@@ -283,31 +1049,45 @@ const char* fused_two_block_error_string(int err) {
 }
 
 // Launch on `stream` without synchronising; returns cudaGetLastError()
-// after the launch (0 on success).  tb must be 1, 2, 4, 8, 16 or 32.
+// after the launch (0 on success).  `tc` = 0: the FMA kernel, (tb, kt) one
+// of the instantiations below; `tc` = 1: the split-TF32 tensor-core kernel,
+// tb = 32, kt 16 or 32.  stages 2..16, cluster 1..8 (above 1 only when N
+// and R are multiples of 4).
 int fused_two_block_chunk(int device, const float* U, const float* Ut,
                           const float* dinv, const float* acy, const float* mu,
                           const float* thr, const float* x0, const float* x1,
                           const float* h, float* x0o, float* x1o, float* ho,
                           float* x0p, int B, int N, int R, int n_iters, int prox,
-                          int thin, int tb, void* stream) {
+                          int thin, int tb, int kt, int stages, int cluster, int tc,
+                          void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = (cudaStream_t)stream;
-#define FTB_LAUNCH(T)                                                                   \
-  case T:                                                                               \
-    return launch<T>(U, Ut, dinv, acy, mu, thr, x0, x1, h, x0o, x1o, ho, x0p, B, N, R, \
-                     n_iters, prox, thin, s);
-  switch (tb) {
-    FTB_LAUNCH(1)
-    FTB_LAUNCH(2)
-    FTB_LAUNCH(4)
-    FTB_LAUNCH(8)
-    FTB_LAUNCH(16)
-    FTB_LAUNCH(32)
-    default:
-      return cudaErrorInvalidValue;
+  const ChunkArgs a = {U, Ut, dinv, acy, mu, thr, x0, x1, h, x0o, x1o, ho, x0p,
+                       B, N, R, n_iters, prox, thin};
+  if (tc) {
+    if (tb != TC_TB) return cudaErrorInvalidValue;
+    const size_t smem = smem_bytes_tc(N, R, kt, stages);
+    if (kt == 16)
+      return launch(fused_two_block_tc_kernel<16>, TC_THREADS, TC_TB, smem, a, stages, cluster, s);
+    if (kt == 32)
+      return launch(fused_two_block_tc_kernel<32>, TC_THREADS, TC_TB, smem, a, stages, cluster, s);
+    return cudaErrorInvalidValue;
   }
+  // The FMA kernel at 32 lanes is never the wrapper's choice (the tensor-core
+  // kernel is); it is built so that the two routes' errors can be compared.
+#define FTB_LAUNCH(T, K)                                                          \
+  if (tb == T && kt == K)                                                         \
+    return launch(fused_two_block_kernel<T, K>, Layout<T>::THREADS, T,            \
+                  smem_bytes(T, N, R, K, stages), a, stages, cluster, s);
+  FTB_LAUNCH(32, 32)
+  FTB_LAUNCH(16, 16)
+  FTB_LAUNCH(8, 16)
+  FTB_LAUNCH(4, 16)
+  FTB_LAUNCH(2, 16)
+  FTB_LAUNCH(1, 16)
 #undef FTB_LAUNCH
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

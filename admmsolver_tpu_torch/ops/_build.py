@@ -26,14 +26,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C interface of each library: function -> (argument types, result type).
-# Every library <name> also has <name>_smem_bytes, <name>_max_smem and
-# <name>_error_string, declared in _declare.
+# Every library <name> also has <name>_smem_bytes (arguments below),
+# <name>_max_smem and <name>_error_string, declared in _declare.
 _CHUNK_ARGTYPES = {
-    # device, 9 inputs, 4 outputs, B, N, R, n_iters, prox, thin, tb, stream
-    "fused_two_block": [_INT] + [_PTR] * 13 + [_INT] * 7 + [_PTR],
+    # device, 9 inputs, 4 outputs, B, N, R, n_iters, prox, thin, lanes per
+    # block, k-tile depth, stages, cluster size, tensor cores, stream
+    "fused_two_block": [_INT] + [_PTR] * 13 + [_INT] * 11 + [_PTR],
     # device, 10 inputs, 6 outputs, B, nl, nw, n_iters, lanes per warp,
     # warps per block, stream
     "fused_spm": [_INT] + [_PTR] * 16 + [_INT] * 6 + [_PTR],
+}
+# (lanes per block, N, R, k-tile depth, stages, tensor cores); (lanes per
+# block, nl, nw)
+_SMEM_ARGTYPES = {"fused_two_block": [_INT] * 6, "fused_spm": [_INT] * 3}
+# Other functions of a library: name -> argument types (result: int).
+_OTHER_ARGTYPES = {
+    # device, buffer, floats, passes, rotate, blocks, out, stream
+    "fused_two_block": {"fused_two_block_l2_probe": [_INT, _PTR] + [_INT] * 4 + [_PTR] * 2},
+    "fused_spm": {},
 }
 
 
@@ -52,7 +62,7 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     chunk.argtypes = _CHUNK_ARGTYPES[name]
     chunk.restype = _INT
     smem = getattr(lib, f"{name}_smem_bytes")
-    smem.argtypes = [_INT, _INT, _INT]
+    smem.argtypes = _SMEM_ARGTYPES[name]
     smem.restype = ctypes.c_size_t
     limit = getattr(lib, f"{name}_max_smem")
     limit.argtypes = [_INT, ctypes.POINTER(_INT)]
@@ -60,31 +70,26 @@ def _declare(lib: ctypes.CDLL, name: str) -> None:
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [_INT]
     err.restype = ctypes.c_char_p
+    for other, argtypes in _OTHER_ARGTYPES[name].items():
+        fn = getattr(lib, other)
+        fn.argtypes = argtypes
+        fn.restype = _INT
 
 
-@functools.lru_cache(maxsize=None)
-def load_libraries() -> Dict[str, ctypes.CDLL]:
-    """The loaded kernel libraries by source name (``fused_two_block``,
-    ``fused_spm``), each built first if its source has no build.
+def _lib_path(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}_{digest}.so"
 
-    The compiler's report (registers, shared memory, spills) is kept
-    beside each library as ``<name>_<hash>.log``.
-    """
-    flags = " ".join(NVCC_FLAGS).encode()
-    paths, running = {}, []
-    for src in sorted(SOURCE_DIR.glob("*.cu")):
-        if src.stem not in _CHUNK_ARGTYPES:
-            raise RuntimeError(f"{src} has no declared C interface")
-        digest = hashlib.sha256(src.read_bytes() + flags).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"{src.stem}_{digest}.so"
-        paths[src.stem] = lib_path
-        if not lib_path.exists():
-            BUILD_DIR.mkdir(exist_ok=True)
-            tmp = BUILD_DIR / f"{lib_path.name}.{os.getpid()}.tmp"
-            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                    text=True)
-            running.append((proc, tmp, lib_path))
+
+def _start_build(src: Path, lib_path: Path):
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = BUILD_DIR / f"{lib_path.name}.{os.getpid()}.tmp"
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, tmp, lib_path
+
+
+def _finish_builds(running) -> None:
     failed = []
     for proc, tmp, lib_path in running:
         out, err = proc.communicate()
@@ -96,6 +101,24 @@ def load_libraries() -> Dict[str, ctypes.CDLL]:
             os.replace(tmp, lib_path)
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+@functools.lru_cache(maxsize=None)
+def load_libraries() -> Dict[str, ctypes.CDLL]:
+    """The loaded kernel libraries by source name (``fused_two_block``,
+    ``fused_spm``), each built first if its source has no build.
+
+    The compiler's report (registers, shared memory, spills) is kept
+    beside each library as ``<name>_<hash>.log``.
+    """
+    paths, running = {}, []
+    for src in sorted(SOURCE_DIR.glob("*.cu")):
+        if src.stem not in _CHUNK_ARGTYPES:
+            raise RuntimeError(f"{src} has no declared C interface")
+        paths[src.stem] = _lib_path(src)
+        if not paths[src.stem].exists():
+            running.append(_start_build(src, paths[src.stem]))
+    _finish_builds(running)
     missing = sorted(set(_CHUNK_ARGTYPES) - set(paths))
     if missing:
         raise RuntimeError(f"no source under {SOURCE_DIR} for {missing}")
@@ -104,3 +127,4 @@ def load_libraries() -> Dict[str, ctypes.CDLL]:
         libs[name] = ctypes.CDLL(str(lib_path))
         _declare(libs[name], name)
     return libs
+

@@ -24,7 +24,12 @@ M hk0``, L1, nonnegativity through a shared projector ``P``):
 
 On CUDA tensors each wrapper launches its hand-written kernel
 (``csrc/fused_two_block.cu``, ``csrc/fused_spm.cu``); on CPU tensors it
-runs its ``*_reference``, the same math in torch ops.  float32 only.
+runs its ``*_reference``, the same math in torch ops.  float32 only.  Each
+source holds two kernels: one that runs the products shared by all lanes
+on the tensor cores in split TF32 (every f32 operand as a TF32 head plus a
+TF32 tail, three products each, f32 sums: f32 accuracy, unlike plain TF32,
+which stays banned) and one in f32 FMA for the shapes the first is not
+built for; the wrappers choose (``_two_block_tiling``, ``_spm_tiling``).
 Penalty updates and convergence checks run between chunks
 (:mod:`admmsolver_tpu_torch.parallel.fused`,
 :mod:`admmsolver_tpu_torch.parallel.fused_spm`).
@@ -32,7 +37,7 @@ Penalty updates and convergence checks run between chunks
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,8 +47,14 @@ __all__ = ["fused_two_block_chunk", "fused_two_block_chunk_reference",
            "fused_spm_chunk", "fused_spm_chunk_reference"]
 
 _PROX = {"l1": 0, "l1_even": 1, "nonneg": 2, "nonneg_even": 3}
-# Lanes per thread block the CUDA kernel is instantiated for, largest first.
+# Lanes per thread block the two-block CUDA kernel is instantiated for,
+# largest first, and the columns of a k-tile of U or Ut in its ring.
 _TILES = (32, 16, 8, 4, 2, 1)
+_TWO_BLOCK_CW = 256
+# What the wrapper asks for: at most this many k-tiles in the ring, and
+# clusters of this many blocks sharing each k-tile.
+_TWO_BLOCK_STAGES = 4
+_TWO_BLOCK_CLUSTER = 2
 
 Chunk = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -94,18 +105,80 @@ def _check(U, Ut, dinv, acy, mu, thr, x0, x1, h, n_iters, prox):
             raise ValueError(f"tensors on {t.device} and {x0.device}")
 
 
-def _tile_lanes(lib, device: int, N: int, R: int) -> int:
-    limit = ctypes.c_int()
-    err = lib.fused_two_block_max_smem(device, ctypes.byref(limit))
-    if err:
-        raise RuntimeError(lib.fused_two_block_error_string(err).decode())
+class TwoBlockTiling(NamedTuple):
+    """How one launch of the two-block CUDA kernel is cut."""
+    lanes: int        # lanes (instances) per thread block
+    kt: int           # rows of a k-tile of U or Ut
+    stages: int       # k-tiles in the shared-memory ring
+    cluster: int      # blocks that share each k-tile by multicast
+    tensor_cores: int  # 1: both products in split TF32 on the tensor cores
+
+
+def _two_block_smem_bytes(tb: int, N: int, R: int, kt: int, stages: int,
+                          tensor_cores: int = 0) -> int:
+    """Dynamic shared memory of one block of the CUDA kernel, in bytes (the
+    kernel's own layout: the ring of k-tiles, then v, h and w k-major, mu
+    and thr, two barriers per stage; see ``csrc/fused_two_block.cu``)."""
+    nk, rk = -(-N // kt) * kt, -(-R // kt) * kt
+    # The tensor-core kernel pads a k-tile's rows and keeps h in device memory.
+    row, state = (_TWO_BLOCK_CW + 8, nk + rk) if tensor_cores else (_TWO_BLOCK_CW, 2 * nk + rk)
+    return 4 * (stages * kt * row + state * tb + 2 * max(tb, 4)) + 16 * stages
+
+
+def _two_block_tiling(N: int, R: int, smem_limit: int, aligned: bool = True,
+                      tensor_cores: bool = True) -> TwoBlockTiling:
+    """The tiling for a launch: the most lanes per block whose state fits
+    ``smem_limit`` bytes beside a ring of at least two k-tiles (more lanes
+    per block mean fewer passes of U and Ut through L2), the deeper k-tile
+    of those the kernel is built for, then the deepest ring up to
+    ``_TWO_BLOCK_STAGES``.  Blocks of 32 lanes run the tensor-core kernel
+    unless ``tensor_cores`` is false (the FMA kernel at 32 lanes is built
+    for 32-row k-tiles only).
+    A cluster shares each k-tile between its blocks by multicast; it needs
+    bulk copies, hence N and R multiples of 4 and 16-byte aligned bases
+    (``aligned``)."""
     for tb in _TILES:
-        if lib.fused_two_block_smem_bytes(tb, N, R) <= limit.value:
-            return tb
+        tc = int(bool(tensor_cores) and tb == 32)
+        for kt in ((32, 16) if tc else (32,) if tb == 32 else (16,)):
+            fits = [s for s in range(2, _TWO_BLOCK_STAGES + 1)
+                    if _two_block_smem_bytes(tb, N, R, kt, s, tc) <= smem_limit]
+            if fits:
+                cluster = _TWO_BLOCK_CLUSTER if aligned and N % 4 == 0 and R % 4 == 0 else 1
+                return TwoBlockTiling(tb, kt, max(fits), cluster, tc)
     raise ValueError(
-        f"N={N}, R={R} needs {lib.fused_two_block_smem_bytes(1, N, R)} bytes of "
-        f"shared memory for one lane, above this device's {limit.value}-byte "
+        f"N={N}, R={R} needs {_two_block_smem_bytes(1, N, R, 16, 2)} bytes of "
+        f"shared memory for one lane, above this device's {smem_limit}-byte "
         "limit per block")
+
+
+def _two_block_launch(args, n_iters: int, prox: str, thin: bool,
+                      tiling: Optional[TwoBlockTiling] = None) -> Chunk:
+    """Launch the CUDA kernel on checked, contiguous CUDA tensors.
+    ``tiling`` overrides :func:`_two_block_tiling`; a tiling the kernel is
+    not built for, or one that does not fit, fails at the launch."""
+    x0 = args[6]
+    device = x0.device
+    B, N = x0.shape
+    R = args[0].shape[1]
+    lib = _build.load_libraries()["fused_two_block"]
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if tiling is None:
+        limit = ctypes.c_int()
+        err = lib.fused_two_block_max_smem(index, ctypes.byref(limit))
+        if err:
+            raise RuntimeError(lib.fused_two_block_error_string(err).decode())
+        tiling = _two_block_tiling(N, R, limit.value,
+                                   all(t.data_ptr() % 16 == 0 for t in args[:2]))
+    outs = tuple(torch.empty_like(x0) for _ in range(4))
+    err = lib.fused_two_block_chunk(
+        index, *(t.data_ptr() for t in tuple(args) + outs), B, N, R, int(n_iters),
+        _PROX[prox], int(bool(thin)), *(int(t) for t in tiling),
+        torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError("fused_two_block_chunk launch failed: "
+                           + lib.fused_two_block_error_string(err).decode())
+    fused_two_block_chunk.launches += 1
+    return outs
 
 
 def fused_two_block_chunk(U, Ut, dinv, acy, mu, thr, x0, x1, h,
@@ -125,7 +198,11 @@ def fused_two_block_chunk(U, Ut, dinv, acy, mu, thr, x0, x1, h,
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel on
     the current stream without synchronising (and count it in
-    ``fused_two_block_chunk.launches``); they must be contiguous.
+    ``fused_two_block_chunk.launches``); they must be contiguous.  The
+    tensor-core kernel splits every operand into a TF32 head and tail: a
+    lane that holds an inf, a NaN or a value within 2^-12 of the largest
+    float comes out as NaN where the plain version may give inf, and no
+    other lane is touched.
     """
     _check(U, Ut, dinv, acy, mu, thr, x0, x1, h, n_iters, prox)
     device = x0.device
@@ -137,20 +214,7 @@ def fused_two_block_chunk(U, Ut, dinv, acy, mu, thr, x0, x1, h,
     args = (U, Ut, dinv, acy, mu, thr, x0, x1, h)
     if not all(t.is_contiguous() for t in args):
         raise ValueError("fused_two_block_chunk needs contiguous tensors")
-    B, N = x0.shape
-    R = U.shape[1]
-    lib = _build.load_libraries()["fused_two_block"]
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    tb = _tile_lanes(lib, index, N, R)
-    outs = tuple(torch.empty_like(x0) for _ in range(4))
-    err = lib.fused_two_block_chunk(
-        index, *(t.data_ptr() for t in args + outs), B, N, R, int(n_iters),
-        _PROX[prox], int(bool(thin)), tb, torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        raise RuntimeError("fused_two_block_chunk launch failed: "
-                           + lib.fused_two_block_error_string(err).decode())
-    fused_two_block_chunk.launches += 1
-    return outs
+    return _two_block_launch(args, n_iters, prox, thin)
 
 
 #: Number of kernel launches (CUDA tensors only) since the last reset.
@@ -164,10 +228,11 @@ fused_two_block_chunk.launches = 0
 SpMChunk = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                  torch.Tensor, torch.Tensor]
 
-# Lanes per warp the CUDA kernel is instantiated for, and its limit on
-# warps per block.
+# Lanes per warp the FMA kernel is instantiated for, and its limit on warps
+# per block; the widths up to which the tensor-core kernel is built.
 _SPM_LANES_PER_WARP = (1, 2, 4)
 _SPM_MAX_WARPS = 16
+_SPM_TC_MAX = (32, 256)   # nl, nw
 
 
 def fused_spm_chunk_reference(P, M, b2, mu, thr, x0, x1, x2, h10, h20,
@@ -212,8 +277,12 @@ def _check_spm(P, M, b2, mu, thr, x0, x1, x2, h10, h20, n_iters):
             raise ValueError(f"tensors on {t.device} and {x0.device}")
 
 
-def _spm_tiling(lib, device: int, B: int, nl: int, nw: int) -> Tuple[int, int]:
-    """(lanes per warp, warps per block) for a launch.  A block should hold
+def _spm_tiling(lib, device: int, B: int, nl: int, nw: int,
+                tensor_cores: bool = True) -> Tuple[int, int]:
+    """(lanes per warp, warps per block) for a launch; (0, 8) is the
+    tensor-core kernel (32 lanes a block), taken wherever nl and nw are
+    within the widths it is built for unless ``tensor_cores`` is false.
+    Otherwise the FMA kernel is cut so: a block should hold
     its multiprocessor's share of the batch, so that the batch runs as one
     wave, within the shared-memory limit; among the lane groups that hold
     the most of it, the one with the most warps wins (more warps hide more
@@ -222,6 +291,9 @@ def _spm_tiling(lib, device: int, B: int, nl: int, nw: int) -> Tuple[int, int]:
     err = lib.fused_spm_max_smem(device, ctypes.byref(limit))
     if err:
         raise RuntimeError(lib.fused_spm_error_string(err).decode())
+    if (tensor_cores and nl <= _SPM_TC_MAX[0] and nw <= _SPM_TC_MAX[1]
+            and lib.fused_spm_smem_bytes(0, nl, nw) <= limit.value):
+        return 0, 8
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     per_sm = -(-B // sms)
     best = None
@@ -245,7 +317,8 @@ def _spm_tiling(lib, device: int, B: int, nl: int, nw: int) -> Tuple[int, int]:
 def _spm_launch(args, n_iters: int, tiling: Optional[Tuple[int, int]] = None) -> SpMChunk:
     """Launch the CUDA kernel on checked, contiguous CUDA tensors.
     ``tiling`` = (lanes per warp, warps per block) overrides
-    :func:`_spm_tiling`; a tiling that does not fit fails at the launch."""
+    :func:`_spm_tiling` ((0, 8): the tensor-core kernel); a tiling that does
+    not fit fails at the launch."""
     x0, x2 = args[5], args[7]
     device = x0.device
     B, nl = x0.shape

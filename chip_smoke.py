@@ -10,14 +10,20 @@ result.
 * SpM analytic continuation: ``FusedSpMSolver`` on ``spm_model`` at nl=30 IR
   coefficients, nw=201 frequencies, B=4096, 500 iterations, mu0=0.1.
 
-1. Card and build: the card's name and power limit; both CUDA kernels are
+1. Card and build: the card's name and power limit; both CUDA sources are
    built from ``admmsolver_tpu_torch/csrc/`` (one nvcc per source, started
    together), timed, with ptxas' register and spill lines.
-2. Each kernel against its plain version on the card, 21 iterations, max abs
-   difference of every output <= 5e-4 (f32 sums taken in another order):
-   the two-block kernel at the bench shape (thin basis, N=512, R=256) and
-   at a full-basis shape (N=R=128), all four prox modes; the SpM kernel at
-   full width and at a ragged shape (nl=12, nw=25, B=37).
+2. Each kernel against its plain version on the card, max abs difference of
+   every output <= 5e-4 (f32 sums taken in another order): the two-block
+   kernel over 21 iterations at the bench shape (thin basis, N=512, R=256)
+   and at a full-basis shape (N=R=128), all four prox modes, through the
+   kernel the wrapper chooses (split TF32 on the tensor cores) and through
+   the FMA kernel beside it, and over 0, 1, 2 and 3 iterations at the bench
+   shape (where ``x0_prev`` leaves the loop early); the SpM kernel over 21
+   iterations at full width and at a ragged shape (nl=12, nw=25, B=37),
+   again through the chosen kernel and the FMA kernel.  Where the chosen
+   kernel runs on the tensor cores its difference to the plain version may
+   be at most TC_ERR_RATIO times the FMA kernel's on the same inputs.
 3. The slices.  Each solve goes through its kernel (launch count > 0, set
    to 0 just before and read just after) and agrees with the same solve
    through the plain version.  Basis pursuit recovers every lane's planted
@@ -25,14 +31,17 @@ result.
    spectrum and the sum rule (median |x0.prj_sum - 1| <= 1e-3).
 4. ``SimpleOptimizer`` in float64 on the GPU: one bench instance recovered;
    one SpM instance for 1000 iterations with the sum rule to 1e-6.
-5. Times: medians of 3 timings after a warm-up, kernel against plain, and
-   each kernel's bound: the larger of its bytes (inputs read once, outputs
-   written once) over 3.35 TB/s and its operations over the 67 TFLOP/s f32
-   peak of the CUDA cores (no tensor cores: TF32 is banned for accuracy).
+5. Times: medians of 3 timings after a warm-up, kernel against plain, the
+   design each kernel replaced, and each kernel's bound: the larger of its
+   bytes (inputs read once, outputs written once) over 3.35 TB/s and its
+   operations over the peak rate of the units that do them (products in
+   split TF32 count three times at the tensor cores' 495 TFLOP/s, the rest
+   at the 67 TFLOP/s f32 peak of the CUDA cores), with the all-FMA bound
+   beside it.
 
-``--variants`` also times the SpM chunk at other lanes-per-warp and block
-sizes and the factor refresh's batched inverse by other routes; ``--profile``
-also prints a torch.profiler breakdown of the SpM solve.
+``--variants`` also times both chunks at other tilings and routes, the
+two-block chunk's two products as ``torch.matmul``, the card's L2 read rate
+and the factor refresh's batched inverse by other routes; ``--profile`` prints a torch.profiler breakdown of both solves.
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU,
 ``nvcc`` and no network.
 """
@@ -54,7 +63,11 @@ PROX_MODES = ("l1", "l1_even", "nonneg", "nonneg_even")
 REPEATS = 3
 INNER = 4           # calls in a row inside one CUDA-event timing
 PEAK_F32_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12   # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+# Most that a split-TF32 kernel's max abs difference to the plain version may
+# be, as a multiple of the f32 FMA kernel's on the same inputs.
+TC_ERR_RATIO = {"two-block": 2.0, "SpM": 4.0}
 
 
 def bench_problem(seed=0):
@@ -121,11 +134,22 @@ def compare(torch, what, names, got, ref):
     """Max abs difference of each output, checked against KERNEL_TOL."""
     torch.cuda.synchronize()
     errs = [float((g - r).abs().max()) for g, r in zip(got, ref)]
-    print(f"kernel vs plain, {what}, 21 iters: max abs diff "
+    print(f"kernel vs plain, {what}: max abs diff "
           + " ".join(f"{n} {e:.3e}" for n, e in zip(names, errs)), flush=True)
     if not all(e <= KERNEL_TOL for e in errs):
         raise AssertionError(f"kernel disagrees with its plain version: {errs}")
     return max(errs)
+
+
+def check_ratio(what, family, chosen_err, fma_err):
+    """Hold a tensor-core kernel's error to TC_ERR_RATIO times the FMA
+    kernel's."""
+    ratio = chosen_err / fma_err
+    print(f"{what}: max abs diff to plain {chosen_err:.3e}, FMA kernel {fma_err:.3e} "
+          f"(ratio {ratio:.2f}, limit {TC_ERR_RATIO[family]})", flush=True)
+    if not ratio <= TC_ERR_RATIO[family]:
+        raise AssertionError(f"{what}: the tensor-core kernel's error is {ratio:.2f} times "
+                             "the FMA kernel's")
 
 
 def median_ms(torch, fns):
@@ -167,18 +191,19 @@ def plain_chunk_solve(plain_chunk, solve):
         return solve()
 
 
-def bound_ms(ops, tensors):
+def bound_ms(t_ops, tensors):
     """(least time in ms the card could take, what bounds it): the larger of
-    the operations over the f32 peak and the bytes of ``tensors`` (every
-    input and output once) over the memory rate."""
+    ``t_ops``, the seconds its operations take at the peak rate of their
+    type, and the bytes of ``tensors`` (every input and output once) over the
+    memory rate."""
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def profile_spm_solve(torch, solve):
-    """torch.profiler over one SpM solve: wall time, device time in the chunk
-    kernel and in everything else."""
+def profile_solve(torch, what, kernel_name, solve):
+    """torch.profiler over one solve: wall time, device time in the chunk
+    kernel (its name contains ``kernel_name``) and in everything else."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
@@ -194,12 +219,32 @@ def profile_spm_solve(torch, solve):
             for e in prof.key_averages() if getattr(e, "device_time_total", 0.0) > 0
             and e.device_type.name == "CUDA"]
     total = sum(r[1] for r in rows)
-    kern = sum(r[1] for r in rows if "fused_spm_kernel" in r[0])
-    print(f"profile, SpM solve: wall {wall:.2f} ms (profiled), device kernels {total:.2f} ms "
+    kern = sum(r[1] for r in rows if kernel_name in r[0])
+    print(f"profile, {what}: wall {wall:.2f} ms (profiled), device kernels {total:.2f} ms "
           f"(busy {total / wall:.2f}), chunk kernel {kern:.2f} ms, other kernels "
           f"{total - kern:.2f} ms in {sum(r[2] for r in rows)} launches")
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"  {ms:8.3f} ms  x{count:<5d} {key[:90]}")
+
+
+def l2_read_rate(torch, lib, nbytes, rotate, passes=50):
+    """Bytes per second at which the card's multiprocessors together read one
+    ``nbytes`` buffer that stays in L2: one block on each reads all of it
+    ``passes`` times (the probe kernel beside the two-block chunk kernels), all
+    from the same offset or (``rotate``) each from another."""
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count
+    buf = torch.ones(nbytes // 4, dtype=torch.float32, device="cuda")
+    out = torch.zeros(1, dtype=torch.float32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        err = lib.fused_two_block_l2_probe(0, buf.data_ptr(), buf.numel(), passes, int(rotate),
+                                           blocks, out.data_ptr(), stream)
+        if err:
+            raise RuntimeError(lib.fused_two_block_error_string(err).decode())
+
+    (ms,) = median_ms(torch, [run])
+    return blocks * nbytes * passes / (1e-3 * ms)
 
 
 def main():
@@ -228,6 +273,7 @@ def main():
     print(f"build: {time.perf_counter() - t0:.3f} s for {len(libs)} kernels", flush=True)
     if sorted(libs) != ["fused_spm", "fused_two_block"]:
         raise AssertionError(f"unexpected kernel libraries {sorted(libs)}")
+    smem_limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     for name, lib in sorted(libs.items()):
         print(f"  {name}: {Path(lib._name).name}")
         for line in Path(lib._name).with_suffix(".log").read_text().splitlines():
@@ -253,27 +299,58 @@ def main():
         Model([LeastSquares(1.0, Af, np.zeros(192)), L1Regularizer(ALPHA, 128)],
               [(1, 0, identity(128), identity(128))]))
     assert not full.thin
-    max_err = 0.0
+    max_err, fma_err = 0.0, {}
+    tb_names = ("x0", "x1", "h", "x0_prev")
     for name, sv in (("thin N=512 R=256", solver), ("full N=R=128", full)):
+        chosen = kernels._two_block_tiling(sv.N, sv.U.shape[1], smem_limit)
+        fma = kernels._two_block_tiling(sv.N, sv.U.shape[1], smem_limit, tensor_cores=False)
+        errs = {"chosen": 0.0, "fma": 0.0}
         for k, prox in enumerate(PROX_MODES):
             args = kernel_inputs(torch, sv, prox, seed=10 + k)
-            got = kernels.fused_two_block_chunk(*args, n_iters=21, prox=prox, thin=sv.thin)
             ref = kernels.fused_two_block_chunk_reference(*args, n_iters=21, prox=prox,
                                                           thin=sv.thin)
-            max_err = max(max_err, compare(torch, f"two-block {name}, {prox}, B={B}",
-                                           ("x0", "x1", "h", "x0_prev"), got, ref))
+            got = kernels.fused_two_block_chunk(*args, n_iters=21, prox=prox, thin=sv.thin)
+            errs["chosen"] = max(errs["chosen"], compare(
+                torch, f"two-block {name}, {prox}, B={B}, 21 iters", tb_names, got, ref))
+            # The FMA kernel on the same inputs, for the tensor-core route's
+            # error beside it.
+            got = kernels._two_block_launch(args, 21, prox, sv.thin, fma)
+            errs["fma"] = max(errs["fma"], compare(
+                torch, f"two-block {name}, {prox}, FMA kernel, 21 iters", tb_names, got, ref))
+        if chosen.tensor_cores:
+            check_ratio(f"two-block {name}, the wrapper chooses {tuple(chosen)}", "two-block",
+                        errs["chosen"], errs["fma"])
+        max_err = max(max_err, errs["chosen"])
+        fma_err[name] = errs["fma"]
+    # x0_prev comes from the iteration before the last: the short chunks.
+    args = kernel_inputs(torch, solver, "l1", seed=14)
+    for n_iters in (0, 1, 2, 3):
+        got = kernels.fused_two_block_chunk(*args, n_iters=n_iters, prox="l1", thin=True)
+        ref = kernels.fused_two_block_chunk_reference(*args, n_iters=n_iters, prox="l1",
+                                                      thin=True)
+        max_err = max(max_err, compare(
+            torch, f"two-block thin N=512 R=256, l1, B={B}, {n_iters} iters", tb_names, got,
+            ref))
 
     sr, gr, pr_sum, pr_w, _, _ = synthetic_spm_data(nl=12, nw=25)
     ragged = FusedSpMSolver(spm_model(sr, gr, pr_sum, pr_w, alpha_l1=SPM_ALPHA))
     gr_b = gr[None, :] + 1e-4 * np.random.RandomState(0).randn(37, gr.size)
     spm_names = ("x0", "x1", "x2", "h10", "h20", "x0_prev")
-    spm_err = 0.0
+    spm_err, spm_fma_err = 0.0, 0.0
     for what, sv, data in ((f"SpM nl={NL} nw={NW} B={B}", spm, gs),
                            ("SpM nl=12 nw=25 B=37", ragged, gr_b)):
         args = spm_kernel_inputs(torch, sv, data, seed=20)
+        shape = (data.shape[0], sv.nl, sv.nw)
+        chosen = kernels._spm_tiling(libs["fused_spm"], 0, *shape)
+        fma = kernels._spm_tiling(libs["fused_spm"], 0, *shape, tensor_cores=False)
         got = kernels.fused_spm_chunk(*args, n_iters=21)
         ref = kernels.fused_spm_chunk_reference(*args, n_iters=21)
-        spm_err = max(spm_err, compare(torch, what, spm_names, got, ref))
+        err = compare(torch, what + ", 21 iters", spm_names, got, ref)
+        got = kernels._spm_launch(args, 21, fma)
+        err_fma = compare(torch, what + ", FMA kernel, 21 iters", spm_names, got, ref)
+        if chosen[0] == 0:
+            check_ratio(f"{what}, the wrapper chooses {chosen}", "SpM", err, err_fma)
+        spm_err, spm_fma_err = max(spm_err, err), max(spm_fma_err, err_fma)
 
     # 3a. the basis-pursuit slice through the kernel, then through the plain version
     ys_dev = torch.as_tensor(ys, dtype=torch.float32, device="cuda")
@@ -365,11 +442,21 @@ def main():
     run_kernel = lambda: kernels.fused_two_block_chunk(*args, **chunk)
     run_plain = lambda: kernels.fused_two_block_chunk_reference(*args, **chunk)
     ms, plain_ms = median_ms(torch, [run_kernel, run_plain])
-    bound, bound_by = bound_ms(100 * B * (4 * N * M + 10 * N), args + run_kernel())
+    tiling = kernels._two_block_tiling(N, M, smem_limit)
+    flops = 100 * B * (4 * N * M + 10 * N)
+    gemm_flops, other_flops = 100 * B * 4 * N * M, 100 * B * 10 * N
+    fma_bound, _ = bound_ms(flops / PEAK_F32_FLOPS, args + run_kernel())
+    if tiling.tensor_cores:
+        # Split TF32 does every product three times, at the tensor cores' rate.
+        bound, bound_by = bound_ms(3 * gemm_flops / PEAK_TF32_FLOPS
+                                   + other_flops / PEAK_F32_FLOPS, args + run_kernel())
+    else:
+        bound, bound_by = fma_bound, "operations"
     t_kernel, t_plain = median_wall(torch, [solve, lambda: plain_chunk_solve(plain_chunk, solve)])
     (t_opt,) = median_wall(torch, [opt_run])
-    print(f"[{card}] one chunk (B={B}, N={N}, R={M}, 100 iters, l1, thin): "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({bound_by})")
+    print(f"[{card}] one chunk (B={B}, N={N}, R={M}, 100 iters, l1, thin), tiling "
+          f"{tuple(tiling)}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
+          f"({bound_by}; as f32 FMA {fma_bound:.3f} ms)")
     print(f"[{card}] fused solve (B={B}, {NITER} iters): kernel {t_kernel * 1e3:.1f} ms = "
           f"{B * NITER / t_kernel:.0f} inst-iters/s, plain {t_plain * 1e3:.1f} ms = "
           f"{B * NITER / t_plain:.0f} inst-iters/s")
@@ -383,15 +470,28 @@ def main():
     ones = torch.ones(B, dtype=torch.float32, device="cuda")
     acy = gs_dev @ spm.Ac.T
     run_factors = lambda: spm._factors(mu[:, 0], mu[:, 1], ones, acy)
-    spm_ms, spm_plain_ms, factors_ms = median_ms(torch, [run_spm, run_spm_plain, run_factors])
+    spm_fma = kernels._spm_tiling(libs["fused_spm"], 0, B, NL, NW, tensor_cores=False)
+    run_spm_fma = lambda: kernels._spm_launch(sargs, 100, spm_fma)   # the design it replaced
+    spm_ms, spm_plain_ms, factors_ms, spm_prev_ms = median_ms(
+        torch, [run_spm, run_spm_plain, run_factors, run_spm_fma])
     spm_ops = 100 * B * (4 * NL * NW + 2 * NL * NL + 10 * (NL + NW))
-    spm_bound, spm_bound_by = bound_ms(spm_ops, sargs + run_spm())
+    spm_tiling = kernels._spm_tiling(libs["fused_spm"], 0, B, NL, NW)
+    spm_fma_bound, _ = bound_ms(spm_ops / PEAK_F32_FLOPS, sargs + run_spm())
+    if spm_tiling[0] == 0:
+        # The two products with P in split TF32 on the tensor cores, the rest f32 FMA.
+        p_flops = 100 * B * 4 * NL * NW
+        spm_bound, spm_bound_by = bound_ms(3 * p_flops / PEAK_TF32_FLOPS
+                                           + (spm_ops - p_flops) / PEAK_F32_FLOPS,
+                                           sargs + run_spm())
+    else:
+        spm_bound, spm_bound_by = spm_fma_bound, "operations"
     ts_kernel, ts_plain = median_wall(
         torch, [spm_solve, lambda: plain_chunk_solve(spm_plain_chunk, spm_solve)])
     (ts_opt,) = median_wall(torch, [sopt_run])
     print(f"[{card}] one SpM chunk (B={B}, nl={NL}, nw={NW}, 100 iters): kernel "
-          f"{spm_ms:.3f} ms = {spm_ops / spm_ms / 1e9:.2f} TFLOP/s, plain {spm_plain_ms:.3f} ms, "
-          f"bound {spm_bound:.3f} ms ({spm_bound_by})")
+          f"{spm_ms:.3f} ms = {spm_ops / spm_ms / 1e9:.2f} TFLOP/s (the FMA kernel it replaced, "
+          f"tiling {spm_fma}: {spm_prev_ms:.3f} ms), plain {spm_plain_ms:.3f} ms, bound {spm_bound:.3f} ms "
+          f"({spm_bound_by}; as f32 FMA {spm_fma_bound:.3f} ms)")
     print(f"[{card}] one SpM factor refresh (B={B}, nl={NL}): {factors_ms:.3f} ms")
     print(f"[{card}] fused SpM solve (B={B}, {SPM_NITER} iters): kernel "
           f"{ts_kernel * 1e3:.1f} ms = {B * SPM_NITER / ts_kernel:.0f} inst-iters/s, plain "
@@ -400,12 +500,40 @@ def main():
           f"{ts_opt * 1e3:.1f} ms")
 
     if "--variants" in sys.argv:
+        T = kernels.TwoBlockTiling
+        sweep = [tiling, T(32, 32, 3, 1, 1), T(32, 32, 2, 2, 1), T(32, 16, 6, 2, 1),
+                 T(32, 16, 4, 2, 1), T(32, 32, 3, 4, 1),
+                 T(32, 32, 2, 2, 0), T(32, 32, 2, 1, 0), T(32, 32, 2, 4, 0),
+                 T(16, 16, 4, 1, 0), T(16, 16, 4, 2, 0), T(8, 16, 4, 1, 0)]
+        times = median_ms(torch, [lambda t=t: kernels._two_block_launch(args, 100, "l1", True, t)
+                                  for t in sweep])
+        print(f"[{card}] two-block chunk tilings (lanes per block, k-tile rows, stages, "
+              f"cluster, tensor cores), 100 iters; the wrapper chooses {tuple(tiling)}:")
+        for t, t_ms in zip(sweep, times):
+            print(f"  {tuple(t)}: {t_ms:.3f} ms")
+        gemms = lambda: ((args[3] @ args[0]) @ args[1])
+        (gemm_ms,) = median_ms(torch, [gemms])
+        print(f"[{card}] the chunk's two products alone as f32 torch.matmul, 100 times: "
+              f"{100 * gemm_ms:.3f} ms = {4e-9 * B * N * M / gemm_ms:.1f} TFLOP/s "
+              f"(allow_tf32 {torch.backends.cuda.matmul.allow_tf32})")
+        print(f"[{card}] L2 read rate, one block per multiprocessor reading one buffer 50 "
+              "times (all from the same offset / each from another):")
+        rates = {}
+        for nbytes in (8 * N * M, 16 << 20):
+            rates[nbytes] = [l2_read_rate(torch, libs["fused_two_block"], nbytes, r)
+                             for r in (0, 1)]
+            print(f"  {nbytes / 2**20:.0f} MiB: {rates[nbytes][0] / 1e12:.3f} / "
+                  f"{rates[nbytes][1] / 1e12:.3f} TB/s")
+        passes = -(-B // tiling.lanes) // tiling.cluster
+        print(f"  the chunk reads U and Ut ({8 * N * M / 2**20:.0f} MiB) {passes} times per "
+              f"iteration = {100 * passes * 8 * N * M / 1e9:.2f} GB per chunk = "
+              f"{100 * passes * 8 * N * M / rates[8 * N * M][0] * 1e3:.3f} ms at the first rate")
         chosen = kernels._spm_tiling(libs["fused_spm"], 0, B, NL, NW)
         print(f"[{card}] SpM chunk tilings (lanes per warp, warps per block), 100 iters; "
               f"the wrapper chooses {chosen}:")
-        for tiling in ((4, 8), (4, 4), (2, 16), (2, 12), (2, 8), (1, 16), (1, 8)):
-            (t_ms,) = median_ms(torch, [lambda: kernels._spm_launch(sargs, 100, tiling)])
-            print(f"  {tiling}: {t_ms:.3f} ms")
+        for other in ((0, 8), (4, 8), (4, 4), (2, 16), (2, 12), (2, 8), (1, 16), (1, 8)):
+            (t_ms,) = median_ms(torch, [lambda: kernels._spm_launch(sargs, 100, other)])
+            print(f"  {other}: {t_ms:.3f} ms")
         from admmsolver_tpu_torch.models.objectivefunc import inv_hpd
         pen = (spm.AcA + mu[:, :1, None] * torch.eye(NL, device="cuda")
                + mu[:, 1:, None] * spm.W).contiguous()
@@ -417,21 +545,27 @@ def main():
         for (name, _), t_ms in zip(routes.items(), median_ms(torch, list(routes.values()))):
             print(f"  {name}: {t_ms:.3f} ms")
     if "--profile" in sys.argv:
-        profile_spm_solve(torch, spm_solve)
+        profile_solve(torch, "basis-pursuit solve", "fused_two_block", solve)
+        profile_solve(torch, "SpM solve", "fused_spm", spm_solve)
 
     # No single PyTorch call computes either chunk, so there is no library time.
+    # prev_ms is the replaced design's time where this run still builds and
+    # times it (the SpM FMA kernel); the two-block kernel's is no longer built.
     print(json.dumps({"kernels": [
         {"name": "fused_two_block_chunk", "route": "cuda",
          "source": "admmsolver_tpu_torch/csrc/fused_two_block.cu",
          "replaces": "admmsolver_tpu/ops/kernels.py:116",
          "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-         "bound_ms": bound, "bound_by": bound_by, "library_ms": None},
+         "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+         "fma_bound_ms": fma_bound,
+         "fma_max_abs_err": max(fma_err.values())},
         {"name": "fused_spm_chunk", "route": "cuda",
          "source": "admmsolver_tpu_torch/csrc/fused_spm.cu",
          "replaces": "admmsolver_tpu/ops/kernels.py:268",
          "launches": spm_launches, "max_abs_err": spm_err, "ms": spm_ms,
          "plain_ms": spm_plain_ms, "bound_ms": spm_bound, "bound_by": spm_bound_by,
-         "library_ms": None}]}))
+         "library_ms": None, "prev_ms": spm_prev_ms, "fma_bound_ms": spm_fma_bound,
+         "fma_max_abs_err": spm_fma_err}]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -32,11 +32,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(thin, prox, B, N, device, seed=3):
-    """Chunk inputs from the thin basis of a wide A or the full eigenbasis
-    of a tall one, with unit-scale random data and state."""
+def _inputs(thin, prox, B, N, device, seed=3, R=None):
+    """Chunk inputs from the thin basis of a wide A (rank ``R``, N // 2 by
+    default) or the full eigenbasis of a tall one, with unit-scale random
+    data and state."""
     rng = np.random.RandomState(seed)
-    A = rng.randn(N // 2 if thin else N + 40, N)
+    A = rng.randn((R or N // 2) if thin else N + 40, N)
     if thin:
         lam, W = np.linalg.eigh(A @ A.T)
         U = A.T @ W / np.sqrt(lam)
@@ -50,21 +51,112 @@ def _inputs(thin, prox, B, N, device, seed=3):
             for a in (U, U.T, dinv, acy, mu, thr, x0, x1, h)]
 
 
+def _check_chunk(args, n_iters, prox, thin):
+    launches = fused_two_block_chunk.launches
+    got = fused_two_block_chunk(*args, n_iters=n_iters, prox=prox, thin=thin)
+    want = fused_two_block_chunk_reference(*args, n_iters=n_iters, prox=prox, thin=thin)
+    torch.cuda.synchronize()
+    assert fused_two_block_chunk.launches == launches + 1
+    for g, w in zip(got, want):
+        assert g.is_cuda and g.shape == w.shape
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0, atol=ATOL)
+
+
 @pytest.mark.parametrize("thin", [True, False], ids=["thin", "full"])
 @pytest.mark.parametrize("prox", PROX)
 @pytest.mark.parametrize("B,N", [(37, 100), (64, 512)])
 def test_cuda_kernel_matches_plain_version(cuda, prox, thin, B, N):
     """Ragged B, N and R (no multiple of the lane tile or of 128), and the
     bench width N=512."""
-    args = _inputs(thin, prox, B, N, cuda)
-    launches = fused_two_block_chunk.launches
-    got = fused_two_block_chunk(*args, n_iters=21, prox=prox, thin=thin)
-    want = fused_two_block_chunk_reference(*args, n_iters=21, prox=prox, thin=thin)
+    _check_chunk(_inputs(thin, prox, B, N, cuda), 21, prox, thin)
+
+
+@pytest.mark.parametrize("n_iters", [1, 2, 21])
+@pytest.mark.parametrize("B,N,R", [
+    (37, 512, None),    # B below two lane tiles: the cluster's second block is empty
+    (129, 512, None),   # B one past a multiple of the lane tile and of the cluster
+    (129, 132, 77),     # R > N/2, N and R ragged against the k-tile; R odd: no bulk copies
+    (70, 600, None),    # 32 lanes do not fit: the FMA kernel at 16 lanes
+])
+def test_cuda_kernel_short_chunks_and_ragged_shapes(cuda, n_iters, B, N, R):
+    """x0_prev leaves the loop one iteration before the last, or is the
+    input x0 when there is one iteration only."""
+    _check_chunk(_inputs(True, "l1", B, N, cuda, R=R), n_iters, "l1", True)
+
+
+TILINGS_TC = [(32, 32, 2, 1, 1), (32, 32, 2, 2, 1), (32, 16, 4, 2, 1), (32, 16, 2, 4, 1)]
+TILINGS_FMA = [(32, 32, 2, 2, 0), (32, 32, 2, 1, 0), (16, 16, 4, 2, 0), (16, 16, 2, 1, 0),
+               (8, 16, 4, 1, 0), (4, 16, 2, 4, 0), (2, 16, 4, 1, 0), (1, 16, 4, 1, 0)]
+
+
+@pytest.mark.parametrize("tilings", [TILINGS_TC, TILINGS_FMA], ids=["tensor-cores", "fma"])
+def test_cuda_kernel_tilings_agree(cuda, tilings):
+    """Lanes per block, k-tile depth, stages and cluster size do not change
+    a bit: every sum runs over k in the same order.  The
+    two routes (split TF32 on the tensor cores, f32 FMA) differ by rounding
+    only."""
+    from admmsolver_tpu_torch.ops.kernels import TwoBlockTiling, _two_block_launch
+
+    args = _inputs(True, "l1_even", 129, 512, cuda, seed=5)
+    outs = [_two_block_launch(args, 5, "l1_even", True, TwoBlockTiling(*t)) for t in tilings]
     torch.cuda.synchronize()
-    assert fused_two_block_chunk.launches == launches + 1
-    for g, w in zip(got, want):
-        assert g.is_cuda and g.shape == w.shape
+    for out in outs[1:]:
+        for g, w in zip(out, outs[0]):
+            assert torch.equal(g, w)
+    other = TILINGS_FMA[0] if tilings is TILINGS_TC else TILINGS_TC[0]
+    ref = _two_block_launch(args, 5, "l1_even", True, TwoBlockTiling(*other))
+    for g, w in zip(outs[0], ref):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0, atol=ATOL)
+
+
+def test_cuda_kernel_shared_memory_matches_the_wrapper(cuda):
+    """The wrapper sizes a block's shared memory with the kernel's own
+    formula, and a tiling the kernel is not built for fails at the launch."""
+    from admmsolver_tpu_torch.ops import _build
+    from admmsolver_tpu_torch.ops.kernels import (TwoBlockTiling, _two_block_launch,
+                                                  _two_block_smem_bytes)
+
+    lib = _build.load_libraries()["fused_two_block"]
+    for tb, N, R, kt, stages, tc in [(32, 512, 256, 32, 2, 1), (32, 512, 256, 32, 2, 0),
+                                     (16, 600, 300, 16, 3, 0), (1, 33, 7, 16, 2, 0)]:
+        assert lib.fused_two_block_smem_bytes(tb, N, R, kt, stages, tc) == \
+            _two_block_smem_bytes(tb, N, R, kt, stages, tc)
+    args = _inputs(True, "l1", 8, 64, cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _two_block_launch(args, 1, "l1", True, TwoBlockTiling(24, 16, 2, 1, 0))
+
+
+@pytest.mark.parametrize("thin", [True, False], ids=["thin", "full"])
+def test_cuda_kernel_large_magnitudes_and_non_finite_lanes(cuda, thin):
+    """The tensor-core kernel splits operands by their bit patterns and
+    divides by mu through 1/mu: state scaled by 2^100 (an exact scaling of
+    the nonneg iteration) gives the scaled result, and a lane that holds an
+    inf or a NaN comes out non-finite where the plain version's does, with
+    every other lane as if it were not there."""
+    B, N, scale = 70, 128, 2.0 ** 100
+    args = _inputs(thin, "nonneg", B, N, cuda, seed=9)
+    want = fused_two_block_chunk_reference(*args, n_iters=21, prox="nonneg", thin=thin)
+    big = args[:3] + [args[3] * scale] + args[4:6] + [a * scale for a in args[6:]]
+    got = fused_two_block_chunk(*big, n_iters=21, prox="nonneg", thin=thin)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        np.testing.assert_allclose((g / scale).cpu().numpy(), w.cpu().numpy(), rtol=0, atol=ATOL)
+
+    bad = [a.clone() for a in args]
+    bad[3][5, 7] = float("inf")     # acy of lane 5
+    bad[8][40, 0] = float("nan")    # h of lane 40
+    bad[6][66, 3] = float("-inf")   # x0 of lane 66: read by no iteration
+    got = fused_two_block_chunk(*bad, n_iters=3, prox="nonneg", thin=thin)
+    ref = fused_two_block_chunk_reference(*bad, n_iters=3, prox="nonneg", thin=thin)
+    clean = fused_two_block_chunk_reference(*args, n_iters=3, prox="nonneg", thin=thin)
+    torch.cuda.synchronize()
+    for g, r, c in zip(got, ref, clean):
+        lanes = torch.isfinite(g).all(dim=1)
+        assert torch.equal(lanes, torch.isfinite(r).all(dim=1))
+        assert lanes.sum().item() == B - 2
+        np.testing.assert_allclose(g[lanes].cpu().numpy(), c[lanes].cpu().numpy(),
+                                   rtol=0, atol=ATOL)
 
 
 def test_cuda_kernel_zero_iterations_and_checks(cuda):
@@ -146,7 +238,7 @@ def _spm_inputs(nl, nw, B, device, seed=3):
 
 
 @pytest.mark.parametrize("nl,nw,B", [(12, 25, 37), (30, 201, 64), (33, 70, 5), (2, 3, 3),
-                                     (40, 130, 300)])
+                                     (40, 130, 300), (32, 256, 33), (17, 57, 70)])
 def test_cuda_spm_kernel_matches_plain_version(cuda, nl, nw, B):
     """Ragged nl, nw and B (no multiple of 4, of the warp or of the lanes
     per block), nl above one warp, and the full width nl=30, nw=201."""
@@ -161,19 +253,23 @@ def test_cuda_spm_kernel_matches_plain_version(cuda, nl, nw, B):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("tiling", [(1, 1), (1, 5), (2, 3), (4, 2), (4, 16)])
+@pytest.mark.parametrize("tiling", [(1, 1), (1, 5), (2, 3), (4, 2), (4, 16), (0, 8)])
 def test_cuda_spm_kernel_tilings_agree(cuda, tiling):
-    """Every instantiation (lanes per warp) and block size gives the result
-    of the wrapper's own choice, bit for bit: a lane's sums do not depend on
-    its neighbours."""
+    """Every instantiation of the FMA kernel (lanes per warp) and block size
+    gives the same bits: a lane's sums do not depend on its neighbours.  The
+    tensor-core kernel, (0, 8), sums in another order and in split TF32, and
+    agrees within the kernel tolerance."""
     from admmsolver_tpu_torch.ops.kernels import _spm_launch
 
     args = _spm_inputs(12, 25, 37, cuda)
-    want = fused_spm_chunk(*args, n_iters=7)
+    want = _spm_launch(args, 7, (2, 16))
     got = _spm_launch(args, 7, tiling)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
-        assert torch.equal(g, w)
+        if tiling[0]:
+            assert torch.equal(g, w)
+        else:
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0, atol=ATOL)
 
 
 def test_cuda_spm_kernel_zero_iterations_and_checks(cuda):

@@ -83,3 +83,69 @@ def test_chunk_rejects_bad_arguments():
         fused_two_block_chunk(*args[:2], args[2][:, :-1], *args[3:], n_iters=1)
     with pytest.raises(ValueError, match="n_iters"):
         fused_two_block_chunk(*args, n_iters=-1)
+
+
+@pytest.mark.parametrize("thin", [True, False], ids=["thin", "full"])
+@pytest.mark.parametrize("n_iters", [0, 1, 2, 3])
+def test_short_chunks_match_jax_kernel(n_iters, thin):
+    """The chunks in which x0_prev is the input x0 (0 and 1 iterations) or
+    leaves the loop one iteration before its end (2 and 3), x0_prev
+    included."""
+    args = _inputs(thin, "l1", seed=1)
+    want = jax_chunk(*map(jnp.asarray, args), n_iters=n_iters, prox="l1",
+                     tile_b=8, interpret=True, thin=thin)
+    got = fused_two_block_chunk(*map(torch.as_tensor, args), n_iters=n_iters,
+                                prox="l1", thin=thin)
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=ATOL)
+    if n_iters <= 1:
+        assert np.array_equal(got[3].numpy(), args[6])
+
+
+H100_SMEM = 232448  # opt-in shared memory per block of an H100, in bytes
+
+
+@pytest.mark.parametrize("N,R,want", [
+    # the bench shape: 32 lanes on the tensor cores, three 32-row k-tiles, pairs of blocks
+    (512, 256, (32, 32, 3, 2, 1)),
+    # a small full basis leaves room for the deepest ring
+    (128, 128, (32, 32, 4, 2, 1)),
+    # R not a multiple of 4: no bulk copies, hence no cluster
+    (100, 50, (32, 32, 4, 1, 1)),
+    # 32 lanes fit with shallower k-tiles only
+    (1024, 512, (32, 16, 2, 2, 1)),
+    # 32 lanes do not fit: the FMA kernel at fewer lanes
+    (2048, 2048, (8, 16, 2, 2, 0)),
+    (20000, 1000, (1, 16, 4, 2, 0)),
+])
+def test_two_block_tiling_choice(N, R, want):
+    """The wrapper's choice needs no built library: lanes per block, k-tile
+    depth, stages, cluster and route from N, R and a shared-memory limit."""
+    from admmsolver_tpu_torch.ops.kernels import (TwoBlockTiling, _two_block_smem_bytes,
+                                                  _two_block_tiling)
+
+    got = _two_block_tiling(N, R, H100_SMEM)
+    assert got == TwoBlockTiling(*want)
+    assert _two_block_smem_bytes(got.lanes, N, R, got.kt, got.stages,
+                                 got.tensor_cores) <= H100_SMEM
+    # one more stage, or the next larger lane tile, would not fit
+    if got.stages < 4:
+        assert _two_block_smem_bytes(got.lanes, N, R, got.kt, got.stages + 1,
+                                     got.tensor_cores) > H100_SMEM
+    if got.lanes < 32:
+        assert _two_block_smem_bytes(2 * got.lanes, N, R, 16, 2,
+                                     int(2 * got.lanes == 32)) > H100_SMEM
+    assert _two_block_tiling(N, R, H100_SMEM, aligned=False).cluster == 1
+
+
+def test_two_block_tiling_limits():
+    from admmsolver_tpu_torch.ops.kernels import _two_block_tiling
+
+    # half the shared memory: half the lanes at the bench shape, on the FMA kernel
+    assert _two_block_tiling(512, 256, H100_SMEM // 2)[::4] == (16, 0)
+    # the FMA kernel at 32 lanes is built for 32-row k-tiles only
+    assert _two_block_tiling(512, 256, H100_SMEM, tensor_cores=False) == (32, 32, 2, 2, 0)
+    assert _two_block_tiling(1024, 512, H100_SMEM, tensor_cores=False)[::4] == (16, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        _two_block_tiling(40000, 40000, H100_SMEM)
