@@ -5,7 +5,9 @@ out file for file like it and keeping its public names.  It covers the
 batched basis-pursuit path and the 3-block SpM analytic-continuation path:
 the structured operators, least squares (plain and equality-constrained) /
 L1 / L2 / nonnegativity objectives, the model constructors, the single-instance
-engine (:class:`SimpleOptimizer`), and the fused solvers
+engine (:class:`SimpleOptimizer`), the batched engine
+(:class:`~admmsolver_tpu_torch.parallel.BatchedSolver`: plain, mixed-precision,
+path and scan solves), and the fused solvers
 (:class:`~admmsolver_tpu_torch.parallel.FusedTwoBlockSolver`,
 :class:`~admmsolver_tpu_torch.parallel.FusedSpMSolver`) whose chunk kernels
 are hand-written CUDA kernels for Hopper (sm_90a).  Solvers run on ``cuda``
@@ -37,6 +39,7 @@ from .models.objectivefunc import (
 from .models.problem import EqualityCondition, Model, Problem
 from .optimizer import SimpleOptimizer
 from .config import ADMMConfig
+from .parallel.batch import BatchedSolver, BatchResult
 from .parallel.fused import FusedTwoBlockSolver, FusedResult
 from .parallel.fused_spm import FusedSpMSolver, FusedSpMResult
 from .ops.kernels import fused_two_block_chunk, fused_spm_chunk

@@ -29,3 +29,24 @@ class ADMMConfig:
     #: exactly the reference sweep.  Single-pair (2-block) models only;
     #: the engine raises otherwise.
     relax: float = 1.0
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ADMMConfig":
+        unknown = set(d) - {f.name for f in dataclasses.fields(cls)}
+        if unknown:
+            raise ValueError(f"unknown ADMMConfig keys: {sorted(unknown)}")
+        return cls(**d)
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "ADMMConfig":
+        """Load knobs from a YAML file (benchmark-harness convenience;
+        the library itself never reads files).  Requires ``pyyaml``."""
+        try:
+            import yaml
+        except ImportError as e:  # pragma: no cover - env-dependent
+            raise ImportError(
+                "ADMMConfig.from_yaml needs pyyaml; install the yaml "
+                "extra: pip install admmsolver_tpu[yaml]") from e
+
+        with open(path) as f:
+            return cls.from_dict(yaml.safe_load(f) or {})

@@ -3,11 +3,12 @@
 The port never imports ``jax``: :func:`from_jax_model` reads a
 ``admmsolver_tpu`` model's arrays through ``np.asarray`` and dispatches on
 class names, and :func:`state_from_numpy` takes a JAX result already turned
-into numpy.
+into numpy.  :func:`batch_result_to_numpy` and :func:`batch_state_from_numpy`
+carry a batched solve's state from one package to the other.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -19,7 +20,8 @@ from .models.problem import Model
 from .ops.linop import (DenseMatrix, DiagonalMatrix, MatrixBase,
                         ScaledIdentityMatrix)
 
-__all__ = ["from_jax_model", "state_from_numpy"]
+__all__ = ["from_jax_model", "state_from_numpy", "batch_result_to_numpy",
+           "batch_state_from_numpy"]
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -86,3 +88,26 @@ def state_from_numpy(x0, x1, h, mu, device="cuda") -> Dict[str, torch.Tensor]:
     f32 = dict(device=device, dtype=torch.float32)
     return {"x0": _tensor(x0, **f32), "x1": _tensor(x1, **f32),
             "h0": _tensor(h, **f32), "mu0": _tensor(mu, **f32)}
+
+
+def batch_result_to_numpy(res) -> Dict[str, object]:
+    """A :class:`~admmsolver_tpu_torch.parallel.BatchResult` as numpy arrays
+    on the host: ``x`` and ``h`` tuples of arrays, the other fields arrays.
+    ``x``, ``h`` and ``mu`` warm-start either package's ``BatchedSolver.solve``
+    (``x0=``, ``h0=``, ``mu0=``)."""
+    host = lambda a: a.detach().cpu().numpy()
+    return {"x": tuple(map(host, res.x)), "h": tuple(map(host, res.h)),
+            "mu": host(res.mu), "iterations": host(res.iterations),
+            "converged": host(res.converged),
+            "primal_residual": host(res.primal_residual),
+            "dual_residual": host(res.dual_residual)}
+
+
+def batch_state_from_numpy(x: Sequence, h: Sequence, mu, device="cuda") -> Dict[str, object]:
+    """Warm-start keyword arguments for ``BatchedSolver.solve`` from the
+    numpy arrays of a JAX ``BatchResult`` (``x``: (B, n_k) per block, ``h``:
+    (B, s_p) per pair, ``mu``: (B, npairs)), at their own dtype on
+    ``device``: ``solve(..., **batch_state_from_numpy(...))``."""
+    return {"x0": tuple(_tensor(a, device, None) for a in x),
+            "h0": tuple(_tensor(a, device, None) for a in h),
+            "mu0": _tensor(mu, device, None)}

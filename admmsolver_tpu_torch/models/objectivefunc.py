@@ -17,6 +17,13 @@ interfaces:
   ``prox_with_factors(factors, h)``; separable objectives expose
   ``prox_diag(h, mu_diag)``.
 
+The batched engine runs the same protocol with one problem instance per
+row: ``h`` is ``(B, n)``, the penalty a :class:`~admmsolver_tpu_torch.ops.
+linop.LaneOperators`, and the call passes ``batched=True``.  Per-instance
+values come from :meth:`ObjectiveFunctionBase.clone_with`, whose clones hold
+*batched* leaves (``alpha`` ``(B,)``, ``Acy`` ``(B, N)``, ``A`` ``(B, M, N)``)
+where the JAX package maps unbatched clones over the batch.
+
 The spectral precompute stays in numpy (``np.linalg.eigh``), exactly as in
 the JAX package, so both packages iterate on the same eigenbasis.
 """
@@ -31,6 +38,7 @@ import torch
 from ..ops.linop import (
     DenseMatrix,
     DiagonalMatrix,
+    LaneOperators,
     MatrixBase,
     ScaledIdentityMatrix,
     _asarray,
@@ -80,10 +88,13 @@ def inv_hpd(a: torch.Tensor) -> torch.Tensor:
     return Linv.mH @ Linv
 
 
-def _inv_hpd(m: MatrixBase) -> MatrixBase:
-    """Inverse of a Hermitian positive-definite operator: dense operators
-    through :func:`inv_hpd`, diagonal and scaled-identity ones in closed
-    form."""
+def _inv_hpd(m):
+    """Inverse of a Hermitian positive-definite operator (or of one per
+    lane): dense operators through :func:`inv_hpd`, diagonal and
+    scaled-identity ones in closed form."""
+    if isinstance(m, LaneOperators):
+        return LaneOperators(m.kind, inv_hpd(m.data) if m.kind == "dense" else 1.0 / m.data,
+                             m.n)
     if isinstance(m, DenseMatrix):
         return DenseMatrix(inv_hpd(m.data))
     if isinstance(m, (DiagonalMatrix, ScaledIdentityMatrix)):
@@ -93,6 +104,14 @@ def _inv_hpd(m: MatrixBase) -> MatrixBase:
 
 def _real_if_complex(h: torch.Tensor) -> torch.Tensor:
     return h.real if h.is_complex() else h
+
+
+def _lanes(c, like: torch.Tensor):
+    """A per-lane ``(B,)`` coefficient as a ``(B, 1)`` column at ``like``'s
+    precision, to scale ``(B, n)`` rows; a scalar passes unchanged."""
+    if isinstance(c, torch.Tensor) and c.ndim == 1:
+        return _match_precision(c, like)[:, None]
+    return c
 
 
 def _mu_diagonal(mu: MatrixBase):
@@ -112,6 +131,10 @@ class ObjectiveFunctionBase:
     is_quadratic = False
     #: True when the prox consumes only the diagonal of mu.
     needs_diagonal_mu = False
+    #: Per-instance parameters the batched runtime may override
+    #: (:mod:`admmsolver_tpu_torch.parallel.batch`); the structure (C, E)
+    #: stays shared across the batch.
+    batch_fields: tuple = ()
     #: When set to a group size ``g``, the prox requires the effective
     #: diagonal penalty to be constant within each group of ``g`` entries;
     #: :class:`~admmsolver_tpu_torch.optimizer.ADMMPlan` checks it.
@@ -123,6 +146,29 @@ class ObjectiveFunctionBase:
     @property
     def size_x(self) -> int:
         return self._size_x
+
+    def clone_with(self, **updates):
+        """Shallow copy with per-instance parameters replaced by batched
+        ones (leading axis B).
+
+        Used by the batched runtime: heavy derived operators (A†A, the
+        eigenbasis, couplings) are shared by reference; only the
+        per-instance values are swapped.  Unknown fields raise.
+        """
+        if updates:
+            unknown = set(updates) - set(self.batch_fields)
+            if unknown:
+                raise ValueError(
+                    f"{type(self).__name__} has no batchable fields "
+                    f"{sorted(unknown)}; available: {self.batch_fields}")
+        obj = copy.copy(self)
+        obj._apply_updates(updates)
+        return obj
+
+    def _apply_updates(self, updates: dict) -> None:
+        if updates:
+            raise ValueError(
+                f"{type(self).__name__} accepts no batch overrides")
 
     def to(self, device) -> "ObjectiveFunctionBase":
         """A copy whose tensors and operators live on ``device``."""
@@ -143,10 +189,10 @@ class ObjectiveFunctionBase:
     def make_factors(self, mu_op: MatrixBase):
         return ()
 
-    def prox_with_factors(self, factors, h):
+    def prox_with_factors(self, factors, h, batched: bool = False):
         raise NotImplementedError
 
-    def prox_diag(self, h, mu_diag):
+    def prox_diag(self, h, mu_diag, batched: bool = False):
         raise NotImplementedError
 
 
@@ -163,6 +209,12 @@ class _ShiftedQuadratic:
       − c^{-1}] (U_r† v) + v / c`` with a thin (N, r) basis.
     * **cached inverse** — anything else: Cholesky inverse recomputed when
       the penalty changes (:func:`_inv_hpd`).
+
+    Batched, the penalty is a :class:`LaneOperators`: per-lane shifts
+    ``(B,)`` on the shared eigenbasis, or per-lane inverses.  Which basis a
+    shift takes is then decided without reading its values (as the JAX
+    package decides it at trace time): thin wherever there is one, full
+    only for a block without couplings.
     """
 
     _alpha: object
@@ -175,6 +227,12 @@ class _ShiftedQuadratic:
         obj._B_cache = (None, None)
         obj._basis_cache = {}
         return obj
+
+    def clone_with(self, **updates):
+        # Decompose on the template, so that its clones share the eigenbasis.
+        if "A" not in updates and self._spectral_ok() and self._get_eig_thin() is False:
+            self._get_eig()
+        return ObjectiveFunctionBase.clone_with(self, **updates)
 
     def _spectral_ok(self) -> bool:
         return isinstance(self._AcA, DenseMatrix)
@@ -234,13 +292,45 @@ class _ShiftedQuadratic:
             self._B_cache = (key, self.make_factors(mu))
         return self._B_cache[1]
 
-    def make_factors(self, mu_op: MatrixBase):
+    def make_factors(self, mu_op):
         """B = (alpha A†A + mu)^{-1}: spectral shift or explicit inverse."""
+        if isinstance(mu_op, LaneOperators):
+            if mu_op.kind == "scalar" and self._spectral_ok():
+                thin = self._get_eig_thin() is not False and not mu_op.known_zero
+                return SpectralShift(mu_op.data, thin)
+            gram = self._AcA if isinstance(self._AcA, LaneOperators) \
+                else LaneOperators.shared(self._AcA)
+            return _inv_hpd(gram.scale(self._alpha) + mu_op)
         if isinstance(mu_op, ScaledIdentityMatrix) and self._spectral_ok():
             shift = _asarray(mu_op.coeff)
             thin = self._get_eig_thin() is not False and bool(torch.any(shift != 0))
             return SpectralShift(shift, thin)
         return _inv_hpd(add(self._AcA * self._alpha, mu_op))
+
+    def _apply_B_rows(self, factors, rhs):
+        """Lane b's B on row b of ``rhs`` (B, n)."""
+        if not isinstance(factors, SpectralShift):
+            return factors.matvec_rows(rhs)
+        lam, U = self._basis(factors.thin, rhs)
+        shift = _match_precision(factors.shift, rhs)[:, None]
+        denom = _lanes(self._alpha, rhs) * lam + shift              # (B, R)
+        w = _mm(rhs, U.conj())
+        if factors.thin:
+            return _mm(w * (1.0 / denom - 1.0 / shift), U.T) + rhs / shift
+        return _mm(w / denom, U.T)
+
+    def _apply_B_cols(self, factors, cols):
+        """Every lane's B on the shared columns ``cols`` (n, k): (B, n, k)."""
+        if not isinstance(factors, SpectralShift):
+            return factors.matmat(cols)
+        lam, U = self._basis(factors.thin, cols)
+        shift = _match_precision(factors.shift, cols)[:, None]
+        denom = _lanes(self._alpha, cols) * lam + shift
+        w = _mm(U.conj().T, cols)                                    # (R, k)
+        if factors.thin:
+            coef = 1.0 / denom - 1.0 / shift
+            return _mm(U, coef[:, :, None] * w) + cols / shift[:, :, None]
+        return _mm(U, w / denom[:, :, None])
 
     def _apply_B(self, factors, rhs):
         if isinstance(factors, SpectralShift):
@@ -261,6 +351,36 @@ class LeastSquares(_ShiftedQuadratic, ObjectiveFunctionBase):
     """``alpha * ||y - A x||_2^2`` (reference ``objectivefunc.py:56-110``)."""
 
     is_quadratic = True
+    batch_fields = ("alpha", "y", "Acy", "A")
+
+    def _apply_updates(self, updates: dict) -> None:
+        if "A" in updates:
+            # One dense operator per lane: no shared eigenbasis, so the
+            # factors are per-lane dense inverses (``_spectral_ok`` sees no
+            # DenseMatrix Gram).
+            A = _asarray(updates["A"])                       # (B, M, N)
+            self._A = A
+            self._Ac = A.mH
+            self._AcA = LaneOperators("dense", self._Ac @ A, A.shape[-1])
+            self._Acy = self._adjoint_rows(self._y)
+            self._eig = None
+            self._eig_thin = None
+            self._basis_cache = {}
+        if "alpha" in updates:
+            self._alpha = updates["alpha"]
+        if "y" in updates:
+            self._y = _asarray(updates["y"])
+            self._Acy = self._adjoint_rows(self._y)
+        if "Acy" in updates:
+            # A†y made once per instance by the batched prologue.
+            self._Acy = updates["Acy"]
+        self._B_cache = (None, None)
+
+    def _adjoint_rows(self, y):
+        """A†y for ``y`` (M,) or one data vector per lane (B, M)."""
+        if isinstance(self._Ac, torch.Tensor):               # per-lane operators
+            return (self._Ac @ _match_precision(y, self._Ac)[..., None])[..., 0]
+        return self._Ac.matvec_rows(y) if y.ndim == 2 else self._Ac @ y
 
     def __init__(self, alpha: float, A: Union[np.ndarray, MatrixBase], y) -> None:
         if A.ndim != 2:
@@ -297,14 +417,24 @@ class LeastSquares(_ShiftedQuadratic, ObjectiveFunctionBase):
         return self.prox_with_factors(self._get_B(mu), h)
 
     # --- factor protocol ----------------------------------------------
-    def prox_with_factors(self, factors, h):
+    def prox_with_factors(self, factors, h, batched: bool = False):
         Acy = _match_precision(self._Acy, h)
+        if batched:
+            return self._apply_B_rows(factors, _lanes(self._alpha, h) * Acy - h)
         return self._apply_B(factors, self._alpha * Acy - h)
 
 
 class ConstrainedLeastSquares(LeastSquares):
     """``alpha * ||y - A x||² s.t. C x = D`` exactly, by Lagrange block
     elimination (reference ``objectivefunc.py:113-157``)."""
+
+    batch_fields = ("alpha", "y", "Acy", "D", "A")
+
+    def _apply_updates(self, updates: dict) -> None:
+        D = updates.pop("D", None)
+        super()._apply_updates(updates)
+        if D is not None:
+            self._D = _asarray(D)
 
     def __init__(self, alpha, A, y, C, D) -> None:
         C = asmatrixtype(C)
@@ -327,15 +457,23 @@ class ConstrainedLeastSquares(LeastSquares):
         (``objectivefunc.py:148-157``); both depend only on B, so they are
         made when the penalty changes."""
         B = super().make_factors(mu_op)
+        if isinstance(mu_op, LaneOperators):
+            # per lane: xi2 (B, Nx, Nc), S^{-1} (B, Nc, Nc)
+            xi2 = -self._apply_B_cols(B, self._C.conjugate().T.asmatrix())
+            S = _mm(self._C.asmatrix(), xi2)
+            return (B, xi2, -inv_hpd(-S))
         xi2 = -self._apply_B(B, self._C.conjugate().T.asmatrix())
         S = self._C @ xi2
         # S = -C B C† with B positive definite, so -S is too.
         return (B, xi2, -inv_hpd(-S))
 
-    def prox_with_factors(self, factors, h):
+    def prox_with_factors(self, factors, h, batched: bool = False):
         B, xi2, Sinv = factors
-        xi1 = super().prox_with_factors(B, h)
+        xi1 = super().prox_with_factors(B, h, batched)
         D = _match_precision(self._D, xi1)
+        if batched:
+            nu = _mm(_match_precision(Sinv, xi1), (D - self._C.matvec_rows(xi1))[..., None])
+            return xi1 + _mm(_match_precision(xi2, xi1), nu)[..., 0]
         nu = _mm(_match_precision(Sinv, xi1), D - (self._C @ xi1))
         return xi1 + _mm(_match_precision(xi2, xi1), nu)
 
@@ -350,6 +488,13 @@ class L1Regularizer(ObjectiveFunctionBase):
     """
 
     needs_diagonal_mu = True
+    batch_fields = ("alpha", "offset")
+
+    def _apply_updates(self, updates: dict) -> None:
+        if "alpha" in updates:
+            self._alpha = updates["alpha"]
+        if "offset" in updates:
+            self._offset = _asarray(updates["offset"])
 
     def __init__(self, alpha: float, size_x: int, offset=None) -> None:
         if not isinstance(size_x, (int, np.integer)):
@@ -376,10 +521,11 @@ class L1Regularizer(ObjectiveFunctionBase):
             raise ValueError("mu must not be None!")
         return self.prox_diag(_asarray(h), _mu_diagonal(mu))
 
-    def prox_diag(self, h, mu_diag):
+    def prox_diag(self, h, mu_diag, batched: bool = False):
         h = _real_if_complex(h)
         mu_diag = _match_precision(mu_diag, h)
-        thr = 0.5 * self._alpha / mu_diag
+        alpha = _lanes(self._alpha, h) if batched else self._alpha
+        thr = 0.5 * alpha / mu_diag
         if self._offset is None:
             return soft_threshold(-(h / mu_diag), thr)
         y = _match_precision(_real_if_complex(self._offset), h)
@@ -391,6 +537,12 @@ class L2Regularizer(_ShiftedQuadratic, ObjectiveFunctionBase):
     (reference ``objectivefunc.py:198-242``)."""
 
     is_quadratic = True
+    batch_fields = ("alpha",)
+
+    def _apply_updates(self, updates: dict) -> None:
+        if "alpha" in updates:
+            self._alpha = updates["alpha"]
+        self._B_cache = (None, None)
 
     def __init__(self, alpha: float, A: Union[np.ndarray, MatrixBase]) -> None:
         A = asmatrixtype(A)
@@ -414,7 +566,9 @@ class L2Regularizer(_ShiftedQuadratic, ObjectiveFunctionBase):
             return torch.zeros(n, dtype=torch.float64)
         return self.prox_with_factors(self._get_B(mu), _asarray(h))
 
-    def prox_with_factors(self, factors, h):
+    def prox_with_factors(self, factors, h, batched: bool = False):
+        if batched:
+            return -self._apply_B_rows(factors, h)
         return -self._apply_B(factors, h)
 
 
@@ -433,6 +587,6 @@ class NonNegativePenalty(ObjectiveFunctionBase):
             raise ValueError("mu must not be None!")
         return self.prox_diag(_asarray(h), _mu_diagonal(mu))
 
-    def prox_diag(self, h, mu_diag):
+    def prox_diag(self, h, mu_diag, batched: bool = False):
         h = _real_if_complex(h)
         return project_nonneg(-(h / _match_precision(mu_diag, h)))

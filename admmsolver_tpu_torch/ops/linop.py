@@ -27,6 +27,7 @@ __all__ = [
     "matrix_hash",
     "matmul",
     "add",
+    "LaneOperators",
 ]
 
 
@@ -134,6 +135,12 @@ class MatrixBase:
         """Apply to a vector / batched RHS (trailing batch dims)."""
         raise NotImplementedError
 
+    def matvec_rows(self, v):
+        """Apply to every row of ``v``: ``(B, m) -> (B, n)``, one problem
+        instance per row, the layout of the batched engine.  (``matvec``
+        reads a 2-D argument as ``(m, k)`` columns.)"""
+        raise NotImplementedError
+
     def conjugate(self) -> "MatrixBase":
         raise NotImplementedError
 
@@ -197,6 +204,9 @@ class DenseMatrix(MatrixBase):
     def matvec(self, v):
         v = _asarray(v)
         return _mm(_match_precision(self.data, v), v, dims=([1], [0]))
+
+    def matvec_rows(self, v):
+        return _mm(v, _match_precision(self.data, v).T)
 
 
 class ScaledIdentityMatrix(MatrixBase):
@@ -267,6 +277,13 @@ class ScaledIdentityMatrix(MatrixBase):
         if n == m:
             return _match_precision(self.coeff, v) * v
         return self.to_diagonal_matrix().matvec(v)
+
+    def matvec_rows(self, v):
+        if v.shape[-1] != self.shape[1]:
+            raise ValueError(f"shape mismatch: {self.shape} @ rows of {tuple(v.shape)}")
+        if self.is_square():
+            return _match_precision(self.coeff, v) * v
+        return self.to_diagonal_matrix().matvec_rows(v)
 
     def effective_diagonal(self):
         if not self.is_square():
@@ -340,6 +357,17 @@ class DiagonalMatrix(MatrixBase):
             return scaled
         pad = scaled.new_zeros((n - k,) + tuple(scaled.shape[1:]))
         return torch.cat([scaled, pad])
+
+    def matvec_rows(self, v):
+        n = self.shape[0]
+        if v.shape[-1] != self.shape[1]:
+            raise ValueError(f"shape mismatch: {self.shape} @ rows of {tuple(v.shape)}")
+        k = min(self._diagonals.shape[0], v.shape[-1])
+        scaled = _match_precision(self._diagonals[:k], v) * v[..., :k]
+        if n == k:
+            return scaled
+        pad = scaled.new_zeros(tuple(scaled.shape[:-1]) + (n - k,))
+        return torch.cat([scaled, pad], dim=-1)
 
     def effective_diagonal(self):
         if not self.is_square():
@@ -430,6 +458,83 @@ def add(a: MatrixBase, b: MatrixBase) -> MatrixBase:
             return DiagonalMatrix(x.diagonals + y.diagonals, x.shape)
 
     return DenseMatrix(a.asmatrix() + b.asmatrix())
+
+
+class LaneOperators:
+    """One square operator per batch lane, all of one structure.
+
+    ``kind`` is ``"scalar"`` (``c_b I``, data ``(B,)``), ``"diag"``
+    (``(B, n)``) or ``"dense"`` (``(B, n, n)``); a leading axis of 1 stands
+    for an operator that all lanes share.  This is what the batched engine
+    composes penalties and factors from, where the JAX package maps the
+    structured operators over the batch: ``scale`` and ``+`` keep the
+    cheapest structure that holds the result, as :func:`add` does.
+    ``known_zero`` marks the penalty of a block without couplings.
+    """
+
+    _RANK = {"scalar": 0, "diag": 1, "dense": 2}
+
+    def __init__(self, kind: str, data: torch.Tensor, n: int,
+                 known_zero: bool = False) -> None:
+        if data.ndim != self._RANK[kind] + 1:
+            raise ValueError(f"{kind} lane operators need {self._RANK[kind] + 1}-D data, "
+                             f"got {tuple(data.shape)}")
+        self.kind, self.data, self.n, self.known_zero = kind, data, int(n), known_zero
+
+    @classmethod
+    def shared(cls, op: MatrixBase) -> "LaneOperators":
+        """A square structured operator that every lane shares."""
+        if not op.is_square():
+            raise ValueError(f"lane operators are square, got {op.shape}")
+        n = op.shape[0]
+        if isinstance(op, ScaledIdentityMatrix):
+            return cls("scalar", _asarray(op.coeff).reshape(1), n)
+        if isinstance(op, DiagonalMatrix):
+            return cls("diag", op.diagonals[None], n)
+        return cls("dense", op.asmatrix()[None], n)
+
+    def _lanes(self, c):
+        """A scalar or per-lane ``(B,)`` coefficient shaped to scale the data."""
+        if isinstance(c, torch.Tensor) and c.ndim == 1:
+            return c.reshape((-1,) + (1,) * (self.data.ndim - 1))
+        return c
+
+    def scale(self, c) -> "LaneOperators":
+        """Every lane's operator times its coefficient (scalar or ``(B,)``)."""
+        return LaneOperators(self.kind, self.data * self._lanes(c), self.n)
+
+    def _as(self, kind: str) -> torch.Tensor:
+        d = self.data
+        if self.kind == kind:
+            return d
+        if self.kind == "scalar":
+            d = d[:, None].expand(d.shape[0], self.n)
+        return d if kind == "diag" else torch.diag_embed(d)
+
+    def __add__(self, other: "LaneOperators") -> "LaneOperators":
+        if self.n != other.n:
+            raise ValueError(f"shape mismatch: {self.n} + {other.n}")
+        kind = max(self.kind, other.kind, key=self._RANK.get)
+        return LaneOperators(kind, self._as(kind) + other._as(kind), self.n)
+
+    def matvec_rows(self, v):
+        """Lane b's operator on row b of ``v`` (B, n)."""
+        d = _match_precision(self.data, v)
+        if self.kind == "scalar":
+            return d[:, None] * v
+        if self.kind == "diag":
+            return d * v
+        return (d @ v[..., None])[..., 0]
+
+    def matmat(self, cols):
+        """Every lane's operator on the columns ``cols``, (n, k) shared or
+        (B, n, k): (B, n, k)."""
+        d = _match_precision(self.data, cols)
+        if self.kind == "scalar":
+            return d[:, None, None] * cols
+        if self.kind == "diag":
+            return d[:, :, None] * cols
+        return d @ cols
 
 
 def identity(n, dtype=np.float64) -> ScaledIdentityMatrix:

@@ -16,6 +16,15 @@ conventions (``optimizer.py:183-207``), dual ascent (``optimizer.py:
 per-pair relative convergence test including its 0/0 → NaN → "not
 converged" behavior (``optimizer.py:232-249``), and residual-balancing mu
 adaptation with clamping (``optimizer.py:277-299``).
+
+The same functions carry a leading batch axis for
+:class:`~admmsolver_tpu_torch.parallel.batch.BatchedSolver` when called with
+``batched=True``: ``x[k]`` is ``(B, n_k)``, ``h[p]`` ``(B, s_p)``, ``mu``
+``(B, npairs)``, one problem instance per row, and norms reduce over the
+last axis only.  The couplings stay shared; per-instance objective values
+come as a ``functions`` list of clones.  :meth:`ADMMPlan.iteration` is the
+batched iteration with per-lane convergence masking (the function the JAX
+package maps over the batch).
 """
 from __future__ import annotations
 
@@ -27,14 +36,24 @@ import torch
 from .backend import default_dtype
 from .config import ADMMConfig
 from .models.problem import Model
-from .ops.linop import (MatrixBase, ScaledIdentityMatrix, _asarray,
-                        _match_precision, add)
+from .ops.linop import (LaneOperators, MatrixBase, ScaledIdentityMatrix,
+                        _asarray, _match_precision, add)
 
 __all__ = ["ADMMPlan", "SimpleOptimizer"]
 
 
 def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(v)
+
+
+def _row_norm(v: torch.Tensor) -> torch.Tensor:
+    """Norm of every row of ``v`` (B, n): one per lane."""
+    return torch.linalg.vector_norm(v, dim=-1)
+
+
+def _apply(op: MatrixBase, v: torch.Tensor, batched: bool) -> torch.Tensor:
+    """``op`` on a vector, or on every row of a batch."""
+    return op.matvec_rows(v) if batched else op @ v
 
 
 def _has_complex(v) -> bool:
@@ -143,16 +162,26 @@ class ADMMPlan:
     # ------------------------------------------------------------------
     # Functions of one iteration
     # ------------------------------------------------------------------
-    def compute_factors(self, mu):
+    def compute_factors(self, mu, functions=None, batched: bool = False):
         """Per-block factorizations for the current penalties ``mu``
         (npairs,); O(N^3) per dense quadratic block, so called only when
-        mu changes."""
+        mu changes.  ``functions`` optionally replaces the block objectives
+        (the batched runtime passes per-instance clones); batched, ``mu`` is
+        (B, npairs) and each block's penalty a :class:`LaneOperators`."""
         factors = []
-        for k, f in enumerate(self.model.functions):
+        for k, f in enumerate(functions or self.model.functions):
             if not f.is_quadratic:
                 factors.append(())
                 continue
-            if self.mu_terms[k]:
+            if batched:
+                mu_op = None
+                for p_idx, ece2 in self.mu_terms[k]:
+                    term = LaneOperators.shared(ece2).scale(mu[:, p_idx])
+                    mu_op = term if mu_op is None else mu_op + term
+                if mu_op is None:
+                    mu_op = LaneOperators("scalar", mu.new_zeros(1), f.size_x,
+                                          known_zero=True)
+            elif self.mu_terms[k]:
                 mu_op = None
                 for p_idx, ece2 in self.mu_terms[k]:
                     term = ece2 * mu[p_idx]
@@ -162,15 +191,17 @@ class ADMMPlan:
             factors.append(f.make_factors(mu_op))
         return tuple(factors)
 
-    def mu_diag(self, k: int, mu):
-        """Effective diagonal penalty for block k (objectivefunc.py:296-310)."""
+    def mu_diag(self, k: int, mu, batched: bool = False):
+        """Effective diagonal penalty for block k (objectivefunc.py:296-310);
+        batched, one row per lane."""
         out = None
         for p_idx, d in self.mu_diag_terms[k]:
-            t = mu[p_idx] * _match_precision(d, mu)
+            t = (mu[:, p_idx, None] if batched else mu[p_idx]) * _match_precision(d, mu)
             out = t if out is None else out + t
         return out
 
-    def sweep(self, x, h, mu, factors, update_h: bool, relax: float = 1.0):
+    def sweep(self, x, h, mu, factors, update_h: bool, relax: float = 1.0,
+              functions=None, batched: bool = False):
         """One Gauss–Seidel sweep + dual ascent (optimizer.py:322-341).
 
         Returns (x_new, h_new, pair_products) where pair_products caches the
@@ -181,6 +212,9 @@ class ADMMPlan:
         constraint image is replaced by ``relax * (E_kj x_j_new) + (1 -
         relax) * (E_jk x_k_prev)`` in the later block's subproblem and in
         the dual ascent.  Fixed points are unchanged.
+
+        ``functions`` optionally replaces the block objectives; ``batched``
+        runs one instance per row of the state.
         """
         relax_on = float(relax) != 1.0
         if relax_on and self.npairs != 1:
@@ -188,8 +222,9 @@ class ADMMPlan:
             raise ValueError(
                 "relax != 1.0 is supported for single-pair (2-block) "
                 f"models only; this model has {self.npairs} pairs")
+        mu_of = (lambda p: mu[:, p, None]) if batched else (lambda p: mu[p])
         x_new = list(x)
-        for k, f in enumerate(self.model.functions):
+        for k, f in enumerate(functions or self.model.functions):
             terms = self.hk_terms[k]
             if terms:
                 hk = None
@@ -197,20 +232,21 @@ class ADMMPlan:
                     # Gauss–Seidel: partners i<k already updated this sweep.
                     xi = x_new[i]
                     if relax_on and i < k:
-                        r = (relax * (E_ki @ xi)
-                             + (1.0 - relax) * (E_ik @ x[k]))
-                        t = sign * (EikH @ h[p_idx]) - mu[p_idx] * (EikH @ r)
+                        r = (relax * _apply(E_ki, xi, batched)
+                             + (1.0 - relax) * _apply(E_ik, x[k], batched))
+                        t = sign * _apply(EikH, h[p_idx], batched) \
+                            - mu_of(p_idx) * _apply(EikH, r, batched)
                     else:
-                        t = sign * (EikH @ h[p_idx]) \
-                            - mu[p_idx] * (EcE_ki @ xi)
+                        t = sign * _apply(EikH, h[p_idx], batched) \
+                            - mu_of(p_idx) * _apply(EcE_ki, xi, batched)
                     hk = t if hk is None else hk + t
             else:
-                hk = torch.zeros(f.size_x, dtype=x[k].dtype, device=x[k].device)
+                hk = torch.zeros_like(x[k])
 
             if f.is_quadratic:
-                xk = f.prox_with_factors(factors[k], hk)
+                xk = f.prox_with_factors(factors[k], hk, batched=batched)
             elif f.needs_diagonal_mu:
-                xk = f.prox_diag(hk, self.mu_diag(k, mu))
+                xk = f.prox_diag(hk, self.mu_diag(k, mu, batched), batched=batched)
             else:
                 xk = f.solve(hk, None)
             x_new[k] = xk.to(x[k].dtype)
@@ -218,8 +254,8 @@ class ADMMPlan:
         # Shared per-pair products: p1 = E_ij x_j, p2 = E_ji x_i.
         p1s, p2s = [], []
         for idx, (i, j) in enumerate(self.pairs):
-            p1s.append(self.E_ij[idx] @ x_new[j])
-            p2s.append(self.E_ji[idx] @ x_new[i])
+            p1s.append(_apply(self.E_ij[idx], x_new[j], batched))
+            p2s.append(_apply(self.E_ji[idx], x_new[i], batched))
 
         h_new = list(h)
         if update_h:
@@ -230,50 +266,116 @@ class ADMMPlan:
                 p1 = p1s[idx]
                 if relax_on:
                     p1 = (relax * p1
-                          + (1.0 - relax) * (self.E_ji[idx] @ x[i]))
-                h_new[idx] = h[idx] + mu[idx] * (p2s[idx] - p1)
+                          + (1.0 - relax) * _apply(self.E_ji[idx], x[i], batched))
+                h_new[idx] = h[idx] + mu_of(idx) * (p2s[idx] - p1)
 
         return tuple(x_new), tuple(h_new), (p1s, p2s)
 
-    def pair_residuals(self, x_new, x_old, mu, pair_products=None):
+    def pair_residuals(self, x_new, x_old, mu, pair_products=None,
+                       batched: bool = False):
         """Per-pair primal/dual residual norms and relative residuals.
 
         Returns (primal_norms, dual_norms, convs), where ``convs`` holds
-        (relative primal, relative dual) per pair (optimizer.py:232-299).
+        (relative primal, relative dual) per pair (optimizer.py:232-299);
+        batched, every entry is (B,).
         """
         if pair_products is None:
-            p1s = [self.E_ij[idx] @ x_new[j]
+            p1s = [_apply(self.E_ij[idx], x_new[j], batched)
                    for idx, (i, j) in enumerate(self.pairs)]
-            p2s = [self.E_ji[idx] @ x_new[i]
+            p2s = [_apply(self.E_ji[idx], x_new[i], batched)
                    for idx, (i, j) in enumerate(self.pairs)]
         else:
             p1s, p2s = pair_products
 
+        norm = _row_norm if batched else _norm
         primal_norms, dual_norms, convs = [], [], []
         for idx, (i, j) in enumerate(self.pairs):
             p1, p2 = p1s[idx], p2s[idx]
+            mu_p = mu[:, idx, None] if batched else mu[idx]
             d_primal = p1 - p2
             # dual residual: mu * E[j,i] @ E[i,j] @ (x_j - x_j_old)
-            d_dual = mu[idx] * (self.E_ji[idx] @ (
-                self.E_ij[idx] @ (x_new[j] - x_old[j])))
-            dual1 = mu[idx] * (self.E_ji[idx] @ p1)
+            d_dual = mu_p * _apply(self.E_ji[idx], _apply(
+                self.E_ij[idx], x_new[j] - x_old[j], batched), batched)
+            dual1 = mu_p * _apply(self.E_ji[idx], p1, batched)
             dual2 = dual1 - d_dual
-            pn = _norm(d_primal)
-            dn = _norm(d_dual)
+            pn = norm(d_primal)
+            dn = norm(d_dual)
             primal_norms.append(pn)
             dual_norms.append(dn)
-            convs.append((pn / torch.maximum(_norm(p1), _norm(p2)),
-                          dn / torch.maximum(_norm(dual1), _norm(dual2))))
+            convs.append((pn / torch.maximum(norm(p1), norm(p2)),
+                          dn / torch.maximum(norm(dual1), norm(dual2))))
         return primal_norms, dual_norms, convs
 
     def updated_mu(self, mu, primal_norms, dual_norms,
                    fact_incr, th_change, max_mu):
-        """Residual-balancing penalty adaptation (optimizer.py:277-299)."""
-        pn = torch.stack(primal_norms).to(mu.dtype)
-        dn = torch.stack(dual_norms).to(mu.dtype)
+        """Residual-balancing penalty adaptation (optimizer.py:277-299);
+        per-lane norms (B,) stack into (B, npairs) beside a batched ``mu``."""
+        pn = torch.stack(primal_norms, dim=-1).to(mu.dtype)
+        dn = torch.stack(dual_norms, dim=-1).to(mu.dtype)
         mu_new = torch.where(pn > th_change * dn, mu * fact_incr, mu)
         mu_new = torch.where(dn > th_change * pn, mu_new / fact_incr, mu_new)
         return torch.clamp_max(mu_new, max_mu)
+
+    def iteration(self, carry, buf_idx: int, global_it: int, cfg: ADMMConfig,
+                  tols, functions=None, compute_residuals: bool = True):
+        """One iteration of a batch (optimizer.py:310-320): sweep →
+        residuals and convergence → scheduled mu update, every lane for
+        itself.
+
+        ``carry`` = (x, x_prev, h, mu, factors, done, count, primal_buf,
+        dual_buf) with a leading batch axis: ``done``/``count`` (B,), the
+        histories (B, hist).  ``buf_idx`` is the history column to write,
+        ``global_it`` drives the penalty-update schedule.  Finished lanes
+        are frozen; the caller refactorizes.  With
+        ``compute_residuals=False`` this is the sweep-only iteration of the
+        chunked-checks mode.  The histories are written in place.
+        """
+        rtol, atol = tols
+        x, x_prev, h, mu, factors, done, count, pbuf, dbuf = carry
+        active = ~done
+        am = active[:, None]
+
+        x_new, h_new, prods = self.sweep(
+            x, h, mu, factors, cfg.update_h, relax=cfg.relax,
+            functions=functions, batched=True)
+
+        # Freeze finished lanes.
+        x_out = tuple(torch.where(am, a, b) for a, b in zip(x_new, x))
+        xp_out = tuple(torch.where(am, a, b) for a, b in zip(x, x_prev))
+        h_out = tuple(torch.where(am, a, b) for a, b in zip(h_new, h))
+        count = count + active.to(count.dtype)
+        if not compute_residuals:
+            return (x_out, xp_out, h_out, mu, factors, done, count, pbuf, dbuf)
+
+        primal_norms, dual_norms, convs = self.pair_residuals(
+            x_new, x, mu, prods, batched=True)
+
+        if self.npairs:
+            primal = sum(primal_norms[1:], primal_norms[0])
+            dual = sum(dual_norms[1:], dual_norms[0])
+            # NaN (0/0) and Inf (x/0) both fail `< rtol`, matching the
+            # reference's float semantics at optimizer.py:244-247.
+            conv = torch.ones_like(done)
+            for rp, rd in convs:
+                conv = conv & (rp < rtol) & (rd < rtol)
+            # Optional absolute-residual stop (atol=0 disables it).
+            conv = conv | ((primal < atol) & (dual < atol))
+            pbuf[:, buf_idx] = torch.where(active, primal.to(pbuf.dtype), pbuf[:, buf_idx])
+            dbuf[:, buf_idx] = torch.where(active, dual.to(dbuf.dtype), dbuf[:, buf_idx])
+        else:
+            conv = torch.ones_like(done)
+            pbuf[:, buf_idx] = torch.where(active, 0.0, pbuf[:, buf_idx])
+            dbuf[:, buf_idx] = torch.where(active, 0.0, dbuf[:, buf_idx])
+        done_new = done | conv
+
+        # The mu update fires on the reference schedule (optimizer.py:
+        # 319-320): after iterations 0, interval, 2*interval, ... and never
+        # after a lane's converging iteration.
+        if self.npairs and global_it % cfg.interval_update_mu == 0:
+            mu_adapted = self.updated_mu(mu, primal_norms, dual_norms,
+                                         cfg.fact_incr, cfg.th_change, cfg.max_mu)
+            mu = torch.where(done_new[:, None], mu, mu_adapted)
+        return (x_out, xp_out, h_out, mu, factors, done_new, count, pbuf, dbuf)
 
     def is_complex(self) -> bool:
         """True when any operator or objective data is complex; drives the

@@ -1,2 +1,3 @@
+from .batch import BatchedSolver, BatchResult
 from .fused import FusedTwoBlockSolver, FusedResult
 from .fused_spm import FusedSpMSolver, FusedSpMResult

@@ -22,6 +22,10 @@ the factors are made:
 algebraically identical to the engine's block elimination (reference
 ``objectivefunc.py:138-157``); a plain LeastSquares block is the special
 case M = B, b2 = a B A†y.
+
+:meth:`FusedSpMSolver.solve_mixed` runs the bulk of the iterations through
+the kernel in float32 and hands primal, dual and penalty state to a float64
+:class:`~admmsolver_tpu_torch.parallel.batch.BatchedSolver` for the polish.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from ..models.objectivefunc import (ConstrainedLeastSquares, L1Regularizer,
                                     LeastSquares, NonNegativePenalty, inv_hpd)
 from ..models.problem import Model
 from ..ops import kernels
+from .batch import BatchedSolver, BatchResult
 from .fused import _check_fused_overrides, _is_identity_si
 
 __all__ = ["FusedSpMSolver", "FusedSpMResult"]
@@ -265,3 +270,53 @@ class FusedSpMSolver:
             x=(x0, x1, x2), h=(h10, h20), mu=mu,
             iterations=torch.clamp_max(count, niter), converged=done,
             primal_residual=pbuf.T, dual_residual=dbuf.T)
+
+    def solve_mixed(self,
+                    overrides: Optional[Dict] = None,
+                    niter_low: int = 2000,
+                    niter: int = 2000,
+                    mu0=1.0,
+                    low_atol: float = 1e-5,
+                    fused: bool = True,
+                    **kw) -> BatchResult:
+        """Fused-f32 phase, then f64 engine polish from the warm state.
+
+        The kernel burns down the bulk of the iterations in float32 (up to
+        ``niter_low``, stopping early where the summed residuals fall below
+        ``low_atol``); the handed-off primal/dual/penalty state carries the
+        progress exactly, and a float64 :class:`BatchedSolver` kept on this
+        solver finishes to reference precision with up to ``niter`` more.
+        Returns the polish phase's :class:`BatchResult` with
+        ``iterations = min(kernel count, niter_low) + polish count``.
+
+        ``kw`` goes to the polish (``rtol``, ``atol``, ``record_residuals``,
+        ``chunked_checks``, ``update_h``, ...); the penalty knobs
+        (``interval_update_mu``, ``fact_incr``, ``th_change``, ``max_mu``)
+        and ``done0`` go to both phases.  Lanes the caller marked ``done0``
+        skip the polish too; lanes the kernel phase finished do not.
+        ``fused`` is accepted for the JAX package's callers, where it selects
+        a one-program driver; both settings run the same two phases here.
+        """
+        overrides = dict(overrides or {})
+        # An engine-legal override that the kernel phase cannot take, like
+        # (0, 'A'), would warm-start the polish from the TEMPLATE problem's
+        # trajectory: reject it, as solve() does.
+        if _check_fused_overrides(overrides, "FusedSpMSolver.solve_mixed") is None:
+            raise ValueError("pass overrides with a leading batch axis")
+        bs = getattr(self, "_polish_solver", None)
+        if bs is None:
+            bs = self._polish_solver = BatchedSolver(
+                self.model, dtype=torch.float64, device=self.device)
+        shared = {k: kw[k] for k in ("interval_update_mu", "fact_incr", "th_change",
+                                     "max_mu", "done0") if k in kw}
+        p1 = self.solve(overrides, niter=niter_low, mu0=mu0, rtol=0.0,
+                        atol=low_atol, **shared)
+        f64 = lambda t: tuple(a.double() for a in t)
+        p2 = bs.solve(overrides, x0=f64(p1.x), h0=f64(p1.h), mu0=p1.mu.double(),
+                      niter=niter, **kw)
+        return BatchResult(
+            x=p2.x, h=p2.h, mu=p2.mu,
+            iterations=p1.iterations + p2.iterations,
+            converged=p2.converged,
+            primal_residual=p2.primal_residual,
+            dual_residual=p2.dual_residual)

@@ -258,7 +258,7 @@ def test_fused_spm_rejects_wrong_structure(spm_setup):
     with pytest.raises(ValueError, match="couplings must be"):
         FusedSpMSolver(T.Model([ls, l1, nn], [(1, 0, I, T.DiagonalMatrix(np.full(8, 2.0))),
                                               (2, 0, I, I)]), device="cpu")
-    assert not hasattr(FusedSpMSolver, "solve_mixed")  # comes with BatchedSolver
+    assert callable(FusedSpMSolver.solve_mixed)  # tests/test_torch_mixed.py
 
 
 def test_fused_spm_rejects_unsupported_overrides(spm_setup):
