@@ -500,8 +500,10 @@ class LaneOperators:
         return c
 
     def scale(self, c) -> "LaneOperators":
-        """Every lane's operator times its coefficient (scalar or ``(B,)``)."""
-        return LaneOperators(self.kind, self.data * self._lanes(c), self.n)
+        """Every lane's operator times its coefficient (scalar or ``(B,)``);
+        the result follows a tensor coefficient's device and precision."""
+        data = _match_precision(self.data, c) if isinstance(c, torch.Tensor) else self.data
+        return LaneOperators(self.kind, data * self._lanes(c), self.n)
 
     def _as(self, kind: str) -> torch.Tensor:
         d = self.data

@@ -28,6 +28,8 @@ package maps over the batch).
 """
 from __future__ import annotations
 
+import functools
+import operator
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -37,7 +39,7 @@ from .backend import default_dtype
 from .config import ADMMConfig
 from .models.problem import Model
 from .ops.linop import (LaneOperators, MatrixBase, ScaledIdentityMatrix,
-                        _asarray, _match_precision, add)
+                        _asarray, _match_precision)
 
 __all__ = ["ADMMPlan", "SimpleOptimizer"]
 
@@ -174,20 +176,14 @@ class ADMMPlan:
                 factors.append(())
                 continue
             if batched:
-                mu_op = None
-                for p_idx, ece2 in self.mu_terms[k]:
-                    term = LaneOperators.shared(ece2).scale(mu[:, p_idx])
-                    mu_op = term if mu_op is None else mu_op + term
-                if mu_op is None:
-                    mu_op = LaneOperators("scalar", mu.new_zeros(1), f.size_x,
-                                          known_zero=True)
-            elif self.mu_terms[k]:
-                mu_op = None
-                for p_idx, ece2 in self.mu_terms[k]:
-                    term = ece2 * mu[p_idx]
-                    mu_op = term if mu_op is None else add(mu_op, term)
+                terms = [LaneOperators.shared(ece2).scale(mu[:, p_idx])
+                         for p_idx, ece2 in self.mu_terms[k]]
+                zero = LaneOperators("scalar", mu.new_zeros(1), f.size_x, known_zero=True)
             else:
-                mu_op = ScaledIdentityMatrix(f.size_x, 0.0)
+                terms = [ece2 * mu[p_idx] for p_idx, ece2 in self.mu_terms[k]]
+                zero = ScaledIdentityMatrix(f.size_x, 0.0)
+            # MatrixBase and LaneOperators both add through ``+``
+            mu_op = functools.reduce(operator.add, terms) if terms else zero
             factors.append(f.make_factors(mu_op))
         return tuple(factors)
 

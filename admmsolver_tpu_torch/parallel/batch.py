@@ -78,7 +78,7 @@ def _parse_record_residuals(record_residuals) -> Tuple[bool, int]:
     """Normalize the ``record_residuals`` knob to ``(record, stride)``.
 
     ``True`` → per-iteration histories; ``False`` → none; an int ``s >= 1``
-    → every s-th iteration (shared by every batched/fused driver)."""
+    → every s-th iteration (shared by every batched and fused solve)."""
     if record_residuals is True:
         return True, 1
     if record_residuals is False:
@@ -112,27 +112,22 @@ class BatchResult:
     dual_residual: torch.Tensor
 
 
+def _lanewise(fn, *results: BatchResult) -> BatchResult:
+    """``fn`` over the corresponding tensors of the results, field by field."""
+    blocks = lambda name: tuple(fn(*t) for t in zip(*(getattr(r, name) for r in results)))
+    rest = ("mu", "iterations", "converged", "primal_residual", "dual_residual")
+    return BatchResult(x=blocks("x"), h=blocks("h"),
+                       **{name: fn(*(getattr(r, name) for r in results)) for name in rest})
+
+
 def _concat(parts: Sequence[BatchResult]) -> BatchResult:
     """Results of consecutive groups of lanes as one result."""
-    if len(parts) == 1:
-        return parts[0]
-    cat = lambda get: torch.cat([get(p) for p in parts])
-    return BatchResult(
-        x=tuple(cat(lambda p, i=i: p.x[i]) for i in range(len(parts[0].x))),
-        h=tuple(cat(lambda p, i=i: p.h[i]) for i in range(len(parts[0].h))),
-        mu=cat(lambda p: p.mu),
-        iterations=cat(lambda p: p.iterations),
-        converged=cat(lambda p: p.converged),
-        primal_residual=cat(lambda p: p.primal_residual),
-        dual_residual=cat(lambda p: p.dual_residual))
+    return parts[0] if len(parts) == 1 else _lanewise(lambda *a: torch.cat(a), *parts)
 
 
 def _trim(res: BatchResult, n: int) -> BatchResult:
     """The first ``n`` lanes of a result."""
-    return BatchResult(
-        x=tuple(a[:n] for a in res.x), h=tuple(a[:n] for a in res.h), mu=res.mu[:n],
-        iterations=res.iterations[:n], converged=res.converged[:n],
-        primal_residual=res.primal_residual[:n], dual_residual=res.dual_residual[:n])
+    return _lanewise(lambda a: a[:n], res)
 
 
 def _pad_last(a: torch.Tensor, pad_n: int) -> torch.Tensor:
@@ -200,7 +195,7 @@ class BatchedSolver:
                 # Per-instance operators force per-lane dense factors
                 # ((B, n, n) inverses).  n <= 128 keeps that factor state
                 # small; ``allow_large_A`` (solve_scan) lifts the cap: the
-                # scan driver keeps only one group's factors resident.
+                # scan keeps only one group's factors resident.
                 if f.size_x > 128 and not allow_large_A:
                     raise ValueError(
                         f"per-instance A batching is limited to blocks "
@@ -240,7 +235,7 @@ class BatchedSolver:
                                    else (A.mH @ y[..., None])[..., 0])
         return out
 
-    # -- set-up shared by the drivers --------------------------------------
+    # -- set-up shared by the solves ---------------------------------------
     def _solve_dtype(self, dtype) -> torch.dtype:
         return self.dtype if dtype is None else _as_dtype(dtype)
 
@@ -380,8 +375,6 @@ class BatchedSolver:
         :meth:`solve_mixed` with 3/4 of the budget in float32 and needs
         ``niter >= 2``; ``"auto"`` (default) is plain: when the mixed recipe
         pays on this hardware has not been measured."""
-        if niter <= 0:
-            raise ValueError("niter must be positive for batched solves")
         if recipe not in ("auto", "plain", "mixed"):
             raise ValueError(f"recipe must be auto|plain|mixed, {recipe!r}")
         if recipe == "mixed":
@@ -439,7 +432,7 @@ class BatchedSolver:
 
         ``fused=True`` (default) pads the last group by repeating the final
         value, so that every group has ``group_size`` lanes, and trims the
-        padding from the result, as the JAX package's one-program driver
+        padding from the result, as the JAX package's one-program form
         does; ``fused=False`` solves the shorter last group as it is.  Both
         give the same lanes.
         """
@@ -488,8 +481,17 @@ class BatchedSolver:
                    x0: Optional[Sequence] = None,
                    h0: Optional[Sequence] = None,
                    mu0=1.0,
+                   niter: int = 10000,
+                   interval_update_mu: int = 100,
+                   update_h: bool = True,
+                   rtol: float = 1e-12,
+                   atol: float = 0.0,
+                   fact_incr: float = 2.0,
+                   th_change: float = 10.0,
+                   max_mu: float = 1e3,
                    record_residuals: Union[bool, int] = False,
-                   **kw) -> BatchResult:
+                   chunked_checks: bool = False,
+                   relax: float = 1.0) -> BatchResult:
         """Sequential solve over groups of ``group_size`` instances.
 
         The fallback for batches of LARGE heterogeneous problems (per-
@@ -503,7 +505,7 @@ class BatchedSolver:
         Wall-clock is sequential over ``B / group_size`` groups — use
         :meth:`solve` when the factor state fits.  ``record_residuals``
         defaults to False; the other knobs are those of :meth:`solve`
-        (``recipe`` is plain, the dtype the solver's).
+        (the recipe is plain, the dtype the solver's).
         """
         overrides = dict(overrides or {})
         B = self._validate_overrides(overrides, allow_large_A=True)
@@ -512,27 +514,21 @@ class BatchedSolver:
                              "batch axis")
         g = int(group_size)
         pad_n = (-B) % g
-        dtype = self.dtype
-        cfg = self._config(kw.pop("niter", 10000), kw.pop("interval_update_mu", 100),
-                           kw.pop("update_h", True), kw.pop("max_mu", 1e3),
-                           kw.pop("fact_incr", 2.0), kw.pop("th_change", 10.0),
-                           kw.pop("relax", 1.0))
-        tols = (kw.pop("rtol", 1e-12), kw.pop("atol", 0.0))
-        chunked_checks = bool(kw.pop("chunked_checks", False))
-        if kw:
-            raise TypeError(f"solve_scan got unexpected arguments {sorted(kw)}")
+        cfg = self._config(niter, interval_update_mu, update_h, max_mu,
+                           fact_incr, th_change, relax)
         record, stride = _parse_record_residuals(record_residuals)
-        x, h, mu, _ = self._initial_state(B, dtype, x0, h0, mu0, None)
-        ov = {k: _cast_like(dtype, v, self.device) for k, v in overrides.items()}
+        x, h, mu, _ = self._initial_state(B, self.dtype, x0, h0, mu0, None)
         pad = lambda a: _pad_last(a, pad_n)
         x, h, mu = tuple(map(pad, x)), tuple(map(pad, h)), pad(mu)
-        ov = {k: pad(v) for k, v in ov.items()}
+        ov = {k: pad(_cast_like(self.dtype, v, self.device))
+              for k, v in overrides.items()}
         parts = []
         for s in range(0, B + pad_n, g):
             grp = lambda a: a[s:s + g]
             parts.append(self._run(cfg, {k: grp(v) for k, v in ov.items()},
                                    tuple(map(grp, x)), tuple(map(grp, h)), grp(mu),
-                                   tols, None, record, stride, chunked_checks))
+                                   (rtol, atol), None, record, stride,
+                                   bool(chunked_checks)))
         return _trim(_concat(parts), B)
 
     def solve_mixed(self,
@@ -563,7 +559,7 @@ class BatchedSolver:
         kw.pop("recipe", None)  # the phases ARE the recipe
         if fused and dtype is not None and _as_dtype(dtype) != self.dtype:
             raise ValueError(
-                "the fused mixed driver always polishes at the "
+                "the fused mixed solve always polishes at the "
                 "solver dtype; construct the solver with the "
                 "desired full precision or use fused=False")
         if niter_low <= 0 or niter <= 0:

@@ -295,7 +295,7 @@ class FusedSpMSolver:
         and ``done0`` go to both phases.  Lanes the caller marked ``done0``
         skip the polish too; lanes the kernel phase finished do not.
         ``fused`` is accepted for the JAX package's callers, where it selects
-        a one-program driver; both settings run the same two phases here.
+        a one-program form; both settings run the same two phases here.
         """
         overrides = dict(overrides or {})
         # An engine-legal override that the kernel phase cannot take, like

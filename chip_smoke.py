@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Drives the port's two fused paths at full width, one phase after another; a
-phase that fails raises and the script exits non-zero without printing a
-result.
+Drives the port's paths at full width, one phase after another; a phase that
+fails raises and the script exits non-zero without printing a result.
 
 * basis pursuit: ``FusedTwoBlockSolver`` at the bench problem (A 256x512,
   B=4096, 20-sparse, seed 0, alpha=0.1), 401 iterations;
 * SpM analytic continuation: ``FusedSpMSolver`` on ``spm_model`` at nl=30 IR
-  coefficients, nw=201 frequencies, B=4096, 500 iterations, mu0=0.1.
+  coefficients, nw=201 frequencies, B=4096, 500 iterations, mu0=0.1;
+* the batched engine: ``BatchedSolver.solve`` on the bench problem in
+  float64, 200 iterations, and ``FusedSpMSolver.solve_mixed`` on the SpM
+  problem (500 float32 iterations through the chunk kernel, then a float64
+  ``BatchedSolver`` polish of 200).
 
 1. Card and build: the card's name and power limit; both CUDA sources are
    built from ``admmsolver_tpu_torch/csrc/`` (one nvcc per source, started
@@ -31,17 +34,29 @@ result.
    spectrum and the sum rule (median |x0.prj_sum - 1| <= 1e-3).
 4. ``SimpleOptimizer`` in float64 on the GPU: one bench instance recovered;
    one SpM instance for 1000 iterations with the sum rule to 1e-6.
-5. Times: medians of 3 timings after a warm-up, kernel against plain, the
+5. The batched engine.  ``BatchedSolver`` in float64 on the bench problem, as
+   bench.py runs it (rtol=0, no histories): every lane recovers its planted
+   signal and runs 200 iterations; with rtol=1e-8, 4 lanes of the batch
+   against 4 ``SimpleOptimizer`` solves on the card (x within 1e-9, equal
+   iteration counts).  ``FusedSpMSolver.solve_mixed`` at full width: its
+   float32 phase launches the chunk kernel, the result is float64 and
+   finite, the spectrum nonnegative, the sum rule's median within 1e-6.
+6. Times: medians of 3 timings after a warm-up, kernel against plain, the
    design each kernel replaced, and each kernel's bound: the larger of its
    bytes (inputs read once, outputs written once) over 3.35 TB/s and its
    operations over the peak rate of the units that do them (products in
    split TF32 count three times at the tensor cores' 495 TFLOP/s, the rest
    at the 67 TFLOP/s f32 peak of the CUDA cores), with the all-FMA bound
-   beside it.
+   beside it.  The ``BatchedSolver`` solve in float64 and float32 with its
+   instance-iterations/s, the same solve with the host reading the done
+   flags once per chunk, its two products alone as ``torch.matmul`` chained
+   50 times, and ``solve_mixed`` with its two phases apart.
 
 ``--variants`` also times both chunks at other tilings and routes, the
 two-block chunk's two products as ``torch.matmul``, the card's L2 read rate
-and the factor refresh's batched inverse by other routes; ``--profile`` prints a torch.profiler breakdown of both solves.
+and the factor refresh's batched inverse by other routes; ``--profile``
+prints a torch.profiler breakdown of both fused solves and of the float64
+``BatchedSolver`` solve.
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU,
 ``nvcc`` and no network.
 """
@@ -57,6 +72,8 @@ import numpy as np
 M, N, B, SPARSITY, ALPHA = 256, 512, 4096, 20, 0.1
 NITER = 401
 NL, NW, SPM_NITER, SPM_MU0, SPM_ALPHA = 30, 201, 500, 0.1, 1e-4
+BATCH_NITER = 200   # bench.py's float64 horizon
+POLISH_NITER = 200  # float64 iterations after the SPM_NITER float32 ones
 KERNEL_TOL = 5e-4   # tests/test_kernels.py, tests/test_fused_spm.py short-horizon bound
 SOLVE_TOL = 2e-2    # benches/kernel_hw_check.py fixed-point bound
 PROX_MODES = ("l1", "l1_even", "nonneg", "nonneg_even")
@@ -201,9 +218,10 @@ def bound_ms(t_ops, tensors):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def profile_solve(torch, what, kernel_name, solve):
-    """torch.profiler over one solve: wall time, device time in the chunk
-    kernel (its name contains ``kernel_name``) and in everything else."""
+def profile_solve(torch, what, kernel_name, solve, iters=None):
+    """torch.profiler over one solve: wall time, device time in the kernels
+    whose name contains ``kernel_name`` and in everything else, and with
+    ``iters`` the launches per iteration."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
@@ -221,8 +239,9 @@ def profile_solve(torch, what, kernel_name, solve):
     total = sum(r[1] for r in rows)
     kern = sum(r[1] for r in rows if kernel_name in r[0])
     print(f"profile, {what}: wall {wall:.2f} ms (profiled), device kernels {total:.2f} ms "
-          f"(busy {total / wall:.2f}), chunk kernel {kern:.2f} ms, other kernels "
-          f"{total - kern:.2f} ms in {sum(r[2] for r in rows)} launches")
+          f"(busy {total / wall:.2f}), {kernel_name} kernels {kern:.2f} ms, other kernels "
+          f"{total - kern:.2f} ms in {sum(r[2] for r in rows)} launches"
+          + (f" = {sum(r[2] for r in rows) / iters:.1f} per iteration" if iters else ""))
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"  {ms:8.3f} ms  x{count:<5d} {key[:90]}")
 
@@ -258,8 +277,8 @@ def main():
                                       SimpleOptimizer, identity)
     from admmsolver_tpu_torch.models.applications import spm_model, synthetic_spm_data
     from admmsolver_tpu_torch.ops import _build, kernels
-    from admmsolver_tpu_torch.parallel import (FusedSpMSolver, FusedTwoBlockSolver, fused,
-                                               fused_spm)
+    from admmsolver_tpu_torch.parallel import (BatchedSolver, FusedSpMSolver,
+                                               FusedTwoBlockSolver, fused, fused_spm)
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -436,7 +455,64 @@ def main():
             and sum_one <= 1e-6):
         raise AssertionError("SimpleOptimizer on the SpM model misses its properties")
 
-    # 5. times: kernel and plain version in turns on one card, after a warm-up
+    # 5a. the batched engine in float64 at full width, as bench.py runs it
+    batched = BatchedSolver(model)
+    assert batched.device.type == "cuda" and batched.dtype == torch.float64
+    ys64 = torch.as_tensor(ys, dtype=torch.float64, device="cuda")
+    bsolve = lambda **kw: batched.solve({(0, "y"): ys64}, niter=BATCH_NITER,
+                                        record_residuals=False, **kw)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bres = bsolve(rtol=0.0)
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - before) / 1e6
+    if not (bres.x[0].is_cuda and bres.x[0].dtype == torch.float64
+            and tuple(bres.x[0].shape) == (B, N)):
+        raise AssertionError("BatchedSolver gave another state than (B, N) float64 on cuda")
+    worst = check_recovery(bres.x[0].cpu().numpy(), xtrue, "BatchedSolver f64")
+    if not bool((bres.iterations == BATCH_NITER).all()):
+        raise AssertionError("BatchedSolver lanes did not all run every iteration")
+    print(f"BatchedSolver f64 on cuda: B={B}, {BATCH_NITER} iters, worst lane err/bound "
+          f"{worst:.4f}, peak device memory of the solve {peak_mb:.0f} MB", flush=True)
+
+    # 5b. lanes of the batch against single-instance solves on the card
+    bres8 = bsolve(rtol=1e-8)
+    for lane in range(4):
+        single = SimpleOptimizer(Model(
+            [LeastSquares(1.0, A, ys[lane]), L1Regularizer(ALPHA, N)],
+            [(1, 0, identity(N), identity(N))]))
+        single.solve(BATCH_NITER, rtol=1e-8)
+        d = float((bres8.x[0][lane] - single.x[0]).abs().max())
+        print(f"BatchedSolver lane {lane} vs SimpleOptimizer: max |x0 diff| {d:.3e} (bound "
+              f"1e-9), iterations {int(bres8.iterations[lane])} / {single.iterations}",
+              flush=True)
+        if not d <= 1e-9 or int(bres8.iterations[lane]) != single.iterations:
+            raise AssertionError(f"lane {lane} of the batch departs from its single solve")
+
+    # 5c. the SpM mixed-precision solve: kernel phase in f32, polish in f64
+    mixed_solve = lambda: spm.solve_mixed({(0, "y"): gs_dev}, niter_low=SPM_NITER,
+                                          niter=POLISH_NITER, mu0=SPM_MU0, rtol=0.0,
+                                          record_residuals=False)
+    kernels.fused_spm_chunk.launches = 0
+    mres = mixed_solve()
+    torch.cuda.synchronize()
+    mixed_launches = kernels.fused_spm_chunk.launches
+    if mixed_launches == 0:
+        raise AssertionError("solve_mixed's float32 phase launched no kernel")
+    mouts = [*mres.x, *mres.h, mres.mu]
+    if not all(t.dtype == torch.float64 and t.is_cuda and bool(torch.isfinite(t).all())
+               for t in mouts):
+        raise AssertionError("solve_mixed gave values that are not finite float64 on cuda")
+    m_min_rho = float(mres.x[2].min())
+    m_sum_dev = float(np.median(np.abs(mres.x[0].cpu().numpy() @ prj_sum - 1.0)))
+    print(f"SpM solve_mixed: {mixed_launches} kernel launches in the f32 phase, B={B}, "
+          f"{SPM_NITER} + {POLISH_NITER} iters, iterations "
+          f"{int(mres.iterations.min())}..{int(mres.iterations.max())}, min spectrum "
+          f"{m_min_rho:.3e}, median |sum rule - 1| {m_sum_dev:.3e} (bound 1e-6)", flush=True)
+    if m_min_rho < 0.0 or not m_sum_dev <= 1e-6:
+        raise AssertionError("solve_mixed misses the model's properties")
+
+    # 6. times: kernel and plain version in turns on one card, after a warm-up
     args = kernel_inputs(torch, solver, "l1", seed=99)
     chunk = dict(n_iters=100, prox="l1", thin=True)
     run_kernel = lambda: kernels.fused_two_block_chunk(*args, **chunk)
@@ -499,6 +575,47 @@ def main():
     print(f"[{card}] SimpleOptimizer f64 SpM solve (1 instance, 1000 iters): "
           f"{ts_opt * 1e3:.1f} ms")
 
+    # the batched engine: the solve, and its two products alone as the ceiling
+    t_b64, t_b64_sync, t_b32 = median_wall(torch, [
+        lambda: bsolve(rtol=0.0), lambda: bsolve(rtol=0.0, atol=1e-300),
+        lambda: bsolve(rtol=0.0, dtype=torch.float32)])
+    print(f"[{card}] BatchedSolver f64 solve (B={B}, {BATCH_NITER} iters): "
+          f"{t_b64 * 1e3:.1f} ms = {B * BATCH_NITER / t_b64:.0f} inst-iters/s; with the done "
+          f"flags read once per chunk (atol=1e-300): {t_b64_sync * 1e3:.1f} ms; in f32: "
+          f"{t_b32 * 1e3:.1f} ms = {B * BATCH_NITER / t_b32:.0f} inst-iters/s")
+    for dt in (torch.float64, torch.float32):
+        rng = np.random.RandomState(1)
+        xg, u1, u2 = (torch.as_tensor(rng.randn(*shape) / np.sqrt(shape[0] if i else N),
+                                      dtype=dt, device="cuda")
+                      for i, shape in enumerate(((B, N), (N, M), (M, N))))
+
+        def chain(xg=xg, u1=u1, u2=u2):
+            c = xg
+            for _ in range(50):
+                c = (c @ u1) @ u2
+            return c
+
+        (pair_ms,) = median_ms(torch, [chain])
+        print(f"[{card}] the solve's two products alone, (B,N)@(N,R) and (B,R)@(R,N) as "
+              f"{str(dt).split('.')[-1]} torch.matmul chained 50 times: {pair_ms:.3f} ms = "
+              f"{50 * 4e-9 * B * N * M / pair_ms:.1f} TFLOP/s, so {BATCH_NITER} iterations' "
+              f"products take {BATCH_NITER / 50 * pair_ms:.1f} ms")
+    p1 = spm.solve({(0, "y"): gs_dev}, niter=SPM_NITER, mu0=SPM_MU0, rtol=0.0, atol=1e-5)
+    p1_state = dict(x0=[a.double() for a in p1.x], h0=[a.double() for a in p1.h],
+                    mu0=p1.mu.double())
+    polish = lambda: spm._polish_solver.solve({(0, "y"): gs_dev}, niter=POLISH_NITER, rtol=0.0,
+                                              record_residuals=False, **p1_state)
+    tm_all, tm_low, tm_polish = median_wall(torch, [
+        mixed_solve,
+        lambda: spm.solve({(0, "y"): gs_dev}, niter=SPM_NITER, mu0=SPM_MU0, rtol=0.0,
+                          atol=1e-5),
+        polish])
+    print(f"[{card}] SpM solve_mixed (B={B}, {SPM_NITER} f32 + {POLISH_NITER} f64 iters): "
+          f"{tm_all * 1e3:.1f} ms; its f32 kernel phase alone {tm_low * 1e3:.1f} ms "
+          f"(iterations {int(p1.iterations.min())}..{int(p1.iterations.max())}), its f64 "
+          f"polish alone {tm_polish * 1e3:.1f} ms = {B * POLISH_NITER / tm_polish:.0f} "
+          "inst-iters/s")
+
     if "--variants" in sys.argv:
         T = kernels.TwoBlockTiling
         sweep = [tiling, T(32, 32, 3, 1, 1), T(32, 32, 2, 2, 1), T(32, 16, 6, 2, 1),
@@ -547,6 +664,11 @@ def main():
     if "--profile" in sys.argv:
         profile_solve(torch, "basis-pursuit solve", "fused_two_block", solve)
         profile_solve(torch, "SpM solve", "fused_spm", spm_solve)
+        profile_solve(torch, "BatchedSolver f64 solve", "gemm", lambda: bsolve(rtol=0.0),
+                      iters=BATCH_NITER)
+        profile_solve(torch, "BatchedSolver f32 solve", "gemm",
+                      lambda: bsolve(rtol=0.0, dtype=torch.float32), iters=BATCH_NITER)
+        profile_solve(torch, "SpM solve_mixed f64 polish", "gemm", polish, iters=POLISH_NITER)
 
     # No single PyTorch call computes either chunk, so there is no library time.
     # prev_ms is the replaced design's time where this run still builds and
@@ -562,7 +684,8 @@ def main():
         {"name": "fused_spm_chunk", "route": "cuda",
          "source": "admmsolver_tpu_torch/csrc/fused_spm.cu",
          "replaces": "admmsolver_tpu/ops/kernels.py:268",
-         "launches": spm_launches, "max_abs_err": spm_err, "ms": spm_ms,
+         "launches": spm_launches, "launches_solve_mixed": mixed_launches,
+         "max_abs_err": spm_err, "ms": spm_ms,
          "plain_ms": spm_plain_ms, "bound_ms": spm_bound, "bound_by": spm_bound_by,
          "library_ms": None, "prev_ms": spm_prev_ms, "fma_bound_ms": spm_fma_bound,
          "fma_max_abs_err": spm_fma_err}]}))

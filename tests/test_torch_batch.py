@@ -486,7 +486,7 @@ def test_per_instance_A_guards():
     with pytest.raises(ValueError, match=r"limited to blocks with n <= 128 \(block 0 has "
                                          "n=200\\).*use solve_scan"):
         bt2.solve({(0, "A"): rng.randn(2, 4, 200)}, niter=5)
-    # the scan driver takes them, one group's factors at a time
+    # solve_scan takes them, one group's factors at a time
     res = bt2.solve_scan({(0, "A"): rng.randn(3, 4, 200), (0, "y"): rng.randn(3, 4)},
                          group_size=2, niter=12)
     assert tuple(res.x[0].shape) == (3, 200) and bool(torch.isfinite(res.x[0]).all())
@@ -495,7 +495,7 @@ def test_per_instance_A_guards():
 
 @pytest.mark.parametrize("group_size,B", [(2, 5), (2, 4), (1, 3), (8, 5)])
 def test_solve_scan_matches_solve(group_size, B):
-    """Where both drivers apply they agree lane for lane, also when the last
+    """Where both solve and solve_scan apply they agree lane for lane, also when the last
     group is padded (TestSolveScan in tests/test_batch.py)."""
     rng = np.random.RandomState(30)
     As, ys = rng.randn(B, 8, 12), rng.randn(B, 8)
@@ -521,7 +521,7 @@ def test_solve_scan_matches_jax_with_warm_start_and_histories():
     _assert_same(bt.solve_scan(ov, **kw), bj.solve_scan(ov, **kw))
     with pytest.raises(ValueError, match="solve_scan needs overrides"):
         bt.solve_scan({}, niter=5)
-    with pytest.raises(TypeError, match="unexpected arguments"):
+    with pytest.raises(TypeError, match="unexpected keyword"):
         bt.solve_scan(ov, niter=5, dtype=torch.float32)
 
 

@@ -17,7 +17,7 @@ from admmsolver_tpu_torch.models.applications import spm_model, synthetic_spm_da
 from admmsolver_tpu_torch.ops.kernels import (fused_spm_chunk, fused_spm_chunk_reference,
                                               fused_two_block_chunk,
                                               fused_two_block_chunk_reference)
-from admmsolver_tpu_torch.parallel import FusedSpMSolver, FusedTwoBlockSolver
+from admmsolver_tpu_torch.parallel import BatchedSolver, FusedSpMSolver, FusedTwoBlockSolver
 
 pytestmark = pytest.mark.gpu
 
@@ -316,7 +316,51 @@ def test_simple_optimizer_spm_on_cuda_matches_cpu(cuda):
     np.testing.assert_array_equal(oc.mu.cpu().numpy(), oh.mu.numpy())
 
 
-@pytest.mark.parametrize("entry", ["FusedTwoBlockSolver", "FusedSpMSolver", "SimpleOptimizer"])
+@pytest.mark.parametrize("model", ["two_block", "spm"])
+def test_batched_solver_on_cuda_matches_cpu(cuda, model):
+    """The float64 batched engine on the card (its default device) against
+    itself on the host: shared eigenbasis with per-lane shifts, and per-lane
+    dense factors of the constrained SpM block."""
+    rng = np.random.RandomState(3)
+    if model == "two_block":
+        A = rng.randn(12, 30)
+        tm = _bp(A, rng.randn(12))
+        ov = {(0, "y"): rng.randn(4, 12), (1, "alpha"): np.linspace(0.05, 0.5, 4)}
+        kw = dict(niter=150, interval_update_mu=20)
+    else:
+        solver, gs = _spm_solver("cpu")
+        tm, ov, kw = solver.model, {(0, "y"): gs}, dict(niter=150, mu0=0.1)
+    rc = BatchedSolver(tm).solve(ov, **kw)
+    rh = BatchedSolver(tm, device="cpu").solve(ov, **kw)
+    for a, b in zip(rc.x + rc.h, rh.x + rh.h):
+        assert a.is_cuda and a.dtype == torch.float64
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(rc.mu.cpu().numpy(), rh.mu.numpy(), rtol=1e-12)
+    np.testing.assert_array_equal(rc.iterations.cpu().numpy(), rh.iterations.numpy())
+    np.testing.assert_allclose(rc.primal_residual.cpu().numpy(), rh.primal_residual.numpy(),
+                               rtol=1e-6, atol=1e-12)
+
+
+def test_fused_spm_solve_mixed_on_cuda_launches_the_kernel(cuda):
+    """The float32 phase goes through the chunk kernel (1 + 100 + 19
+    iterations: three launches), the polish runs in float64 on the card and
+    ends where the host's mixed solve ends."""
+    sc, gs = _spm_solver(cuda)
+    sh, _ = _spm_solver("cpu")
+    kw = dict(niter_low=120, niter=150, mu0=0.1, rtol=0.0, low_atol=0.0,
+              record_residuals=False)
+    launches = fused_spm_chunk.launches
+    rc = sc.solve_mixed({(0, "y"): gs}, **kw)
+    assert fused_spm_chunk.launches == launches + 3
+    rh = sh.solve_mixed({(0, "y"): gs}, **kw)
+    for k in range(3):
+        assert rc.x[k].is_cuda and rc.x[k].dtype == torch.float64
+        np.testing.assert_allclose(rc.x[k].cpu().numpy(), rh.x[k].numpy(), rtol=0, atol=2e-5)
+    assert rc.iterations.tolist() == [270] * 6
+
+
+@pytest.mark.parametrize("entry", ["FusedTwoBlockSolver", "FusedSpMSolver", "SimpleOptimizer",
+                                   "BatchedSolver"])
 def test_default_device_raises_without_cuda(entry):
     """Entry points run on the card unless the caller asks for the CPU:
     with no CUDA device the default raises, nothing carries on on the host."""
@@ -329,5 +373,7 @@ def test_default_device_raises_without_cuda(entry):
             FusedTwoBlockSolver(_bp(A, rng.randn(6)))
         elif entry == "FusedSpMSolver":
             _spm_solver(None)
+        elif entry == "BatchedSolver":
+            BatchedSolver(_bp(A, rng.randn(6)))
         else:
             T.SimpleOptimizer(_bp(A, rng.randn(6)))
