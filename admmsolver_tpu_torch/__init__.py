@@ -7,7 +7,10 @@ the structured operators, least squares (plain and equality-constrained) /
 L1 / L2 / nonnegativity objectives, the model constructors, the single-instance
 engine (:class:`SimpleOptimizer`), the batched engine
 (:class:`~admmsolver_tpu_torch.parallel.BatchedSolver`: plain, mixed-precision,
-path and scan solves), and the fused solvers
+path, scan and resumable solves), the scenario stream
+(:class:`~admmsolver_tpu_torch.parallel.ScenarioScheduler`), complex problems
+through their real embedding (:func:`realify_model`), checkpoints and
+telemetry (:mod:`admmsolver_tpu_torch.utils`), and the fused solvers
 (:class:`~admmsolver_tpu_torch.parallel.FusedTwoBlockSolver`,
 :class:`~admmsolver_tpu_torch.parallel.FusedSpMSolver`) whose chunk kernels
 are hand-written CUDA kernels for Hopper (sm_90a).  Solvers run on ``cuda``
@@ -24,6 +27,7 @@ from .ops.linop import (
     DenseMatrix,
     DiagonalMatrix,
     ScaledIdentityMatrix,
+    PartialDiagonalMatrix,
     identity,
     asmatrixtype,
     matrix_hash,
@@ -37,9 +41,11 @@ from .models.objectivefunc import (
     NonNegativePenalty,
 )
 from .models.problem import EqualityCondition, Model, Problem
+from .models.realify import RealifiedModel, realify_model
 from .optimizer import SimpleOptimizer
 from .config import ADMMConfig
 from .parallel.batch import BatchedSolver, BatchResult
 from .parallel.fused import FusedTwoBlockSolver, FusedResult
 from .parallel.fused_spm import FusedSpMSolver, FusedSpMResult
+from .parallel.scheduler import ScenarioScheduler, ScenarioResult
 from .ops.kernels import fused_two_block_chunk, fused_spm_chunk

@@ -17,8 +17,10 @@ from .models.objectivefunc import (ConstrainedLeastSquares, L1Regularizer,
                                    L2Regularizer, LeastSquares,
                                    NonNegativePenalty, ObjectiveFunctionBase)
 from .models.problem import Model
-from .ops.linop import (DenseMatrix, DiagonalMatrix, MatrixBase,
-                        ScaledIdentityMatrix)
+from .models.realify import RealPartProx
+from .ops.linop import (DenseMatrix, DiagonalMatrix,
+                        InterleavedComplexDiagonalMatrix, MatrixBase,
+                        PartialDiagonalMatrix, ScaledIdentityMatrix)
 
 __all__ = ["from_jax_model", "state_from_numpy", "batch_result_to_numpy",
            "batch_state_from_numpy"]
@@ -26,7 +28,11 @@ __all__ = ["from_jax_model", "state_from_numpy", "batch_result_to_numpy",
 
 def _tensor(a, device, dtype) -> torch.Tensor:
     # np.array copies: JAX hands out read-only buffers
-    return torch.as_tensor(np.array(a), device=device, dtype=dtype)
+    a = np.array(a)
+    if dtype is not None and np.iscomplexobj(a) and not dtype.is_complex:
+        # complex arrays keep a complex dtype of the requested precision
+        dtype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    return torch.as_tensor(a, device=device, dtype=dtype)
 
 
 def _operator(op, device, dtype) -> MatrixBase:
@@ -39,6 +45,11 @@ def _operator(op, device, dtype) -> MatrixBase:
         c = np.asarray(op.coeff)
         return ScaledIdentityMatrix(op.shape, c.item() if dtype is None else
                                     _tensor(c, device, dtype))
+    if name == "PartialDiagonalMatrix":
+        return PartialDiagonalMatrix(_operator(op.matrix, device, dtype), op.rest_dims)
+    if name == "InterleavedComplexDiagonalMatrix":
+        return InterleavedComplexDiagonalMatrix(_tensor(op.re, device, dtype),
+                                                _tensor(op.im, device, dtype))
     raise TypeError(f"admmsolver_tpu_torch has no counterpart of operator {name} yet")
 
 
@@ -62,14 +73,19 @@ def _objective(f, device, dtype) -> ObjectiveFunctionBase:
         return L1Regularizer(float(np.asarray(f._alpha)), int(f._size_x), offset)
     if name == "NonNegativePenalty":
         return NonNegativePenalty(int(f._size_x))
+    if name == "RealPartProx":
+        return RealPartProx(_objective(f._inner, device, dtype))
     raise TypeError(f"admmsolver_tpu_torch has no counterpart of objective {name} yet")
 
 
 def from_jax_model(model, device="cuda", dtype: Optional[torch.dtype] = None) -> Model:
     """The port's :class:`Model` for an ``admmsolver_tpu.Model``.
 
-    Arrays keep their numpy dtype unless ``dtype`` is given; they are placed
-    on ``device``.  Raises ``TypeError`` on any objective or operator the
+    Arrays keep their numpy dtype unless ``dtype`` is given (complex arrays
+    then take the complex dtype of that precision); they are placed on
+    ``device``.  Realified models carry over with their structure
+    (``PartialDiagonalMatrix``, ``InterleavedComplexDiagonalMatrix``,
+    ``RealPartProx``).  Raises ``TypeError`` on any objective or operator the
     port does not have yet.
     """
     functions = [_objective(f, device, dtype) for f in model.functions]

@@ -9,3 +9,10 @@ from .objectivefunc import (
 from .problem import EqualityCondition, Model, Problem
 from .applications import (basis_pursuit_model, lasso_model, spm_model,
                            synthetic_spm_data)
+from .realify import (
+    RealifiedModel,
+    RealPartProx,
+    realify_matrix,
+    realify_model,
+    realify_objective,
+)

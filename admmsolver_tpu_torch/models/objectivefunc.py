@@ -40,6 +40,7 @@ from ..ops.linop import (
     DiagonalMatrix,
     LaneOperators,
     MatrixBase,
+    PartialDiagonalMatrix,
     ScaledIdentityMatrix,
     _asarray,
     _match_precision,
@@ -90,13 +91,15 @@ def inv_hpd(a: torch.Tensor) -> torch.Tensor:
 
 def _inv_hpd(m):
     """Inverse of a Hermitian positive-definite operator (or of one per
-    lane): dense operators through :func:`inv_hpd`, diagonal and
-    scaled-identity ones in closed form."""
+    lane): dense operators through :func:`inv_hpd`, a Kronecker ``G ⊗ I``
+    through the inverse of its small factor, diagonal and scaled-identity
+    ones in closed form."""
     if isinstance(m, LaneOperators):
-        return LaneOperators(m.kind, inv_hpd(m.data) if m.kind == "dense" else 1.0 / m.data,
-                             m.n)
+        return m._with(m.kind, inv_hpd(m.data) if m.kind in ("dense", "kron") else 1.0 / m.data)
     if isinstance(m, DenseMatrix):
         return DenseMatrix(inv_hpd(m.data))
+    if isinstance(m, PartialDiagonalMatrix):
+        return PartialDiagonalMatrix(_inv_hpd(m.matrix), m.rest_dims)
     if isinstance(m, (DiagonalMatrix, ScaledIdentityMatrix)):
         return m.inv()
     raise TypeError(f"no HPD inverse for {type(m).__name__}")
@@ -234,18 +237,37 @@ class _ShiftedQuadratic:
             self._get_eig()
         return ObjectiveFunctionBase.clone_with(self, **updates)
 
+    def _spectral_inner(self):
+        """(dense Gram, kron rest) if the spectral path applies, else None.
+
+        ``A†A`` may be plain dense, or ``G ⊗ I_rest`` (a
+        :class:`PartialDiagonalMatrix` — the real embedding of a complex
+        problem, :mod:`admmsolver_tpu_torch.models.realify`): the eigensystem
+        of the small factor G diagonalizes the whole Gram blockwise, so a
+        solve stays two small products with ``rest`` columns per lane.
+        """
+        if isinstance(self._AcA, DenseMatrix):
+            return self._AcA.data, 1
+        if isinstance(self._AcA, PartialDiagonalMatrix) and \
+                isinstance(self._AcA.matrix, DenseMatrix):
+            return self._AcA.matrix.data, self._AcA._rest
+        return None
+
     def _spectral_ok(self) -> bool:
-        return isinstance(self._AcA, DenseMatrix)
+        return self._spectral_inner() is not None
 
     def _get_eig(self):
         if self._eig is None:
-            gram = self._AcA.data.detach().cpu().numpy()
-            self._eig = np.linalg.eigh(gram)
+            gram, _ = self._spectral_inner()
+            self._eig = np.linalg.eigh(gram.detach().cpu().numpy())
         return self._eig
 
     def _thin_A(self):
-        """Dense wide A as a numpy array, or None."""
+        """Dense wide A (or the small factor of ``A ⊗ I``) as a numpy
+        array, or None."""
         A_op = getattr(self, "_A", None)
+        if isinstance(A_op, PartialDiagonalMatrix):
+            A_op = A_op.matrix
         if not isinstance(A_op, DenseMatrix):
             return None
         A = A_op.data.detach().cpu().numpy()
@@ -274,6 +296,11 @@ class _ShiftedQuadratic:
                 U_r = (A.conj().T @ W[:, keep]) / np.sqrt(lam)
                 self._eig_thin = (lam, U_r)
         return self._eig_thin
+
+    def _kron_rest(self) -> int:
+        """``rest`` of a Kronecker Gram ``G ⊗ I_rest``, 1 for a plain one."""
+        inner = self._spectral_inner()
+        return 1 if inner is None else inner[1]
 
     def _basis(self, thin: bool, like: torch.Tensor):
         """(lam, U) of the thin or full eigensystem as tensors on ``like``'s
@@ -314,6 +341,17 @@ class _ShiftedQuadratic:
         lam, U = self._basis(factors.thin, rhs)
         shift = _match_precision(factors.shift, rhs)[:, None]
         denom = _lanes(self._alpha, rhs) * lam + shift              # (B, R)
+        rest = self._kron_rest()
+        if rest > 1:
+            # G ⊗ I_rest: each lane's rest entries are columns of its products
+            r3 = rhs.reshape(rhs.shape[0], -1, rest)                 # (B, m, rest)
+            w = _mm(U.conj().T, r3)                                  # (B, R, rest)
+            if factors.thin:
+                out = _mm(U, w * (1.0 / denom - 1.0 / shift)[:, :, None]) \
+                    + r3 / shift[:, :, None]
+            else:
+                out = _mm(U, w / denom[:, :, None])
+            return out.reshape(rhs.shape)
         w = _mm(rhs, U.conj())
         if factors.thin:
             return _mm(w * (1.0 / denom - 1.0 / shift), U.T) + rhs / shift
@@ -326,24 +364,32 @@ class _ShiftedQuadratic:
         lam, U = self._basis(factors.thin, cols)
         shift = _match_precision(factors.shift, cols)[:, None]
         denom = _lanes(self._alpha, cols) * lam + shift
-        w = _mm(U.conj().T, cols)                                    # (R, k)
+        rest = self._kron_rest()
+        # G ⊗ I_rest: the rest axis joins the columns
+        c2 = cols if rest == 1 else cols.reshape(cols.shape[0] // rest, -1)
+        w = _mm(U.conj().T, c2)                                      # (R, rest·k)
         if factors.thin:
             coef = 1.0 / denom - 1.0 / shift
-            return _mm(U, coef[:, :, None] * w) + cols / shift[:, :, None]
-        return _mm(U, w / denom[:, :, None])
+            out = _mm(U, coef[:, :, None] * w) + c2 / shift[:, :, None]
+        else:
+            out = _mm(U, w / denom[:, :, None])
+        return out.reshape((out.shape[0],) + tuple(cols.shape))
 
     def _apply_B(self, factors, rhs):
         if isinstance(factors, SpectralShift):
             lam, U = self._basis(factors.thin, rhs)
             shift = _match_precision(factors.shift, rhs)
-            w = _mm(U.conj().T, rhs)
+            rest = self._kron_rest()
+            # G ⊗ I_rest: fold the rest axis into columns
+            r2 = rhs if rest == 1 else rhs.reshape(rhs.shape[0] // rest, -1)
+            w = _mm(U.conj().T, r2)
             if factors.thin:
                 coef = 1.0 / (self._alpha * lam + shift) - 1.0 / shift
                 w = w * (coef if w.ndim == 1 else coef[:, None])
-                return _mm(U, w) + rhs / shift
+                return (_mm(U, w) + r2 / shift).reshape(rhs.shape)
             denom = self._alpha * lam + shift
             w = w / (denom if w.ndim == 1 else denom[:, None])
-            return _mm(U, w)
+            return _mm(U, w).reshape(rhs.shape)
         return factors @ rhs
 
 

@@ -3,6 +3,8 @@ from .linop import (
     DenseMatrix,
     DiagonalMatrix,
     ScaledIdentityMatrix,
+    PartialDiagonalMatrix,
+    InterleavedComplexDiagonalMatrix,
     identity,
     asmatrixtype,
     matrix_hash,

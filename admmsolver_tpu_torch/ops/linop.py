@@ -1,13 +1,17 @@
 """Structured linear operators over torch tensors.
 
 Counterpart of :mod:`admmsolver_tpu.ops.linop` (reference
-``matrix.py:9-513``) for the operators the basis-pursuit slice uses:
-dense, diagonal and scaled identity, with the reference's rectangular
-truncate/zero-pad semantics and its structure-preserving ``matmul``/``add``
-dispatch.  The structure is a Python type; the values are tensors, which
-stay on the device and dtype they were built with until :meth:`MatrixBase.to`
-moves them.  Applying an operator follows the precision and device of the
-vector it acts on (:func:`_match_precision`).
+``matrix.py:9-513``): dense, diagonal, scaled identity, the Kronecker form
+``A ⊗ I`` (:class:`PartialDiagonalMatrix`) and the real embedding of a
+complex diagonal (:class:`InterleavedComplexDiagonalMatrix`), with the
+reference's rectangular truncate/zero-pad semantics and its
+structure-preserving ``matmul``/``add`` dispatch.  The structure is a Python
+type; the values are tensors, which stay on the device and dtype they were
+built with until :meth:`MatrixBase.to` moves them.  Applying an operator
+follows the precision and device of the vector it acts on
+(:func:`_match_precision`).  Where the JAX package decides a structure from
+concrete values (a blockwise-constant diagonal), the port always can: every
+value is a tensor.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ __all__ = [
     "DenseMatrix",
     "DiagonalMatrix",
     "ScaledIdentityMatrix",
+    "PartialDiagonalMatrix",
+    "InterleavedComplexDiagonalMatrix",
     "identity",
     "asmatrixtype",
     "matrix_hash",
@@ -157,6 +163,10 @@ class MatrixBase:
 
     def inv(self) -> "MatrixBase":
         raise NotImplementedError
+
+    def gram(self) -> "MatrixBase":
+        """A† A, keeping structure where possible."""
+        return matmul(self.H, self)
 
     def effective_diagonal(self):
         """Diagonal vector if this operator acts as a (full) diagonal, else
@@ -378,6 +388,165 @@ class DiagonalMatrix(MatrixBase):
         return "DiagonalMatrix: " + str(self._diagonals)
 
 
+class PartialDiagonalMatrix(MatrixBase):
+    """Kronecker product ``A ⊗ I_rest`` stored as the small factor A.
+
+    Reference: ``matrix.py:301-401``.  The matvec reshapes the operand to
+    ``(A.cols, rest·batch)`` and applies A to it; :meth:`matvec_rows` does
+    the same for every row of a batch.
+    """
+
+    def __init__(self, matrix, rest_dims: tuple) -> None:
+        matrix = asmatrixtype(matrix)
+        self.matrix = matrix
+        self.rest_dims = tuple(int(r) for r in rest_dims)
+        self._rest = int(np.prod(self.rest_dims)) if self.rest_dims else 1
+        self.shape = (matrix.shape[0] * self._rest, matrix.shape[1] * self._rest)
+
+    def to(self, device) -> "PartialDiagonalMatrix":
+        return PartialDiagonalMatrix(self.matrix.to(device), self.rest_dims)
+
+    def hash(self) -> int:
+        return self.matrix.hash()
+
+    def asmatrix(self) -> torch.Tensor:
+        small = self.matrix.asmatrix()
+        eye = torch.eye(self._rest, dtype=small.dtype, device=small.device)
+        return torch.einsum("IJ,ij->IiJj", small, eye).reshape(self.shape)
+
+    def _scale(self, c) -> "PartialDiagonalMatrix":
+        return PartialDiagonalMatrix(self.matrix * c, self.rest_dims)
+
+    @property
+    def T(self) -> "PartialDiagonalMatrix":
+        return PartialDiagonalMatrix(self.matrix.T, self.rest_dims)
+
+    def conjugate(self) -> "PartialDiagonalMatrix":
+        return PartialDiagonalMatrix(self.matrix.conjugate(), self.rest_dims)
+
+    conj = conjugate
+
+    def inv(self) -> "PartialDiagonalMatrix":
+        return PartialDiagonalMatrix(self.matrix.inv(), self.rest_dims)
+
+    def gram(self) -> "PartialDiagonalMatrix":
+        return PartialDiagonalMatrix(self.matrix.gram(), self.rest_dims)
+
+    def matvec(self, v):
+        """(A ⊗ I) v; v may carry trailing batch dims (matrix.py:367-401)."""
+        v = _asarray(v)
+        out_shape = (self.shape[0],) + tuple(v.shape[1:])
+        return self.matrix.matvec(v.reshape(self.matrix.shape[1], -1)).reshape(out_shape)
+
+    def matvec_rows(self, v):
+        lead = tuple(v.shape[:-1])
+        vt = v.reshape(lead + (self.matrix.shape[1], self._rest)).transpose(-1, -2)
+        out = self.matrix.matvec_rows(vt).transpose(-1, -2)
+        return out.reshape(lead + (self.shape[0],))
+
+    def effective_diagonal(self):
+        inner = self.matrix.effective_diagonal()
+        if inner is None:
+            return None
+        return inner.repeat_interleave(self._rest)
+
+
+class InterleavedComplexDiagonalMatrix(MatrixBase):
+    """Real interleaved embedding of a complex diagonal matrix.
+
+    ``diag(a + ib)`` acting on interleaved (Re, Im) coordinates
+    (:mod:`admmsolver_tpu_torch.models.realify`) is the real block-diagonal
+    matrix with 2×2 blocks ``[[a, -b], [b, a]]`` per entry.  Stored as the
+    two real vectors ``re``/``im``, so complex couplings in realified models
+    keep an O(n) matvec and a *diagonal* Gram: ``R(D)† R(D) = diag(|d|²) ⊗
+    I₂``, which the diagonal-penalty proxes (L1 / NonNegative) require.
+
+    The matrix is real: ``conjugate()`` is the identity; ``T`` is the
+    embedding of the conjugate diagonal.
+    """
+
+    def __init__(self, re, im) -> None:
+        re, im = _asarray(re), _asarray(im)
+        if re.ndim != 1 or re.shape != im.shape:
+            raise ValueError(f"re {tuple(re.shape)} and im {tuple(im.shape)} must be "
+                             "1-D of one length")
+        self.re, self.im = re, im
+        self.shape = (2 * re.shape[0], 2 * re.shape[0])
+
+    def to(self, device) -> "InterleavedComplexDiagonalMatrix":
+        return InterleavedComplexDiagonalMatrix(self.re.to(device), self.im.to(device))
+
+    def hash(self) -> int:
+        return hash((matrix_hash(self.re), matrix_hash(self.im)))
+
+    def asmatrix(self) -> torch.Tensor:
+        n = self.re.shape[0]
+        out = torch.zeros(self.shape, dtype=self.re.dtype, device=self.re.device)
+        idx = torch.arange(n, device=self.re.device)
+        out[2 * idx, 2 * idx] = self.re
+        out[2 * idx + 1, 2 * idx + 1] = self.re
+        out[2 * idx, 2 * idx + 1] = -self.im
+        out[2 * idx + 1, 2 * idx] = self.im
+        return out
+
+    def _scale(self, c) -> "InterleavedComplexDiagonalMatrix":
+        # by a REAL scalar (the embedded matrix is real)
+        return InterleavedComplexDiagonalMatrix(self.re * c, self.im * c)
+
+    @property
+    def T(self) -> "InterleavedComplexDiagonalMatrix":
+        return InterleavedComplexDiagonalMatrix(self.re, -self.im)
+
+    def conjugate(self) -> "InterleavedComplexDiagonalMatrix":
+        return self
+
+    conj = conjugate
+
+    def inv(self) -> "InterleavedComplexDiagonalMatrix":
+        mod2 = self.re * self.re + self.im * self.im
+        return InterleavedComplexDiagonalMatrix(self.re / mod2, -self.im / mod2)
+
+    def gram(self) -> "DiagonalMatrix":
+        mod2 = self.re * self.re + self.im * self.im
+        return DiagonalMatrix(mod2.repeat_interleave(2))
+
+    def matvec(self, v):
+        v = _asarray(v)
+        if v.shape[0] != self.shape[1]:
+            raise ValueError(f"shape mismatch: {self.shape} @ {tuple(v.shape)}")
+        n = self.re.shape[0]
+        vr = v.reshape((n, 2) + tuple(v.shape[1:]))
+        bshape = (n,) + (1,) * (v.ndim - 1)
+        a = _match_precision(self.re, v).reshape(bshape)
+        b = _match_precision(self.im, v).reshape(bshape)
+        out = torch.stack([a * vr[:, 0] - b * vr[:, 1], b * vr[:, 0] + a * vr[:, 1]], dim=1)
+        return out.reshape(v.shape)
+
+    def matvec_rows(self, v):
+        if v.shape[-1] != self.shape[1]:
+            raise ValueError(f"shape mismatch: {self.shape} @ rows of {tuple(v.shape)}")
+        vr = v.reshape(tuple(v.shape[:-1]) + (-1, 2))
+        a, b = _match_precision(self.re, v), _match_precision(self.im, v)
+        out = torch.stack([a * vr[..., 0] - b * vr[..., 1], b * vr[..., 0] + a * vr[..., 1]],
+                          dim=-1)
+        return out.reshape(v.shape)
+
+    def effective_diagonal(self):
+        if bool(torch.any(self.im != 0)):
+            return None
+        return self.re.repeat_interleave(2)
+
+
+def _blockwise_first(d: torch.Tensor, nblocks: int):
+    """The first entry of each of ``nblocks`` contiguous blocks of ``d``
+    when ``d`` is (close to) constant within each block, else None (the
+    JAX package's concrete-value check, ``np.allclose``)."""
+    blocks = d.reshape(nblocks, -1)
+    if torch.allclose(blocks, blocks[:, :1].expand_as(blocks)):
+        return blocks[:, 0]
+    return None
+
+
 def _result_dtype(a: torch.Tensor, b: torch.Tensor) -> torch.dtype:
     return torch.promote_types(a.dtype, b.dtype)
 
@@ -402,6 +571,20 @@ def matmul(a: MatrixBase, b: MatrixBase) -> MatrixBase:
         return b._scale(a.coeff)
     if isinstance(a, ScaledIdentityMatrix):
         return matmul(a.to_diagonal_matrix(), b)
+
+    if isinstance(a, InterleavedComplexDiagonalMatrix):
+        if isinstance(b, InterleavedComplexDiagonalMatrix):
+            # Complex-diagonal product in real arithmetic; a real product
+            # (the Hermitian Gram R(D)† R(D) of a coupling) collapses to a
+            # plain diagonal so that penalty structure survives.
+            re = a.re * b.re - a.im * b.im
+            im = a.re * b.im + a.im * b.re
+            if not bool(torch.any(im != 0)):
+                return DiagonalMatrix(re.repeat_interleave(2))
+            return InterleavedComplexDiagonalMatrix(re, im)
+        if isinstance(b, ScaledIdentityMatrix) and b.is_square():
+            return a._scale(b.coeff)
+        return DenseMatrix(a.matvec(b.asmatrix()))
 
     if isinstance(a, DenseMatrix):
         if isinstance(b, ScaledIdentityMatrix):
@@ -435,9 +618,27 @@ def matmul(a: MatrixBase, b: MatrixBase) -> MatrixBase:
             if prod.shape[0] < size:
                 prod = torch.cat([prod, prod.new_zeros(size - k)])
             return DiagonalMatrix(prod, out_shape)
+        if isinstance(b, PartialDiagonalMatrix) and a.is_square():
+            # Kronecker form survives a blockwise-constant diagonal
+            # (matrix.py:283-291).
+            d = _blockwise_first(a.diagonals, b.matrix.shape[0])
+            if d is not None:
+                return PartialDiagonalMatrix(matmul(DiagonalMatrix(d), _as_dense(b.matrix)),
+                                             b.rest_dims)
+        return DenseMatrix(a.matvec(b.asmatrix()))
+
+    if isinstance(a, PartialDiagonalMatrix):
+        if isinstance(b, PartialDiagonalMatrix) and a.rest_dims == b.rest_dims:
+            return PartialDiagonalMatrix(matmul(a.matrix, b.matrix), a.rest_dims)
+        if isinstance(b, ScaledIdentityMatrix) and b.is_square():
+            return PartialDiagonalMatrix(a.matrix * b.coeff, a.rest_dims)
         return DenseMatrix(a.matvec(b.asmatrix()))
 
     return DenseMatrix(_mm(a.asmatrix(), b.asmatrix()))
+
+
+def _as_dense(m: MatrixBase) -> DenseMatrix:
+    return m if isinstance(m, DenseMatrix) else DenseMatrix(m.asmatrix())
 
 
 def add(a: MatrixBase, b: MatrixBase) -> MatrixBase:
@@ -454,8 +655,37 @@ def add(a: MatrixBase, b: MatrixBase) -> MatrixBase:
             if x.is_square():
                 return DiagonalMatrix(_asarray(x.coeff) + y.diagonals, y.shape)
             return add(x.to_diagonal_matrix(), y)
+        if isinstance(x, ScaledIdentityMatrix) and isinstance(y, PartialDiagonalMatrix):
+            if x.is_square():
+                inner = add(ScaledIdentityMatrix(y.matrix.shape[0], x.coeff), y.matrix)
+                return PartialDiagonalMatrix(inner, y.rest_dims)
         if isinstance(x, DiagonalMatrix) and isinstance(y, DiagonalMatrix):
             return DiagonalMatrix(x.diagonals + y.diagonals, x.shape)
+        if isinstance(x, DiagonalMatrix) and isinstance(y, PartialDiagonalMatrix) \
+                and x.is_square():
+            # Collapse when blockwise constant (matrix.py:461-468).
+            eff = y.matrix.effective_diagonal()
+            if eff is not None:
+                return add(x, DiagonalMatrix(eff.repeat_interleave(y._rest), x.shape))
+            d = _blockwise_first(x.diagonals, y.matrix.shape[0])
+            if d is not None:
+                return PartialDiagonalMatrix(add(DiagonalMatrix(d), y.matrix), y.rest_dims)
+        if isinstance(x, InterleavedComplexDiagonalMatrix) and \
+                isinstance(y, InterleavedComplexDiagonalMatrix):
+            return InterleavedComplexDiagonalMatrix(x.re + y.re, x.im + y.im)
+        if isinstance(x, ScaledIdentityMatrix) and \
+                isinstance(y, InterleavedComplexDiagonalMatrix) and x.is_square():
+            return InterleavedComplexDiagonalMatrix(y.re + x.coeff, y.im)
+        if isinstance(x, DiagonalMatrix) and \
+                isinstance(y, InterleavedComplexDiagonalMatrix) and x.is_square():
+            # structured only when the diagonal is constant over each (Re, Im) pair
+            d = _blockwise_first(x.diagonals, y.re.shape[0])
+            if d is not None:
+                return InterleavedComplexDiagonalMatrix(y.re + d, y.im)
+        if isinstance(x, PartialDiagonalMatrix) and isinstance(y, PartialDiagonalMatrix):
+            if x.rest_dims == y.rest_dims:
+                return PartialDiagonalMatrix(add(x.matrix, y.matrix), x.rest_dims)
+            break
 
     return DenseMatrix(a.asmatrix() + b.asmatrix())
 
@@ -464,22 +694,29 @@ class LaneOperators:
     """One square operator per batch lane, all of one structure.
 
     ``kind`` is ``"scalar"`` (``c_b I``, data ``(B,)``), ``"diag"``
-    (``(B, n)``) or ``"dense"`` (``(B, n, n)``); a leading axis of 1 stands
-    for an operator that all lanes share.  This is what the batched engine
-    composes penalties and factors from, where the JAX package maps the
-    structured operators over the batch: ``scale`` and ``+`` keep the
-    cheapest structure that holds the result, as :func:`add` does.
-    ``known_zero`` marks the penalty of a block without couplings.
+    (``(B, n)``), ``"kron"`` (``G_b ⊗ I_rest``, data ``(B, m, m)`` with
+    ``n = m·rest``, the per-lane form of :class:`PartialDiagonalMatrix`) or
+    ``"dense"`` (``(B, n, n)``); a leading axis of 1 stands for an operator
+    that all lanes share.  This is what the batched engine composes
+    penalties and factors from, where the JAX package maps the structured
+    operators over the batch: ``scale`` and ``+`` keep the cheapest
+    structure that holds the result, as :func:`add` does, and densify only
+    where none does.  ``known_zero`` marks the penalty of a block without
+    couplings.
     """
 
-    _RANK = {"scalar": 0, "diag": 1, "dense": 2}
+    _NDIM = {"scalar": 1, "diag": 2, "kron": 3, "dense": 3}
+    _RANK = {"scalar": 0, "diag": 1, "kron": 2, "dense": 3}
 
     def __init__(self, kind: str, data: torch.Tensor, n: int,
-                 known_zero: bool = False) -> None:
-        if data.ndim != self._RANK[kind] + 1:
-            raise ValueError(f"{kind} lane operators need {self._RANK[kind] + 1}-D data, "
+                 known_zero: bool = False, rest: int = 1) -> None:
+        if data.ndim != self._NDIM[kind]:
+            raise ValueError(f"{kind} lane operators need {self._NDIM[kind]}-D data, "
                              f"got {tuple(data.shape)}")
+        if kind == "kron" and data.shape[-1] * rest != n:
+            raise ValueError(f"a kron factor of {data.shape[-1]} times I_{rest} is not {n} wide")
         self.kind, self.data, self.n, self.known_zero = kind, data, int(n), known_zero
+        self.rest = int(rest)
 
     @classmethod
     def shared(cls, op: MatrixBase) -> "LaneOperators":
@@ -491,6 +728,11 @@ class LaneOperators:
             return cls("scalar", _asarray(op.coeff).reshape(1), n)
         if isinstance(op, DiagonalMatrix):
             return cls("diag", op.diagonals[None], n)
+        if isinstance(op, PartialDiagonalMatrix) and op.matrix.is_square():
+            d = op.effective_diagonal()
+            if d is not None:
+                return cls("diag", d[None], n)
+            return cls("kron", op.matrix.asmatrix()[None], n, rest=op._rest)
         return cls("dense", op.asmatrix()[None], n)
 
     def _lanes(self, c):
@@ -499,16 +741,23 @@ class LaneOperators:
             return c.reshape((-1,) + (1,) * (self.data.ndim - 1))
         return c
 
+    def _with(self, kind: str, data: torch.Tensor) -> "LaneOperators":
+        return LaneOperators(kind, data, self.n, rest=self.rest if kind == "kron" else 1)
+
     def scale(self, c) -> "LaneOperators":
         """Every lane's operator times its coefficient (scalar or ``(B,)``);
         the result follows a tensor coefficient's device and precision."""
         data = _match_precision(self.data, c) if isinstance(c, torch.Tensor) else self.data
-        return LaneOperators(self.kind, data * self._lanes(c), self.n)
+        return self._with(self.kind, data * self._lanes(c))
 
     def _as(self, kind: str) -> torch.Tensor:
+        """The data as the higher ``kind`` ("diag" or "dense")."""
         d = self.data
         if self.kind == kind:
             return d
+        if self.kind == "kron":
+            eye = torch.eye(self.rest, dtype=d.dtype, device=d.device)
+            return torch.einsum("bij,rs->birjs", d, eye).reshape(d.shape[0], self.n, self.n)
         if self.kind == "scalar":
             d = d[:, None].expand(d.shape[0], self.n)
         return d if kind == "diag" else torch.diag_embed(d)
@@ -516,8 +765,22 @@ class LaneOperators:
     def __add__(self, other: "LaneOperators") -> "LaneOperators":
         if self.n != other.n:
             raise ValueError(f"shape mismatch: {self.n} + {other.n}")
-        kind = max(self.kind, other.kind, key=self._RANK.get)
-        return LaneOperators(kind, self._as(kind) + other._as(kind), self.n)
+        lo, hi = sorted((self, other), key=lambda o: self._RANK[o.kind])
+        if hi.kind == "kron":
+            m = hi.data.shape[-1]
+            if lo.kind == "kron" and lo.rest == hi.rest:
+                return hi._with("kron", lo.data + hi.data)
+            if lo.kind == "scalar":
+                eye = torch.eye(m, dtype=hi.data.dtype, device=hi.data.device)
+                return hi._with("kron", hi.data + lo.data[:, None, None] * eye)
+            if lo.kind == "diag":
+                # G ⊗ I + D stays Kronecker where D is constant over each
+                # block of rest entries (the check of :func:`add`)
+                blocks = lo.data.reshape(lo.data.shape[0], m, hi.rest)
+                if bool((blocks == blocks[..., :1]).all()):
+                    return hi._with("kron", hi.data + torch.diag_embed(blocks[..., 0]))
+            return LaneOperators("dense", lo._as("dense") + hi._as("dense"), self.n)
+        return LaneOperators(hi.kind, lo._as(hi.kind) + hi.data, self.n)
 
     def matvec_rows(self, v):
         """Lane b's operator on row b of ``v`` (B, n)."""
@@ -526,6 +789,8 @@ class LaneOperators:
             return d[:, None] * v
         if self.kind == "diag":
             return d * v
+        if self.kind == "kron":
+            return (d @ v.reshape(v.shape[0], -1, self.rest)).reshape(v.shape)
         return (d @ v[..., None])[..., 0]
 
     def matmat(self, cols):
@@ -536,6 +801,11 @@ class LaneOperators:
             return d[:, None, None] * cols
         if self.kind == "diag":
             return d[:, :, None] * cols
+        if self.kind == "kron":
+            k = cols.shape[-1]
+            c2 = cols.reshape(tuple(cols.shape[:-2]) + (d.shape[-1], self.rest * k))
+            out = d @ c2
+            return out.reshape(out.shape[0], self.n, k)
         return d @ cols
 
 
@@ -560,3 +830,22 @@ def asmatrixtype(a) -> MatrixBase:
     if isinstance(a, MatrixBase):
         return a
     return DenseMatrix(a)
+
+
+def _vecprod(v1, v2, size: int):
+    """Elementwise product truncated to the shorter vector and zero-padded
+    on the right to ``size`` (rectangular-diagonal product semantics,
+    matrix.py:429-439)."""
+    v1, v2 = _asarray(v1), _asarray(v2)
+    k = min(v1.shape[0], v2.shape[0])
+    return _pad_by_zero(v1[:k] * v2[:k], size)
+
+
+def _pad_by_zero(arr, size: int):
+    """Right-pad a vector with zeros to ``size`` (matrix.py:442-448)."""
+    arr = _asarray(arr)
+    if arr.shape[0] > size:
+        raise ValueError(f"a vector of {arr.shape[0]} does not fit {size}")
+    if arr.shape[0] == size:
+        return arr
+    return torch.cat([arr, arr.new_zeros(size - arr.shape[0])])

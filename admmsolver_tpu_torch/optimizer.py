@@ -40,6 +40,7 @@ from .config import ADMMConfig
 from .models.problem import Model
 from .ops.linop import (LaneOperators, MatrixBase, ScaledIdentityMatrix,
                         _asarray, _match_precision)
+from .utils import telemetry
 
 __all__ = ["ADMMPlan", "SimpleOptimizer"]
 
@@ -127,7 +128,8 @@ class ADMMPlan:
                             f"Penalty structure {type(ece2).__name__} for "
                             f"block {k} has no diagonal interpretation "
                             "(reference assert at objectivefunc.py:187,296)")
-                    diag_terms.append((p_idx, d.to(device)))
+                    # E†E is Hermitian: its diagonal is real
+                    diag_terms.append((p_idx, (d.real if d.is_complex() else d).to(device)))
                 self._check_uniform_mu(k, f, diag_terms)
                 self.mu_diag_terms.append(diag_terms)
             else:
@@ -518,6 +520,7 @@ class SimpleOptimizer:
                 dbuf[it] = 0.0
             x_old, x, h = x, x_new, h_new
             n = it + 1
+            telemetry.check_chunk("SimpleOptimizer", x, h)
             done = bool(conv)
             if callback is not None:
                 self._x, self._h, self._mu, self._x_old = x, h, mu, x_old

@@ -30,6 +30,7 @@ from ..config import ADMMConfig
 from ..models.problem import Model
 from ..optimizer import ADMMPlan
 from ..ops.linop import _asarray, _real_dtype
+from ..utils import telemetry
 
 __all__ = ["BatchedSolver", "BatchResult"]
 
@@ -278,12 +279,15 @@ class BatchedSolver:
 
     # -- the chunk schedule ------------------------------------------------
     def _run(self, cfg: ADMMConfig, ov: Dict, x, h, mu, tols, done0,
-             record: bool, stride: int, chunked_checks: bool) -> BatchResult:
+             record: bool, stride: int, chunked_checks: bool,
+             read_done0: bool = True) -> BatchResult:
         """One batch through the schedule: prologue, factors, iteration 0,
         refactor, then chunks of ``interval_update_mu`` iterations (those
         past ``niter`` are not run) with a refactor at each chunk's end,
         until every lane is done.  ``ov`` is already cast and on the device;
-        ``done0`` is a (B,) mask or None."""
+        ``done0`` is a (B,) mask or None.  The host reads the done flags
+        only before a chunk that could be skipped: after a chunk that is not
+        the last, and (``read_done0``) once for ``done0``."""
         plan = self.plan
         interval, niter = cfg.interval_update_mu, cfg.niter
         rtol, atol = tols
@@ -301,7 +305,7 @@ class BatchedSolver:
         # No lane's flag can change when neither tolerance can be met: then
         # the host never reads the flags.
         can_finish = rtol > 0 or atol > 0
-        all_done = False if done0 is None else bool(done0.all())
+        all_done = False if done0 is None or not read_done0 else bool(done0.all())
         if done0 is None:
             done0 = torch.zeros(B, dtype=torch.bool, device=self.device)
         carry = refactored((x, x, h, mu, None, done0,
@@ -315,6 +319,7 @@ class BatchedSolver:
         # iteration 0, then refactor (the mu update fires at global_it=0,
         # reference optimizer.py:319-320)
         carry = refactored(step(carry, 0))
+        telemetry.check_chunk("BatchedSolver", carry[0], carry[2])
         it = 1
         while it < niter and not all_done:
             boundary = it + interval - 1
@@ -324,7 +329,8 @@ class BatchedSolver:
                 carry = step(carry, git, not chunked_checks or git == boundary)
             carry = refactored(carry)
             it += interval
-            if can_finish:
+            telemetry.check_chunk("BatchedSolver", carry[0], carry[2])
+            if can_finish and it < niter:
                 all_done = bool(carry[5].all())
         x, _, h, mu, _, done, count, pbuf, dbuf = carry
         return BatchResult(x=x, h=h, mu=mu, iterations=count, converged=done,
@@ -530,6 +536,62 @@ class BatchedSolver:
                                    (rtol, atol), None, record, stride,
                                    bool(chunked_checks)))
         return _trim(_concat(parts), B)
+
+    def solve_resumable(self,
+                        path: str,
+                        overrides: Optional[Dict] = None,
+                        checkpoint_every: int = 1000,
+                        niter: int = 10000,
+                        mu0=1.0,
+                        **kw) -> BatchResult:
+        """Preemption-tolerant solve: checkpoint every ``checkpoint_every``
+        iterations, resume from ``path`` if it exists.
+
+        The reference's only resume mechanism is a manual ``x0`` warm start
+        (``optimizer.py:146-149``); this drives the same warm start segment
+        by segment and persists the full carry (primal, dual, penalties,
+        per-lane iteration counts, convergence flags) through
+        :mod:`admmsolver_tpu_torch.utils.checkpoint` after each segment, in
+        the layout the JAX package reads and writes.  Killing the process
+        loses at most one segment.  The loop stops once every lane has
+        converged; a checkpoint that already covers ``niter`` is returned
+        without another solve.
+
+        Each segment starts the ``interval_update_mu`` clock afresh (as a
+        fresh solve from a warm start does), so pick ``checkpoint_every`` as
+        a multiple of ``interval_update_mu`` to keep the uninterrupted
+        schedule.
+        """
+        import os
+
+        from ..utils.checkpoint import load_batch_result, save_batch_result
+
+        # segments continue exact state; a mixed recipe's f32 phase would
+        # truncate a warm-started carry mid-run
+        kw.setdefault("recipe", "plain")
+        x0 = h0 = None
+        done_iters = 0
+        total = None
+        if os.path.exists(path):
+            ckpt = load_batch_result(path, device=self.device)
+            x0, h0, mu0 = ckpt.x, ckpt.h, ckpt.mu
+            total = ckpt.iterations
+            done_iters = int(total.max())
+        res = None
+        while done_iters < niter:
+            n = min(int(checkpoint_every), niter - done_iters)
+            res = self.solve(overrides, x0=x0, h0=h0, mu0=mu0, niter=n, **kw)
+            x0, h0, mu0 = res.x, res.h, res.mu
+            done_iters += n
+            total = res.iterations if total is None else total + res.iterations
+            res = dataclasses.replace(res, iterations=total)
+            save_batch_result(path, res)
+            if bool(res.converged.all()):
+                break
+        if res is None:
+            # the checkpoint already covered the full budget
+            res = load_batch_result(path, device=self.device)
+        return res
 
     def solve_mixed(self,
                     overrides: Optional[Dict] = None,

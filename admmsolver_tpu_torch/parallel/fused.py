@@ -10,9 +10,11 @@ denominators.  The chunk schedule is a Python loop; after each chunk the
 host checks whether every lane is done.
 
 Scope: ``Model([LeastSquares-like spectral block, L1 or NonNegative],
-[(1, 0, I, I)])`` in float32.  Convergence is checked once per chunk (not
-per iteration as the reference does): lanes may run up to one chunk longer
-than strictly needed; solutions are unaffected.
+[(1, 0, I, I)])`` in float32, and its real embedding from
+:func:`admmsolver_tpu_torch.models.realify.realify_model` (block 1 a
+``RealPartProx``: the kernel's ``_even`` prox modes).  Convergence is
+checked once per chunk (not per iteration as the reference does): lanes may
+run up to one chunk longer than strictly needed; solutions are unaffected.
 """
 from __future__ import annotations
 
@@ -25,8 +27,10 @@ import torch
 from ..models.objectivefunc import (L1Regularizer, NonNegativePenalty,
                                     _ShiftedQuadratic)
 from ..models.problem import Model
+from ..models.realify import RealPartProx
 from ..ops import kernels
 from ..ops.linop import ScaledIdentityMatrix
+from ..utils import telemetry
 
 __all__ = ["FusedTwoBlockSolver", "FusedResult"]
 
@@ -99,23 +103,29 @@ class FusedTwoBlockSolver:
         if not (isinstance(f0, _ShiftedQuadratic) and f0._spectral_ok()):
             raise ValueError(
                 "block 0 must be a dense-Gram quadratic (LeastSquares)")
-        if type(f1).__name__ == "RealPartProx":
+        if f0._kron_rest() != 1:
             raise ValueError(
-                "realified models (RealPartProx, the `_even` kernel modes) need "
-                "models.realify, which admmsolver_tpu_torch does not have yet")
-        if isinstance(f1, L1Regularizer):
-            if f1._offset is not None:
+                "block 0 has a Kronecker Gram (G ⊗ I); the kernel's eigenbasis spans "
+                "the whole block: use BatchedSolver")
+        # Realified complex models (models.realify) wrap the separable block
+        # in RealPartProx: the same elementwise prox on the Re lanes, zeros on
+        # the Im lanes (the `_even` kernel modes).
+        f1_inner, suffix = f1, ""
+        if isinstance(f1, RealPartProx):
+            f1_inner, suffix = f1._inner, "_even"
+        if isinstance(f1_inner, L1Regularizer):
+            if f1_inner._offset is not None:
                 raise ValueError(
                     "fused path does not support L1Regularizer offsets "
                     "(the kernel applies the plain soft-threshold)")
-            self.prox = "l1"
-        elif isinstance(f1, NonNegativePenalty):
-            self.prox = "nonneg"
+            self.prox = "l1" + suffix
+        elif isinstance(f1_inner, NonNegativePenalty):
+            self.prox = "nonneg" + suffix
         else:
             raise ValueError(
-                "block 1 must be L1 or NonNegative, "
-                f"got {type(f1).__name__}")
-        self._f1 = f1
+                "block 1 must be L1 or NonNegative (optionally realified), "
+                f"got {type(f1_inner).__name__}")
+        self._f1 = f1_inner
         self.model = model
         self.f0 = f0
         self.tile_b = int(tile_b)
@@ -144,7 +154,7 @@ class FusedTwoBlockSolver:
         dinv = 1.0 / (alpha_ls[:, None] * self.lam[None, :] + mu)
         if self.thin:
             dinv = dinv - 1.0 / mu
-        if self.prox == "l1":
+        if self.prox.startswith("l1"):
             thr = 0.5 * alpha1[:, None] / mu
         else:
             thr = torch.zeros_like(mu)
@@ -280,6 +290,7 @@ class FusedTwoBlockSolver:
                 break
             state, (pn, dn) = self._step(state, acy, alpha_ls, alpha1, tols,
                                          knobs, n_iters, do_mu)
+            telemetry.check_chunk("FusedTwoBlockSolver", state[:3])
             pbuf[row] = pn
             dbuf[row] = dn
 

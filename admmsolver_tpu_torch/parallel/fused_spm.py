@@ -39,6 +39,7 @@ from ..models.objectivefunc import (ConstrainedLeastSquares, L1Regularizer,
                                     LeastSquares, NonNegativePenalty, inv_hpd)
 from ..models.problem import Model
 from ..ops import kernels
+from ..utils import telemetry
 from .batch import BatchedSolver, BatchResult
 from .fused import _check_fused_overrides, _is_identity_si
 
@@ -262,6 +263,7 @@ class FusedSpMSolver:
                 break
             state, (pn, dn) = self._step(state, acy, alpha_ls, alpha1, tols,
                                          knobs, n_iters, do_mu)
+            telemetry.check_chunk("FusedSpMSolver", state[:5])
             pbuf[row] = pn
             dbuf[row] = dn
 

@@ -11,7 +11,13 @@ fails raises and the script exits non-zero without printing a result.
 * the batched engine: ``BatchedSolver.solve`` on the bench problem in
   float64, 200 iterations, and ``FusedSpMSolver.solve_mixed`` on the SpM
   problem (500 float32 iterations through the chunk kernel, then a float64
-  ``BatchedSolver`` polish of 200).
+  ``BatchedSolver`` polish of 200);
+* the stream drivers and complex problems: ``ScenarioScheduler`` over a
+  stream of 1024 ragged basis-pursuit scenarios in 256 lanes,
+  ``BatchedSolver.solve_resumable`` on the float64 bench problem, complex SpM
+  through ``realify_model`` and ``BatchedSolver``, and complex basis pursuit
+  through ``realify_model`` and ``FusedTwoBlockSolver`` (the kernel's
+  ``l1_even`` mode).
 
 1. Card and build: the card's name and power limit; both CUDA sources are
    built from ``admmsolver_tpu_torch/csrc/`` (one nvcc per source, started
@@ -51,12 +57,30 @@ fails raises and the script exits non-zero without printing a result.
    instance-iterations/s, the same solve with the host reading the done
    flags once per chunk, its two products alone as ``torch.matmul`` chained
    50 times, and ``solve_mixed`` with its two phases apart.
+7. The stream drivers and complex problems, each phase timed by the host
+   clock.  Scheduler (the stream of benches/scheduler_hw.py: A 256x512,
+   S=1024, B=256, chunks of 100, atol 1e-9, float64; niter_max 3000, cut
+   from the bench's 6000 to fit the phase in ~60 s): static batches, ``run``
+   and ``run_compiled`` each once; every scenario comes back once, ``run``
+   and ``run_compiled`` agree in iterations and flags and in x to 1e-9 of
+   max|x|, 4 scenarios equal dedicated ``SimpleOptimizer`` solves to 1e-6.
+   ``solve_resumable`` (B=4096, 200 iterations in segments of 100): stopped
+   after one segment and resumed equals uninterrupted exactly; the
+   checkpoint's size and its write and read times.  Complex SpM realified
+   (benches/complex_spm_hw.py: B=2048, 500 iterations): finite, spectrum
+   >= 0, median sum-rule error <= 1e-6, lane 0 equals a complex128
+   ``SimpleOptimizer`` of the unrealified model to 1e-8 of max|x|.  Complex
+   basis pursuit (A 128x256 complex, B=4096, real 20-sparse signals)
+   realified through the kernel: it launches, every lane recovers, the Im
+   lanes of x1 are 0, the solve agrees with the plain version within
+   SOLVE_TOL; its time beside the real bench solve's.
 
 ``--variants`` also times both chunks at other tilings and routes, the
 two-block chunk's two products as ``torch.matmul``, the card's L2 read rate
 and the factor refresh's batched inverse by other routes; ``--profile``
-prints a torch.profiler breakdown of both fused solves and of the float64
-``BatchedSolver`` solve.
+prints a torch.profiler breakdown of both fused solves, of the float64
+``BatchedSolver`` solve and of one scheduler wave in each stream mode, and
+times each stream mode a second time.
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU,
 ``nvcc`` and no network.
 """
@@ -85,6 +109,14 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 # Most that a split-TF32 kernel's max abs difference to the plain version may
 # be, as a multiple of the f32 FMA kernel's on the same inputs.
 TC_ERR_RATIO = {"two-block": 2.0, "SpM": 4.0}
+# 7. the stream drivers and complex problems (benches/scheduler_hw.py,
+# benches/complex_spm_hw.py, examples/complex_basis_pursuit.py)
+SCHED_M, SCHED_N, SCHED_B, SCHED_S = 256, 512, 256, 1024
+# niter_max: the bench's 6000 cut to 3000 so that the phase fits its ~60 s
+SCHED_CHUNK, SCHED_NITER_MAX, SCHED_ATOL = 100, 3000, 1e-9
+RESUME_EVERY, RESUME_NITER = 100, 200
+CSPM_B, CSPM_NITER = 2048, 500
+CBP_M, CBP_N = 128, 256   # complex; realified 256x512
 
 
 def bench_problem(seed=0):
@@ -264,6 +296,265 @@ def l2_read_rate(torch, lib, nbytes, rotate, passes=50):
 
     (ms,) = median_ms(torch, [run])
     return blocks * nbytes * passes / (1e-3 * ms)
+
+
+def scheduler_stream(S, m=SCHED_M, n=SCHED_N, seed=5):
+    """benches/scheduler_hw.py:36-48: A (m, n) Gaussian, S planted signals of
+    sparsity K in [8, 120) and alpha log-uniform on [10^-2.5, 10^-0.5]."""
+    rng = np.random.RandomState(seed)
+    A = rng.randn(m, n)
+    K = rng.randint(8, 120, S)
+    xt = np.zeros((S, n))
+    for i in range(S):
+        xt[i, rng.choice(n, K[i], replace=False)] = rng.randn(K[i])
+    return A, xt @ A.T, 10.0 ** rng.uniform(-2.5, -0.5, S)
+
+
+def phase_scheduler(torch, card, device="cuda", S=SCHED_S, B=SCHED_B, niter_max=SCHED_NITER_MAX,
+                    m=SCHED_M, n=SCHED_N, again=False):
+    """7a. A stream of S ragged basis-pursuit scenarios through B lanes, three
+    ways: static batches of B through ``BatchedSolver.solve``, then
+    ``ScenarioScheduler.run``, then ``run_compiled``; each once, timed by the
+    host clock with a device synchronize at the end (with ``again`` the two
+    streams once more, in the other order).  Returns the times and the
+    solver and scenarios, for a profile of one wave."""
+    from admmsolver_tpu_torch import L1Regularizer, LeastSquares, Model, SimpleOptimizer, identity
+    from admmsolver_tpu_torch.parallel import BatchedSolver, ScenarioScheduler
+
+    A, ys, alphas = scheduler_stream(S, m, n)
+    model = lambda y, alpha: Model([LeastSquares(1.0, A, y), L1Regularizer(alpha, n)],
+                                   [(1, 0, identity(n), identity(n))])
+    bs = BatchedSolver(model(ys[0], 0.1), dtype=torch.float64, device=device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    sync()
+    t0 = time.perf_counter()
+    it_s, slots = np.zeros(S, np.int64), 0
+    for g0 in range(0, S, B):
+        r = bs.solve({(0, "y"): ys[g0:g0 + B], (1, "alpha"): alphas[g0:g0 + B]},
+                     niter=niter_max, rtol=0.0, atol=SCHED_ATOL, record_residuals=False)
+        it_s[g0:g0 + B] = r.iterations.cpu().numpy()
+        slots += int(it_s[g0:g0 + B].max()) * B
+    sync()
+    t_static = time.perf_counter() - t0
+
+    scen = [{(0, "y"): ys[i], (1, "alpha"): np.float64(alphas[i])} for i in range(S)]
+    sched = ScenarioScheduler(bs, batch_size=B, chunk_iters=SCHED_CHUNK, niter_max=niter_max,
+                              rtol=0.0, atol=SCHED_ATOL)
+    out = {}
+    for mode in ("run", "run_compiled"):
+        sync()
+        t0 = time.perf_counter()
+        out[mode] = getattr(sched, mode)(iter(scen))
+        sync()
+        out[mode + "_s"] = time.perf_counter() - t0
+    host, comp = out["run"], out["run_compiled"]
+    for mode, res in (("run", host), ("run_compiled", comp)):
+        if [r.scenario_id for r in res] != list(range(S)):
+            raise AssertionError(f"{mode} did not return every scenario exactly once")
+    worst = 0.0
+    for a, b in zip(host, comp):
+        if (a.iterations, a.converged) != (b.iterations, b.converged):
+            raise AssertionError(f"scenario {a.scenario_id}: run gives {a.iterations} "
+                                 f"iterations ({a.converged}), run_compiled {b.iterations} "
+                                 f"({b.converged})")
+        for xa, xb in zip(a.x, b.x):
+            scale = max(float(np.abs(xa).max()), 1e-300)
+            worst = max(worst, float(np.abs(xa - xb).max()) / scale)
+    if not worst <= 1e-9:
+        raise AssertionError(f"run and run_compiled differ by {worst:.3e} of max|x|")
+    it_h = np.array([r.iterations for r in host])
+    if not np.array_equal(it_h, it_s):
+        print(f"note: static batches and the stream differ in the iterations of "
+              f"{int((it_h != it_s).sum())} scenarios (the stream restarts the penalty "
+              "clock every wave)")
+    # four scenarios against dedicated solves with the same chunked schedule
+    picks = [int(i) for i in np.argsort(it_h)[:4]]
+    single_err = 0.0
+    for i in picks:
+        o = SimpleOptimizer(model(ys[i], float(alphas[i])), device=device)
+        done = 0
+        while done < niter_max:
+            o.solve(SCHED_CHUNK, rtol=0.0, atol=SCHED_ATOL)
+            done += SCHED_CHUNK
+            if o.iterations < done:
+                break
+        d = float(np.abs(comp[i].x[0] - o.x[0].cpu().numpy()).max())
+        single_err = max(single_err, d)
+        if not d <= 1e-6 or o.iterations != comp[i].iterations:
+            raise AssertionError(f"scenario {i}: {comp[i].iterations} iterations and "
+                                 f"|dx| {d:.3e} against SimpleOptimizer's {o.iterations}")
+    useful = int(it_h.sum())
+    conv = sum(r.converged for r in comp)
+    print(f"scheduler stream: S={S}, B={B}, A {m}x{n}, chunk {SCHED_CHUNK}, niter_max "
+          f"{niter_max} (cut from the bench's 6000), atol {SCHED_ATOL}: {conv} converged, "
+          f"iterations p5/median/p95/max {int(np.percentile(it_h, 5))}/"
+          f"{int(np.median(it_h))}/{int(np.percentile(it_h, 95))}/{int(it_h.max())}; "
+          f"run vs run_compiled max |dx|/max|x| {worst:.3e} (bound 1e-9), equal iterations and "
+          f"flags; scenarios {picks} vs SimpleOptimizer max |dx| {single_err:.3e} (bound 1e-6)",
+          flush=True)
+    for mode, t, extra in (("static batches", t_static,
+                            f", utilization {it_s.sum() / slots:.3f} "
+                            f"({int(it_s.sum())} useful of {slots} lane-iterations)"),
+                           ("run", out["run_s"], ""), ("run_compiled", out["run_compiled_s"], "")):
+        print(f"[{card}] scheduler {mode}: {t:.2f} s = {S / t:.1f} scenarios/s = "
+              f"{useful / t:.0f} useful inst-iters/s{extra}", flush=True)
+    for mode in ("run_compiled", "run") if again else ():
+        sync()
+        t0 = time.perf_counter()
+        getattr(sched, mode)(iter(scen))
+        sync()
+        print(f"[{card}] scheduler {mode}, second run: {time.perf_counter() - t0:.2f} s",
+              flush=True)
+    return {"static_s": t_static, "run_s": out["run_s"], "run_compiled_s": out["run_compiled_s"],
+            "solver": bs, "scenarios": scen[:B]}
+
+
+def phase_resumable(torch, card, A, ys, device="cuda", niter=RESUME_NITER):
+    """7b. ``solve_resumable`` on the float64 bench problem in a temporary
+    directory: stopped after one segment and resumed, against uninterrupted."""
+    import os
+    import tempfile
+
+    from admmsolver_tpu_torch import L1Regularizer, LeastSquares, Model, identity
+    from admmsolver_tpu_torch.parallel import BatchedSolver
+    from admmsolver_tpu_torch.utils import load_batch_result, save_batch_result
+
+    n = A.shape[1]
+    bs = BatchedSolver(Model([LeastSquares(1.0, A, ys[0]), L1Regularizer(ALPHA, n)],
+                             [(1, 0, identity(n), identity(n))]), device=device)
+    ov = {(0, "y"): torch.as_tensor(ys, dtype=torch.float64, device=device)}
+    kw = dict(checkpoint_every=RESUME_EVERY, rtol=0.0, record_residuals=False)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, cut = os.path.join(tmp, "whole.npz"), os.path.join(tmp, "cut.npz")
+        sync()
+        t0 = time.perf_counter()
+        straight = bs.solve_resumable(whole, ov, niter=niter, **kw)
+        sync()
+        t_solve = time.perf_counter() - t0
+        first = bs.solve_resumable(cut, ov, niter=RESUME_EVERY, **kw)
+        if int(first.iterations.max()) != RESUME_EVERY:
+            raise AssertionError("the first segment ran another count of iterations")
+        resumed = bs.solve_resumable(cut, ov, niter=niter, **kw)
+        for a, b in zip(resumed.x + resumed.h, straight.x + straight.h):
+            if not torch.equal(a, b):
+                raise AssertionError("the resumed solve departs from the uninterrupted one: "
+                                     f"max |diff| {float((a - b).abs().max()):.3e}")
+        if not bool((resumed.iterations == niter).all()):
+            raise AssertionError("the resumed solve did not count every iteration")
+        size = os.path.getsize(whole)
+        t_write, t_read = [], []
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            save_batch_result(os.path.join(tmp, "w.npz"), straight)
+            t_write.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            back = load_batch_result(whole, device=device)
+            sync()
+            t_read.append(time.perf_counter() - t0)
+        if not all(torch.equal(a, b) for a, b in zip(back.x, straight.x)):
+            raise AssertionError("a checkpoint read back differs from what was written")
+    B = ys.shape[0]
+    print(f"solve_resumable: A {A.shape[0]}x{n}, B={B}, f64, {niter} iterations in segments of "
+          f"{RESUME_EVERY}: stopped after one segment and resumed == uninterrupted (atol 0)",
+          flush=True)
+    print(f"[{card}] solve_resumable {niter} iters: {t_solve * 1e3:.1f} ms = "
+          f"{B * niter / t_solve:.0f} inst-iters/s, with 2 checkpoints; checkpoint {size} bytes, "
+          f"write {np.median(t_write) * 1e3:.1f} ms, read to the card "
+          f"{np.median(t_read) * 1e3:.1f} ms (medians of {REPEATS})", flush=True)
+    return {"bytes": size, "write_s": float(np.median(t_write)), "read_s": float(np.median(t_read))}
+
+
+def phase_complex_spm(torch, card, device="cuda", B=CSPM_B, niter=CSPM_NITER, nl=NL, nw=NW):
+    """7c. Complex SpM (benches/complex_spm_hw.py:38-55) through
+    ``realify_model`` and a float64 ``BatchedSolver``; lane 0 against a
+    complex128 ``SimpleOptimizer`` of the unrealified model."""
+    from admmsolver_tpu_torch import SimpleOptimizer, realify_model
+    from admmsolver_tpu_torch.models.applications import spm_model, synthetic_spm_data
+    from admmsolver_tpu_torch.models.realify import decode, encode
+    from admmsolver_tpu_torch.parallel import BatchedSolver
+
+    s, g, prj_sum, prj_w, _, _ = synthetic_spm_data(nl=nl, nw=nw, noise=1e-5)
+    rng = np.random.RandomState(7)
+    gs = g[None, :] + 1e-5 * (rng.randn(B, g.size) + 1j * rng.randn(B, g.size))
+    model = spm_model(s, gs[0], prj_sum, prj_w, alpha_l1=1e-4)
+    re = realify_model(model)
+    bs = BatchedSolver(re.model, device=device)
+    ov = {(0, "y"): encode(torch.as_tensor(gs, device=device))}
+    solve = lambda: bs.solve(ov, mu0=0.1, niter=niter, rtol=0.0, record_residuals=False)
+    res = solve()
+    outs = [*res.x, *res.h, res.mu]
+    if not all(t.dtype == torch.float64 and bool(torch.isfinite(t).all()) for t in outs):
+        raise AssertionError("the realified SpM solve gave non-finite or non-float64 values")
+    rho_l, _, spec = (decode(x) for x in res.x)
+    min_spec = float(spec.real.min())
+    spec_im = float(spec.imag.abs().max())
+    sums = (rho_l @ torch.as_tensor(prj_sum, dtype=torch.complex128, device=rho_l.device)
+            - 1.0).abs()
+    med = float(sums.median())
+    oc = SimpleOptimizer(model, mu=0.1, device=device)
+    oc.solve(niter, rtol=0.0)
+    lane0 = max(float((decode(x[0]) - xc).abs().max()) / max(float(xc.abs().max()), 1e-300)
+                for x, xc in zip(res.x, oc.x))
+    print(f"complex SpM realified: nl={nl} -> {2 * nl}, nw={nw} -> {2 * nw}, B={B}, {niter} "
+          f"iterations, f64: min spectrum {min_spec:.3e} (Im lanes max {spec_im:.1e}), median "
+          f"|sum rule - 1| {med:.3e} (bound 1e-6), lane 0 vs complex128 SimpleOptimizer max "
+          f"|dx|/max|x| {lane0:.3e} (bound 1e-8)", flush=True)
+    if min_spec < 0.0 or spec_im != 0.0 or not med <= 1e-6 or not lane0 <= 1e-8 \
+            or oc.x[0].dtype != torch.complex128:
+        raise AssertionError("the realified SpM solve misses the model's properties")
+    (t,) = median_wall(torch, [solve])
+    print(f"[{card}] realified complex SpM BatchedSolver solve (B={B}, {niter} iters, f64): "
+          f"{t * 1e3:.1f} ms = {B * niter / t:.0f} inst-iters/s", flush=True)
+    return {"s": t, "solve": solve}
+
+
+def phase_complex_bp(torch, card, kernels, fused, plain_chunk, real_solve, device="cuda", B=B,
+                     niter=NITER, m=CBP_M, n=CBP_N):
+    """7d. Complex basis pursuit realified through ``FusedTwoBlockSolver``:
+    the kernel's ``l1_even`` mode at the bench kernel's shape (N=2n=512,
+    thin R=2m=256)."""
+    from admmsolver_tpu_torch import L1Regularizer, LeastSquares, Model, identity, realify_model
+    from admmsolver_tpu_torch.models.realify import decode, encode
+
+    rng = np.random.RandomState(0)
+    A = rng.randn(m, n) + 1j * rng.randn(m, n)
+    xt = np.zeros((B, n))
+    for b in range(B):
+        xt[b, rng.choice(n, SPARSITY, replace=False)] = rng.randn(SPARSITY)
+    yc = xt @ A.T
+    re = realify_model(Model([LeastSquares(1.0, A, yc[0]), L1Regularizer(ALPHA, n)],
+                             [(1, 0, identity(n), identity(n))]))
+    solver = fused.FusedTwoBlockSolver(re.model, device=device)
+    if (solver.prox, solver.thin, solver.N, solver.U.shape[1]) != ("l1_even", True, 2 * n, 2 * m):
+        raise AssertionError(f"realified solver: prox {solver.prox}, thin {solver.thin}, "
+                             f"U {tuple(solver.U.shape)}")
+    ys = encode(torch.as_tensor(yc, device=device)).float()
+    solve = lambda: solver.solve({(0, "y"): ys}, niter=niter, rtol=0.0)
+    kernels.fused_two_block_chunk.launches = 0
+    res = solve()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = kernels.fused_two_block_chunk.launches
+    if device == "cuda" and launches == 0:
+        raise AssertionError("the realified fused solve launched no kernel")
+    worst = check_recovery(decode(res.x0).real.cpu().numpy(), xt, "realified fused solve")
+    if not bool((res.x1[:, 1::2] == 0).all()):
+        raise AssertionError("the Im lanes of x1 are not exactly 0")
+    res_plain = plain_chunk_solve(plain_chunk, solve)
+    dev = float((res.x0 - res_plain.x0).abs().max())
+    print(f"complex basis pursuit realified through the kernel (l1_even): complex A {m}x{n} -> "
+          f"real {2 * m}x{2 * n}, B={B}, {niter} iters: {launches} launches, worst lane "
+          f"err/bound {worst:.4f}, Im lanes of x1 exactly 0, kernel vs plain max |x0 diff| "
+          f"{dev:.3e} (bound {SOLVE_TOL})", flush=True)
+    if not dev <= SOLVE_TOL:
+        raise AssertionError(f"the realified kernel solve departs from the plain one by {dev}")
+    t_re, t_real = median_wall(torch, [solve, real_solve])
+    print(f"[{card}] realified complex fused solve (B={B}, {niter} iters): {t_re * 1e3:.1f} ms = "
+          f"{B * niter / t_re:.0f} inst-iters/s; the real bench solve beside it "
+          f"{t_real * 1e3:.1f} ms = {B * niter / t_real:.0f} inst-iters/s", flush=True)
+    return {"launches": launches, "s": t_re}
 
 
 def main():
@@ -616,6 +907,12 @@ def main():
           f"polish alone {tm_polish * 1e3:.1f} ms = {B * POLISH_NITER / tm_polish:.0f} "
           "inst-iters/s")
 
+    # 7. the stream drivers and complex problems through the real embedding
+    sched = phase_scheduler(torch, card, again="--profile" in sys.argv)
+    phase_resumable(torch, card, A, ys)
+    complex_spm = phase_complex_spm(torch, card)
+    realified = phase_complex_bp(torch, card, kernels, fused, plain_chunk, solve)
+
     if "--variants" in sys.argv:
         T = kernels.TwoBlockTiling
         sweep = [tiling, T(32, 32, 3, 1, 1), T(32, 32, 2, 2, 1), T(32, 16, 6, 2, 1),
@@ -669,6 +966,15 @@ def main():
         profile_solve(torch, "BatchedSolver f32 solve", "gemm",
                       lambda: bsolve(rtol=0.0, dtype=torch.float32), iters=BATCH_NITER)
         profile_solve(torch, "SpM solve_mixed f64 polish", "gemm", polish, iters=POLISH_NITER)
+        from admmsolver_tpu_torch.parallel import ScenarioScheduler
+        one_wave = ScenarioScheduler(sched["solver"], batch_size=SCHED_B, chunk_iters=SCHED_CHUNK,
+                                     niter_max=SCHED_CHUNK, rtol=0.0, atol=SCHED_ATOL)
+        for mode in ("run", "run_compiled"):
+            profile_solve(torch, f"scheduler {mode}, one wave of {SCHED_CHUNK} iterations", "gemm",
+                          lambda: getattr(one_wave, mode)(iter(sched["scenarios"])),
+                          iters=SCHED_CHUNK)
+        profile_solve(torch, "realified complex SpM solve", "gemm", complex_spm["solve"],
+                      iters=CSPM_NITER)
 
     # No single PyTorch call computes either chunk, so there is no library time.
     # prev_ms is the replaced design's time where this run still builds and
@@ -676,14 +982,15 @@ def main():
     print(json.dumps({"kernels": [
         {"name": "fused_two_block_chunk", "route": "cuda",
          "source": "admmsolver_tpu_torch/csrc/fused_two_block.cu",
-         "replaces": "admmsolver_tpu/ops/kernels.py:116",
-         "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+         "replaces": "admmsolver_tpu/ops/kernels.py:119",
+         "launches": launches, "launches_realified": realified["launches"],
+         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
          "fma_bound_ms": fma_bound,
          "fma_max_abs_err": max(fma_err.values())},
         {"name": "fused_spm_chunk", "route": "cuda",
          "source": "admmsolver_tpu_torch/csrc/fused_spm.cu",
-         "replaces": "admmsolver_tpu/ops/kernels.py:268",
+         "replaces": "admmsolver_tpu/ops/kernels.py:271",
          "launches": spm_launches, "launches_solve_mixed": mixed_launches,
          "max_abs_err": spm_err, "ms": spm_ms,
          "plain_ms": spm_plain_ms, "bound_ms": spm_bound, "bound_by": spm_bound_by,

@@ -166,6 +166,11 @@ def test_from_jax_model_rejects_missing_counterparts():
     with pytest.raises(TypeError, match="BoxProjectionPenalty"):
         interop.from_jax_model(jm, device="cpu")
     jm = J.Model([J.LeastSquares(1.0, A, ys[0]), J.L1Regularizer(0.1, N)],
-                 [(1, 0, J.PartialDiagonalMatrix(jnp.eye(N // 2), (2,)), J.identity(N))])
-    with pytest.raises(TypeError, match="PartialDiagonalMatrix"):
+                 [(1, 0, J.BandedMatrix((0,), jnp.ones((1, N)), (N, N)), J.identity(N))])
+    with pytest.raises(TypeError, match="BandedMatrix"):
         interop.from_jax_model(jm, device="cpu")
+    # PartialDiagonalMatrix has its counterpart since the realify slice
+    jm = J.Model([J.LeastSquares(1.0, A, ys[0]), J.L1Regularizer(0.1, N)],
+                 [(1, 0, J.PartialDiagonalMatrix(jnp.eye(N // 2), (2,)), J.identity(N))])
+    tm = interop.from_jax_model(jm, device="cpu")
+    assert type(tm.E[(0, 1)]).__name__ == "PartialDiagonalMatrix"

@@ -359,6 +359,136 @@ def test_fused_spm_solve_mixed_on_cuda_launches_the_kernel(cuda):
     assert rc.iterations.tolist() == [270] * 6
 
 
+# ---------------------------------------------------------------------
+# stream drivers and complex problems through the real embedding
+# ---------------------------------------------------------------------
+
+def test_scheduler_run_compiled_on_cuda_matches_run(cuda):
+    """The device-side drain against the host wave loop on the card, and
+    both against the host loop on the CPU: equal iteration counts and
+    flags, x within 1e-9 of its scale."""
+    from admmsolver_tpu_torch.parallel import ScenarioScheduler
+
+    rng = np.random.RandomState(5)
+    A = rng.randn(12, 24)
+    K = rng.randint(2, 10, 13)
+    xt = np.zeros((13, 24))
+    for i in range(13):
+        xt[i, rng.choice(24, K[i], replace=False)] = rng.randn(K[i])
+    ys = xt @ A.T
+    alphas = 10.0 ** rng.uniform(-2.5, -0.5, 13)
+    stream = lambda: ({(0, "y"): ys[i], (1, "alpha"): np.float64(alphas[i])} for i in range(13))
+    kw = dict(batch_size=4, chunk_iters=50, niter_max=1500, rtol=0.0, atol=1e-9)
+    on_card = ScenarioScheduler(BatchedSolver(_bp(A, ys[0])), **kw)
+    on_host = ScenarioScheduler(BatchedSolver(_bp(A, ys[0]), device="cpu"), **kw)
+    runs = [on_card.run(stream()), on_card.run_compiled(stream()), on_host.run(stream())]
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert (a.scenario_id, a.iterations, a.converged) == \
+                (b.scenario_id, b.iterations, b.converged)
+            scale = np.abs(b.x[0]).max()
+            np.testing.assert_allclose(a.x[0], b.x[0], rtol=0, atol=1e-9 * scale)
+
+
+def test_solve_resumable_on_cuda(cuda, tmp_path):
+    """Stopped after one segment and resumed from the file on the card:
+    equal to the uninterrupted run, exactly."""
+    from admmsolver_tpu_torch.models.applications import basis_pursuit_model
+
+    rng = np.random.RandomState(0)
+    A = rng.randn(16, 32)
+    ys = rng.randn(6, 16)
+    bs = BatchedSolver(basis_pursuit_model(A, ys[0], alpha_l1=0.05))
+    kw = dict(checkpoint_every=100, niter=300, rtol=0.0, record_residuals=False)
+    first = bs.solve_resumable(str(tmp_path / "a.npz"), {(0, "y"): ys}, **{**kw, "niter": 100})
+    assert first.x[0].is_cuda and int(first.iterations.max()) == 100
+    resumed = bs.solve_resumable(str(tmp_path / "a.npz"), {(0, "y"): ys}, **kw)
+    straight = bs.solve_resumable(str(tmp_path / "b.npz"), {(0, "y"): ys}, **kw)
+    for a, b in zip(resumed.x + resumed.h, straight.x + straight.h):
+        assert a.is_cuda
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    assert resumed.iterations.tolist() == [300] * 6
+
+
+@pytest.mark.parametrize("model", ["basis_pursuit", "spm"])
+def test_realified_complex_on_cuda_matches_complex128(cuda, model):
+    """A complex128 model solved on the card equals its real embedding
+    solved on the card (the isomorphism on the device), and the batched
+    realified solve on the card equals the one on the host."""
+    from admmsolver_tpu_torch.models.realify import decode, encode
+
+    rng = np.random.RandomState(7)
+    if model == "basis_pursuit":
+        A = rng.randn(8, 16) + 1j * rng.randn(8, 16)
+        ys = rng.randn(3, 8) + 1j * rng.randn(3, 8)
+        cm, mu, niter = _bp(A, ys[0]), None, 130
+    else:
+        s, g, prj_sum, prj_w, _, _ = synthetic_spm_data(nl=12, nw=25)
+        ys = g[None, :] + 1e-4 * (rng.randn(3, g.size) + 1j * rng.randn(3, g.size))
+        cm, mu, niter = spm_model(s, ys[0], prj_sum, prj_w, alpha_l1=1e-3), 0.1, 150
+    re = T.realify_model(cm)
+    oc = T.SimpleOptimizer(cm, mu=mu)
+    orr = T.SimpleOptimizer(re.model, mu=mu)
+    oc.solve(niter, rtol=0)
+    orr.solve(niter, rtol=0)
+    assert oc.x[0].is_cuda and oc.x[0].dtype == torch.complex128
+    for xc, xr in zip(oc.x, orr.x):
+        np.testing.assert_allclose(decode(xr).cpu().numpy(), xc.cpu().numpy(), rtol=0,
+                                   atol=1e-10)
+    ov = {(0, "y"): encode(ys).numpy()}
+    kw = dict(niter=niter, rtol=0, mu0=mu or 1.0)
+    rc = BatchedSolver(re.model).solve(ov, **kw)
+    rh = BatchedSolver(re.model, device="cpu").solve(ov, **kw)
+    for a, b in zip(rc.x + rc.h, rh.x + rh.h):
+        assert a.is_cuda
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0, atol=1e-9)
+
+
+def test_fused_realified_on_cuda_launches_the_kernel(cuda):
+    """Complex basis pursuit realified through FusedTwoBlockSolver on the
+    card: the `_even` kernel mode launches and agrees with the plain
+    version on the host to 5e-4 over 21 iterations; the Im lanes of x1 are
+    exactly 0."""
+    from admmsolver_tpu_torch.models.realify import encode
+
+    rng = np.random.RandomState(11)
+    A = rng.randn(24, 64) + 1j * rng.randn(24, 64)
+    xt = np.zeros((8, 64))
+    for b in range(8):
+        xt[b, rng.choice(64, 4, replace=False)] = rng.randn(4)
+    yc = xt @ A.T
+    ys = encode(yc).numpy()
+    re = T.realify_model(_bp(A, yc[0]))
+    launches = fused_two_block_chunk.launches
+    fc = FusedTwoBlockSolver(re.model, tile_b=4)
+    assert fc.prox == "l1_even"
+    rc = fc.solve({(0, "y"): ys}, niter=21)
+    assert fused_two_block_chunk.launches == launches + 2
+    rh = FusedTwoBlockSolver(re.model, tile_b=4, device="cpu").solve({(0, "y"): ys}, niter=21)
+    for f in ("x0", "x1", "h"):
+        np.testing.assert_allclose(getattr(rc, f).cpu().numpy(), getattr(rh, f).numpy(),
+                                   rtol=0, atol=ATOL)
+    assert bool((rc.x1[:, 1::2] == 0).all())
+
+
+def test_checkpoint_loads_default_to_cuda(tmp_path):
+    """Loads place tensors on the card unless the caller asks for the CPU:
+    without a CUDA device the default raises."""
+    from admmsolver_tpu_torch.utils import load_batch_result, save_batch_result
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    rng = np.random.RandomState(0)
+    A = rng.randn(6, 8)
+    res = BatchedSolver(_bp(A, rng.randn(6)), device="cpu").solve(
+        {(0, "y"): rng.randn(2, 6)}, niter=5)
+    path = str(tmp_path / "r.npz")
+    save_batch_result(path, res)
+    assert load_batch_result(path, device="cpu").x[0].device.type == "cpu"
+    with pytest.raises((RuntimeError, AssertionError)):
+        load_batch_result(path)
+
+
 @pytest.mark.parametrize("entry", ["FusedTwoBlockSolver", "FusedSpMSolver", "SimpleOptimizer",
                                    "BatchedSolver"])
 def test_default_device_raises_without_cuda(entry):
