@@ -28,6 +28,7 @@ from .ops.linop import (
     DiagonalMatrix,
     ScaledIdentityMatrix,
     PartialDiagonalMatrix,
+    BandedMatrix,
     identity,
     asmatrixtype,
     matrix_hash,
@@ -38,7 +39,12 @@ from .models.objectivefunc import (
     ConstrainedLeastSquares,
     L1Regularizer,
     L2Regularizer,
+    GroupL1Regularizer,
+    HuberLoss,
     NonNegativePenalty,
+    NuclearNormPenalty,
+    BoxProjectionPenalty,
+    SemiPositiveDefinitePenalty,
 )
 from .models.problem import EqualityCondition, Model, Problem
 from .models.realify import RealifiedModel, realify_model

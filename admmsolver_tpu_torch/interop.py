@@ -13,12 +13,14 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from .models.objectivefunc import (ConstrainedLeastSquares, L1Regularizer,
-                                   L2Regularizer, LeastSquares,
-                                   NonNegativePenalty, ObjectiveFunctionBase)
+from .models.objectivefunc import (BoxProjectionPenalty, ConstrainedLeastSquares,
+                                   GroupL1Regularizer, HuberLoss, L1Regularizer,
+                                   L2Regularizer, LeastSquares, NonNegativePenalty,
+                                   NuclearNormPenalty, ObjectiveFunctionBase,
+                                   SemiPositiveDefinitePenalty)
 from .models.problem import Model
 from .models.realify import RealPartProx
-from .ops.linop import (DenseMatrix, DiagonalMatrix,
+from .ops.linop import (BandedMatrix, DenseMatrix, DiagonalMatrix,
                         InterleavedComplexDiagonalMatrix, MatrixBase,
                         PartialDiagonalMatrix, ScaledIdentityMatrix)
 
@@ -50,6 +52,8 @@ def _operator(op, device, dtype) -> MatrixBase:
     if name == "InterleavedComplexDiagonalMatrix":
         return InterleavedComplexDiagonalMatrix(_tensor(op.re, device, dtype),
                                                 _tensor(op.im, device, dtype))
+    if name == "BandedMatrix":
+        return BandedMatrix(op.offsets, _tensor(op.bands, device, dtype), op.shape)
     raise TypeError(f"admmsolver_tpu_torch has no counterpart of operator {name} yet")
 
 
@@ -73,6 +77,17 @@ def _objective(f, device, dtype) -> ObjectiveFunctionBase:
         return L1Regularizer(float(np.asarray(f._alpha)), int(f._size_x), offset)
     if name == "NonNegativePenalty":
         return NonNegativePenalty(int(f._size_x))
+    if name == "BoxProjectionPenalty":
+        return BoxProjectionPenalty(int(f._size_x), _tensor(f._lo, device, dtype),
+                                    _tensor(f._hi, device, dtype))
+    if name == "GroupL1Regularizer":
+        return GroupL1Regularizer(float(np.asarray(f._alpha)), f._gs, f._ng)
+    if name == "HuberLoss":
+        return HuberLoss(float(np.asarray(f._alpha)), _tensor(f._y, device, dtype), f._delta)
+    if name == "NuclearNormPenalty":
+        return NuclearNormPenalty(float(np.asarray(f._alpha)), f._mn, f._svd_method)
+    if name == "SemiPositiveDefinitePenalty":
+        return SemiPositiveDefinitePenalty(f._shape, f._axis)
     if name == "RealPartProx":
         return RealPartProx(_objective(f._inner, device, dtype))
     raise TypeError(f"admmsolver_tpu_torch has no counterpart of objective {name} yet")
@@ -85,7 +100,7 @@ def from_jax_model(model, device="cuda", dtype: Optional[torch.dtype] = None) ->
     then take the complex dtype of that precision); they are placed on
     ``device``.  Realified models carry over with their structure
     (``PartialDiagonalMatrix``, ``InterleavedComplexDiagonalMatrix``,
-    ``RealPartProx``).  Raises ``TypeError`` on any objective or operator the
+    ``RealPartProx``), and banded couplings as :class:`BandedMatrix`.  Raises ``TypeError`` on any objective or operator the
     port does not have yet.
     """
     functions = [_objective(f, device, dtype) for f in model.functions]

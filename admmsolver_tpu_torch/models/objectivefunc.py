@@ -1,9 +1,10 @@
 """Objective functions and their proximal solvers.
 
 Counterpart of :mod:`admmsolver_tpu.models.objectivefunc` (reference
-``objectivefunc.py:28-355``) for the basis-pursuit and SpM slices: least
-squares with and without a hard equality constraint, L1, L2 and
-nonnegativity.  Each objective solves its own regularized subproblem
+``objectivefunc.py:28-355``): least squares with and without a hard
+equality constraint, L1, L2, nonnegativity and the PSD cone, and the added
+families (box, group L1, Huber, nuclear norm).  Each objective solves its
+own regularized subproblem
 
     argmin_x  F(x) + h† x + x† h + x† mu x
 
@@ -30,12 +31,13 @@ the JAX package, so both packages iterate on the same eigenbasis.
 from __future__ import annotations
 
 import copy
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..ops.linop import (
+    BandedMatrix,
     DenseMatrix,
     DiagonalMatrix,
     LaneOperators,
@@ -49,8 +51,9 @@ from ..ops.linop import (
     asmatrixtype,
     matmul,
     matrix_hash,
+    tridiag_cr_factor,
 )
-from ..ops.prox import project_nonneg, soft_threshold
+from ..ops.prox import project_nonneg, psd_project, soft_threshold
 
 __all__ = [
     "ObjectiveFunctionBase",
@@ -58,7 +61,12 @@ __all__ = [
     "ConstrainedLeastSquares",
     "L1Regularizer",
     "L2Regularizer",
+    "GroupL1Regularizer",
+    "HuberLoss",
     "NonNegativePenalty",
+    "NuclearNormPenalty",
+    "BoxProjectionPenalty",
+    "SemiPositiveDefinitePenalty",
 ]
 
 
@@ -89,15 +97,34 @@ def inv_hpd(a: torch.Tensor) -> torch.Tensor:
     return Linv.mH @ Linv
 
 
+def _tridiag_of(offsets, bands: torch.Tensor):
+    """The cyclic-reduction factor of a tridiagonal band set (row axis last,
+    leading lane axes kept): O(N) state, never a dense N × N inverse."""
+    get = {o: bands[..., k, :] for k, o in enumerate(offsets)}
+    band = lambda o: get[o] if o in get else torch.zeros_like(get[0])
+    return tridiag_cr_factor(band(-1), get[0], band(1))
+
+
 def _inv_hpd(m):
     """Inverse of a Hermitian positive-definite operator (or of one per
     lane): dense operators through :func:`inv_hpd`, a Kronecker ``G ⊗ I``
     through the inverse of its small factor, diagonal and scaled-identity
-    ones in closed form."""
+    ones in closed form.  A tridiagonal banded operator (TV and stencil
+    penalties) becomes its cyclic-reduction factor, a wider one a dense
+    inverse (correct, without the O(N) scaling; JAX
+    ``objectivefunc.py:104-118``)."""
     if isinstance(m, LaneOperators):
+        if m.kind == "banded":
+            if set(m.offsets) <= {-1, 0, 1} and 0 in m.offsets:
+                return _tridiag_of(m.offsets, m.data)
+            return LaneOperators("dense", inv_hpd(m._as("dense")), m.n)
         return m._with(m.kind, inv_hpd(m.data) if m.kind in ("dense", "kron") else 1.0 / m.data)
     if isinstance(m, DenseMatrix):
         return DenseMatrix(inv_hpd(m.data))
+    if isinstance(m, BandedMatrix):
+        if set(m.offsets) <= {-1, 0, 1} and 0 in m.offsets:
+            return _tridiag_of(m.offsets, m.bands)
+        return DenseMatrix(inv_hpd(m.asmatrix()))
     if isinstance(m, PartialDiagonalMatrix):
         return PartialDiagonalMatrix(_inv_hpd(m.matrix), m.rest_dims)
     if isinstance(m, (DiagonalMatrix, ScaledIdentityMatrix)):
@@ -636,3 +663,292 @@ class NonNegativePenalty(ObjectiveFunctionBase):
     def prox_diag(self, h, mu_diag, batched: bool = False):
         h = _real_if_complex(h)
         return project_nonneg(-(h / _match_precision(mu_diag, h)))
+
+
+def _batched_bound(v) -> torch.Tensor:
+    """A per-lane override of a bound or offset: ``(B,)`` (one scalar a lane)
+    as a ``(B, 1)`` column, ``(B, n)`` as it is."""
+    v = _asarray(v)
+    return v[:, None] if v.ndim == 1 else v
+
+
+class BoxProjectionPenalty(ObjectiveFunctionBase):
+    """Indicator of the box ``lo <= x <= hi`` (JAX ``objectivefunc.py:
+    669-711``; generalizes ``NonNegativePenalty``, reference
+    ``objectivefunc.py:245-271``, to arbitrary bounds).
+
+    The prox is the box projection ``clip(-h/mu, lo, hi)``.  Bounds are
+    scalars or per-coordinate, and per-instance overridable in the batched
+    engine (``batch_fields``): ``(B,)`` for one bound a lane, ``(B, n)`` for
+    per-coordinate ones.
+    """
+
+    needs_diagonal_mu = True
+    batch_fields = ("lo", "hi")
+
+    def _apply_updates(self, updates: dict) -> None:
+        if "lo" in updates:
+            self._lo = _batched_bound(updates["lo"])
+        if "hi" in updates:
+            self._hi = _batched_bound(updates["hi"])
+
+    def __init__(self, size_x: int, lo=0.0, hi=1.0) -> None:
+        super().__init__(size_x)
+        lo, hi = _asarray(lo), _asarray(hi)
+        for name, b in (("lo", lo), ("hi", hi)):
+            if b.ndim and tuple(b.shape) != (size_x,):
+                raise ValueError(f"{name} of shape {tuple(b.shape)} is neither a scalar "
+                                 f"nor ({size_x},)")
+        if not bool(torch.all(lo <= hi)):
+            raise ValueError("empty box: lo > hi")
+        self._lo, self._hi = lo, hi
+
+    def __call__(self, x) -> float:
+        return 0.0
+
+    def solve(self, h=None, mu: Optional[MatrixBase] = None):
+        if h is None:
+            raise ValueError("h must not be None!")
+        if mu is None:
+            raise ValueError("mu must not be None!")
+        return self.prox_diag(_asarray(h), _mu_diagonal(mu))
+
+    def prox_diag(self, h, mu_diag, batched: bool = False):
+        h = _real_if_complex(h)
+        v = -(h / _match_precision(mu_diag, h))
+        # bounds follow the state's precision and device (a Python-scalar
+        # bound is a 0-d host tensor)
+        return torch.clamp(v, min=_match_precision(self._lo, v),
+                           max=_match_precision(self._hi, v))
+
+
+class GroupL1Regularizer(ObjectiveFunctionBase):
+    """``F(x) = alpha * sum_g ||x_g||_2`` over ``n_groups`` equal, contiguous
+    groups of ``group_size`` (group lasso; JAX ``objectivefunc.py:714-789``,
+    extends ``L1Regularizer``, reference ``objectivefunc.py:160-195``, to
+    block sparsity).
+
+    With a penalty ``mu_g`` constant within each group the prox is the group
+    soft-threshold ``v_g max(1 - (alpha/(2 mu_g)) / ||v_g||, 0)``, ``v =
+    -h/mu``.  Identity couplings give such a penalty: the eager ``solve``
+    checks it on the values, the engine at plan build
+    (``ADMMPlan._check_uniform_mu``), never inside the loop.
+    """
+
+    needs_diagonal_mu = True
+    batch_fields = ("alpha",)
+
+    def _apply_updates(self, updates: dict) -> None:
+        if "alpha" in updates:
+            self._alpha = _asarray(updates["alpha"])
+
+    def __init__(self, alpha: float, group_size: int, n_groups: int) -> None:
+        if not alpha > 0:
+            raise ValueError("alpha must be positive")
+        if group_size < 1 or n_groups < 1:
+            raise ValueError(f"group_size {group_size} and n_groups {n_groups} must be >= 1")
+        super().__init__(int(group_size) * int(n_groups))
+        self._alpha = alpha
+        self._gs = int(group_size)
+        self._ng = int(n_groups)
+        # engine contract, checked at ADMMPlan build
+        self.uniform_mu_group = self._gs
+
+    def __call__(self, x) -> float:
+        x = _asarray(x)
+        xg = x.reshape(tuple(x.shape[:-1]) + (self._ng, self._gs))
+        return float(self._alpha * torch.sum(torch.sqrt(torch.sum(torch.abs(xg) ** 2, dim=-1))))
+
+    def solve(self, h=None, mu: Optional[MatrixBase] = None):
+        if h is None:
+            raise ValueError("h must not be None!")
+        if mu is None:
+            raise ValueError("mu must not be None!")
+        mu_diag = _mu_diagonal(mu)
+        mg = np.broadcast_to(mu_diag.detach().cpu().numpy(), (self.size_x,)).reshape(-1, self._gs)
+        if not np.allclose(mg, mg[:, :1]):
+            raise ValueError(
+                "GroupL1Regularizer needs a blockwise-uniform penalty "
+                "(constant mu within each group); couple this block "
+                "through identity/ScaledIdentity operators")
+        return self.prox_diag(_asarray(h), mu_diag)
+
+    def prox_diag(self, h, mu_diag, batched: bool = False):
+        h = _real_if_complex(h)
+        mu_diag = _match_precision(mu_diag, h)
+        v = -(h / mu_diag)
+        groups = tuple(v.shape[:-1]) + (self._ng, self._gs)
+        vg = v.reshape(groups)
+        mug = torch.broadcast_to(mu_diag, v.shape).reshape(groups)
+        alpha = _lanes(self._alpha, h) if batched else self._alpha
+        t = 0.5 * alpha / mug[..., 0]                                 # (..., ng)
+        nrm = torch.sqrt(torch.sum(vg * vg, dim=-1))                  # (..., ng)
+        scale = torch.where(nrm > t, 1.0 - t / torch.where(nrm > 0.0, nrm, 1.0), 0.0)
+        return (vg * scale[..., None]).reshape(v.shape)
+
+
+class HuberLoss(ObjectiveFunctionBase):
+    """``F(x) = alpha * sum_i H_delta(x_i - y_i)`` with ``H_delta(z) = z²/2``
+    for ``|z| <= delta``, else ``delta (|z| - delta/2)`` (JAX
+    ``objectivefunc.py:792-854``; robust data fits).
+
+    The prox is elementwise, a three-way ``where``: with ``z = x - y`` and
+    ``u = h + mu y``, the quadratic region gives ``z = -2u / (alpha + 2 mu)``
+    and the linear tails ``z = -(2u ± alpha delta) / (2 mu)``.
+    """
+
+    needs_diagonal_mu = True
+    batch_fields = ("alpha", "y")
+
+    def _apply_updates(self, updates: dict) -> None:
+        if "alpha" in updates:
+            self._alpha = _asarray(updates["alpha"])
+        if "y" in updates:
+            self._y = _asarray(updates["y"])
+
+    def __init__(self, alpha: float, y, delta: float = 1.0) -> None:
+        y = _asarray(y)
+        if y.ndim != 1:
+            raise ValueError("y must be 1-D")
+        super().__init__(y.shape[0])
+        if not (alpha > 0 and delta > 0):
+            raise ValueError("alpha and delta must be positive")
+        self._alpha = alpha
+        self._y = y
+        self._delta = float(delta)
+
+    def __call__(self, x) -> float:
+        x = _real_if_complex(_asarray(x))
+        z = torch.abs(x - _match_precision(_real_if_complex(self._y), x))
+        d = self._delta
+        return float(self._alpha * torch.sum(torch.where(z <= d, 0.5 * z * z, d * (z - 0.5 * d))))
+
+    def solve(self, h=None, mu: Optional[MatrixBase] = None):
+        if h is None:
+            raise ValueError("h must not be None!")
+        if mu is None:
+            raise ValueError("mu must not be None!")
+        return self.prox_diag(_asarray(h), _mu_diagonal(mu))
+
+    def prox_diag(self, h, mu_diag, batched: bool = False):
+        h = _real_if_complex(h)
+        # the state's precision: an f32 phase stays f32
+        y = _match_precision(_real_if_complex(self._y), h)
+        mu_diag = _match_precision(mu_diag, h)
+        a = _lanes(self._alpha, h) if batched else self._alpha
+        d = self._delta
+        u = h + mu_diag * y
+        zq = -2.0 * u / (a + 2.0 * mu_diag)
+        zp = -(2.0 * u + a * d) / (2.0 * mu_diag)
+        zn = -(2.0 * u - a * d) / (2.0 * mu_diag)
+        return y + torch.where(zq > d, zp, torch.where(zq < -d, zn, zq))
+
+
+class NuclearNormPenalty(ObjectiveFunctionBase):
+    """``F(x) = alpha ||mat(x)||_*``: the nuclear norm of ``x`` viewed as an
+    (m, n) matrix, row-major (JAX ``objectivefunc.py:857-970``; low-rank
+    recovery, :func:`rpca_model`).
+
+    The prox is the singular-value soft-threshold through one batched thin
+    SVD (every lane's matrix at once):
+
+        argmin_X  alpha ||X||_* + 2 Re<H, X> + mu |X|_F²
+                = U soft(s, alpha/(2 mu)) Vᴴ,   U s Vᴴ = svd(-H/mu).
+
+    The closed form needs a uniform penalty, which identity couplings give:
+    the eager ``solve`` checks it on the values, the engine at plan build.
+    ``svd_method``: ``"auto"`` and ``"xla"`` both run ``torch.linalg.svd``;
+    the JAX package's ``"gram"`` and ``"sign"`` routes are TPU workarounds
+    that the port does not have (ROADMAP.md).
+    """
+
+    needs_diagonal_mu = True
+    batch_fields = ("alpha",)
+
+    def _apply_updates(self, updates: dict) -> None:
+        if "alpha" in updates:
+            self._alpha = _asarray(updates["alpha"])
+
+    def __init__(self, alpha: float, shape: Sequence, svd_method: str = "auto") -> None:
+        if not alpha > 0:
+            raise ValueError("alpha must be positive")
+        if svd_method in ("gram", "sign"):
+            raise NotImplementedError(
+                f"svd_method={svd_method!r} is a TPU workaround of the JAX package "
+                "(svd_via_gram / svt_sign) that the PyTorch port leaves out until a "
+                "measurement on the GPU asks for it (ROADMAP.md, out-list); use "
+                "'auto' or 'xla' (torch.linalg.svd)")
+        if svd_method not in ("auto", "xla"):
+            raise ValueError(f"unknown svd_method {svd_method!r}")
+        m, n = (int(s) for s in shape)
+        super().__init__(m * n)
+        self._alpha = alpha
+        self._mn = (m, n)
+        self._svd_method = svd_method
+        # fully uniform penalty required; checked at ADMMPlan build
+        self.uniform_mu_group = m * n
+
+    def __call__(self, x) -> float:
+        x = _asarray(x)
+        X = x.reshape(tuple(x.shape[:-1]) + self._mn)
+        return float(self._alpha * torch.sum(torch.linalg.svdvals(X)))
+
+    def solve(self, h=None, mu: Optional[MatrixBase] = None):
+        if h is None:
+            raise ValueError("h must not be None!")
+        if mu is None:
+            raise ValueError("mu must not be None!")
+        mu_diag = _mu_diagonal(mu)
+        md = mu_diag.detach().cpu().numpy()
+        if md.ndim and not np.allclose(md, md.flat[0]):
+            raise ValueError(
+                "NuclearNormPenalty needs a uniform penalty (constant mu "
+                "over the matrix); couple this block through identity/"
+                "ScaledIdentity operators")
+        return self.prox_diag(_asarray(h), mu_diag)
+
+    def prox_diag(self, h, mu_diag, batched: bool = False):
+        h = _real_if_complex(h)
+        mu_diag = _match_precision(mu_diag, h)
+        v = -(h / mu_diag)
+        X = v.reshape(tuple(v.shape[:-1]) + self._mn)
+        # one penalty a lane (uniform by contract)
+        mu0 = torch.broadcast_to(mu_diag, v.shape)[..., 0]
+        tau = 0.5 * _match_precision(self._alpha, h) / mu0           # () or (B,)
+        U, s, Vh = torch.linalg.svd(X, full_matrices=False)
+        s2 = torch.clamp_min(s - tau[..., None], 0.0)
+        return ((U * s2[..., None, :].to(U.dtype)) @ Vh).reshape(v.shape)
+
+
+class SemiPositiveDefinitePenalty(ObjectiveFunctionBase):
+    """Indicator of the PSD cone for ``x`` viewed as a 3-way tensor with
+    Hermitian slices along ``axis`` (reference ``objectivefunc.py:274-327``,
+    JAX ``objectivefunc.py:973-1000``).
+
+    The prox projects every slice onto the PSD cone with one batched
+    ``eigh`` (:func:`~admmsolver_tpu_torch.ops.prox.psd_project`); batched,
+    every lane's slices join that one call.
+    """
+
+    needs_diagonal_mu = True
+
+    def __init__(self, shape: Sequence, axis: int) -> None:
+        if len(shape) != 3:
+            raise ValueError(f"shape must have 3 axes, got {tuple(shape)}")
+        super().__init__(int(np.prod(shape)))
+        self._shape = tuple(int(s) for s in shape)
+        self._axis = int(axis)
+
+    def __call__(self, x) -> float:
+        return 0.0
+
+    def solve(self, h=None, mu: Optional[MatrixBase] = None):
+        if h is None:
+            raise ValueError("h must not be None!")
+        if mu is None:
+            raise ValueError("mu must not be None!")
+        return self.prox_diag(_asarray(h), _mu_diagonal(mu))
+
+    def prox_diag(self, h, mu_diag, batched: bool = False):
+        h = _real_if_complex(h)
+        return psd_project(-(h / _match_precision(mu_diag, h)), self._shape, self._axis)

@@ -60,6 +60,7 @@ from .objectivefunc import (
     L2Regularizer,
     LeastSquares,
     NonNegativePenalty,
+    SemiPositiveDefinitePenalty,
     ObjectiveFunctionBase,
     _mu_diagonal,
 )
@@ -184,9 +185,10 @@ def realify_matrix(op: MatrixBase) -> MatrixBase:
 class RealPartProx(ObjectiveFunctionBase):
     """Embedded separable objective: prox on the Re lanes, zero Im lanes.
 
-    Wraps L1 / NonNegative, whose reference prox projects ``h`` to its real
-    part and returns a real minimizer (``objectivefunc.py:193-194,
-    267-268``): in interleaved coordinates that is exactly "prox of the even
+    Wraps L1 / NonNegative / the PSD cone, whose proxes project ``h`` to
+    its real part and return a real minimizer (reference
+    ``objectivefunc.py:193-194, 267-268``; JAX ``objectivefunc.py:
+    998-1000``): in interleaved coordinates that is exactly "prox of the even
     lanes, zeros in the odd lanes".  Penalty diagonals are constant over
     each (Re, Im) pair (they come from embedded Hermitian couplings), so
     the even-lane diagonal is the original diagonal.  Batched, the rows are
@@ -241,7 +243,7 @@ def realify_objective(f: ObjectiveFunctionBase) -> ObjectiveFunctionBase:
         return LeastSquares(f._alpha, realify_matrix(f._A), encode(f._y))
     if isinstance(f, L2Regularizer):
         return L2Regularizer(f._alpha, realify_matrix(f._A))
-    if isinstance(f, (L1Regularizer, NonNegativePenalty)):
+    if isinstance(f, (L1Regularizer, NonNegativePenalty, SemiPositiveDefinitePenalty)):
         return RealPartProx(f)
     raise TypeError(f"realify_objective: unsupported objective {type(f).__name__}")
 

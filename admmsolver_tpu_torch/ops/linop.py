@@ -2,8 +2,10 @@
 
 Counterpart of :mod:`admmsolver_tpu.ops.linop` (reference
 ``matrix.py:9-513``): dense, diagonal, scaled identity, the Kronecker form
-``A ⊗ I`` (:class:`PartialDiagonalMatrix`) and the real embedding of a
-complex diagonal (:class:`InterleavedComplexDiagonalMatrix`), with the
+``A ⊗ I`` (:class:`PartialDiagonalMatrix`), the real embedding of a
+complex diagonal (:class:`InterleavedComplexDiagonalMatrix`) and banded
+operators (:class:`BandedMatrix`, with the cyclic-reduction factor of
+tridiagonal systems, :class:`TridiagFactor`), with the
 reference's rectangular truncate/zero-pad semantics and its
 structure-preserving ``matmul``/``add`` dispatch.  The structure is a Python
 type; the values are tensors, which stay on the device and dtype they were
@@ -28,6 +30,10 @@ __all__ = [
     "ScaledIdentityMatrix",
     "PartialDiagonalMatrix",
     "InterleavedComplexDiagonalMatrix",
+    "BandedMatrix",
+    "TridiagFactor",
+    "tridiag_cr_factor",
+    "tridiag_cr_solve",
     "identity",
     "asmatrixtype",
     "matrix_hash",
@@ -279,20 +285,29 @@ class ScaledIdentityMatrix(MatrixBase):
         return DiagonalMatrix(c * torch.ones(k, dtype=c.dtype, device=c.device),
                               self.shape)
 
+    def _times(self, v):
+        """``c v``; the identity (a Python or numpy real 1) returns ``v`` itself,
+        the same values without a copy (identity couplings are the common
+        case: one launch and one array fewer for each product)."""
+        c = _match_precision(self.coeff, v)
+        if isinstance(c, (int, float)) and c == 1:
+            return v
+        return c * v
+
     def matvec(self, v):
         v = _asarray(v)
         n, m = self.shape
         if v.shape[0] != m:
             raise ValueError(f"shape mismatch: {self.shape} @ {tuple(v.shape)}")
         if n == m:
-            return _match_precision(self.coeff, v) * v
+            return self._times(v)
         return self.to_diagonal_matrix().matvec(v)
 
     def matvec_rows(self, v):
         if v.shape[-1] != self.shape[1]:
             raise ValueError(f"shape mismatch: {self.shape} @ rows of {tuple(v.shape)}")
         if self.is_square():
-            return _match_precision(self.coeff, v) * v
+            return self._times(v)
         return self.to_diagonal_matrix().matvec_rows(v)
 
     def effective_diagonal(self):
@@ -537,6 +552,305 @@ class InterleavedComplexDiagonalMatrix(MatrixBase):
         return self.re.repeat_interleave(2)
 
 
+def _shift_fill(vec: torch.Tensor, s: int, out_len: int) -> torch.Tensor:
+    """``out[..., j] = vec[..., j - s]`` where defined, zero elsewhere (static
+    slicing and padding along the last axis; the band-algebra workhorse)."""
+    lo = max(0, s)
+    hi = min(out_len, vec.shape[-1] + s)
+    if hi <= lo:
+        return vec.new_zeros(tuple(vec.shape[:-1]) + (out_len,))
+    return torch.nn.functional.pad(vec[..., lo - s:hi - s], (lo, out_len - hi))
+
+
+def _band_range(o: int, shape) -> Tuple[int, int]:
+    """Rows ``[lo, hi)`` whose column ``i + o`` lies inside an (M, N) matrix."""
+    M, N = shape
+    return max(0, -o), min(M, N - o)
+
+
+def _banded_rows(offsets, bands: torch.Tensor, shape, v: torch.Tensor) -> torch.Tensor:
+    """``sum_k bands[..., k, i] v[..., i + o_k]`` for every row ``i``: the
+    banded product on the last axis of ``v``; ``bands`` (nb, M) or one set
+    per lane (B, nb, M) against rows (B, N)."""
+    M = shape[0]
+    out = torch.zeros(tuple(np.broadcast_shapes(v.shape[:-1], bands.shape[:-2])) + (M,),
+                      dtype=_result_dtype(v, bands), device=v.device)
+    for k, o in enumerate(offsets):
+        lo, hi = _band_range(o, shape)
+        if hi > lo:
+            out[..., lo:hi] += bands[..., k, lo:hi] * v[..., lo + o:hi + o]
+    return out
+
+
+class BandedMatrix(MatrixBase):
+    """Banded operator stored as its diagonals: O(bandwidth · n) memory.
+
+    Counterpart of ``admmsolver_tpu/ops/linop.py:1016-1191``.  With banded
+    couplings (TV differences, smoothness stencils) the ``Model`` precompute
+    ``D†D`` stays banded under the band algebra below, and the factor path
+    solves tridiagonal systems by cyclic reduction (:func:`tridiag_cr_factor`),
+    so no dense N × N operator or factor is ever made.
+
+    ``offsets``: static, sorted, unique ints; ``bands`` of shape
+    ``(len(offsets), M)`` with ``bands[k, i] = A[i, i + offsets[k]]`` (row
+    indexed).  Invariant: positions whose column ``i + o`` falls outside
+    ``[0, N)`` hold zero; the constructor checks it and the band algebra
+    relies on it.
+    """
+
+    def __init__(self, offsets, bands, shape: Optional[Tuple[int, int]] = None) -> None:
+        offsets = tuple(int(o) for o in offsets)
+        if len(set(offsets)) != len(offsets) or tuple(sorted(offsets)) != offsets:
+            raise ValueError(f"offsets must be sorted and unique, got {offsets}")
+        bands = _asarray(bands)
+        if bands.ndim != 2 or bands.shape[0] != len(offsets):
+            raise ValueError(f"bands of shape {tuple(bands.shape)} do not match "
+                             f"offsets {offsets}")
+        if shape is None:
+            shape = (bands.shape[1], bands.shape[1])
+        shape = (int(shape[0]), int(shape[1]))
+        if bands.shape[1] != shape[0]:
+            raise ValueError(f"bands of {bands.shape[1]} rows do not fit shape {shape}")
+        for k, o in enumerate(offsets):
+            lo, hi = _band_range(o, shape)
+            if bool(torch.any(bands[k, :lo] != 0)) or bool(torch.any(bands[k, max(hi, 0):] != 0)):
+                raise ValueError(f"band at offset {o} has nonzero entries outside the "
+                                 f"valid row range [{lo}, {hi})")
+        self.offsets, self.bands, self.shape = offsets, bands, shape
+
+    @classmethod
+    def _of(cls, offsets, bands: torch.Tensor, shape) -> "BandedMatrix":
+        """A band set that the algebra made: the invariant holds by
+        construction, so it is not read back."""
+        obj = object.__new__(cls)
+        obj.offsets, obj.bands, obj.shape = tuple(offsets), bands, tuple(shape)
+        return obj
+
+    @staticmethod
+    def from_dense(a, offsets=None) -> "BandedMatrix":
+        """The bands of a dense matrix; ``offsets`` defaults to every
+        nonzero diagonal."""
+        a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        M, N = a.shape
+        if offsets is None:
+            offsets = [o for o in range(-M + 1, N) if np.any(np.diagonal(a, o))] or [0]
+        offsets = sorted(int(o) for o in offsets)
+        bands = np.zeros((len(offsets), M), a.dtype)
+        for k, o in enumerate(offsets):
+            lo, hi = _band_range(o, (M, N))
+            if hi > lo:
+                bands[k, lo:hi] = np.diagonal(a, o)
+        return BandedMatrix(offsets, bands, (M, N))
+
+    def to(self, device) -> "BandedMatrix":
+        return BandedMatrix._of(self.offsets, self.bands.to(device), self.shape)
+
+    def hash(self) -> int:
+        return hash((self.offsets, self.shape, matrix_hash(self.bands)))
+
+    def asmatrix(self) -> torch.Tensor:
+        out = self.bands.new_zeros(self.shape)
+        for k, o in enumerate(self.offsets):
+            lo, hi = _band_range(o, self.shape)
+            if hi > lo:
+                i = torch.arange(lo, hi, device=self.bands.device)
+                out[i, i + o] = self.bands[k, lo:hi]
+        return out
+
+    def _scale(self, c) -> "BandedMatrix":
+        return BandedMatrix._of(self.offsets, self.bands * c, self.shape)
+
+    def conjugate(self) -> "BandedMatrix":
+        return BandedMatrix._of(self.offsets, torch.conj_physical(self.bands), self.shape)
+
+    conj = conjugate
+
+    @property
+    def T(self) -> "BandedMatrix":
+        # T[j, j - o] = A[j - o, j]: the band at offset -o, row-shifted
+        M, N = self.shape
+        offs = tuple(sorted(-o for o in self.offsets))
+        pos = {o: k for k, o in enumerate(self.offsets)}
+        rows = [_shift_fill(self.bands[pos[-o]], -o, N) for o in offs]
+        return BandedMatrix._of(offs, torch.stack(rows), (N, M))
+
+    def inv(self) -> "DenseMatrix":
+        """Dense inverse: banded inverses are dense, so this is for small N
+        (the factor path never calls it; tridiagonal systems go through
+        :func:`tridiag_cr_factor`)."""
+        if not self.is_square():
+            raise RuntimeError("Must be a square matrix!")
+        return DenseMatrix(torch.linalg.inv(self.asmatrix()))
+
+    def matvec(self, v):
+        v = _asarray(v)
+        if v.shape[0] != self.shape[1]:
+            raise ValueError(f"shape mismatch: {self.shape} @ {tuple(v.shape)}")
+        vt = torch.movedim(v, 0, -1)
+        out = _banded_rows(self.offsets, _match_precision(self.bands, v), self.shape, vt)
+        return torch.movedim(out, -1, 0)
+
+    def matvec_rows(self, v):
+        if v.shape[-1] != self.shape[1]:
+            raise ValueError(f"shape mismatch: {self.shape} @ rows of {tuple(v.shape)}")
+        return _banded_rows(self.offsets, _match_precision(self.bands, v), self.shape, v)
+
+    def effective_diagonal(self):
+        if not self.is_square():
+            return None
+        if 0 not in self.offsets:
+            return None
+        for k, o in enumerate(self.offsets):
+            if o != 0 and bool(torch.any(self.bands[k] != 0)):
+                return None
+        return self.bands[self.offsets.index(0)]
+
+    def _matmul_banded(self, b: "BandedMatrix") -> "BandedMatrix":
+        """``A @ B`` stays banded: ``C[i, i+oa+ob] += A[i, i+oa] B[i+oa, ·]``;
+        out-of-range entries of B are stored zeros, so the boundary terms
+        vanish without masking."""
+        M = self.shape[0]
+        terms: dict = {}
+        for ka, oa in enumerate(self.offsets):
+            for kb, ob in enumerate(b.offsets):
+                t = self.bands[ka] * _shift_fill(b.bands[kb], -oa, M)
+                o = oa + ob
+                terms[o] = t if o not in terms else terms[o] + t
+        offs = tuple(sorted(terms))
+        return BandedMatrix._of(offs, torch.stack([terms[o] for o in offs]), (M, b.shape[1]))
+
+    def __str__(self) -> str:
+        return f"BandedMatrix(offsets={self.offsets}, shape={self.shape})"
+
+
+class TridiagFactor:
+    """Cyclic-reduction factorization of a tridiagonal system.
+
+    Counterpart of ``admmsolver_tpu/ops/linop.py:1194-1316``.  Cyclic
+    reduction eliminates the odd rows level by level: log2(N) levels, each a
+    handful of full-width elementwise products over static strided slices,
+    O(N) work per solve and O(N) factor state, stable without pivoting for
+    the SPD systems of the ADMM factor path.  The level sizes are Python
+    ints, so no shape depends on a tensor's value.
+
+    Every tensor has the row axis LAST; leading axes are lanes (one system
+    per lane of the batched engine, or an axis of 1 that every lane shares).
+    ``factor @ rhs`` solves for ``rhs`` ``(n,)`` or ``(n, k...)`` (the row
+    axis first, the matvec convention of this module) with an unbatched
+    factor; :meth:`matvec_rows` solves lane b's system for row b of
+    ``(B, n)``, :meth:`matmat` for the columns ``(n, k)`` or ``(B, n, k)``.
+    """
+
+    def __init__(self, levels, d_final: torch.Tensor, n: int, sizes) -> None:
+        self.levels = tuple(levels)
+        self.d_final = d_final
+        self.n = int(n)
+        # pre-padding row count of each level: the backward pass trims each
+        # reconstructed level to it
+        self.sizes = tuple(int(m) for m in sizes)
+
+    @property
+    def batch_shape(self) -> Tuple[int, ...]:
+        return tuple(self.d_final.shape[:-1])
+
+    def __matmul__(self, rhs):
+        return tridiag_cr_solve(self, rhs)
+
+    def matvec_rows(self, v: torch.Tensor) -> torch.Tensor:
+        return _cr_solve_last(self, v, 0)
+
+    def matmat(self, cols: torch.Tensor) -> torch.Tensor:
+        out = _cr_solve_last(self, cols.transpose(-1, -2), 1)
+        return out.transpose(-1, -2)
+
+
+def _cr_prev(x: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+    """``x`` shifted one row down (last axis): ``out[j] = x[j-1]``,
+    ``out[0] = fill``."""
+    return torch.nn.functional.pad(x[..., :-1], (1, 0), value=fill)
+
+
+def _cr_next(x: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+    """``x`` shifted one row up (last axis): ``out[j] = x[j+1]``,
+    ``out[-1] = fill``."""
+    return torch.nn.functional.pad(x[..., 1:], (0, 1), value=fill)
+
+
+def tridiag_cr_factor(dl, d, du) -> TridiagFactor:
+    """Precompute the cyclic-reduction cascade for ``T x = b``.
+
+    ``dl[..., i] = T[i, i-1]`` (``dl[..., 0]`` ignored), ``d[..., i] =
+    T[i, i]``, ``du[..., i] = T[i, i+1]`` (``du[..., -1]`` ignored); the row
+    axis is last and leading axes are lanes.  The cascade depends only on
+    the matrix, so it is made once per penalty change; the solves then run
+    the O(N) forward and backward passes per right-hand side.
+    """
+    dl, d, du = torch.broadcast_tensors(_asarray(dl), _asarray(d), _asarray(du))
+    n = d.shape[-1]
+    # never-used corner entries must not pollute level 0
+    dl = torch.nn.functional.pad(dl[..., 1:], (1, 0))
+    du = torch.nn.functional.pad(du[..., :-1], (0, 1))
+    levels, sizes = [], []
+    while d.shape[-1] > 1:
+        m = d.shape[-1]
+        sizes.append(m)
+        if m % 2:
+            # a decoupled identity row keeps every level even
+            d = torch.nn.functional.pad(d, (0, 1), value=1.0)
+            dl = torch.nn.functional.pad(dl, (0, 1))
+            du = torch.nn.functional.pad(du, (0, 1))
+        d_e, d_o = d[..., 0::2], d[..., 1::2].contiguous()
+        dl_e, dl_o = dl[..., 0::2], dl[..., 1::2].contiguous()
+        du_e, du_o = du[..., 0::2], du[..., 1::2].contiguous()
+        alpha = dl_e / _cr_prev(d_o, fill=1.0)
+        beta = du_e / d_o
+        d_new = d_e - alpha * _cr_prev(du_o) - beta * dl_o
+        dl_new = -alpha * _cr_prev(dl_o)
+        du_new = -beta * du_o
+        levels.append((alpha, beta, dl_o, d_o, du_o))
+        dl, d, du = dl_new, d_new, du_new
+    return TridiagFactor(levels, d, n, sizes)
+
+
+def _cr_solve_last(factor: TridiagFactor, rhs: torch.Tensor, extra: int) -> torch.Tensor:
+    """The forward and backward passes on the last axis of ``rhs``; each
+    factor array gains ``extra`` axes of 1 before its row axis so that it
+    broadcasts against ``rhs``'s columns.  Factor values follow ``rhs``'s
+    precision and device (state precision, not setup precision)."""
+    if rhs.shape[-1] != factor.n:
+        raise ValueError(f"rhs of {rhs.shape[-1]} rows against a factor of {factor.n}")
+
+    def f(a):
+        a = _match_precision(a, rhs)
+        return a.reshape(tuple(a.shape[:-1]) + (1,) * extra + tuple(a.shape[-1:]))
+
+    b = rhs
+    b_odds = []
+    for alpha, beta, _dl_o, _d_o, _du_o in factor.levels:
+        if b.shape[-1] % 2:
+            b = torch.nn.functional.pad(b, (0, 1))
+        b_e, b_o = b[..., 0::2], b[..., 1::2]
+        b_odds.append(b_o)
+        b = b_e - f(alpha) * _cr_prev(b_o) - f(beta) * b_o
+    x = b / f(factor.d_final)
+    for (_alpha, _beta, dl_o, d_o, du_o), b_o, m in zip(
+            reversed(factor.levels), reversed(b_odds), reversed(factor.sizes)):
+        # eliminated odd rows: x_o = (b_o - dl_o x_prev_even - du_o x_next_even) / d_o
+        x_o = (b_o - f(dl_o) * x - f(du_o) * _cr_next(x)) / f(d_o)
+        x = torch.stack([x, x_o], dim=-1).reshape(tuple(x.shape[:-1]) + (-1,))[..., :m]
+    return x
+
+
+def tridiag_cr_solve(factor: TridiagFactor, rhs) -> torch.Tensor:
+    """Solve with a precomputed :class:`TridiagFactor`; ``rhs`` is ``(n,)``
+    or ``(n, *trailing)`` (row axis first, the matvec convention)."""
+    rhs = _asarray(rhs)
+    if rhs.shape[0] != factor.n:
+        raise ValueError(f"rhs of shape {tuple(rhs.shape)} against a factor of {factor.n}")
+    out = _cr_solve_last(factor, torch.movedim(rhs, 0, -1), 0)
+    return torch.movedim(out, -1, 0)
+
+
 def _blockwise_first(d: torch.Tensor, nblocks: int):
     """The first entry of each of ``nblocks`` contiguous blocks of ``d``
     when ``d`` is (close to) constant within each block, else None (the
@@ -625,7 +939,23 @@ def matmul(a: MatrixBase, b: MatrixBase) -> MatrixBase:
             if d is not None:
                 return PartialDiagonalMatrix(matmul(DiagonalMatrix(d), _as_dense(b.matrix)),
                                              b.rest_dims)
+        if isinstance(b, BandedMatrix) and a.is_square():
+            # row scaling keeps the bands
+            return BandedMatrix._of(b.offsets, b.bands * a.diagonals[None, :], b.shape)
         return DenseMatrix(a.matvec(b.asmatrix()))
+
+    if isinstance(a, BandedMatrix):
+        if isinstance(b, BandedMatrix):
+            return a._matmul_banded(b)
+        if isinstance(b, ScaledIdentityMatrix) and b.is_square():
+            return a._scale(b.coeff)
+        if isinstance(b, DiagonalMatrix) and b.is_square():
+            # column scaling: the band at offset o picks up d[i + o]
+            M = a.shape[0]
+            rows = [a.bands[k] * _shift_fill(b.diagonals, -o, M)
+                    for k, o in enumerate(a.offsets)]
+            return BandedMatrix._of(a.offsets, torch.stack(rows), a.shape)
+        return DenseMatrix(_mm(a.asmatrix(), b.asmatrix()))
 
     if isinstance(a, PartialDiagonalMatrix):
         if isinstance(b, PartialDiagonalMatrix) and a.rest_dims == b.rest_dims:
@@ -686,37 +1016,72 @@ def add(a: MatrixBase, b: MatrixBase) -> MatrixBase:
             if x.rest_dims == y.rest_dims:
                 return PartialDiagonalMatrix(add(x.matrix, y.matrix), x.rest_dims)
             break
+        if isinstance(x, BandedMatrix) and isinstance(y, BandedMatrix):
+            return BandedMatrix._of(*_add_bands(x.offsets, x.bands, y.offsets, y.bands),
+                                    x.shape)
+        if isinstance(x, BandedMatrix) and x.is_square() and \
+                isinstance(y, (ScaledIdentityMatrix, DiagonalMatrix)):
+            if isinstance(y, ScaledIdentityMatrix):
+                dvec = _asarray(y.coeff).to(x.bands.device).expand(x.shape[0])
+            else:
+                dvec = y.diagonals
+            return BandedMatrix._of(*_add_bands(x.offsets, x.bands, (0,), dvec[None]), x.shape)
 
     return DenseMatrix(a.asmatrix() + b.asmatrix())
+
+
+def _add_bands(offs_x, bx: torch.Tensor, offs_y, by: torch.Tensor):
+    """(offsets, bands) of the sum of two band sets of one shape; the bands
+    carry any leading lane axes (which broadcast) and promote as the dense
+    sum would, never downcasting either side."""
+    offs = tuple(sorted(set(offs_x) | set(offs_y)))
+    px = {o: k for k, o in enumerate(offs_x)}
+    py = {o: k for k, o in enumerate(offs_y)}
+    shape = np.broadcast_shapes(bx.shape[:-2], by.shape[:-2]) + bx.shape[-1:]
+    dt = _result_dtype(bx, by)
+
+    def row(o):
+        if o in px and o in py:
+            r = bx[..., px[o], :] + by[..., py[o], :]
+        else:
+            r = bx[..., px[o], :] if o in px else by[..., py[o], :]
+        return r.to(dt).expand(shape)
+
+    return offs, torch.stack([row(o) for o in offs], dim=-2)
 
 
 class LaneOperators:
     """One square operator per batch lane, all of one structure.
 
     ``kind`` is ``"scalar"`` (``c_b I``, data ``(B,)``), ``"diag"``
-    (``(B, n)``), ``"kron"`` (``G_b ⊗ I_rest``, data ``(B, m, m)`` with
-    ``n = m·rest``, the per-lane form of :class:`PartialDiagonalMatrix`) or
-    ``"dense"`` (``(B, n, n)``); a leading axis of 1 stands for an operator
-    that all lanes share.  This is what the batched engine composes
-    penalties and factors from, where the JAX package maps the structured
-    operators over the batch: ``scale`` and ``+`` keep the cheapest
-    structure that holds the result, as :func:`add` does, and densify only
-    where none does.  ``known_zero`` marks the penalty of a block without
-    couplings.
+    (``(B, n)``), ``"banded"`` (data ``(B, nbands, n)`` on the static
+    ``offsets``, the per-lane form of :class:`BandedMatrix`), ``"kron"``
+    (``G_b ⊗ I_rest``, data ``(B, m, m)`` with ``n = m·rest``, the per-lane
+    form of :class:`PartialDiagonalMatrix`) or ``"dense"`` (``(B, n, n)``); a
+    leading axis of 1 stands for an operator that all lanes share.  This is
+    what the batched engine composes penalties and factors from, where the
+    JAX package maps the structured operators over the batch: ``scale`` and
+    ``+`` keep the cheapest structure that holds the result, as :func:`add`
+    does, and densify only where none does.  ``known_zero`` marks the
+    penalty of a block without couplings.
     """
 
-    _NDIM = {"scalar": 1, "diag": 2, "kron": 3, "dense": 3}
-    _RANK = {"scalar": 0, "diag": 1, "kron": 2, "dense": 3}
+    _NDIM = {"scalar": 1, "diag": 2, "banded": 3, "kron": 3, "dense": 3}
+    _RANK = {"scalar": 0, "diag": 1, "banded": 2, "kron": 3, "dense": 4}
 
     def __init__(self, kind: str, data: torch.Tensor, n: int,
-                 known_zero: bool = False, rest: int = 1) -> None:
+                 known_zero: bool = False, rest: int = 1, offsets=()) -> None:
         if data.ndim != self._NDIM[kind]:
             raise ValueError(f"{kind} lane operators need {self._NDIM[kind]}-D data, "
                              f"got {tuple(data.shape)}")
         if kind == "kron" and data.shape[-1] * rest != n:
             raise ValueError(f"a kron factor of {data.shape[-1]} times I_{rest} is not {n} wide")
+        if kind == "banded" and data.shape[-2:] != (len(offsets), n):
+            raise ValueError(f"banded lane operators on offsets {tuple(offsets)} need "
+                             f"(B, {len(offsets)}, {n}) data, got {tuple(data.shape)}")
         self.kind, self.data, self.n, self.known_zero = kind, data, int(n), known_zero
         self.rest = int(rest)
+        self.offsets = tuple(offsets) if kind == "banded" else ()
 
     @classmethod
     def shared(cls, op: MatrixBase) -> "LaneOperators":
@@ -728,6 +1093,8 @@ class LaneOperators:
             return cls("scalar", _asarray(op.coeff).reshape(1), n)
         if isinstance(op, DiagonalMatrix):
             return cls("diag", op.diagonals[None], n)
+        if isinstance(op, BandedMatrix):
+            return cls("banded", op.bands[None], n, offsets=op.offsets)
         if isinstance(op, PartialDiagonalMatrix) and op.matrix.is_square():
             d = op.effective_diagonal()
             if d is not None:
@@ -742,7 +1109,8 @@ class LaneOperators:
         return c
 
     def _with(self, kind: str, data: torch.Tensor) -> "LaneOperators":
-        return LaneOperators(kind, data, self.n, rest=self.rest if kind == "kron" else 1)
+        return LaneOperators(kind, data, self.n, rest=self.rest if kind == "kron" else 1,
+                             offsets=self.offsets if kind == "banded" else ())
 
     def scale(self, c) -> "LaneOperators":
         """Every lane's operator times its coefficient (scalar or ``(B,)``);
@@ -758,6 +1126,9 @@ class LaneOperators:
         if self.kind == "kron":
             eye = torch.eye(self.rest, dtype=d.dtype, device=d.device)
             return torch.einsum("bij,rs->birjs", d, eye).reshape(d.shape[0], self.n, self.n)
+        if self.kind == "banded":
+            shape = (self.n, self.n)
+            return torch.stack([BandedMatrix._of(self.offsets, b, shape).asmatrix() for b in d])
         if self.kind == "scalar":
             d = d[:, None].expand(d.shape[0], self.n)
         return d if kind == "diag" else torch.diag_embed(d)
@@ -766,6 +1137,14 @@ class LaneOperators:
         if self.n != other.n:
             raise ValueError(f"shape mismatch: {self.n} + {other.n}")
         lo, hi = sorted((self, other), key=lambda o: self._RANK[o.kind])
+        # a shared operator made from a Python scalar lives on the host
+        lo = lo._with(lo.kind, lo.data.to(hi.data.device))
+        if hi.kind == "banded":
+            if lo.kind == "banded":
+                offs, data = _add_bands(hi.offsets, hi.data, lo.offsets, lo.data)
+            else:
+                offs, data = _add_bands(hi.offsets, hi.data, (0,), lo._as("diag")[:, None, :])
+            return LaneOperators("banded", data, self.n, offsets=offs)
         if hi.kind == "kron":
             m = hi.data.shape[-1]
             if lo.kind == "kron" and lo.rest == hi.rest:
@@ -789,6 +1168,8 @@ class LaneOperators:
             return d[:, None] * v
         if self.kind == "diag":
             return d * v
+        if self.kind == "banded":
+            return _banded_rows(self.offsets, d, (self.n, self.n), v)
         if self.kind == "kron":
             return (d @ v.reshape(v.shape[0], -1, self.rest)).reshape(v.shape)
         return (d @ v[..., None])[..., 0]
@@ -801,6 +1182,10 @@ class LaneOperators:
             return d[:, None, None] * cols
         if self.kind == "diag":
             return d[:, :, None] * cols
+        if self.kind == "banded":
+            # columns as rows of a (B, k, n) batch, bands broadcast over k
+            out = _banded_rows(self.offsets, d[:, None], (self.n, self.n), cols.transpose(-1, -2))
+            return out.transpose(-1, -2)
         if self.kind == "kron":
             k = cols.shape[-1]
             c2 = cols.reshape(tuple(cols.shape[:-2]) + (d.shape[-1], self.rest * k))

@@ -290,13 +290,12 @@ class ADMMPlan:
         for idx, (i, j) in enumerate(self.pairs):
             p1, p2 = p1s[idx], p2s[idx]
             mu_p = mu[:, idx, None] if batched else mu[idx]
-            d_primal = p1 - p2
+            pn = norm(p1 - p2)
             # dual residual: mu * E[j,i] @ E[i,j] @ (x_j - x_j_old)
             d_dual = mu_p * _apply(self.E_ji[idx], _apply(
                 self.E_ij[idx], x_new[j] - x_old[j], batched), batched)
             dual1 = mu_p * _apply(self.E_ji[idx], p1, batched)
             dual2 = dual1 - d_dual
-            pn = norm(d_primal)
             dn = norm(d_dual)
             primal_norms.append(pn)
             dual_norms.append(dn)
@@ -315,21 +314,26 @@ class ADMMPlan:
         return torch.clamp_max(mu_new, max_mu)
 
     def iteration(self, carry, buf_idx: int, global_it: int, cfg: ADMMConfig,
-                  tols, functions=None, compute_residuals: bool = True):
+                  tols, functions=None, compute_residuals: bool = True,
+                  freeze: bool = True):
         """One iteration of a batch (optimizer.py:310-320): sweep →
         residuals and convergence → scheduled mu update, every lane for
         itself.
 
-        ``carry`` = (x, x_prev, h, mu, factors, done, count, primal_buf,
-        dual_buf) with a leading batch axis: ``done``/``count`` (B,), the
-        histories (B, hist).  ``buf_idx`` is the history column to write,
+        ``carry`` = (x, h, mu, factors, done, count, primal_buf, dual_buf)
+        with a leading batch axis: ``done``/``count`` (B,), the histories
+        (B, hist); the JAX package also carries the previous x, which
+        nothing reads.  ``buf_idx`` is the history column to write,
         ``global_it`` drives the penalty-update schedule.  Finished lanes
         are frozen; the caller refactorizes.  With
         ``compute_residuals=False`` this is the sweep-only iteration of the
         chunked-checks mode.  The histories are written in place.
+        ``freeze=False`` is for a batch where no lane is or can become done
+        (nothing to freeze): the new state is taken as it is, the same values
+        without a copy of it.
         """
         rtol, atol = tols
-        x, x_prev, h, mu, factors, done, count, pbuf, dbuf = carry
+        x, h, mu, factors, done, count, pbuf, dbuf = carry
         active = ~done
         am = active[:, None]
 
@@ -338,12 +342,14 @@ class ADMMPlan:
             functions=functions, batched=True)
 
         # Freeze finished lanes.
-        x_out = tuple(torch.where(am, a, b) for a, b in zip(x_new, x))
-        xp_out = tuple(torch.where(am, a, b) for a, b in zip(x, x_prev))
-        h_out = tuple(torch.where(am, a, b) for a, b in zip(h_new, h))
+        if freeze:
+            x_out = tuple(torch.where(am, a, b) for a, b in zip(x_new, x))
+            h_out = tuple(torch.where(am, a, b) for a, b in zip(h_new, h))
+        else:
+            x_out, h_out = x_new, h_new
         count = count + active.to(count.dtype)
         if not compute_residuals:
-            return (x_out, xp_out, h_out, mu, factors, done, count, pbuf, dbuf)
+            return (x_out, h_out, mu, factors, done, count, pbuf, dbuf)
 
         primal_norms, dual_norms, convs = self.pair_residuals(
             x_new, x, mu, prods, batched=True)
@@ -373,7 +379,7 @@ class ADMMPlan:
             mu_adapted = self.updated_mu(mu, primal_norms, dual_norms,
                                          cfg.fact_incr, cfg.th_change, cfg.max_mu)
             mu = torch.where(done_new[:, None], mu, mu_adapted)
-        return (x_out, xp_out, h_out, mu, factors, done_new, count, pbuf, dbuf)
+        return (x_out, h_out, mu, factors, done_new, count, pbuf, dbuf)
 
     def is_complex(self) -> bool:
         """True when any operator or objective data is complex; drives the

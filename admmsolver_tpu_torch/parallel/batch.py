@@ -256,7 +256,11 @@ class BatchedSolver:
 
         def blocks(init, sizes, name):
             if init is None:
-                return tuple(torch.zeros((B, n), dtype=dtype, device=dev) for n in sizes)
+                # one zero row seen by every lane: the first iteration replaces
+                # the state, so a (B, n) array of zeros would only be held by
+                # the caller for the whole solve
+                return tuple(torch.zeros(n, dtype=dtype, device=dev).expand(B, n)
+                             for n in sizes)
             out = tuple(_to_state_dtype(a, dtype, dev) for a in init)
             if [tuple(a.shape) for a in out] != [(B, n) for n in sizes]:
                 raise ValueError(f"{name} needs shapes {[(B, n) for n in sizes]}, got "
@@ -293,8 +297,12 @@ class BatchedSolver:
         rtol, atol = tols
         B = mu.shape[0]
         functions = self._bind(self._prologue_overrides(ov))
-        refactored = lambda c: c[:4] + (
-            plan.compute_factors(c[3], functions, batched=True),) + c[5:]
+        refactored = lambda c: c[:3] + (
+            plan.compute_factors(c[2], functions, batched=True),) + c[4:]
+        # A carry without its factors: the caller drops the old ones before
+        # the new ones are made, so that both never coexist (per-lane factors
+        # of a large banded block are several (B, n) arrays).
+        unfactored = lambda c: c[:3] + (None,) + c[4:]
 
         # Strided history: one slot per `stride` iterations (the last
         # in-window value wins).
@@ -306,20 +314,23 @@ class BatchedSolver:
         # the host never reads the flags.
         can_finish = rtol > 0 or atol > 0
         all_done = False if done0 is None or not read_done0 else bool(done0.all())
+        # no lane to freeze when none starts done and none can finish
+        freeze = can_finish or done0 is not None
         if done0 is None:
             done0 = torch.zeros(B, dtype=torch.bool, device=self.device)
-        carry = refactored((x, x, h, mu, None, done0,
+        carry = refactored((x, h, mu, None, done0,
                             torch.zeros(B, dtype=torch.int32, device=self.device),
                             nan(), nan()))
 
         def step(carry, git, residuals=True):
             return plan.iteration(carry, slot(git), git, cfg, tols, functions,
-                                  compute_residuals=residuals)
+                                  compute_residuals=residuals, freeze=freeze)
 
         # iteration 0, then refactor (the mu update fires at global_it=0,
         # reference optimizer.py:319-320)
-        carry = refactored(step(carry, 0))
-        telemetry.check_chunk("BatchedSolver", carry[0], carry[2])
+        carry = unfactored(step(carry, 0))
+        carry = refactored(carry)
+        telemetry.check_chunk("BatchedSolver", carry[0], carry[1])
         it = 1
         while it < niter and not all_done:
             boundary = it + interval - 1
@@ -327,12 +338,13 @@ class BatchedSolver:
                 # chunked checks: residuals, convergence and the penalty
                 # update only on the chunk's boundary iteration
                 carry = step(carry, git, not chunked_checks or git == boundary)
+            carry = unfactored(carry)
             carry = refactored(carry)
             it += interval
-            telemetry.check_chunk("BatchedSolver", carry[0], carry[2])
+            telemetry.check_chunk("BatchedSolver", carry[0], carry[1])
             if can_finish and it < niter:
-                all_done = bool(carry[5].all())
-        x, _, h, mu, _, done, count, pbuf, dbuf = carry
+                all_done = bool(carry[4].all())
+        x, h, mu, _, done, count, pbuf, dbuf = carry
         return BatchResult(x=x, h=h, mu=mu, iterations=count, converged=done,
                            primal_residual=pbuf, dual_residual=dbuf)
 

@@ -74,10 +74,16 @@ class FusedSpMSolver:
     ``device`` is where the solve runs: on ``cuda`` (the default; without a
     CUDA device the constructor raises) every chunk is one launch of the
     Hopper kernel, on ``cpu`` the kernel's plain version.  Any batch size
-    and any nl, nw run as they are; nothing is padded.
+    and any nl, nw run as they are; nothing is padded.  ``tile_b`` is taken
+    for the JAX constructor's callers and has no effect: the JAX solver pads
+    the batch to a multiple of it for its Pallas grid (padded lanes start
+    done, so the real lanes never depend on it), and the CUDA kernel needs
+    no padding.
     """
 
-    def __init__(self, model: Model, device="cuda") -> None:
+    def __init__(self, model: Model, tile_b: int = 256, device="cuda") -> None:
+        if int(tile_b) < 1:
+            raise ValueError(f"tile_b must be positive, got {tile_b}")
         if model.num_func != 3:
             raise ValueError("fused SpM path covers 3-block models")
         if model.pairs != [(1, 0), (2, 0)]:

@@ -1,4 +1,5 @@
-from .grids import norm, second_deriv_prj, smooth_regularizer_coeff
+from .grids import (norm, second_deriv_banded, second_deriv_prj,
+                    smooth_regularizer_banded, smooth_regularizer_coeff)
 from .checkpoint import (
     save_state,
     load_state,

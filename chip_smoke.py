@@ -17,7 +17,12 @@ fails raises and the script exits non-zero without printing a result.
   ``BatchedSolver.solve_resumable`` on the float64 bench problem, complex SpM
   through ``realify_model`` and ``BatchedSolver``, and complex basis pursuit
   through ``realify_model`` and ``FusedTwoBlockSolver`` (the kernel's
-  ``l1_even`` mode).
+  ``l1_even`` mode);
+* the added model families in float64 through ``BatchedSolver.solve``:
+  covariance denoising, the SDP, RPCA, group lasso and Huber regression at
+  the inputs of ``benches/bench_workloads.py``, and TV denoising at
+  N = 100,000 (no kernel of their own: batched eigh, batched SVD, cyclic
+  reduction and elementwise proxes in PyTorch).
 
 1. Card and build: the card's name and power limit; both CUDA sources are
    built from ``admmsolver_tpu_torch/csrc/`` (one nvcc per source, started
@@ -74,13 +79,29 @@ fails raises and the script exits non-zero without printing a result.
    realified through the kernel: it launches, every lane recovers, the Im
    lanes of x1 are 0, the solve agrees with the plain version within
    SOLVE_TOL; its time beside the real bench solve's.
+8. The added families, each through ``BatchedSolver.solve`` in float64
+   (rtol=0, no histories), timed by the host clock on a first and a second
+   run, lane 0 (TV: lanes 0 and 1) against ``SimpleOptimizer`` on the card to
+   1e-8 of max|x| (TV 1e-9).  8a covariance denoising (bench_sdp128: k=128,
+   B=64, 50 iterations; every PSD slice's least eigenvalue >= -1e-9 max|x1|;
+   ``--variants`` times batched eigh of its slices under cuSOLVER and MAGMA),
+   8b the SDP (bench_sdp: k=8 x 16 slices, B=256, 100 iterations; PSD as
+   8a), 8c RPCA (bench_rpca: 32x32, B=256, 200 iterations; max relative
+   error of L, median effective rank), 8d group lasso (bench_group_lasso:
+   A 256x512, groups of 8, B=1024, 200 iterations; support-recovery rate),
+   8e Huber regression (bench_huber: A 256x128, delta 0.1, B=1024, 200
+   iterations; max coefficient error), 8f TV denoising (N=100,000, B=64,
+   lam 0.4, 20 jumps plus noise 0.1 from RandomState(11), 200 iterations;
+   the device memory of the part below 1 GiB, where a dense factor would be
+   80 GB a lane).
 
 ``--variants`` also times both chunks at other tilings and routes, the
-two-block chunk's two products as ``torch.matmul``, the card's L2 read rate
-and the factor refresh's batched inverse by other routes; ``--profile``
-prints a torch.profiler breakdown of both fused solves, of the float64
-``BatchedSolver`` solve and of one scheduler wave in each stream mode, and
-times each stream mode a second time.
+two-block chunk's two products as ``torch.matmul``, the card's L2 read rate,
+the factor refresh's batched inverse by other routes and batched eigh by both
+linear-algebra libraries; ``--profile`` prints a torch.profiler breakdown of
+both fused solves, of the float64 ``BatchedSolver`` solve, of one scheduler
+wave in each stream mode and of short covariance-denoising and TV solves,
+and times each stream mode a second time.
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU,
 ``nvcc`` and no network.
 """
@@ -117,6 +138,15 @@ SCHED_CHUNK, SCHED_NITER_MAX, SCHED_ATOL = 100, 3000, 1e-9
 RESUME_EVERY, RESUME_NITER = 100, 200
 CSPM_B, CSPM_NITER = 2048, 500
 CBP_M, CBP_N = 128, 256   # complex; realified 256x512
+# 8. the added model families, at the inputs of benches/bench_workloads.py
+COV_K, COV_B, COV_NITER = 128, 64, 50                  # bench_sdp128, RandomState(15)
+SDP_K, SDP_REST, SDP_B, SDP_NITER = 8, 16, 256, 100    # bench_sdp, RandomState(3)
+RPCA_M, RPCA_N, RPCA_B, RPCA_NITER = 32, 32, 256, 200  # bench_rpca, RandomState(7)
+GL_M, GL_N, GL_GS, GL_B, GL_NITER = 256, 512, 8, 1024, 200   # bench_group_lasso, (8)
+HUB_M, HUB_N, HUB_B, HUB_NITER, HUB_DELTA = 256, 128, 1024, 200, 0.1   # bench_huber, (9)
+# tv_denoise_model's own scale (admmsolver_tpu/models/applications.py:186-188)
+TV_N, TV_B, TV_NITER, TV_LAM, TV_JUMPS = 100_000, 64, 200, 0.4, 20
+TV_MEMORY_LIMIT = 1 << 30   # a dense N x N factor would be 80 GB a lane
 
 
 def bench_problem(seed=0):
@@ -557,6 +587,241 @@ def phase_complex_bp(torch, card, kernels, fused, plain_chunk, real_solve, devic
     return {"launches": launches, "s": t_re}
 
 
+def family_solve(torch, card, what, model, ov, niter, device, lanes=(0,), tol=1e-8,
+                 single=None):
+    """One family through ``BatchedSolver.solve`` in float64 (rtol=0, no
+    histories), timed by the host clock on its first run and on a second one;
+    ``lanes`` of it against ``SimpleOptimizer`` solves on the same device, to
+    ``tol`` of max|x|.  ``single(b)`` builds lane b's own model.  Returns the
+    result, the solver and the two timings."""
+    from admmsolver_tpu_torch import SimpleOptimizer
+    from admmsolver_tpu_torch.parallel import BatchedSolver
+
+    bs = BatchedSolver(model, device=device)
+    solve = lambda: bs.solve(ov, niter=niter, rtol=0.0, record_residuals=False)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    times, res = [], None
+    for _ in range(2):
+        res = None      # the first result does not sit beside the second solve
+        sync()
+        t0 = time.perf_counter()
+        res = solve()
+        sync()
+        times.append(time.perf_counter() - t0)
+    outs = [*res.x, *res.h, res.mu]
+    if not all(t.dtype == torch.float64 and bool(torch.isfinite(t).all()) for t in outs):
+        raise AssertionError(f"{what}: non-finite or non-float64 values")
+    if not bool((res.iterations == niter).all()):
+        raise AssertionError(f"{what}: not every lane ran {niter} iterations")
+    worst = 0.0
+    for b in lanes:
+        o = SimpleOptimizer(single(b), device=device)
+        o.solve(niter, rtol=0.0)
+        for xb, xs in zip(res.x, o.x):
+            scale = max(float(xs.abs().max()), 1e-300)
+            worst = max(worst, float((xb[b] - xs).abs().max()) / scale)
+    print(f"{what}: lanes {list(lanes)} vs SimpleOptimizer max |dx|/max|x| {worst:.3e} "
+          f"(bound {tol:g})", flush=True)
+    if not worst <= tol:
+        raise AssertionError(f"{what}: the batch departs from its single solves by {worst:.3e}")
+    print(f"[{card}] {what}: {niter} iterations in {times[0] * 1e3:.1f} ms (first run), "
+          f"{times[1] * 1e3:.1f} ms (second) = {times[1] * 1e3 / niter:.3f} ms per iteration",
+          flush=True)
+    return res, bs, times
+
+
+def check_psd(torch, what, x, k):
+    """Every k x k slice (slices along the last axis of (k, k, rest)) of every
+    lane of ``x`` (B, k*k*rest) has its least eigenvalue >= -1e-9 max|x|."""
+    X = x.reshape(x.shape[0], k, k, -1)
+    lam = torch.linalg.eigvalsh(torch.movedim(X, 3, 1))
+    least, bound = float(lam.min()), -1e-9 * float(x.abs().max())
+    print(f"{what}: least eigenvalue over every slice {least:.3e} (bound {bound:.3e})",
+          flush=True)
+    if not least >= bound:
+        raise AssertionError(f"{what}: a slice is not PSD ({least:.3e})")
+    return least
+
+
+def phase_cov_denoise(torch, card, device="cuda", k=COV_K, B=COV_B, niter=COV_NITER,
+                      variants=False):
+    """8a. Covariance denoising (bench_sdp128, benches/bench_workloads.py:
+    362-375): a weighted nearest-PSD matrix of k x k, one slice a lane, the
+    per-lane data through the (0, "y") override; with ``variants`` batched
+    eigh of the phase's slices alone under each linear-algebra library."""
+    from admmsolver_tpu_torch.models.applications import covariance_denoise_model
+
+    rng = np.random.RandomState(15)
+    N = k * k
+    w = 1.0 + rng.rand(N)
+    rw = np.sqrt(w)
+    Q = rng.randn(k, k)
+    xt = (Q @ Q.T / k).reshape(-1)
+    ys = xt[None, :] + 0.1 * rng.randn(B, N)
+    wys = torch.as_tensor(ys * rw[None, :], device=device)
+    model = lambda b: covariance_denoise_model(ys[b].reshape(k, k), weights=w)
+    ov = {(0, "y"): wys}
+    res, bs, times = family_solve(torch, card, f"covariance denoising k={k} B={B}",
+                                  model(0), ov, niter, device, single=model)
+    check_psd(torch, "covariance denoising", res.x[1], k)
+    # a short solve for the profile: cuSOLVER's eigh launches thousands of
+    # kernels an iteration, and the profiler's bookkeeping grows with them
+    out = {"ms_per_iter": 1e3 * times[1] / niter, "profile_iters": 5,
+           "profile": lambda: bs.solve(ov, niter=5, rtol=0.0, record_residuals=False)}
+    if variants and device == "cuda":
+        x = torch.as_tensor(rng.randn(B, k, k), device=device)
+        x = x + x.mT
+        libs = {}
+        prev = torch.backends.cuda.preferred_linalg_library()
+        try:
+            for lib in ("cusolver", "magma"):
+                torch.backends.cuda.preferred_linalg_library(lib)
+                (libs[lib],) = median_ms(torch, [lambda: torch.linalg.eigh(x)])
+        finally:
+            torch.backends.cuda.preferred_linalg_library(prev)
+        print(f"[{card}] batched torch.linalg.eigh of ({B}, {k}, {k}) f64 alone: "
+              + ", ".join(f"{lib} {t:.3f} ms" for lib, t in libs.items())
+              + f" (default {prev}); the solve: {out['ms_per_iter']:.3f} ms per iteration",
+              flush=True)
+        out["eigh_ms"] = libs
+    return out
+
+
+def phase_sdp(torch, card, device="cuda", k=SDP_K, rest=SDP_REST, B=SDP_B, niter=SDP_NITER):
+    """8b. The SDP (bench_sdp, benches/bench_workloads.py:237-250): LS data
+    fit with a PSD cone on rest slices of k x k."""
+    from admmsolver_tpu_torch.models.applications import sdp_model
+
+    shape = (k, k, rest)
+    N = k * k * rest
+    M = N // 2
+    rng = np.random.RandomState(3)
+    A = rng.randn(M, N)
+    xt = np.zeros(shape)
+    for r in range(rest):
+        Q = rng.randn(k, k)
+        xt[:, :, r] = Q @ Q.T / k
+    y = A @ xt.reshape(-1)
+    ys = y[None, :] + 1e-4 * rng.randn(B, M)
+    res, _, times = family_solve(
+        torch, card, f"SDP k={k} rest={rest} A {M}x{N} B={B}", sdp_model(A, y, shape, axis=2),
+        {(0, "y"): torch.as_tensor(ys, device=device)}, niter, device,
+        single=lambda b: sdp_model(A, ys[b], shape, axis=2))
+    check_psd(torch, "SDP", res.x[1], k)
+    return {"ms_per_iter": 1e3 * times[1] / niter}
+
+
+def phase_rpca(torch, card, device="cuda", m=RPCA_M, n=RPCA_N, B=RPCA_B, niter=RPCA_NITER):
+    """8c. Robust PCA (bench_rpca, benches/bench_workloads.py:438-445): the
+    nuclear-norm prox by batched SVD, per-lane Y through (1, "offset")."""
+    from admmsolver_tpu_torch.models.applications import rpca_model
+
+    rng = np.random.RandomState(7)
+    L0 = rng.randn(B, m, 3) @ rng.randn(3, n)
+    Ys = L0.copy()
+    mask = rng.rand(B, m, n) < 0.05
+    Ys[mask] += 6.0 * rng.randn(int(mask.sum()))
+    res, _, times = family_solve(
+        torch, card, f"RPCA {m}x{n} B={B}", rpca_model(Ys[0]),
+        {(1, "offset"): torch.as_tensor(Ys.reshape(B, -1), device=device)}, niter, device,
+        single=lambda b: rpca_model(Ys[b]))
+    L = res.x[0].cpu().numpy().reshape(B, m, n)
+    rel = float(np.abs(L - L0).max() / np.abs(L0).max())
+    sv = np.linalg.svd(L, compute_uv=False)
+    rank = int(np.median((sv > 1e-3 * sv[:, :1]).sum(axis=1)))
+    print(f"RPCA: max rel error of L {rel:.4f}, median effective rank {rank}", flush=True)
+    return {"ms_per_iter": 1e3 * times[1] / niter, "max_rel_err_L": rel, "rank": rank}
+
+
+def phase_group_lasso(torch, card, device="cuda", M=GL_M, N=GL_N, gs=GL_GS, B=GL_B,
+                      niter=GL_NITER):
+    """8d. Group lasso (bench_group_lasso, benches/bench_workloads.py:
+    516-525): the group soft-threshold prox."""
+    from admmsolver_tpu_torch.models.applications import group_lasso_model
+
+    rng = np.random.RandomState(8)
+    A = rng.randn(M, N)
+    xt = np.zeros(N)
+    on = rng.choice(N // gs, 6, replace=False)
+    for g in on:
+        xt[g * gs:(g + 1) * gs] = rng.randn(gs)
+    ys = (A @ xt)[None, :] + 0.01 * rng.randn(B, M)
+    res, _, times = family_solve(
+        torch, card, f"group lasso A {M}x{N} groups of {gs} B={B}",
+        group_lasso_model(A, ys[0], 0.5, gs), {(0, "y"): torch.as_tensor(ys, device=device)},
+        niter, device, single=lambda b: group_lasso_model(A, ys[b], 0.5, gs))
+    X = res.x[1].cpu().numpy()
+    gn = np.sqrt((X.reshape(B, -1, gs) ** 2).sum(-1))
+    active = gn > 1e-3 * np.abs(X).max()
+    hit = float(active[:, on].all(axis=1).mean())
+    print(f"group lasso: support-recovery rate {hit:.3f}, median active groups "
+          f"{int(np.median(active.sum(axis=1)))}", flush=True)
+    return {"ms_per_iter": 1e3 * times[1] / niter, "support_recovery_rate": hit}
+
+
+def phase_huber(torch, card, device="cuda", M=HUB_M, N=HUB_N, B=HUB_B, niter=HUB_NITER,
+                delta=HUB_DELTA):
+    """8e. Huber regression (bench_huber, benches/bench_workloads.py:
+    547-556): the elementwise Huber prox through a dense A coupling."""
+    from admmsolver_tpu_torch.models.applications import robust_regression_model
+
+    rng = np.random.RandomState(9)
+    A = rng.randn(M, N) / np.sqrt(M)
+    xt = rng.randn(N)
+    ys = (A @ xt)[None, :] + 0.01 * rng.randn(B, M)
+    ys = ys + (rng.rand(B, M) < 0.05) * 8.0 * rng.randn(B, M)
+    res, _, times = family_solve(
+        torch, card, f"Huber regression A {M}x{N} delta={delta} B={B}",
+        robust_regression_model(A, ys[0], delta=delta),
+        {(1, "y"): torch.as_tensor(ys, device=device)}, niter, device,
+        single=lambda b: robust_regression_model(A, ys[b], delta=delta))
+    err = float(np.abs(res.x[0].cpu().numpy() - xt).max())
+    print(f"Huber regression: max coefficient error {err:.4f}", flush=True)
+    return {"ms_per_iter": 1e3 * times[1] / niter, "max_coef_err": err}
+
+
+def tv_signals(N, B, jumps=TV_JUMPS, seed=11):
+    """A piecewise-constant signal with ``jumps`` jumps and B noisy copies
+    (noise 0.1), from RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    truth = np.zeros(N)
+    for j in np.sort(rng.choice(np.arange(1, N), jumps, replace=False)):
+        truth[j:] += rng.randn()
+    return truth, truth[None, :] + 0.1 * rng.randn(B, N)
+
+
+def phase_tv(torch, card, device="cuda", N=TV_N, B=TV_B, niter=TV_NITER, lam=TV_LAM):
+    """8f. TV denoising at the scale tv_denoise_model's docstring names: the
+    banded penalty per lane and its cyclic-reduction factor; lanes 0 and 1
+    against SimpleOptimizer, and the device memory the solve takes."""
+    from admmsolver_tpu_torch.models.applications import tv_denoise_model
+
+    truth, ys = tv_signals(N, B)
+    ys_dev = torch.as_tensor(ys, device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    ov = {(0, "y"): ys_dev}
+    res, bs, times = family_solve(
+        torch, card, f"TV denoising N={N} B={B} lam={lam}", tv_denoise_model(ys[0], lam),
+        ov, niter, device, lanes=(0, 1), tol=1e-9,
+        single=lambda b: tv_denoise_model(ys[b], lam))
+    peak = torch.cuda.max_memory_allocated() - before if device == "cuda" else None
+    err = float((res.x[0] - torch.as_tensor(truth, device=device)).abs().mean())
+    noisy = float(np.abs(ys - truth[None]).mean())
+    print(f"TV denoising: mean |x - truth| {err:.4f} (noisy input {noisy:.4f})"
+          + ("" if peak is None else f"; peak device memory over the part {peak / 2**20:.0f} MiB "
+             f"(limit {TV_MEMORY_LIMIT / 2**20:.0f} MiB; one (B, N) float64 array is "
+             f"{B * N * 8 / 2**20:.1f} MiB)"), flush=True)
+    if peak is not None and not peak < TV_MEMORY_LIMIT:
+        raise AssertionError(f"the TV solve took {peak / 2**20:.0f} MiB of device memory")
+    if not err < noisy:
+        raise AssertionError("TV denoising did not denoise")
+    return {"ms_per_iter": 1e3 * times[1] / niter, "peak_bytes": peak, "profile_iters": 5,
+            "profile": lambda: bs.solve(ov, niter=5, rtol=0.0, record_residuals=False)}
+
+
 def main():
     import torch
 
@@ -913,6 +1178,14 @@ def main():
     complex_spm = phase_complex_spm(torch, card)
     realified = phase_complex_bp(torch, card, kernels, fused, plain_chunk, solve)
 
+    # 8. the added model families at full width, float64
+    cov = phase_cov_denoise(torch, card, variants="--variants" in sys.argv)
+    phase_sdp(torch, card)
+    phase_rpca(torch, card)
+    phase_group_lasso(torch, card)
+    phase_huber(torch, card)
+    tv = phase_tv(torch, card)
+
     if "--variants" in sys.argv:
         T = kernels.TwoBlockTiling
         sweep = [tiling, T(32, 32, 3, 1, 1), T(32, 32, 2, 2, 1), T(32, 16, 6, 2, 1),
@@ -975,6 +1248,10 @@ def main():
                           iters=SCHED_CHUNK)
         profile_solve(torch, "realified complex SpM solve", "gemm", complex_spm["solve"],
                       iters=CSPM_NITER)
+        for what, part, name in (("covariance denoising", cov, "stedc"),
+                                 ("TV denoising", tv, "pad")):
+            profile_solve(torch, f"{what} solve, {part['profile_iters']} iterations", name,
+                          part["profile"], iters=part["profile_iters"])
 
     # No single PyTorch call computes either chunk, so there is no library time.
     # prev_ms is the replaced design's time where this run still builds and

@@ -471,6 +471,83 @@ def test_fused_realified_on_cuda_launches_the_kernel(cuda):
     assert bool((rc.x1[:, 1::2] == 0).all())
 
 
+def _family_prox(name):
+    """(objective, h, mu_diag) of each added family's prox, float64."""
+    rng = np.random.RandomState(4)
+    if name == "psd":
+        f, n = T.SemiPositiveDefinitePenalty((6, 6, 5), 2), 180
+    elif name == "nuclear":
+        f, n = T.NuclearNormPenalty(1.3, (8, 5)), 40
+    elif name == "group":
+        f, n = T.GroupL1Regularizer(0.8, 4, 5), 20
+    elif name == "huber":
+        f, n = T.HuberLoss(0.8, rng.randn(15), 0.3), 15
+    else:
+        f, n = T.BoxProjectionPenalty(15, -0.3, 0.7), 15      # Python-scalar bounds
+    h = 2.0 * rng.randn(3, n)
+    mu = rng.uniform(0.5, 2.0, (3, 1)) * np.ones((1, n))
+    return f, h, mu
+
+
+@pytest.mark.parametrize("name", ["psd", "nuclear", "group", "huber", "box"])
+def test_family_prox_on_cuda_matches_cpu(cuda, name):
+    """Each added prox on the card, batched and single, against the same call
+    on the host; Box and Huber take Python-scalar parameters (0-d host
+    tensors meet card tensors)."""
+    f, h, mu = _family_prox(name)
+    fc = f.to(cuda)
+    hc, muc = torch.as_tensor(h, device=cuda), torch.as_tensor(mu, device=cuda)
+    got = fc.prox_diag(hc, muc, batched=True)
+    want = f.prox_diag(torch.as_tensor(h), torch.as_tensor(mu), batched=True)
+    assert got.is_cuda and got.dtype == torch.float64
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-12 * float(want.abs().max()))
+    single = f.prox_diag(hc[0], muc[0])           # the host object on card tensors
+    np.testing.assert_allclose(single.cpu().numpy(), want[0].numpy(), rtol=0,
+                               atol=1e-12 * float(want.abs().max()))
+
+
+def test_box_with_python_bounds_solves_on_cuda(cuda):
+    from admmsolver_tpu_torch.models.applications import bounded_lsq_model
+
+    rng = np.random.RandomState(5)
+    A, y = rng.randn(20, 12), rng.randn(20)
+    o = T.SimpleOptimizer(bounded_lsq_model(A, y, 0.0, 0.5))
+    o.solve(300)
+    assert o.x[1].is_cuda and float(o.x[1].min()) >= 0.0 and float(o.x[1].max()) <= 0.5
+    r = BatchedSolver(bounded_lsq_model(A, y, 0.0, 0.5)).solve(
+        {(0, "y"): np.stack([y, -y]), (1, "hi"): np.array([0.3, 0.5])}, niter=300)
+    assert float(r.x[1][0].max()) <= 0.3 and float(r.x[1][1].max()) <= 0.5
+
+
+def test_batched_tv_on_cuda_matches_simple_optimizer(cuda):
+    """The per-lane banded penalty and its cyclic-reduction factor on the
+    card: lanes against SimpleOptimizer solves there, and the batch against
+    itself on the host."""
+    from admmsolver_tpu_torch.models.applications import tv_denoise_model
+    from admmsolver_tpu_torch.ops.linop import TridiagFactor
+
+    rng = np.random.RandomState(6)
+    n, B = 300, 3
+    truth = np.r_[np.zeros(n // 2), np.ones(n - n // 2)]
+    ys = truth[None, :] + 0.2 * rng.randn(B, n)
+    bs = BatchedSolver(tv_denoise_model(ys[0], 0.4))
+    factors = bs.plan.compute_factors(torch.ones(B, 1, dtype=torch.float64, device=cuda),
+                                      batched=True)
+    assert isinstance(factors[0], TridiagFactor) and factors[0].d_final.is_cuda
+    rc = bs.solve({(0, "y"): ys}, niter=150)
+    rh = BatchedSolver(tv_denoise_model(ys[0], 0.4), device="cpu").solve({(0, "y"): ys},
+                                                                         niter=150)
+    for a, b in zip(rc.x + rc.h, rh.x + rh.h):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0, atol=1e-9)
+    for b in range(B):
+        o = T.SimpleOptimizer(tv_denoise_model(ys[b], 0.4))
+        o.solve(150)
+        np.testing.assert_allclose(rc.x[0][b].cpu().numpy(), o.x[0].cpu().numpy(),
+                                   rtol=0, atol=1e-9)
+        assert int(rc.iterations[b]) == o.iterations
+
+
 def test_checkpoint_loads_default_to_cuda(tmp_path):
     """Loads place tensors on the card unless the caller asks for the CPU:
     without a CUDA device the default raises."""
