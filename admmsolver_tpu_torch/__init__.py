@@ -13,9 +13,13 @@ through their real embedding (:func:`realify_model`), checkpoints and
 telemetry (:mod:`admmsolver_tpu_torch.utils`), and the fused solvers
 (:class:`~admmsolver_tpu_torch.parallel.FusedTwoBlockSolver`,
 :class:`~admmsolver_tpu_torch.parallel.FusedSpMSolver`) whose chunk kernels
-are hand-written CUDA kernels for Hopper (sm_90a).  Solvers run on ``cuda``
-unless the caller passes ``device="cpu"``.  It imports ``torch`` and numpy,
-never ``jax``.
+are hand-written CUDA kernels for Hopper (sm_90a).  Multi-device runs go over
+``torch.distributed`` (:mod:`admmsolver_tpu_torch.parallel.mesh`): a
+``BatchedSolver`` sharded over the ranks of a mesh, one large-N problem
+split over them (:class:`~admmsolver_tpu_torch.parallel.LargeNTwoBlockSolver`,
+:func:`~admmsolver_tpu_torch.parallel.sharded_gram`), and per-rank checkpoint
+shards.  Solvers run on ``cuda`` unless the caller passes ``device="cpu"``.
+It imports ``torch`` and numpy, never ``jax``.
 """
 
 __version__ = "0.1.0"

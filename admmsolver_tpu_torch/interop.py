@@ -4,7 +4,10 @@ The port never imports ``jax``: :func:`from_jax_model` reads a
 ``admmsolver_tpu`` model's arrays through ``np.asarray`` and dispatches on
 class names, and :func:`state_from_numpy` takes a JAX result already turned
 into numpy.  :func:`batch_result_to_numpy` and :func:`batch_state_from_numpy`
-carry a batched solve's state from one package to the other.
+carry a batched solve's state from one package to the other;
+:func:`large_n_from_jax` puts a JAX ``LargeNTwoBlockSolver``'s basis on the
+ranks of a mesh, and :func:`large_n_result_to_numpy` turns a large-N result
+into numpy.
 """
 from __future__ import annotations
 
@@ -20,12 +23,14 @@ from .models.objectivefunc import (BoxProjectionPenalty, ConstrainedLeastSquares
                                    SemiPositiveDefinitePenalty)
 from .models.problem import Model
 from .models.realify import RealPartProx
+from .parallel.mesh import Mesh
+from .parallel.rowshard import LargeNResult, LargeNTwoBlockSolver
 from .ops.linop import (BandedMatrix, DenseMatrix, DiagonalMatrix,
                         InterleavedComplexDiagonalMatrix, MatrixBase,
                         PartialDiagonalMatrix, ScaledIdentityMatrix)
 
 __all__ = ["from_jax_model", "state_from_numpy", "batch_result_to_numpy",
-           "batch_state_from_numpy"]
+           "batch_state_from_numpy", "large_n_from_jax", "large_n_result_to_numpy"]
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -142,3 +147,24 @@ def batch_state_from_numpy(x: Sequence, h: Sequence, mu, device="cuda") -> Dict[
     return {"x0": tuple(_tensor(a, device, None) for a in x),
             "h0": tuple(_tensor(a, device, None) for a in h),
             "mu0": _tensor(mu, device, None)}
+
+
+def large_n_from_jax(solver, mesh: Mesh) -> LargeNTwoBlockSolver:
+    """The port's :class:`~admmsolver_tpu_torch.parallel.LargeNTwoBlockSolver`
+    on the thin basis of a JAX one: its ``lam``, ``U``, ``Ac``, prox and
+    weights, read as numpy, each rank keeping its rows; so that both packages
+    solve on one basis."""
+    return LargeNTwoBlockSolver.from_basis(
+        np.array(solver.lam), np.array(solver.U), np.array(solver.Ac), mesh,
+        prox=solver.prox, alpha_ls=solver.alpha_ls, alpha1=solver.alpha1)
+
+
+def large_n_result_to_numpy(res: LargeNResult) -> Dict[str, object]:
+    """A :class:`~admmsolver_tpu_torch.parallel.LargeNResult` as numpy arrays on
+    the host (this rank's rows of the state), with ``iterations`` and
+    ``converged`` as Python values."""
+    host = lambda a: a.detach().cpu().numpy()
+    return {"x0": host(res.x0), "x1": host(res.x1), "h": host(res.h), "mu": host(res.mu),
+            "iterations": res.iterations, "converged": res.converged,
+            "primal_residual": host(res.primal_residual),
+            "dual_residual": host(res.dual_residual)}

@@ -17,6 +17,12 @@ the batched analogue of the reference's hash-keyed cache
 (``objectivefunc.py:89-96``).  The schedule is a Python loop; the host reads
 the done flags once per chunk, never per iteration, and not at all when no
 lane can finish (``rtol <= 0`` and ``atol <= 0``).
+
+Sharding (``sharding=batch_sharding(mesh)``): each rank of the mesh solves
+its block of lanes on its own device, and the only collective of a solve is
+the exit predicate: where the host reads the done flags, every rank sums its
+count of lanes not done in one ``all_reduce``, so that all ranks run the
+same chunks.
 """
 from __future__ import annotations
 
@@ -111,14 +117,19 @@ class BatchResult:
     converged: torch.Tensor
     primal_residual: torch.Tensor
     dual_residual: torch.Tensor
+    #: global index of each lane in the batch (a sharded solve's result holds
+    #: this rank's lanes); None: lane b is lane b of the batch
+    lane_index: Optional[torch.Tensor] = None
 
 
 def _lanewise(fn, *results: BatchResult) -> BatchResult:
     """``fn`` over the corresponding tensors of the results, field by field."""
     blocks = lambda name: tuple(fn(*t) for t in zip(*(getattr(r, name) for r in results)))
     rest = ("mu", "iterations", "converged", "primal_residual", "dual_residual")
+    idx = [r.lane_index for r in results]
     return BatchResult(x=blocks("x"), h=blocks("h"),
-                       **{name: fn(*(getattr(r, name) for r in results)) for name in rest})
+                       **{name: fn(*(getattr(r, name) for r in results)) for name in rest},
+                       lane_index=None if any(i is None for i in idx) else fn(*idx))
 
 
 def _concat(parts: Sequence[BatchResult]) -> BatchResult:
@@ -127,8 +138,18 @@ def _concat(parts: Sequence[BatchResult]) -> BatchResult:
 
 
 def _trim(res: BatchResult, n: int) -> BatchResult:
-    """The first ``n`` lanes of a result."""
-    return _lanewise(lambda a: a[:n], res)
+    """The lanes of a result whose global index is below ``n``."""
+    if res.lane_index is None:
+        return _lanewise(lambda a: a[:n], res)
+    keep = res.lane_index < n
+    return _lanewise(lambda a: a[keep], res)
+
+
+def _shift(res: BatchResult, offset: int) -> BatchResult:
+    """A result of lanes ``offset`` on of a larger batch."""
+    if res.lane_index is None:
+        return res
+    return dataclasses.replace(res, lane_index=res.lane_index + offset)
 
 
 def _pad_last(a: torch.Tensor, pad_n: int) -> torch.Tensor:
@@ -153,12 +174,22 @@ class BatchedSolver:
     ``device`` is where the solve runs: ``cuda`` by default (without a CUDA
     device the constructor raises), the host only with ``device="cpu"``.
     ``dtype`` defaults to float64 (complex128 for complex data).
+
+    ``sharding`` (optional): a :func:`~admmsolver_tpu_torch.parallel.mesh.
+    batch_sharding` (or ``replicated_sharding``) of a mesh; the device is
+    then the mesh's.  Every rank calls the same solves with the same global
+    (B, ...) inputs, as a single controller would; each rank takes its lanes
+    of them before they move to its device, a batch of B that is not a
+    multiple of the world size is padded (padding lanes copy lane 0 and
+    start done), and each rank's result holds its real lanes, their global
+    indices in ``lane_index``.
     """
 
-    def __init__(self, model: Model, dtype=None, device="cuda") -> None:
+    def __init__(self, model: Model, dtype=None, device="cuda", sharding=None) -> None:
         if not isinstance(model, Model):
             raise TypeError(f"expected a Model, got {type(model).__name__}")
-        self.device = torch.device(device)
+        self.sharding = sharding
+        self.device = torch.device(device if sharding is None else sharding.mesh.device)
         self.model = model.to(self.device)
         self.plan = ADMMPlan(self.model, self.device)
         # real problems get a real state (see ADMMPlan.is_complex)
@@ -236,6 +267,19 @@ class BatchedSolver:
                                    else (A.mH @ y[..., None])[..., 0])
         return out
 
+    def _batch(self, overrides: Dict, batch_size: Optional[int]) -> int:
+        """The batch size of a solve, from its overrides or ``batch_size``."""
+        B = self._validate_overrides(overrides)
+        if B is None:
+            B = batch_size
+        if B is None:
+            raise ValueError(
+                "batch size is undetermined: pass overrides with a leading "
+                "batch axis or batch_size=")
+        if batch_size is not None and batch_size != B:
+            raise ValueError(f"batch_size={batch_size} != override batch {B}")
+        return B
+
     # -- set-up shared by the solves ---------------------------------------
     def _solve_dtype(self, dtype) -> torch.dtype:
         return self.dtype if dtype is None else _as_dtype(dtype)
@@ -281,6 +325,81 @@ class BatchedSolver:
                 raise ValueError(f"done0 has shape {tuple(done0.shape)}, expected ({B},)")
         return x, h, mu, done0
 
+    # -- sharding ------------------------------------------------------------
+    def _all_done(self, done: torch.Tensor) -> bool:
+        """Whether every lane of the batch is done.  On a sharded solver the
+        lanes of every rank: one ``all_reduce`` of the count of lanes not
+        done, which every rank makes at the same point of the schedule."""
+        if self.sharding is None:
+            return bool(done.all())
+        return int(self.sharding.mesh.all_reduce((~done).sum().reshape(1))) == 0
+
+    def _gathered(self, res: BatchResult, B: int) -> BatchResult:
+        """All B lanes of a result of this solver, on every rank."""
+        if self.sharding is None:
+            return res
+        return _lanewise(lambda a: self.sharding.gather(a, B), res)
+
+    def _last_lane(self, B: int):
+        """A map from a tensor of a result of this solver to its lane B-1,
+        on every rank (a broadcast from the rank that holds it)."""
+        if self.sharding is None:
+            return lambda a: a[B - 1]
+        return lambda a: self.sharding.lane(a, B - 1, B)
+
+    def _real_lanes(self, B: int) -> range:
+        """The global indices of this rank's lanes below B."""
+        lanes = self.sharding.lanes(B)
+        return range(lanes.start, max(lanes.start, min(lanes.stop, B)))
+
+    def _local(self, res: BatchResult, B: int) -> BatchResult:
+        """This rank's lanes of a result of all B lanes."""
+        if self.sharding is None:
+            return res
+        real = self._real_lanes(B)
+        res = _lanewise(lambda a: a[real.start:real.stop], res)
+        return dataclasses.replace(res, lane_index=torch.arange(
+            real.start, real.stop, device=self.device))
+
+    def _solve_lanes(self, B: int, cfg: ADMMConfig, overrides: Dict, dtype, x0, h0, mu0,
+                     done0, tols, record: bool, stride: int, chunked_checks: bool
+                     ) -> BatchResult:
+        """A batch of B (global inputs) through the schedule; on a sharded
+        solver this rank's real lanes of it."""
+        n = B
+        if self.sharding is not None:
+            lanes = self.sharding.lanes(B)
+            idx = torch.arange(lanes.start, lanes.stop)
+            src = torch.where(idx < B, idx, 0)   # padding lanes copy lane 0
+
+            def take(a):
+                a = _asarray(a)
+                if a.shape[0] != B:
+                    raise ValueError(f"expected a leading batch axis of {B}, got "
+                                     f"{tuple(a.shape)}")
+                return a.index_select(0, src.to(a.device))
+
+            x0 = None if x0 is None else tuple(map(take, x0))
+            h0 = None if h0 is None else tuple(map(take, h0))
+            mu0 = _asarray(mu0)
+            mu0 = take(mu0) if mu0.ndim else mu0
+            # padding lanes start done; every rank knows whether any rank pads
+            if done0 is not None:
+                done0 = take(torch.as_tensor(done0, dtype=torch.bool))
+                done0 = done0 | (idx >= B).to(done0.device)
+            elif self.sharding.padded(B) != B:
+                done0 = idx >= B
+            overrides = {k: take(v) for k, v in overrides.items()}
+            n = len(lanes)
+        x, h, mu, done0 = self._initial_state(n, dtype, x0, h0, mu0, done0)
+        ov = {k: _cast_like(dtype, v, self.device) for k, v in overrides.items()}
+        res = self._run(cfg, ov, x, h, mu, tols, done0, record, stride, chunked_checks)
+        if self.sharding is None:
+            return res
+        real = self._real_lanes(B)
+        return dataclasses.replace(_trim(res, len(real)), lane_index=torch.arange(
+            real.start, real.stop, device=self.device))
+
     # -- the chunk schedule ------------------------------------------------
     def _run(self, cfg: ADMMConfig, ov: Dict, x, h, mu, tols, done0,
              record: bool, stride: int, chunked_checks: bool,
@@ -313,7 +432,7 @@ class BatchedSolver:
         # No lane's flag can change when neither tolerance can be met: then
         # the host never reads the flags.
         can_finish = rtol > 0 or atol > 0
-        all_done = False if done0 is None or not read_done0 else bool(done0.all())
+        all_done = False if done0 is None or not read_done0 else self._all_done(done0)
         # no lane to freeze when none starts done and none can finish
         freeze = can_finish or done0 is not None
         if done0 is None:
@@ -343,7 +462,7 @@ class BatchedSolver:
             it += interval
             telemetry.check_chunk("BatchedSolver", carry[0], carry[1])
             if can_finish and it < niter:
-                all_done = bool(carry[4].all())
+                all_done = self._all_done(carry[4])
         x, h, mu, _, done, count, pbuf, dbuf = carry
         return BatchResult(x=x, h=h, mu=mu, iterations=count, converged=done,
                            primal_residual=pbuf, dual_residual=dbuf)
@@ -415,22 +534,12 @@ class BatchedSolver:
                 dtype=dtype)
         dtype = self._solve_dtype(dtype)
         overrides = dict(overrides or {})
-        B = self._validate_overrides(overrides)
-        if B is None:
-            B = batch_size
-        if B is None:
-            raise ValueError(
-                "batch size is undetermined: pass overrides with a leading "
-                "batch axis or batch_size=")
-        if batch_size is not None and batch_size != B:
-            raise ValueError(f"batch_size={batch_size} != override batch {B}")
+        B = self._batch(overrides, batch_size)
         cfg = self._config(niter, interval_update_mu, update_h, max_mu,
                            fact_incr, th_change, relax)
         record, stride = _parse_record_residuals(record_residuals)
-        x, h, mu, done0 = self._initial_state(B, dtype, x0, h0, mu0, done0)
-        ov = {k: _cast_like(dtype, v, self.device) for k, v in overrides.items()}
-        return self._run(cfg, ov, x, h, mu, (rtol, atol), done0, record, stride,
-                         bool(chunked_checks))
+        return self._solve_lanes(B, cfg, overrides, dtype, x0, h0, mu0, done0,
+                                 (rtol, atol), record, stride, bool(chunked_checks))
 
     def solve_path(self,
                    field: Tuple[int, str],
@@ -484,11 +593,14 @@ class BatchedSolver:
         for s in range(0, n + pad_n, gs):
             ov = {k: v[s:s + gs] for k, v in ov_all.items()}
             prev = self.solve(ov, x0=x0, h0=h0, mu0=mu0, **kw)
-            parts.append(prev)
+            parts.append(_shift(prev, s))
             # warm start every lane of the next group from this group's
-            # last (nearest) solution
+            # last (nearest) solution, which one rank of a sharded solver holds
             nxt = min(gs, n + pad_n - s - gs)
-            take = lambda a: a[-1:].expand((nxt,) + tuple(a.shape[1:]))
+            if nxt <= 0:
+                break
+            lane = self._last_lane(ov[field].shape[0])
+            take = lambda a: lane(a)[None].expand((nxt,) + tuple(a.shape[1:]))
             x0, h0 = tuple(map(take, prev.x)), tuple(map(take, prev.h))
             mu0 = take(prev.mu)
         return _trim(_concat(parts), n)
@@ -517,8 +629,8 @@ class BatchedSolver:
         every lane's dense factor resident ((B, n, n), which the n <= 128
         cap guards).  Here only ``group_size`` instances' factors exist at
         a time.  Reference analogue: one ``SimpleOptimizer`` per problem
-        (``optimizer.py:121-152``).  The last group is padded by repeating
-        the final instance; the padding is trimmed from the result.
+        (``optimizer.py:121-152``).  The last group holds the instances that
+        are left.
 
         Wall-clock is sequential over ``B / group_size`` groups — use
         :meth:`solve` when the factor state fits.  ``record_residuals``
@@ -531,23 +643,20 @@ class BatchedSolver:
             raise ValueError("solve_scan needs overrides with a leading "
                              "batch axis")
         g = int(group_size)
-        pad_n = (-B) % g
         cfg = self._config(niter, interval_update_mu, update_h, max_mu,
                            fact_incr, th_change, relax)
         record, stride = _parse_record_residuals(record_residuals)
-        x, h, mu, _ = self._initial_state(B, self.dtype, x0, h0, mu0, None)
-        pad = lambda a: _pad_last(a, pad_n)
-        x, h, mu = tuple(map(pad, x)), tuple(map(pad, h)), pad(mu)
-        ov = {k: pad(_cast_like(self.dtype, v, self.device))
-              for k, v in overrides.items()}
-        parts = []
-        for s in range(0, B + pad_n, g):
-            grp = lambda a: a[s:s + g]
-            parts.append(self._run(cfg, {k: grp(v) for k, v in ov.items()},
-                                   tuple(map(grp, x)), tuple(map(grp, h)), grp(mu),
-                                   (rtol, atol), None, record, stride,
-                                   bool(chunked_checks)))
-        return _trim(_concat(parts), B)
+        tols = (rtol, atol)
+        mu0 = _asarray(mu0)
+        lead = [np.shape(a)[0] for a in (*(x0 or ()), *(h0 or ()), *([mu0] if mu0.ndim else []))]
+        if any(b != B for b in lead):
+            raise ValueError(f"x0, h0 and mu0 need a leading batch axis of {B}, got {lead}")
+        grp = lambda a, s: None if a is None else tuple(v[s:s + g] for v in a)
+        return _concat([_shift(self._solve_lanes(
+            min(g, B - s), cfg, {k: v[s:s + g] for k, v in overrides.items()},
+            self.dtype, grp(x0, s), grp(h0, s), mu0[s:s + g] if mu0.ndim else mu0,
+            None, tols, record, stride, bool(chunked_checks)), s)
+            for s in range(0, B, g)])
 
     def solve_resumable(self,
                         path: str,
@@ -581,6 +690,7 @@ class BatchedSolver:
         # segments continue exact state; a mixed recipe's f32 phase would
         # truncate a warm-started carry mid-run
         kw.setdefault("recipe", "plain")
+        B = self._batch(dict(overrides or {}), kw.get("batch_size"))
         x0 = h0 = None
         done_iters = 0
         total = None
@@ -592,18 +702,27 @@ class BatchedSolver:
         res = None
         while done_iters < niter:
             n = min(int(checkpoint_every), niter - done_iters)
-            res = self.solve(overrides, x0=x0, h0=h0, mu0=mu0, niter=n, **kw)
+            # a sharded solver's segments hand on the state of all lanes
+            res = self._gathered(self.solve(overrides, x0=x0, h0=h0, mu0=mu0, niter=n, **kw),
+                                 B)
             x0, h0, mu0 = res.x, res.h, res.mu
             done_iters += n
             total = res.iterations if total is None else total + res.iterations
             res = dataclasses.replace(res, iterations=total)
-            save_batch_result(path, res)
+            if self.sharding is None:
+                save_batch_result(path, res)
+            else:
+                # rank 0 writes the one file, and no rank goes on before it is
+                # written
+                if self.sharding.mesh.rank == 0:
+                    save_batch_result(path, res)
+                self.sharding.mesh.barrier()
             if bool(res.converged.all()):
                 break
         if res is None:
             # the checkpoint already covered the full budget
             res = load_batch_result(path, device=self.device)
-        return res
+        return self._local(res, B)
 
     def solve_mixed(self,
                     overrides: Optional[Dict] = None,
@@ -638,6 +757,7 @@ class BatchedSolver:
                 "desired full precision or use fused=False")
         if niter_low <= 0 or niter <= 0:
             raise ValueError("phase iteration budgets must be positive")
+        B = self._batch(dict(overrides or {}), kw.get("batch_size"))
         p1 = self.solve(overrides, niter=niter_low, dtype=low_dtype,
                         rtol=low_rtol, recipe="plain",
                         **{k: v for k, v in kw.items()
@@ -646,7 +766,9 @@ class BatchedSolver:
         # caller's explicit dtype when given, else the solver dtype.  Lanes
         # that phase 1 finished start anew: only the caller's done0 skips
         # the polish.
-        p2 = self.solve(overrides, x0=p1.x, h0=p1.h, mu0=p1.mu,
+        # the polish of a sharded solver starts from the state of all lanes
+        s1 = self._gathered(p1, B)
+        p2 = self.solve(overrides, x0=s1.x, h0=s1.h, mu0=s1.mu,
                         niter=niter, recipe="plain", dtype=dtype,
                         **{k: v for k, v in kw.items()
                            if k not in ("mu0", "x0", "h0")})
@@ -657,4 +779,5 @@ class BatchedSolver:
             primal_residual=torch.cat(
                 [p1.primal_residual, p2.primal_residual], dim=1),
             dual_residual=torch.cat(
-                [p1.dual_residual, p2.dual_residual], dim=1))
+                [p1.dual_residual, p2.dual_residual], dim=1),
+            lane_index=p2.lane_index)

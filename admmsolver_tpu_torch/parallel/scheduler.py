@@ -12,6 +12,10 @@ The penalty-update schedule restarts every wave, as the reference's does
 under repeated ``solve()`` calls (``optimizer.py:310,319``).  :meth:`run`
 keeps the lane state on the host between waves; :meth:`run_compiled` keeps
 it on the device and does the harvest and refill as tensor code there.
+
+On a sharded solver every rank drives the same stream through :meth:`run`:
+each wave's flags, counts and states are gathered to every rank, so that all
+ranks harvest and refill the same lanes and return every result.
 """
 from __future__ import annotations
 
@@ -114,7 +118,7 @@ class ScenarioScheduler:
 
         results: List[ScenarioResult] = []
         while (lane_sid >= 0).any():
-            res = self.solver.solve(
+            res = self.solver._gathered(self.solver.solve(
                 overrides={k: lane_ov[k] for k in keys},
                 x0=tuple(x), h0=tuple(h), mu0=mu,
                 niter=self.chunk_iters, rtol=self.rtol, atol=self.atol,
@@ -122,7 +126,7 @@ class ScenarioScheduler:
                 # parked lanes (drained stream) freeze from iteration 0
                 # instead of re-solving their old problem every wave
                 done0=lane_sid < 0,
-                **self.solve_kw)
+                **self.solve_kw), B)
             x = [_host(a) for a in res.x]
             h = [_host(a) for a in res.h]
             mu = _host(res.mu)
@@ -165,7 +169,8 @@ class ScenarioScheduler:
         number per wave, the count of harvested scenarios.
 
         Semantics match :meth:`run`.  ``solve_kw`` beyond the penalty knobs
-        and ``recipe="plain"`` fall back to :meth:`run`.
+        and ``recipe="plain"``, and a sharded solver (whose lanes are spread
+        over the ranks), fall back to :meth:`run`.
         """
         scen = list(scenarios)
         if not scen:
@@ -173,7 +178,8 @@ class ScenarioScheduler:
         extra = {k: v for k, v in self.solve_kw.items()
                  if k not in ("interval_update_mu", "update_h", "fact_incr",
                               "th_change", "max_mu", "recipe")}
-        if extra or self.solve_kw.get("recipe", "plain") != "plain":
+        if (extra or self.solve_kw.get("recipe", "plain") != "plain"
+                or self.solver.sharding is not None):
             return self.run(scen)
 
         solver = self.solver

@@ -117,12 +117,13 @@ def load_batch_result(path: str, device="cuda"):
 
 def save_batch_result_local(path: str, res) -> None:
     """Persist this process's lanes of a :class:`BatchResult` with their
-    global lane indices, in the JAX package's shard layout
-    (reassemble with :func:`load_batch_result_scattered`).  The port runs a
-    batch in one process, so the local lanes are all lanes and
-    ``lane_index`` is ``arange(B)``."""
+    global lane indices, in the JAX package's shard layout: every rank of a
+    sharded solve writes its own file (e.g. ``f"ckpt_p{mesh.rank}.npz"``),
+    with no gather.  Reassemble with :func:`load_batch_result_scattered`.
+    The lanes of an unsharded result are lanes ``0..B-1``."""
     arrays = _batch_arrays(res)
-    arrays["lane_index"] = np.arange(arrays["x_0"].shape[0])
+    arrays["lane_index"] = (np.arange(arrays["x_0"].shape[0]) if res.lane_index is None
+                            else _host(res.lane_index))
     meta = {"version": _FORMAT_VERSION, "nblocks": len(res.x),
             "npairs": len(res.h), "scattered": True}
     np.savez(path, __meta__=json.dumps(meta), **arrays)

@@ -22,7 +22,11 @@ fails raises and the script exits non-zero without printing a result.
   covariance denoising, the SDP, RPCA, group lasso and Huber regression at
   the inputs of ``benches/bench_workloads.py``, and TV denoising at
   N = 100,000 (no kernel of their own: batched eigh, batched SVD, cyclic
-  reduction and elementwise proxes in PyTorch).
+  reduction and elementwise proxes in PyTorch);
+* multi-device (no kernel of its own): ``BatchedSolver`` sharded over a world
+  of one rank through NCCL and over two gloo ranks on the one card,
+  ``sharded_gram`` and ``LargeNTwoBlockSolver`` at M=1024, N=2^20 in float64,
+  per-rank checkpoint shards.
 
 1. Card and build: the card's name and power limit; both CUDA sources are
    built from ``admmsolver_tpu_torch/csrc/`` (one nvcc per source, started
@@ -95,6 +99,32 @@ fails raises and the script exits non-zero without printing a result.
    the device memory of the part below 1 GiB, where a dense factor would be
    80 GB a lane).
 
+9. Multi-device on the one card.  9a, a process group of one rank through
+   NCCL (a TCP store on localhost, destroyed at the end): the sharded
+   ``BatchedSolver`` on the float64 bench problem, 200 iterations at rtol 0
+   and up to RANKS_NITER at rtol 1e-8 (the exit predicate's all_reduce then
+   runs every chunk), bitwise equal to the unsharded solve; per-instance
+   operators sharded (B=4096 lanes of A 64x128), lanes 0, 2048 and 4095
+   against ``SimpleOptimizer`` to 1e-9 of max|x|; ``sharded_gram`` of the tall
+   Ac (1,048,576 x 1024 float64, 8 GiB) against ``torch.matmul`` to 1e-12
+   relative; ``LargeNTwoBlockSolver`` at M=1024, N=2^20 (A made on the card
+   from a seeded generator, U as big: 16 GiB in all) recovering its 32-sparse
+   planted signal to 1e-2 of max|x*| within LN_NITER iterations, and at
+   M=256, N=65,536 equal to ``SimpleOptimizer`` on the card to 1e-9 of max|x|
+   with equal iteration counts.  Printed beside the card: LargeN's ms per
+   iteration, its bound (U read twice over 3.35 TB/s) and its two GEMVs alone,
+   ``sharded_gram`` against its DGEMM bound (67 TFLOP/s), a 1-rank NCCL
+   all_reduce, the part's peak device memory, and under ``--profile`` the
+   LargeN solve's busy share (``--variants``: its recovery after 1000
+   iterations at five values of mu0, and after 2500 and 5000 at LN_MU0).
+   9b, two ranks on ``cuda:0`` through gloo (NCCL
+   refuses two ranks on one GPU), each a copy of this script run with
+   ``--rank-of-two``: the bench problem at rtol 1e-8 (each rank's lanes
+   bitwise a one-process solve of them, and within 1e-10 of max|x| of the
+   unsharded solve with equal iteration counts), LargeN at M=256, N=65,536
+   against world size 1 (1e-9, equal counts), each rank's checkpoint shard
+   reassembled against the unsharded solve, and a 2-rank gloo all_reduce.
+
 ``--variants`` also times both chunks at other tilings and routes, the
 two-block chunk's two products as ``torch.matmul``, the card's L2 read rate,
 the factor refresh's batched inverse by other routes and batched eigh by both
@@ -105,6 +135,7 @@ and times each stream mode a second time.
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU,
 ``nvcc`` and no network.
 """
+import gc
 import json
 import subprocess
 import sys
@@ -147,14 +178,25 @@ HUB_M, HUB_N, HUB_B, HUB_NITER, HUB_DELTA = 256, 128, 1024, 200, 0.1   # bench_h
 # tv_denoise_model's own scale (admmsolver_tpu/models/applications.py:186-188)
 TV_N, TV_B, TV_NITER, TV_LAM, TV_JUMPS = 100_000, 64, 200, 0.4, 20
 TV_MEMORY_LIMIT = 1 << 30   # a dense N x N factor would be 80 GB a lane
+# 9. multi-device on one card
+PEAK_F64_TC_FLOPS = 67e12   # H100 SXM, float64 on the tensor cores (DGEMM)
+RANKS_NITER, RANKS_RTOL = 1200, 1e-8  # lanes converge at different iterations, none before 800
+RANKS_TIMEOUT = 300                   # seconds for the two ranks of 9b
+OPS_B, OPS_M, OPS_N, OPS_NITER = B, 64, 128, 200   # per-instance operators
+# LargeNTwoBlockSolver at full width: A 1024 x 2^20 float64 (8 GiB), U as big
+LN_M, LN_N, LN_K, LN_SEED = 1024, 1 << 20, 32, 7
+# The budget: at N/M = 1024 the error falls e-fold every ~2100 iterations
+# (0.10-0.28 of max|x*| after 1000 for every mu0 in 1..100, 6.8e-3 after 7500)
+LN_NITER, LN_MU0, LN_RTOL = 7500, 3.0, 1e-8
+LNS_M, LNS_N, LNS_K, LNS_SEED, LNS_NITER = 256, 1 << 16, 8, 8, 300
 
 
-def bench_problem(seed=0):
-    """bench.py:34-42: A (M, N), B planted 20-sparse signals, ys = x* A^T."""
+def bench_problem(seed=0, nb=B):
+    """bench.py:34-42: A (M, N), nb planted 20-sparse signals, ys = x* A^T."""
     rng = np.random.RandomState(seed)
     A = rng.randn(M, N)
-    xtrue = np.zeros((B, N))
-    for b in range(B):
+    xtrue = np.zeros((nb, N))
+    for b in range(nb):
         xtrue[b, rng.choice(N, SPARSITY, replace=False)] = rng.randn(SPARSITY)
     return A, xtrue @ A.T, xtrue
 
@@ -822,25 +864,14 @@ def phase_tv(torch, card, device="cuda", N=TV_N, B=TV_B, niter=TV_NITER, lam=TV_
             "profile": lambda: bs.solve(ov, niter=5, rtol=0.0, record_residuals=False)}
 
 
-def main():
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the GPU only",
-              file=sys.stderr)
-        return 1
+def phases_1_to_8(torch, card):
+    """Phases 1 to 8 on the card; the ``kernels`` line of the run."""
     from admmsolver_tpu_torch import (L1Regularizer, LeastSquares, Model,
                                       SimpleOptimizer, identity)
     from admmsolver_tpu_torch.models.applications import spm_model, synthetic_spm_data
     from admmsolver_tpu_torch.ops import _build, kernels
     from admmsolver_tpu_torch.parallel import (BatchedSolver, FusedSpMSolver,
                                                FusedTwoBlockSolver, fused, fused_spm)
-
-    card = card_line()
-    kind = torch.cuda.get_device_name(0)
-    print(f"card: {card}", flush=True)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
-          f"{sys.version.split()[0]}", flush=True)
 
     # 1. build
     t0 = time.perf_counter()
@@ -1256,7 +1287,7 @@ def main():
     # No single PyTorch call computes either chunk, so there is no library time.
     # prev_ms is the replaced design's time where this run still builds and
     # times it (the SpM FMA kernel); the two-block kernel's is no longer built.
-    print(json.dumps({"kernels": [
+    return {"kernels": [
         {"name": "fused_two_block_chunk", "route": "cuda",
          "source": "admmsolver_tpu_torch/csrc/fused_two_block.cu",
          "replaces": "admmsolver_tpu/ops/kernels.py:119",
@@ -1272,7 +1303,377 @@ def main():
          "max_abs_err": spm_err, "ms": spm_ms,
          "plain_ms": spm_plain_ms, "bound_ms": spm_bound, "bound_by": spm_bound_by,
          "library_ms": None, "prev_ms": spm_prev_ms, "fma_bound_ms": spm_fma_bound,
-         "fma_max_abs_err": spm_fma_err}]}))
+         "fma_max_abs_err": spm_fma_err}]}
+
+
+# 9. multi-device on the one card: world size 1 through NCCL, two ranks through gloo
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def bp_model(A, y, alpha=ALPHA):
+    from admmsolver_tpu_torch import L1Regularizer, LeastSquares, Model, identity
+
+    n = A.shape[1]
+    return Model([LeastSquares(1.0, A, y), L1Regularizer(alpha, n)],
+                 [(1, 0, identity(n), identity(n))])
+
+
+def planted_wide(torch, M, N, K, seed, device):
+    """A (M, N) standard normal and a K-sparse planted x* with standard normal
+    entries, y = A x*: made on the device from a seeded generator, so that
+    no host copy of A exists and every process makes the same."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    A = torch.randn(M, N, generator=g, device=device, dtype=torch.float64)
+    xt = torch.zeros(N, dtype=torch.float64, device=device)
+    xt[torch.randperm(N, generator=g, device=device)[:K]] = torch.randn(
+        K, generator=g, device=device, dtype=torch.float64)
+    return A, xt, A @ xt
+
+
+def same_tensors(torch, got, want):
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def state_of(res):
+    return res.x + res.h + (res.mu, res.iterations, res.converged)
+
+
+def lanes_close(what, got_x, got_it, want_x, want_it, tol):
+    """Host arrays: x of each block within tol * max|x|, equal iteration
+    counts."""
+    scale = max(float(np.abs(w).max()) for w in want_x)
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got_x, want_x))
+    same_it = np.array_equal(got_it, want_it)
+    print(f"{what}: max |x diff| {err:.3e} (bound {tol:g} * {scale:.3e}), iteration counts "
+          f"{'equal' if same_it else 'DIFFER'}", flush=True)
+    if not (err <= tol * scale and same_it):
+        raise AssertionError(f"{what}: departs from its reference")
+
+
+def large_n_small(torch, mesh, device, m=LNS_M, n=LNS_N, k=LNS_K):
+    """The second large-N gate's problem and its solve on ``mesh``."""
+    from admmsolver_tpu_torch.parallel import LargeNTwoBlockSolver
+
+    A, xt, y = planted_wide(torch, m, n, k, LNS_SEED, device)
+    res = LargeNTwoBlockSolver(A, mesh, prox="l1", alpha1=ALPHA).solve(
+        y, niter=LNS_NITER, rtol=0.0)
+    return A, y, res
+
+
+def time_all_reduce(torch, mesh, n, calls=50):
+    """Host-clock ms of one sum over the mesh of an (n,) float64 tensor, ending
+    in a device synchronize, over ``calls`` calls after a warm-up."""
+    t = torch.ones(n, dtype=torch.float64, device=mesh.device)
+    sync = torch.cuda.synchronize if mesh.device.type == "cuda" else (lambda: None)
+    for _ in range(5):
+        mesh.all_reduce(t)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        mesh.all_reduce(t)
+    sync()
+    return 1e3 * (time.perf_counter() - t0) / calls
+
+
+def phase_world_one(torch, card, device="cuda", backend="nccl", nb=B, ops_b=OPS_B,
+                    ln=(LN_M, LN_N, LN_K), profile=False, variants=False):
+    """9a. A process group of one rank through NCCL (a TCP store on localhost,
+    destroyed at the end): the sharded BatchedSolver on the bench problem
+    bitwise the unsharded solve, per-instance operators sharded, the
+    sharded Gram of the tall Ac at full width, LargeNTwoBlockSolver at full
+    width recovering its planted signal, and at M=256, N=65536 equal to
+    SimpleOptimizer; times beside the card's name and power limit."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from admmsolver_tpu_torch import SimpleOptimizer
+    from admmsolver_tpu_torch.parallel import (BatchedSolver, LargeNTwoBlockSolver,
+                                               batch_sharding, make_mesh, sharded_gram)
+
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh(1, devices=device)
+        if mesh.group is None or mesh.world_size != 1:
+            raise AssertionError("the mesh has no process group")
+        shard = batch_sharding(mesh)
+        out = {}
+
+        # the bench problem: rtol 0 as bench.py runs it, then rtol 1e-8 (the
+        # exit predicate's all_reduce runs); both bitwise the unsharded solve
+        A, ys, _ = bench_problem(nb=nb)
+        model = bp_model(A, ys[0])
+        ov = {(0, "y"): ys}
+        for rtol, niter in ((0.0, BATCH_NITER), (RANKS_RTOL, RANKS_NITER)):
+            kw = dict(niter=niter, rtol=rtol, record_residuals=False)
+            plain = BatchedSolver(model, device=device).solve(ov, **kw)
+            sharded = BatchedSolver(model, sharding=shard).solve(ov, **kw)
+            same = same_tensors(torch, state_of(sharded), state_of(plain))
+            its = sharded.iterations
+            print(f"sharded BatchedSolver, world size 1 ({backend}): bench problem B={nb}, "
+                  f"{niter} iters, rtol {rtol:g}: {'bitwise equal' if same else 'DIFFERS'} to "
+                  f"the unsharded solve; iterations {int(its.min())}..{int(its.max())}",
+                  flush=True)
+            if not same or not torch.equal(sharded.lane_index.cpu(), torch.arange(nb)):
+                raise AssertionError("the world-size-1 sharded solve departs from the unsharded")
+        out["bench"] = plain   # the rtol 1e-8 solve: the two ranks' reference
+
+        # per-instance operators, sharded
+        rng = np.random.RandomState(3)
+        As, ys_ops = rng.randn(ops_b, OPS_M, OPS_N), rng.randn(ops_b, OPS_M)
+        res = BatchedSolver(bp_model(As[0], ys_ops[0]), sharding=shard).solve(
+            {(0, "A"): As, (0, "y"): ys_ops}, niter=OPS_NITER, rtol=0.0, record_residuals=False)
+        for lane in (0, ops_b // 2, ops_b - 1):
+            o = SimpleOptimizer(bp_model(As[lane], ys_ops[lane]), device=device)
+            o.solve(OPS_NITER, rtol=0.0)
+            d, scale = float((res.x[0][lane] - o.x[0]).abs().max()), float(o.x[0].abs().max())
+            print(f"sharded per-instance operators ({ops_b} lanes of A {OPS_M}x{OPS_N}), lane "
+                  f"{lane} vs SimpleOptimizer: max |x0 diff| {d:.3e} (bound 1e-9 * {scale:.3e})",
+                  flush=True)
+            if not d <= 1e-9 * scale:
+                raise AssertionError(f"lane {lane} of the per-instance batch departs")
+        del res, As
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+
+        # full width: the sharded Gram of the tall Ac = A^T, then the large-N solve
+        M_, N_, K_ = ln
+        t0 = time.perf_counter()
+        A, xt, y = planted_wide(torch, M_, N_, K_, LN_SEED, device)
+        sync()
+        print(f"large-N data on the {device}: A {M_}x{N_} float64 "
+              f"({A.numel() * 8 / 2**30:.2f} GiB), {K_}-sparse x*, made in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        Ac = A.T
+        v = torch.ones(N_, dtype=torch.float64, device=device)
+        G, r = sharded_gram(Ac, v, mesh)
+        G_ref, r_ref = torch.matmul(Ac.T, Ac), torch.matmul(Ac.T, v)
+        gerr = max(float((G - G_ref).abs().max() / G_ref.abs().max()),
+                   float((r - r_ref).abs().max() / r_ref.abs().max()))
+        print(f"sharded_gram of the tall Ac ({N_}x{M_}): max relative difference to "
+              f"torch.matmul {gerr:.3e} (bound 1e-12)", flush=True)
+        if not gerr <= 1e-12:
+            raise AssertionError("sharded_gram departs from torch.matmul")
+        del G_ref, r_ref
+        t0 = time.perf_counter()
+        sol = LargeNTwoBlockSolver(A, mesh, prox="l1", alpha1=ALPHA)
+        sync()
+        t_build = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lres = sol.solve(y, niter=LN_NITER, mu0=LN_MU0, rtol=LN_RTOL)
+        sync()
+        t_solve = time.perf_counter() - t0
+        err = float((lres.x1 - xt).abs().max())
+        scale = float(xt.abs().max())
+        print(f"LargeNTwoBlockSolver M={M_} N={N_} (R={sol.lam.numel()}, l1, alpha1 {ALPHA}, "
+              f"mu0 {LN_MU0}, rtol {LN_RTOL:g}, budget {LN_NITER}): {lres.iterations} "
+              f"iterations, converged {lres.converged}, final mu {float(lres.mu):g}; "
+              f"max |x1 - x*| {err:.3e} (bound 1e-2 * {scale:.3e}); basis built in "
+              f"{t_build:.2f} s", flush=True)
+        if not err <= 1e-2 * scale:
+            raise AssertionError("the large-N solve misses its planted signal")
+        if cuda:
+            peak = torch.cuda.max_memory_allocated() - before
+            w = torch.ones(sol.lam.numel(), dtype=torch.float64, device=device)
+            gram_ms, gemv_t_ms, gemv_ms = median_ms(torch, [
+                lambda: sharded_gram(Ac, v, mesh), lambda: sol.U.T @ v, lambda: sol.U @ w])
+            u_bytes = sol.U.numel() * sol.U.element_size()
+            it_ms = 1e3 * t_solve / lres.iterations
+            ln_bound = 1e3 * 2 * u_bytes / PEAK_BYTES_PER_S
+            gram_flops = 2 * N_ * M_ * M_ + 2 * N_ * M_
+            gram_bound = 1e3 * max(gram_flops / PEAK_F64_TC_FLOPS,
+                                   (A.numel() + N_ + M_ * M_ + M_) * 8 / PEAK_BYTES_PER_S)
+            nccl_ms = [time_all_reduce(torch, mesh, n) for n in (5, sol.lam.numel())]
+            print(f"[{card}] LargeN solve: {it_ms:.3f} ms per iteration ({lres.iterations} "
+                  f"iterations in {t_solve:.3f} s); bound {ln_bound:.3f} ms (U, "
+                  f"{u_bytes / 2**30:.2f} GiB, read twice over {PEAK_BYTES_PER_S / 1e12:.2f} "
+                  f"TB/s); its two GEMVs alone as torch.matmul {gemv_t_ms:.3f} + {gemv_ms:.3f} "
+                  f"= {gemv_t_ms + gemv_ms:.3f} ms", flush=True)
+            print(f"[{card}] sharded_gram ({N_}x{M_} f64, {gram_flops / 1e12:.3f} TFLOP): "
+                  f"{gram_ms:.3f} ms against its bound {gram_bound:.3f} ms (operations at "
+                  f"{PEAK_F64_TC_FLOPS / 1e12:.0f} TFLOP/s f64 on the tensor cores)", flush=True)
+            print(f"[{card}] all_reduce, 1 rank through NCCL: {nccl_ms[0]:.4f} ms for 5 "
+                  f"float64, {nccl_ms[1]:.4f} ms for {sol.lam.numel()}", flush=True)
+            print(f"[{card}] peak device memory of the full-width part: "
+                  f"{peak / 2**30:.2f} GiB (A {A.numel() * 8 / 2**30:.2f} GiB, U "
+                  f"{u_bytes / 2**30:.2f} GiB)", flush=True)
+            if profile:
+                profile_solve(torch, "LargeN solve, 20 iterations", "gemv",
+                              lambda: sol.solve(y, niter=20, rtol=0.0), iters=20)
+        if variants:
+            # the recovery against the budget: what sets LN_NITER
+            for mu0, n in [(m, 1000) for m in (1.0, 3.0, 10.0, 30.0, 100.0)] + [
+                    (LN_MU0, 2500), (LN_MU0, 5000)]:
+                r = sol.solve(y, niter=n, mu0=mu0, rtol=0.0)
+                print(f"LargeN recovery after {n} iterations at mu0 {mu0:g}: max |x1 - x*| / "
+                      f"max|x*| {float((r.x1 - xt).abs().max()) / scale:.3e}, final mu "
+                      f"{float(r.mu):g}", flush=True)
+        del A, Ac, sol, lres, G, r, v, xt, y
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # the second gate: M=256, N=65536 against SimpleOptimizer on the card
+        A, y, sres = large_n_small(torch, mesh, device)
+        o = SimpleOptimizer(bp_model(A, y), device=device)
+        o.solve(LNS_NITER, rtol=0.0)
+        d, scale = float((sres.x0 - o.x[0]).abs().max()), float(o.x[0].abs().max())
+        print(f"LargeNTwoBlockSolver M={LNS_M} N={LNS_N} vs SimpleOptimizer: max |x0 diff| "
+              f"{d:.3e} (bound 1e-9 * {scale:.3e}), iterations {sres.iterations} / "
+              f"{o.iterations}", flush=True)
+        if not (d <= 1e-9 * scale and sres.iterations == o.iterations):
+            raise AssertionError("the large-N solve departs from SimpleOptimizer")
+        out["large_n_small"] = sres
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_two_ranks(torch, card, world_one, device="cuda", nb=B):
+    """9b. Two ranks on the one card through gloo (NCCL refuses two ranks on
+    one GPU), each a process running this script with ``--rank-of-two``: the
+    bench problem at rtol 1e-8 sharded over them (each rank's lanes bitwise
+    a one-process solve of the same lanes, and within 1e-10 of the unsharded
+    solve), the large-N solve at M=256, N=65536 against world size 1, and a
+    scattered checkpoint reassembled from the two ranks' shards."""
+    import os
+    import tempfile
+
+    from admmsolver_tpu_torch.utils.checkpoint import load_batch_result_scattered
+
+    full, small = world_one["bench"], world_one["large_n_small"]
+    with tempfile.TemporaryDirectory() as tmp:
+        port = str(free_port())
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank-of-two", str(r), port, tmp,
+             device, str(nb)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=RANKS_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"the two ranks outlived {RANKS_TIMEOUT} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, log in enumerate(logs):
+            for line in log.splitlines():
+                print(f"  rank {r}: {line}", flush=True)
+        if [p.returncode for p in procs] != [0, 0]:
+            raise AssertionError(f"the two ranks exited {[p.returncode for p in procs]}")
+        outs = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(2)]
+        back = load_batch_result_scattered(
+            [os.path.join(tmp, f"ckpt_p{r}.npz") for r in (1, 0)], device=device)
+    host = lambda t: t.cpu().numpy()
+    full_x, full_it = [host(a) for a in full.x], host(full.iterations)
+    for r, o in enumerate(outs):
+        if not o["bitwise"]:
+            raise AssertionError(f"rank {r}'s lanes differ from a one-process solve of them")
+        lanes = o["lanes"]
+        lanes_close(f"rank {r} of 2 (lanes {lanes[0]}..{lanes[-1]}), bitwise its one-process "
+                    "solve, vs the unsharded solve", (o["x0"], o["x1"]), o["it"],
+                    [a[lanes] for a in full_x], full_it[lanes], 1e-10)
+    lanes_close("scattered checkpoint of the two ranks, reassembled, vs the unsharded solve",
+                [host(a) for a in back.x], host(back.iterations), full_x, full_it, 1e-10)
+    if not np.array_equal(host(back.x[0]), np.concatenate([o["x0"] for o in outs])):
+        raise AssertionError("the reassembled checkpoint differs from the ranks' lanes")
+    ln = outs[0]
+    d = max(float(np.abs(ln["ln_x0"] - host(small.x0)).max()),
+            float(np.abs(ln["ln_x1"] - host(small.x1)).max()))
+    scale = float(np.abs(host(small.x0)).max())
+    print(f"LargeNTwoBlockSolver M={LNS_M} N={LNS_N} on 2 ranks vs world size 1: max |x "
+          f"diff| {d:.3e} (bound 1e-9 * {scale:.3e}), iterations {int(ln['ln_it'])} / "
+          f"{small.iterations}", flush=True)
+    if not (d <= 1e-9 * scale and int(ln["ln_it"]) == small.iterations):
+        raise AssertionError("the two-rank large-N solve departs from world size 1")
+    if device == "cuda":
+        print(f"[{card}] all_reduce, 2 ranks on one card through gloo: "
+              f"{float(ln['gloo_ms'][0]):.4f} ms for 5 float64, {float(ln['gloo_ms'][1]):.4f} "
+              f"ms for {int(ln['gloo_n'])}", flush=True)
+
+
+def rank_of_two(rank, port, outdir, device, nb):
+    """One of 9b's two ranks (``chip_smoke.py --rank-of-two rank port outdir
+    device B``): writes rank<r>.npz and its checkpoint shard into outdir."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from admmsolver_tpu_torch.parallel import (BatchedSolver, batch_sharding, init_distributed,
+                                               make_mesh, process_allgather)
+    from admmsolver_tpu_torch.utils.checkpoint import save_batch_result_local
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        device = "cuda:0"
+    init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo")
+    try:
+        mesh = make_mesh(2, devices=device)
+        A, ys, _ = bench_problem(nb=nb)
+        model = bp_model(A, ys[0])
+        kw = dict(niter=RANKS_NITER, rtol=RANKS_RTOL, record_residuals=False)
+        t0 = time.perf_counter()
+        res = BatchedSolver(model, sharding=batch_sharding(mesh)).solve({(0, "y"): ys}, **kw)
+        t_solve = time.perf_counter() - t0
+        lanes = res.lane_index.cpu().numpy()
+        one = BatchedSolver(model, device=device).solve({(0, "y"): ys[lanes]}, **kw)
+        bitwise = same_tensors(torch, state_of(res), state_of(one))
+        its = res.iterations
+        print(f"lanes {lanes[0]}..{lanes[-1]}: iterations {int(its.min())}..{int(its.max())}, "
+              f"{'bitwise equal' if bitwise else 'DIFFERENT'} to a one-process solve of them; "
+              f"sharded solve {t_solve:.3f} s", flush=True)
+        save_batch_result_local(os.path.join(outdir, f"ckpt_p{rank}.npz"), res)
+        _, _, ln = large_n_small(torch, mesh, device)
+        n = LNS_M
+        gloo_ms = [time_all_reduce(torch, mesh, k) for k in (5, n)]
+        host = lambda t: t.cpu().numpy()
+        np.savez(os.path.join(outdir, f"rank{rank}.npz"), lanes=lanes, bitwise=bitwise,
+                 x0=host(res.x[0]), x1=host(res.x[1]), it=host(its),
+                 ln_x0=host(process_allgather(ln.x0, mesh)),
+                 ln_x1=host(process_allgather(ln.x1, mesh)), ln_it=ln.iterations,
+                 gloo_ms=np.array(gloo_ms), gloo_n=n)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU only",
+              file=sys.stderr)
+        return 1
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
+          f"{sys.version.split()[0]}", flush=True)
+    kernels_line = phases_1_to_8(torch, card)
+
+    # 9. multi-device, once the earlier phases' tensors are freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    world_one = phase_world_one(torch, card, profile="--profile" in sys.argv,
+                                variants="--variants" in sys.argv)
+    phase_two_ranks(torch, card, world_one)
+    print(f"multi-device phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    print(json.dumps(kernels_line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -1280,4 +1681,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-of-two"]:
+        rank, port, outdir, device, nb = sys.argv[2:7]
+        sys.exit(rank_of_two(int(rank), port, outdir, device, int(nb)))
     sys.exit(main())

@@ -496,7 +496,7 @@ def test_per_instance_A_guards():
 @pytest.mark.parametrize("group_size,B", [(2, 5), (2, 4), (1, 3), (8, 5)])
 def test_solve_scan_matches_solve(group_size, B):
     """Where both solve and solve_scan apply they agree lane for lane, also when the last
-    group is padded (TestSolveScan in tests/test_batch.py)."""
+    group is shorter (TestSolveScan in tests/test_batch.py)."""
     rng = np.random.RandomState(30)
     As, ys = rng.randn(B, 8, 12), rng.randn(B, 8)
     bt = BatchedSolver(_bp(T, As[0], ys[0]), device="cpu")
@@ -632,6 +632,6 @@ def test_constructor_checks_and_exports():
     rng = np.random.RandomState(0)
     bt = BatchedSolver(_bp(T, rng.randn(4, 6), rng.randn(4)), device="cpu")
     assert bt.dtype == torch.float64 and bt.device.type == "cpu"
-    assert not hasattr(bt, "sharding")
+    assert bt.sharding is None   # unsharded unless a sharding is given
     for name in ("solve", "solve_mixed", "solve_path", "solve_scan"):
         assert callable(getattr(bt, name))

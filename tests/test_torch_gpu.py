@@ -548,6 +548,66 @@ def test_batched_tv_on_cuda_matches_simple_optimizer(cuda):
         assert int(rc.iterations[b]) == o.iterations
 
 
+@pytest.fixture
+def nccl_world(cuda):
+    """A process group of one rank through NCCL in this process (a TCP store
+    on localhost), destroyed after the test; its mesh on cuda:0."""
+    import torch.distributed as dist
+
+    from _torch_dist import free_port
+    from admmsolver_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        yield make_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_batched_solver_over_nccl_equals_unsharded(nccl_world):
+    """World size 1 through NCCL: the exit predicate's all_reduce runs every
+    chunk, and the solve is bitwise the unsharded one (the same shapes)."""
+    from admmsolver_tpu_torch.parallel import batch_sharding
+
+    rng = np.random.RandomState(21)
+    A, ys = rng.randn(10, 24), rng.randn(37, 10)
+    ov = {(0, "y"): ys}
+    plain = BatchedSolver(_bp(A, ys[0])).solve(ov, niter=1000, rtol=1e-8)
+    res = BatchedSolver(_bp(A, ys[0]), sharding=batch_sharding(nccl_world)).solve(
+        ov, niter=1000, rtol=1e-8)
+    assert res.x[0].is_cuda and torch.equal(res.lane_index.cpu(), torch.arange(37))
+    assert int(res.iterations.min()) < int(res.iterations.max())
+    for a, b in zip(res.x + res.h + (res.mu, res.iterations, res.converged),
+                    plain.x + plain.h + (plain.mu, plain.iterations, plain.converged)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("prox", ["l1", "nonneg"])
+def test_large_n_over_nccl_equals_simple_optimizer(nccl_world, prox):
+    """LargeNTwoBlockSolver on the card (basis from the sharded Gram and the
+    card's eigh) against SimpleOptimizer on the card: x within 1e-9, equal
+    iteration counts (l1: 300 iterations; nonneg: its early exit, 1e-8)."""
+    from admmsolver_tpu_torch.parallel import LargeNTwoBlockSolver
+
+    rng = np.random.RandomState(1 if prox == "l1" else 2)
+    M, N = (24, 128) if prox == "l1" else (20, 64)
+    A = rng.randn(M, N)
+    xt = np.abs(rng.randn(N)) * (rng.rand(N) < 0.2)
+    y = A @ xt
+    res = LargeNTwoBlockSolver(A, nccl_world, prox=prox).solve(
+        y, niter=300 if prox == "l1" else 8000, rtol=0.0 if prox == "l1" else 1e-12,
+        atol=0.0 if prox == "l1" else 1e-9)
+    assert res.x0.is_cuda and (prox == "l1" or res.converged)
+    block1 = T.L1Regularizer(0.1, N) if prox == "l1" else T.NonNegativePenalty(N)
+    o = T.SimpleOptimizer(T.Model([T.LeastSquares(1.0, A, y), block1],
+                                  [(1, 0, T.identity(N), T.identity(N))]))
+    o.solve(res.iterations, rtol=0.0)
+    tol = 1e-9 if prox == "l1" else 1e-8   # tests/test_rowshard.py's
+    np.testing.assert_allclose(res.x0.cpu().numpy(), o.x[0].cpu().numpy(), rtol=0, atol=tol)
+    np.testing.assert_allclose(res.x1.cpu().numpy(), o.x[1].cpu().numpy(), rtol=0, atol=tol)
+
+
 def test_checkpoint_loads_default_to_cuda(tmp_path):
     """Loads place tensors on the card unless the caller asks for the CPU:
     without a CUDA device the default raises."""
@@ -567,7 +627,7 @@ def test_checkpoint_loads_default_to_cuda(tmp_path):
 
 
 @pytest.mark.parametrize("entry", ["FusedTwoBlockSolver", "FusedSpMSolver", "SimpleOptimizer",
-                                   "BatchedSolver"])
+                                   "BatchedSolver", "make_mesh"])
 def test_default_device_raises_without_cuda(entry):
     """Entry points run on the card unless the caller asks for the CPU:
     with no CUDA device the default raises, nothing carries on on the host."""
@@ -582,5 +642,8 @@ def test_default_device_raises_without_cuda(entry):
             _spm_solver(None)
         elif entry == "BatchedSolver":
             BatchedSolver(_bp(A, rng.randn(6)))
+        elif entry == "make_mesh":
+            from admmsolver_tpu_torch.parallel import make_mesh
+            make_mesh()
         else:
             T.SimpleOptimizer(_bp(A, rng.randn(6)))
