@@ -695,12 +695,12 @@ const char* fused_spm_error_string(int err) { return cudaGetErrorString((cudaErr
 // the launch (0 on success).  A block has `warps` warps (1..16) of
 // `lanes_per_warp` lanes (1, 2 or 4) each; `lanes_per_warp` = 0 launches the
 // tensor-core kernel (nl <= 32, nw <= 256; 32 lanes and 8 warps a block).
-int fused_spm_chunk(int device, const float* P, const float* M, const float* b2,
-                    const float* mu, const float* thr, const float* x0, const float* x1,
-                    const float* x2, const float* h10, const float* h20, float* x0o,
-                    float* x1o, float* x2o, float* h10o, float* h20o, float* x0p, int B,
-                    int nl, int nw, int n_iters, int lanes_per_warp, int warps,
-                    void* stream) {
+int fused_spm_launch(int device, const float* P, const float* M, const float* b2,
+                     const float* mu, const float* thr, const float* x0, const float* x1,
+                     const float* x2, const float* h10, const float* h20, float* x0o,
+                     float* x1o, float* x2o, float* h10o, float* h20o, float* x0p, int B,
+                     int nl, int nw, int n_iters, int lanes_per_warp, int warps,
+                     void* stream) {
   if (warps < 1 || warps > MAX_WARPS || B < 1 || nl < 1 || nw < 1 || n_iters < 0)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);

@@ -1053,13 +1053,13 @@ const char* fused_two_block_error_string(int err) {
 // of the instantiations below; `tc` = 1: the split-TF32 tensor-core kernel,
 // tb = 32, kt 16 or 32.  stages 2..16, cluster 1..8 (above 1 only when N
 // and R are multiples of 4).
-int fused_two_block_chunk(int device, const float* U, const float* Ut,
-                          const float* dinv, const float* acy, const float* mu,
-                          const float* thr, const float* x0, const float* x1,
-                          const float* h, float* x0o, float* x1o, float* ho,
-                          float* x0p, int B, int N, int R, int n_iters, int prox,
-                          int thin, int tb, int kt, int stages, int cluster, int tc,
-                          void* stream) {
+int fused_two_block_launch(int device, const float* U, const float* Ut,
+                           const float* dinv, const float* acy, const float* mu,
+                           const float* thr, const float* x0, const float* x1,
+                           const float* h, float* x0o, float* x1o, float* ho,
+                           float* x0p, int B, int N, int R, int n_iters, int prox,
+                           int thin, int tb, int kt, int stages, int cluster, int tc,
+                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = (cudaStream_t)stream;

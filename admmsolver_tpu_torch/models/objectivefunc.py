@@ -51,9 +51,11 @@ from ..ops.linop import (
     asmatrixtype,
     matmul,
     matrix_hash,
+    svd_via_gram,
     tridiag_cr_factor,
 )
-from ..ops.prox import project_nonneg, psd_project, soft_threshold
+from ..ops.prox import (_jacobi_boundary, project_nonneg, psd_project, soft_threshold,
+                        svt_sign)
 
 __all__ = [
     "ObjectiveFunctionBase",
@@ -849,17 +851,22 @@ class NuclearNormPenalty(ObjectiveFunctionBase):
     (m, n) matrix, row-major (JAX ``objectivefunc.py:857-970``; low-rank
     recovery, :func:`rpca_model`).
 
-    The prox is the singular-value soft-threshold through one batched thin
-    SVD (every lane's matrix at once):
+    The prox is the singular-value soft-threshold of every lane's matrix at
+    once:
 
         argmin_X  alpha ||X||_* + 2 Re<H, X> + mu |X|_F²
                 = U soft(s, alpha/(2 mu)) Vᴴ,   U s Vᴴ = svd(-H/mu).
 
     The closed form needs a uniform penalty, which identity couplings give:
     the eager ``solve`` checks it on the values, the engine at plan build.
-    ``svd_method``: ``"auto"`` and ``"xla"`` both run ``torch.linalg.svd``;
-    the JAX package's ``"gram"`` and ``"sign"`` routes are TPU workarounds
-    that the port does not have (ROADMAP.md).
+    ``svd_method`` (the JAX package's, with its "on the TPU" read as "on a
+    CUDA device"): ``"xla"`` is ``torch.linalg.svd``; ``"gram"`` the Gram
+    route (:func:`~admmsolver_tpu_torch.ops.linop.svd_via_gram`, Jacobi eigh
+    up to 256); ``"sign"`` the SVD-free polar route
+    (:func:`~admmsolver_tpu_torch.ops.prox.svt_sign`; the objective value
+    then uses the Gram route); ``"auto"`` takes ``"xla"`` on the CPU and, for
+    a real matrix on the card, ``"sign"`` in the prox where min(m, n) is
+    above the Jacobi boundary and ``"gram"`` otherwise.
     """
 
     needs_diagonal_mu = True
@@ -872,13 +879,7 @@ class NuclearNormPenalty(ObjectiveFunctionBase):
     def __init__(self, alpha: float, shape: Sequence, svd_method: str = "auto") -> None:
         if not alpha > 0:
             raise ValueError("alpha must be positive")
-        if svd_method in ("gram", "sign"):
-            raise NotImplementedError(
-                f"svd_method={svd_method!r} is a TPU workaround of the JAX package "
-                "(svd_via_gram / svt_sign) that the PyTorch port leaves out until a "
-                "measurement on the GPU asks for it (ROADMAP.md, out-list); use "
-                "'auto' or 'xla' (torch.linalg.svd)")
-        if svd_method not in ("auto", "xla"):
+        if svd_method not in ("auto", "xla", "gram", "sign"):
             raise ValueError(f"unknown svd_method {svd_method!r}")
         m, n = (int(s) for s in shape)
         super().__init__(m * n)
@@ -888,10 +889,22 @@ class NuclearNormPenalty(ObjectiveFunctionBase):
         # fully uniform penalty required; checked at ADMMPlan build
         self.uniform_mu_group = m * n
 
+    def _svd(self, X: torch.Tensor):
+        """Thin SVD by the route ``svd_method`` names (JAX
+        ``objectivefunc.py:895-921``): ``"auto"`` is the Gram route for a
+        real matrix on a CUDA device, ``torch.linalg.svd`` otherwise."""
+        method = self._svd_method
+        if method == "auto":
+            method = "gram" if X.device.type == "cuda" and not X.is_complex() else "xla"
+        if method in ("gram", "sign"):
+            # "sign" has no SVD of its own: the value uses the Gram route
+            return svd_via_gram(X)
+        return torch.linalg.svd(X, full_matrices=False)
+
     def __call__(self, x) -> float:
         x = _asarray(x)
         X = x.reshape(tuple(x.shape[:-1]) + self._mn)
-        return float(self._alpha * torch.sum(torch.linalg.svdvals(X)))
+        return float(self._alpha * torch.sum(self._svd(X)[1]))
 
     def solve(self, h=None, mu: Optional[MatrixBase] = None):
         if h is None:
@@ -915,7 +928,15 @@ class NuclearNormPenalty(ObjectiveFunctionBase):
         # one penalty a lane (uniform by contract)
         mu0 = torch.broadcast_to(mu_diag, v.shape)[..., 0]
         tau = 0.5 * _match_precision(self._alpha, h) / mu0           # () or (B,)
-        U, s, Vh = torch.linalg.svd(X, full_matrices=False)
+        method = self._svd_method
+        if method == "auto" and not X.is_complex() and X.device.type == "cuda" \
+                and min(self._mn) > _jacobi_boundary(X.dtype):
+            # above the Gram-Jacobi envelope the SVD-free polar route: the
+            # threshold annihilates the polynomial's inexact small directions
+            method = "sign"
+        if method == "sign":
+            return svt_sign(X, tau).reshape(v.shape)
+        U, s, Vh = self._svd(X)
         s2 = torch.clamp_min(s - tau[..., None], 0.0)
         return ((U * s2[..., None, :].to(U.dtype)) @ Vh).reshape(v.shape)
 
@@ -925,9 +946,10 @@ class SemiPositiveDefinitePenalty(ObjectiveFunctionBase):
     Hermitian slices along ``axis`` (reference ``objectivefunc.py:274-327``,
     JAX ``objectivefunc.py:973-1000``).
 
-    The prox projects every slice onto the PSD cone with one batched
-    ``eigh`` (:func:`~admmsolver_tpu_torch.ops.prox.psd_project`); batched,
-    every lane's slices join that one call.
+    The prox projects every slice onto the PSD cone in one batched call by
+    the route :func:`~admmsolver_tpu_torch.ops.prox.psd_project` chooses
+    (Jacobi eigh, the matrix sign or a library eigh); batched, every lane's
+    slices join that one call.
     """
 
     needs_diagonal_mu = True

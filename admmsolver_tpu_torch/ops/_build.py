@@ -25,25 +25,31 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
-# C interface of each library: function -> (argument types, result type).
-# Every library <name> also has <name>_smem_bytes (arguments below),
-# <name>_max_smem and <name>_error_string, declared in _declare.
-_CHUNK_ARGTYPES = {
+# C interface of each library <name>: its launch function <name>_launch ->
+# argument types, result int.  Every library also has <name>_smem_bytes
+# (arguments below), <name>_max_smem and <name>_error_string, declared in
+# _declare.
+_LAUNCH_ARGTYPES = {
     # device, 9 inputs, 4 outputs, B, N, R, n_iters, prox, thin, lanes per
     # block, k-tile depth, stages, cluster size, tensor cores, stream
     "fused_two_block": [_INT] + [_PTR] * 13 + [_INT] * 11 + [_PTR],
     # device, 10 inputs, 6 outputs, B, nl, nw, n_iters, lanes per warp,
     # warps per block, stream
     "fused_spm": [_INT] + [_PTR] * 16 + [_INT] * 6 + [_PTR],
+    # device, input, scratch, 2 outputs, batch, n, sweeps, float64, mode,
+    # threads, stream
+    "jacobi_eigh": [_INT] + [_PTR] * 4 + [_INT] * 6 + [_PTR],
 }
 # (lanes per block, N, R, k-tile depth, stages, tensor cores); (lanes per
-# block, nl, nw)
-_SMEM_ARGTYPES = {"fused_two_block": [_INT] * 6, "fused_spm": [_INT] * 3}
+# block, nl, nw); (n, float64, mode)
+_SMEM_ARGTYPES = {"fused_two_block": [_INT] * 6, "fused_spm": [_INT] * 3,
+                  "jacobi_eigh": [_INT] * 3}
 # Other functions of a library: name -> argument types (result: int).
 _OTHER_ARGTYPES = {
     # device, buffer, floats, passes, rotate, blocks, out, stream
     "fused_two_block": {"fused_two_block_l2_probe": [_INT, _PTR] + [_INT] * 4 + [_PTR] * 2},
     "fused_spm": {},
+    "jacobi_eigh": {},
 }
 
 
@@ -58,9 +64,9 @@ def _nvcc() -> str:
 
 
 def _declare(lib: ctypes.CDLL, name: str) -> None:
-    chunk = getattr(lib, f"{name}_chunk")
-    chunk.argtypes = _CHUNK_ARGTYPES[name]
-    chunk.restype = _INT
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = _LAUNCH_ARGTYPES[name]
+    launch.restype = _INT
     smem = getattr(lib, f"{name}_smem_bytes")
     smem.argtypes = _SMEM_ARGTYPES[name]
     smem.restype = ctypes.c_size_t
@@ -106,20 +112,21 @@ def _finish_builds(running) -> None:
 @functools.lru_cache(maxsize=None)
 def load_libraries() -> Dict[str, ctypes.CDLL]:
     """The loaded kernel libraries by source name (``fused_two_block``,
-    ``fused_spm``), each built first if its source has no build.
+    ``fused_spm``, ``jacobi_eigh``), each built first if its source has no
+    build.
 
     The compiler's report (registers, shared memory, spills) is kept
     beside each library as ``<name>_<hash>.log``.
     """
     paths, running = {}, []
     for src in sorted(SOURCE_DIR.glob("*.cu")):
-        if src.stem not in _CHUNK_ARGTYPES:
+        if src.stem not in _LAUNCH_ARGTYPES:
             raise RuntimeError(f"{src} has no declared C interface")
         paths[src.stem] = _lib_path(src)
         if not paths[src.stem].exists():
             running.append(_start_build(src, paths[src.stem]))
     _finish_builds(running)
-    missing = sorted(set(_CHUNK_ARGTYPES) - set(paths))
+    missing = sorted(set(_LAUNCH_ARGTYPES) - set(paths))
     if missing:
         raise RuntimeError(f"no source under {SOURCE_DIR} for {missing}")
     libs = {}

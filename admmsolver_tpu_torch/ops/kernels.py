@@ -1,7 +1,8 @@
-"""Fused multi-iteration ADMM chunks: Hopper kernels + plain versions.
-
-Counterparts of the two Pallas TPU kernels of
-:mod:`admmsolver_tpu.ops.kernels`.
+"""The port's Hopper kernels, each beside its plain version: the fused
+multi-iteration ADMM chunks, counterparts of the two Pallas TPU kernels of
+:mod:`admmsolver_tpu.ops.kernels`, and the batched Jacobi eigendecomposition
+(:func:`jacobi_eigh`, the card's form of the JAX package's
+``linop.jacobi_eigh``, no Pallas kernel there).
 
 :func:`fused_two_block_chunk` — the flagship identity-coupled family (basis
 pursuit / LASSO / λ-sweeps) runs ``n_iters`` Gauss–Seidel iterations per
@@ -37,6 +38,7 @@ Penalty updates and convergence checks run between chunks
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -44,7 +46,8 @@ import torch
 from . import _build
 
 __all__ = ["fused_two_block_chunk", "fused_two_block_chunk_reference",
-           "fused_spm_chunk", "fused_spm_chunk_reference"]
+           "fused_spm_chunk", "fused_spm_chunk_reference",
+           "jacobi_eigh", "jacobi_eigh_reference"]
 
 _PROX = {"l1": 0, "l1_even": 1, "nonneg": 2, "nonneg_even": 3}
 # Lanes per thread block the two-block CUDA kernel is instantiated for,
@@ -170,7 +173,7 @@ def _two_block_launch(args, n_iters: int, prox: str, thin: bool,
         tiling = _two_block_tiling(N, R, limit.value,
                                    all(t.data_ptr() % 16 == 0 for t in args[:2]))
     outs = tuple(torch.empty_like(x0) for _ in range(4))
-    err = lib.fused_two_block_chunk(
+    err = lib.fused_two_block_launch(
         index, *(t.data_ptr() for t in tuple(args) + outs), B, N, R, int(n_iters),
         _PROX[prox], int(bool(thin)), *(int(t) for t in tiling),
         torch.cuda.current_stream(device).cuda_stream)
@@ -327,7 +330,7 @@ def _spm_launch(args, n_iters: int, tiling: Optional[Tuple[int, int]] = None) ->
     index = device.index if device.index is not None else torch.cuda.current_device()
     lpw, warps = tiling if tiling is not None else _spm_tiling(lib, index, B, nl, nw)
     outs = tuple(torch.empty_like(t) for t in (x0, x0, x2, x0, x2, x0))
-    err = lib.fused_spm_chunk(
+    err = lib.fused_spm_launch(
         index, *(t.data_ptr() for t in tuple(args) + outs), B, nl, nw, int(n_iters),
         int(lpw), int(warps), torch.cuda.current_stream(device).cuda_stream)
     if err:
@@ -368,3 +371,157 @@ def fused_spm_chunk(P, M, b2, mu, thr, x0, x1, x2, h10, h20,
 
 #: Number of kernel launches (CUDA tensors only) since the last reset.
 fused_spm_chunk.launches = 0
+
+
+# ---------------------------------------------------------------------
+# Batched Jacobi eigendecomposition
+# ---------------------------------------------------------------------
+
+#: Largest slice the Jacobi kernel takes (the JAX package's envelope).
+JACOBI_MAX = 256
+# Where the kernel keeps A and V (_jacobi_mode): in shared memory, or in
+# device memory.
+_JACOBI_MODES = ("shared", "global")
+
+
+def _jacobi_layout(n: int):
+    """The circle-method schedule in its paired layout (JAX
+    ``linop.py:_jacobi_eigh_scan``): ``d0`` lists the labels at physical
+    positions 0..n-1 in round 0, round i's pairs sitting at (2i, 2i+1); the
+    same permutation ``pi`` takes every round's layout to the next one's,
+    and after the n-1 rounds of a sweep the layout is ``d0`` again."""
+    m = n // 2
+    arr = list(range(n))
+    d0 = [lab for i in range(m) for lab in (arr[i], arr[n - 1 - i])]
+    arr1 = [arr[0], arr[-1]] + arr[1:-1]
+    d1 = [lab for i in range(m) for lab in (arr1[i], arr1[n - 1 - i])]
+    pos0 = {lab: i for i, lab in enumerate(d0)}
+    return d0, [pos0[lab] for lab in d1]
+
+
+def _rot_cols(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """x <- x @ blockdiag(G_i), G = [[c, s], [-s, c]] on column pairs (2i, 2i+1)."""
+    x0, x1 = x[..., 0::2], x[..., 1::2]
+    cc, ss = c[..., None, :], s[..., None, :]
+    return torch.stack([x0 * cc - x1 * ss, x0 * ss + x1 * cc], dim=-1).reshape(x.shape)
+
+
+def _rot_rows(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The same rotations applied to row pairs (2i, 2i+1)."""
+    r0, r1 = x[..., 0::2, :], x[..., 1::2, :]
+    cc, ss = c[..., :, None], s[..., :, None]
+    return torch.stack([r0 * cc - r1 * ss, r0 * ss + r1 * cc], dim=-2).reshape(x.shape)
+
+
+def jacobi_eigh_reference(a: torch.Tensor, sweeps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`jacobi_eigh`, on any device: the JAX
+    package's per-round math (``linop.py:184-431``) in the paired layout,
+    one permutation by ``pi`` a round."""
+    n = a.shape[-1]
+    d0, pi = _jacobi_layout(n)
+    P0 = torch.as_tensor(d0, device=a.device)
+    pi = torch.as_tensor(pi, device=a.device)
+    a = a.index_select(-1, P0).index_select(-2, P0)
+    v = torch.eye(n, dtype=a.dtype, device=a.device).index_select(-1, P0).expand(a.shape)
+    for _ in range(sweeps * (n - 1)):
+        d = torch.diagonal(a, dim1=-2, dim2=-1)
+        app, aqq = d[..., 0::2], d[..., 1::2]
+        apq = torch.diagonal(a[..., 0::2, 1::2], dim1=-2, dim2=-1)
+        # tan 2θ = 2 a_pq / (a_qq − a_pp), folded to the inner root |θ| ≤ π/4
+        th = 0.5 * torch.atan2(2.0 * apq, aqq - app)
+        th = th - torch.where(torch.abs(th) > math.pi / 4, torch.sign(th) * (math.pi / 2), 0.0)
+        c, s = torch.cos(th), torch.sin(th)
+        a = _rot_rows(_rot_cols(a, c, s), c, s)
+        v = _rot_cols(v, c, s)
+        a = a.index_select(-1, pi).index_select(-2, pi)
+        v = v.index_select(-1, pi)
+    inv = torch.argsort(P0)
+    w = torch.diagonal(a, dim1=-2, dim2=-1).index_select(-1, inv)
+    return w, v.index_select(-1, inv)
+
+
+def _check_jacobi(a: torch.Tensor, sweeps: int) -> None:
+    if a.ndim != 3 or a.shape[1] != a.shape[2]:
+        raise ValueError(f"expected (batch, n, n), got {tuple(a.shape)}")
+    n = a.shape[-1]
+    if n % 2 or not 2 <= n <= JACOBI_MAX:
+        raise ValueError(f"n must be even and in 2..{JACOBI_MAX}, got {n}")
+    if a.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"jacobi_eigh is float32 or float64, got {a.dtype}")
+    if sweeps < 0:
+        raise ValueError(f"sweeps must be >= 0, got {sweeps}")
+
+
+def _jacobi_threads(n: int) -> int:
+    """Threads a block: one a 2x2 block of V's column pairs (n * n/2 of
+    them), in whole warps, at most 1024."""
+    return min(1024, max(32, -(-n * (n // 2) // 32) * 32))
+
+
+def _jacobi_mode(lib, device: int, n: int, f64: bool) -> int:
+    """The first of _JACOBI_MODES whose shared memory fits one block."""
+    limit = ctypes.c_int()
+    err = lib.jacobi_eigh_max_smem(device, ctypes.byref(limit))
+    if err:
+        raise RuntimeError(lib.jacobi_eigh_error_string(err).decode())
+    for mode in range(len(_JACOBI_MODES)):
+        if lib.jacobi_eigh_smem_bytes(n, int(f64), mode) <= limit.value:
+            return mode
+    raise ValueError(f"n={n} does not fit this device's {limit.value}-byte shared memory")
+
+
+def _jacobi_launch(a: torch.Tensor, sweeps: int,
+                   mode: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel on a checked, contiguous CUDA tensor.
+    ``mode`` (an index of _JACOBI_MODES) overrides :func:`_jacobi_mode`; a
+    mode that does not fit fails at the launch."""
+    B, n, _ = a.shape
+    lib = _build.load_libraries()["jacobi_eigh"]
+    index = a.device.index if a.device.index is not None else torch.cuda.current_device()
+    f64 = a.dtype == torch.float64
+    if mode is None:
+        mode = _jacobi_mode(lib, index, n, f64)
+    w = torch.empty((B, n), dtype=a.dtype, device=a.device)
+    v = torch.empty_like(a)
+    work = torch.empty_like(a) if _JACOBI_MODES[mode] == "global" else a
+    err = lib.jacobi_eigh_launch(
+        index, a.data_ptr(), work.data_ptr(), w.data_ptr(), v.data_ptr(), B, n,
+        int(sweeps), int(f64), int(mode), _jacobi_threads(n),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError("jacobi_eigh launch failed: "
+                           + lib.jacobi_eigh_error_string(err).decode())
+    jacobi_eigh.launches += 1
+    return w, v
+
+
+def jacobi_eigh(a: torch.Tensor, sweeps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``sweeps`` sweeps of parallel-order Jacobi on a batch of real
+    symmetric slices ``a`` (B, n, n), n even (2..256), float32 or float64.
+
+    Returns ``(w, V)``: ``w`` (B, n) the diagonal the rotations leave, ``V``
+    (B, n, n) their product, both in the input's label order and unsorted,
+    so that ``a ≈ V diag(w) Vᵀ``.  Each sweep is n − 1 rounds of the
+    circle-method schedule, each round rotating n/2 disjoint pairs at once
+    with the angle of the JAX package (|θ| ≤ π/4).  The public contract
+    (odd n, sweep counts, sorting) is
+    :func:`admmsolver_tpu_torch.ops.linop.jacobi_eigh`.
+
+    CPU tensors run the plain version.  CUDA tensors launch the kernel
+    (``csrc/jacobi_eigh.cu``) on the current stream without synchronising
+    (and count it in ``jacobi_eigh.launches``); they must be contiguous.
+    """
+    _check_jacobi(a, sweeps)
+    if a.device.type == "cpu":
+        return jacobi_eigh_reference(a, sweeps)
+    if a.device.type != "cuda":
+        raise ValueError(f"no jacobi_eigh for device {a.device}")
+    if not a.is_contiguous():
+        raise ValueError("jacobi_eigh needs a contiguous tensor")
+    if a.shape[0] == 0:
+        return a.new_empty(a.shape[:2]), torch.empty_like(a)
+    return _jacobi_launch(a, sweeps)
+
+
+#: Number of kernel launches (CUDA tensors only) since the last reset.
+jacobi_eigh.launches = 0

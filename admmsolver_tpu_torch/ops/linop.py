@@ -34,6 +34,8 @@ __all__ = [
     "TridiagFactor",
     "tridiag_cr_factor",
     "tridiag_cr_solve",
+    "jacobi_eigh",
+    "svd_via_gram",
     "identity",
     "asmatrixtype",
     "matrix_hash",
@@ -849,6 +851,110 @@ def tridiag_cr_solve(factor: TridiagFactor, rhs) -> torch.Tensor:
         raise ValueError(f"rhs of shape {tuple(rhs.shape)} against a factor of {factor.n}")
     out = _cr_solve_last(factor, torch.movedim(rhs, 0, -1), 0)
     return torch.movedim(out, -1, 0)
+
+
+def _jacobi_sweeps(n: int, unrolled: bool, dtype: torch.dtype) -> int:
+    """The JAX package's default sweep count for a (padded, even) n: its
+    unrolled form (slices of n <= 16) takes 8 sweeps up to n = 8, else 10;
+    its scan form (17..256) was measured to converge by 6-8 sweeps in f32
+    and 8-10 in f64 and keeps one sweep of margin."""
+    if unrolled:
+        return 8 if n <= 8 else 10
+    if _real_dtype(dtype).itemsize <= 4:
+        return 8 if n <= 64 else 9
+    return 9 if n <= 32 else 10 if n <= 128 else 11
+
+
+def jacobi_eigh(a: torch.Tensor, sweeps: Optional[int] = None,
+                sort: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched real-symmetric eigendecomposition by parallel-order Jacobi
+    (JAX ``linop.py:184-431``, ``jacobi_eigh`` and ``_jacobi_eigh_scan``).
+
+    ``a``: (..., n, n) real symmetric (the full matrix is read), n <= 256.
+    Returns ``(evals, evecs)`` with ``a ≈ evecs @ diag(evals) @ evecs.T``,
+    ``evals`` ascending per slice when ``sort`` (as ``torch.linalg.eigh``),
+    else in the order of the input's coordinates.  A sweep is n − 1 rounds
+    of the circle-method schedule, each rotating n/2 disjoint pairs at once
+    by the angle that zeroes a_pq, folded to |θ| ≤ π/4; ``sweeps`` defaults
+    to the JAX package's count (:func:`_jacobi_sweeps`), so one loop covers
+    what JAX splits into an unrolled form (n <= 16) and a scan-rolled one.
+    Odd n is padded with a decoupled dummy dimension whose diagonal
+    (1 + Σ|a|) strictly dominates every eigenvalue: every rotation that
+    pairs it has θ = 0, and it is cut off at the end.
+
+    The rounds run in :func:`admmsolver_tpu_torch.ops.kernels.jacobi_eigh`:
+    the CUDA kernel on a CUDA tensor, its plain version on the CPU.
+    Complex input raises ``TypeError`` (use ``torch.linalg.eigh``, or the
+    real embedding as :func:`~admmsolver_tpu_torch.ops.prox.psd_project`
+    does); n > 256 raises ``ValueError``.
+    """
+    from . import kernels
+
+    if a.is_complex():
+        raise TypeError("jacobi_eigh supports real symmetric input only; "
+                        "use torch.linalg.eigh for complex Hermitian blocks")
+    n = a.shape[-1]
+    if n > kernels.JACOBI_MAX:
+        raise ValueError(f"jacobi_eigh is limited to n <= {kernels.JACOBI_MAX}, got n={n};"
+                         " use torch.linalg.eigh")
+    if n == 1:
+        return a[..., 0], torch.ones_like(a)
+    odd = n % 2 == 1
+    if odd:
+        big = 1.0 + torch.sum(torch.abs(a), dim=(-2, -1), keepdim=True)
+        a = torch.cat([a, a.new_zeros(a.shape[:-1] + (1,))], dim=-1)
+        last = torch.cat([a.new_zeros(a.shape[:-2] + (1, n)), big], dim=-1)
+        a = torch.cat([a, last], dim=-2)
+    n_pad = n + odd
+    if sweeps is None:
+        sweeps = _jacobi_sweeps(n_pad, n <= 16, a.dtype)
+    lead = tuple(a.shape[:-2])
+    w, v = kernels.jacobi_eigh(a.reshape(-1, n_pad, n_pad).contiguous(), sweeps)
+    w, v = w.reshape(lead + (n_pad,)), v.reshape(lead + (n_pad, n_pad))
+    if odd:
+        w, v = w[..., :n], v[..., :n, :n]
+    if sort:
+        o = torch.argsort(w, dim=-1, stable=True)
+        w = torch.take_along_dim(w, o, dim=-1)
+        v = torch.take_along_dim(v, o[..., None, :], dim=-1)
+    return w, v
+
+
+def svd_via_gram(x: torch.Tensor, eigh_fn=None):
+    """Thin SVD of ``(..., m, n)`` real matrices from a symmetric
+    eigendecomposition of the smaller Gram matrix (JAX ``linop.py:432-489``).
+
+    ``U, s, Vh`` with ``x ≈ U @ diag(s) @ Vh`` and ``s`` descending, the
+    layout of ``torch.linalg.svd(x, full_matrices=False)``: two products
+    and one eigendecomposition of the min(m, n)-sized Gram, by default
+    :func:`jacobi_eigh` up to 256 and ``torch.linalg.eigh`` above.  Squaring
+    the spectrum floors small singular values at ~sqrt(eps)·s_max, inside
+    the dead zone of the nuclear-norm soft-threshold that uses it.  Columns
+    of singular values at most eps·max(s_max, 1) divide by 1 instead: their
+    numerators are ~0 and the threshold annihilates them.  Both products
+    run in full float32/float64 (TF32 stays off, :mod:`..backend`).
+    """
+    if x.is_complex():
+        raise TypeError("svd_via_gram supports real input only")
+    m, n = x.shape[-2], x.shape[-1]
+    if eigh_fn is None:
+        eigh_fn = jacobi_eigh if min(m, n) <= 256 else torch.linalg.eigh
+    eps = torch.finfo(x.dtype).eps
+
+    def _safe_div(num, s):
+        cut = eps * torch.clamp_min(torch.amax(s, dim=-1, keepdim=True), 1.0)
+        return num / torch.where(s > cut, s, torch.ones_like(s))[..., None, :]
+
+    xt = x.mT
+    if n <= m:
+        w, V = eigh_fn(torch.matmul(xt, x))                # ascending
+        w, V = torch.flip(w, dims=(-1,)), torch.flip(V, dims=(-1,))
+        s = torch.sqrt(torch.clamp_min(w, 0.0))
+        return _safe_div(torch.matmul(x, V), s), s, V.mT
+    w, U = eigh_fn(torch.matmul(x, xt))
+    w, U = torch.flip(w, dims=(-1,)), torch.flip(U, dims=(-1,))
+    s = torch.sqrt(torch.clamp_min(w, 0.0))
+    return U, s, torch.matmul(_safe_div(U, s).mT, x)
 
 
 def _blockwise_first(d: torch.Tensor, nblocks: int):

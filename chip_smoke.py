@@ -21,16 +21,20 @@ fails raises and the script exits non-zero without printing a result.
 * the added model families in float64 through ``BatchedSolver.solve``:
   covariance denoising, the SDP, RPCA, group lasso and Huber regression at
   the inputs of ``benches/bench_workloads.py``, and TV denoising at
-  N = 100,000 (no kernel of their own: batched eigh, batched SVD, cyclic
-  reduction and elementwise proxes in PyTorch);
+  N = 100,000 (the PSD and nuclear proxes by the card's default routes:
+  the Jacobi eigh kernel up to the boundary, the matrix sign above it;
+  cyclic reduction and elementwise proxes in PyTorch);
+* the spectral routes: covariance denoising, the SDP and RPCA at 32 x 32 and
+  96 x 96 through each route of the PSD and nuclear proxes, and the Jacobi
+  eigh kernel alone;
 * multi-device (no kernel of its own): ``BatchedSolver`` sharded over a world
   of one rank through NCCL and over two gloo ranks on the one card,
   ``sharded_gram`` and ``LargeNTwoBlockSolver`` at M=1024, N=2^20 in float64,
   per-rank checkpoint shards.
 
-1. Card and build: the card's name and power limit; both CUDA sources are
-   built from ``admmsolver_tpu_torch/csrc/`` (one nvcc per source, started
-   together), timed, with ptxas' register and spill lines.
+1. Card and build: the card's name and power limit; the three CUDA sources
+   are built from ``admmsolver_tpu_torch/csrc/`` (one nvcc per source,
+   started together), timed, with ptxas' register and spill lines.
 2. Each kernel against its plain version on the card, max abs difference of
    every output <= 5e-4 (f32 sums taken in another order): the two-block
    kernel over 21 iterations at the bench shape (thin basis, N=512, R=256)
@@ -97,7 +101,30 @@ fails raises and the script exits non-zero without printing a result.
    iterations; max coefficient error), 8f TV denoising (N=100,000, B=64,
    lam 0.4, 20 jumps plus noise 0.1 from RandomState(11), 200 iterations;
    the device memory of the part below 1 GiB, where a dense factor would be
-   80 GB a lane).
+   80 GB a lane).  On the card 8a's PSD prox takes the matrix sign, 8b's the
+   Jacobi kernel and 8c's nuclear prox the Gram route through the kernel.
+10. The spectral routes (run before 9): the routes phase 8 does not take,
+   each solve as in 8 with its gates, held against 8's solve on the same
+   inputs.  10a covariance denoising at 8a's inputs through the library
+   eigh (``USE_SIGN_ABOVE_JACOBI = False``) against 8a's sign route: ms,
+   and from a profiled 2-iteration solve of each route the launches an
+   iteration and busy share; x of the two within SIGN_VS_EIGH_TOL of
+   max|x|.  10b the SDP of 8b through the library eigh against 8b's Jacobi
+   kernel (x within JACOBI_VS_EIGH_TOL).  10c RPCA at 8c's 32x32 through
+   ``"xla"`` against 8c's ``"auto"`` (the Gram route through the kernel),
+   and at bench_rpca96's 96x96, B=128, 200 iterations through ``"sign"``,
+   ``"gram"`` and ``"xla"`` (the last run once, ~0.35 s an iteration): max
+   relative error of L, median effective rank, finiteness; x of each route
+   within RPCA_ROUTE_TOL of the ``"xla"`` route's.  The Jacobi kernel's
+   launches are counted in one solve of each part that takes it (8b, 8c,
+   10c's 96x96 ``"gram"``; the count set to 0 just before, read just
+   after, the ``SimpleOptimizer`` checks outside).  10d the kernel alone at
+   JACOBI_SHAPES in float64 and float32, default sweeps: sorted eigenvalues
+   within 10·n·eps·max|w| of its plain version's, its V reconstructing A to
+   the same limit and orthogonal within 10·n·eps; its time, the plain
+   version's (one call), ``torch.linalg.eigh``'s and the bound (9 n^2
+   (n-1) flops a sweep and slice over the FMA peak of the type, or the
+   bytes over 3.35 TB/s).
 
 9. Multi-device on the one card.  9a, a process group of one rank through
    NCCL (a TCP store on localhost, destroyed at the end): the sharded
@@ -189,6 +216,22 @@ LN_M, LN_N, LN_K, LN_SEED = 1024, 1 << 20, 32, 7
 # (0.10-0.28 of max|x*| after 1000 for every mu0 in 1..100, 6.8e-3 after 7500)
 LN_NITER, LN_MU0, LN_RTOL = 7500, 3.0, 1e-8
 LNS_M, LNS_N, LNS_K, LNS_SEED, LNS_NITER = 256, 1 << 16, 8, 8, 300
+# 10. the spectral routes
+PEAK_F64_FLOPS = 34e12      # H100 SXM, float64 FMA outside the tensor cores
+RPCA96_M, RPCA96_N, RPCA96_B, RPCA96_NITER = 96, 96, 128, 200   # bench_rpca96, (17)
+# 10a: x of the sign route against the eigh route, as a multiple of max|x|
+# (a CPU run at k = 128, B = 2 of the same 50 iterations: 1.9e-15)
+SIGN_VS_EIGH_TOL = 1e-10
+# 10b: x of the Jacobi kernel's route against the library eigh's
+JACOBI_VS_EIGH_TOL = 1e-10
+# 10c: x of the Gram and sign routes against the library SVD's (a CPU run of
+# the same 200 iterations at B = 4 (32 x 32) and B = 2 (96 x 96): Gram
+# 4.9e-13 and 6.4e-9, sign 9.4e-15; the Gram route's own error grows as the
+# square of the condition of X)
+RPCA_ROUTE_TOL = {"gram": 1e-6, "sign": 1e-10, "xla": 0.0}
+# 10d: the Jacobi kernel alone, (slices, n) in float64 and float32
+JACOBI_SHAPES = ((4096, 8), (256, 32), (64, 64), (128, 96), (64, 128))
+JACOBI_MAIN = (128, 96, "float64")   # the kernels line's shape: 10c's Gram route
 
 
 def bench_problem(seed=0, nb=B):
@@ -325,7 +368,8 @@ def bound_ms(t_ops, tensors):
 def profile_solve(torch, what, kernel_name, solve, iters=None):
     """torch.profiler over one solve: wall time, device time in the kernels
     whose name contains ``kernel_name`` and in everything else, and with
-    ``iters`` the launches per iteration."""
+    ``iters`` the launches per iteration; returns the wall time, busy share,
+    launches and the named kernels' time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
@@ -342,12 +386,15 @@ def profile_solve(torch, what, kernel_name, solve, iters=None):
             and e.device_type.name == "CUDA"]
     total = sum(r[1] for r in rows)
     kern = sum(r[1] for r in rows if kernel_name in r[0])
+    launches = sum(r[2] for r in rows)
     print(f"profile, {what}: wall {wall:.2f} ms (profiled), device kernels {total:.2f} ms "
           f"(busy {total / wall:.2f}), {kernel_name} kernels {kern:.2f} ms, other kernels "
-          f"{total - kern:.2f} ms in {sum(r[2] for r in rows)} launches"
-          + (f" = {sum(r[2] for r in rows) / iters:.1f} per iteration" if iters else ""))
+          f"{total - kern:.2f} ms in {launches} launches"
+          + (f" = {launches / iters:.1f} per iteration" if iters else ""))
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"  {ms:8.3f} ms  x{count:<5d} {key[:90]}")
+    return {"wall_ms": wall, "busy": total / wall, "launches": launches,
+            "kernel_ms": kern}
 
 
 def l2_read_rate(torch, lib, nbytes, rotate, passes=50):
@@ -630,26 +677,31 @@ def phase_complex_bp(torch, card, kernels, fused, plain_chunk, real_solve, devic
 
 
 def family_solve(torch, card, what, model, ov, niter, device, lanes=(0,), tol=1e-8,
-                 single=None):
+                 single=None, runs=2):
     """One family through ``BatchedSolver.solve`` in float64 (rtol=0, no
-    histories), timed by the host clock on its first run and on a second one;
-    ``lanes`` of it against ``SimpleOptimizer`` solves on the same device, to
-    ``tol`` of max|x|.  ``single(b)`` builds lane b's own model.  Returns the
-    result, the solver and the two timings."""
+    histories), timed by the host clock on its first run and on a second one
+    (``runs=1``: the first only); ``lanes`` of it against ``SimpleOptimizer``
+    solves on the same device, to ``tol`` of max|x|.  ``single(b)`` builds
+    lane b's own model.  Returns the result, the solver, the timings and the
+    Jacobi kernel's launches in the last timed solve (the count set to 0
+    just before it and read just after)."""
     from admmsolver_tpu_torch import SimpleOptimizer
+    from admmsolver_tpu_torch.ops import kernels
     from admmsolver_tpu_torch.parallel import BatchedSolver
 
     bs = BatchedSolver(model, device=device)
     solve = lambda: bs.solve(ov, niter=niter, rtol=0.0, record_residuals=False)
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     times, res = [], None
-    for _ in range(2):
+    for _ in range(runs):
         res = None      # the first result does not sit beside the second solve
         sync()
+        kernels.jacobi_eigh.launches = 0
         t0 = time.perf_counter()
         res = solve()
         sync()
         times.append(time.perf_counter() - t0)
+        launches = kernels.jacobi_eigh.launches
     outs = [*res.x, *res.h, res.mu]
     if not all(t.dtype == torch.float64 and bool(torch.isfinite(t).all()) for t in outs):
         raise AssertionError(f"{what}: non-finite or non-float64 values")
@@ -666,10 +718,12 @@ def family_solve(torch, card, what, model, ov, niter, device, lanes=(0,), tol=1e
           f"(bound {tol:g})", flush=True)
     if not worst <= tol:
         raise AssertionError(f"{what}: the batch departs from its single solves by {worst:.3e}")
-    print(f"[{card}] {what}: {niter} iterations in {times[0] * 1e3:.1f} ms (first run), "
-          f"{times[1] * 1e3:.1f} ms (second) = {times[1] * 1e3 / niter:.3f} ms per iteration",
+    print(f"[{card}] {what}: {niter} iterations in {times[0] * 1e3:.1f} ms (first run)"
+          + (f", {times[1] * 1e3:.1f} ms (second)" if runs > 1 else "")
+          + f" = {times[-1] * 1e3 / niter:.3f} ms per iteration"
+          + (f"; Jacobi kernel launches in one solve {launches}" if launches else ""),
           flush=True)
-    return res, bs, times
+    return res, bs, times, launches
 
 
 def check_psd(torch, what, x, k):
@@ -685,12 +739,9 @@ def check_psd(torch, what, x, k):
     return least
 
 
-def phase_cov_denoise(torch, card, device="cuda", k=COV_K, B=COV_B, niter=COV_NITER,
-                      variants=False):
-    """8a. Covariance denoising (bench_sdp128, benches/bench_workloads.py:
-    362-375): a weighted nearest-PSD matrix of k x k, one slice a lane, the
-    per-lane data through the (0, "y") override; with ``variants`` batched
-    eigh of the phase's slices alone under each linear-algebra library."""
+def cov_problem(torch, k, B, device):
+    """bench_sdp128's inputs (benches/bench_workloads.py:362-375): the
+    function that makes lane b's model, and the per-lane overrides."""
     from admmsolver_tpu_torch.models.applications import covariance_denoise_model
 
     rng = np.random.RandomState(15)
@@ -700,16 +751,26 @@ def phase_cov_denoise(torch, card, device="cuda", k=COV_K, B=COV_B, niter=COV_NI
     Q = rng.randn(k, k)
     xt = (Q @ Q.T / k).reshape(-1)
     ys = xt[None, :] + 0.1 * rng.randn(B, N)
-    wys = torch.as_tensor(ys * rw[None, :], device=device)
     model = lambda b: covariance_denoise_model(ys[b].reshape(k, k), weights=w)
-    ov = {(0, "y"): wys}
-    res, bs, times = family_solve(torch, card, f"covariance denoising k={k} B={B}",
-                                  model(0), ov, niter, device, single=model)
-    check_psd(torch, "covariance denoising", res.x[1], k)
-    # a short solve for the profile: cuSOLVER's eigh launches thousands of
-    # kernels an iteration, and the profiler's bookkeeping grows with them
-    out = {"ms_per_iter": 1e3 * times[1] / niter, "profile_iters": 5,
-           "profile": lambda: bs.solve(ov, niter=5, rtol=0.0, record_residuals=False)}
+    return model, {(0, "y"): torch.as_tensor(ys * rw[None, :], device=device)}
+
+
+def phase_cov_denoise(torch, card, device="cuda", k=COV_K, B=COV_B, niter=COV_NITER,
+                      variants=False):
+    """8a. Covariance denoising (bench_sdp128): a weighted nearest-PSD matrix
+    of k x k, one slice a lane, the per-lane data through the (0, "y")
+    override; with ``variants`` batched eigh of the phase's slices alone
+    under each linear-algebra library."""
+    model, ov = cov_problem(torch, k, B, device)
+    rng = np.random.RandomState(16)
+    res, bs, times, launches = family_solve(torch, card, f"covariance denoising k={k} B={B}",
+                                            model(0), ov, niter, device, single=model)
+    # a short solve for the profile (the eigh route launches thousands of
+    # kernels an iteration, and the profiler's bookkeeping grows with them)
+    out = {"res": res, "ms_per_iter": 1e3 * times[1] / niter, "jacobi_launches": launches,
+           "least_eig": check_psd(torch, "covariance denoising", res.x[1], k),
+           "profile_iters": 5, "profile": lambda iters=5: bs.solve(
+               ov, niter=iters, rtol=0.0, record_residuals=False)}
     if variants and device == "cuda":
         x = torch.as_tensor(rng.randn(B, k, k), device=device)
         x = x + x.mT
@@ -729,9 +790,10 @@ def phase_cov_denoise(torch, card, device="cuda", k=COV_K, B=COV_B, niter=COV_NI
     return out
 
 
-def phase_sdp(torch, card, device="cuda", k=SDP_K, rest=SDP_REST, B=SDP_B, niter=SDP_NITER):
-    """8b. The SDP (bench_sdp, benches/bench_workloads.py:237-250): LS data
-    fit with a PSD cone on rest slices of k x k."""
+def sdp_problem(torch, k, rest, B, device):
+    """bench_sdp's inputs (benches/bench_workloads.py:237-250): LS data fit
+    with a PSD cone on rest slices of k x k; the function that makes lane b's
+    model, the per-lane overrides and a label."""
     from admmsolver_tpu_torch.models.applications import sdp_model
 
     shape = (k, k, rest)
@@ -745,34 +807,45 @@ def phase_sdp(torch, card, device="cuda", k=SDP_K, rest=SDP_REST, B=SDP_B, niter
         xt[:, :, r] = Q @ Q.T / k
     y = A @ xt.reshape(-1)
     ys = y[None, :] + 1e-4 * rng.randn(B, M)
-    res, _, times = family_solve(
-        torch, card, f"SDP k={k} rest={rest} A {M}x{N} B={B}", sdp_model(A, y, shape, axis=2),
-        {(0, "y"): torch.as_tensor(ys, device=device)}, niter, device,
-        single=lambda b: sdp_model(A, ys[b], shape, axis=2))
-    check_psd(torch, "SDP", res.x[1], k)
-    return {"ms_per_iter": 1e3 * times[1] / niter}
+    return (lambda b: sdp_model(A, ys[b], shape, axis=2),
+            {(0, "y"): torch.as_tensor(ys, device=device)}, f"A {M}x{N}")
 
 
-def phase_rpca(torch, card, device="cuda", m=RPCA_M, n=RPCA_N, B=RPCA_B, niter=RPCA_NITER):
-    """8c. Robust PCA (bench_rpca, benches/bench_workloads.py:438-445): the
-    nuclear-norm prox by batched SVD, per-lane Y through (1, "offset")."""
+def phase_sdp(torch, card, device="cuda", k=SDP_K, rest=SDP_REST, B=SDP_B, niter=SDP_NITER):
+    """8b. The SDP (bench_sdp)."""
+    model, ov, what = sdp_problem(torch, k, rest, B, device)
+    res, _, times, launches = family_solve(
+        torch, card, f"SDP k={k} rest={rest} {what} B={B}", model(0), ov, niter, device,
+        single=model)
+    least = check_psd(torch, "SDP", res.x[1], k)
+    return {"res": res, "ms_per_iter": 1e3 * times[1] / niter, "jacobi_launches": launches,
+            "least_eig": least}
+
+
+def phase_rpca(torch, card, device="cuda", m=RPCA_M, n=RPCA_N, B=RPCA_B, niter=RPCA_NITER,
+               rank=3, seed=7, method="auto", runs=2):
+    """8c. Robust PCA (bench_rpca, benches/bench_workloads.py:438-445; 10c
+    also bench_rpca96, :471-506, with ``rank=4, seed=17``): the nuclear-norm
+    prox by ``svd_method``, per-lane Y through (1, "offset")."""
     from admmsolver_tpu_torch.models.applications import rpca_model
 
-    rng = np.random.RandomState(7)
-    L0 = rng.randn(B, m, 3) @ rng.randn(3, n)
+    rng = np.random.RandomState(seed)
+    L0 = rng.randn(B, m, rank) @ rng.randn(rank, n)
     Ys = L0.copy()
     mask = rng.rand(B, m, n) < 0.05
     Ys[mask] += 6.0 * rng.randn(int(mask.sum()))
-    res, _, times = family_solve(
-        torch, card, f"RPCA {m}x{n} B={B}", rpca_model(Ys[0]),
+    res, _, times, launches = family_solve(
+        torch, card, f"RPCA {m}x{n} B={B} svd_method={method}", rpca_model(Ys[0], svd_method=method),
         {(1, "offset"): torch.as_tensor(Ys.reshape(B, -1), device=device)}, niter, device,
-        single=lambda b: rpca_model(Ys[b]))
+        single=lambda b: rpca_model(Ys[b], svd_method=method), runs=runs)
     L = res.x[0].cpu().numpy().reshape(B, m, n)
     rel = float(np.abs(L - L0).max() / np.abs(L0).max())
     sv = np.linalg.svd(L, compute_uv=False)
     rank = int(np.median((sv > 1e-3 * sv[:, :1]).sum(axis=1)))
-    print(f"RPCA: max rel error of L {rel:.4f}, median effective rank {rank}", flush=True)
-    return {"ms_per_iter": 1e3 * times[1] / niter, "max_rel_err_L": rel, "rank": rank}
+    print(f"RPCA {m}x{n} {method}: max rel error of L {rel:.4f}, median effective rank {rank}, "
+          f"finite {bool(np.isfinite(L).all())}", flush=True)
+    return {"res": res, "ms_per_iter": 1e3 * times[-1] / niter, "max_rel_err_L": rel,
+            "rank": rank, "jacobi_launches": launches}
 
 
 def phase_group_lasso(torch, card, device="cuda", M=GL_M, N=GL_N, gs=GL_GS, B=GL_B,
@@ -788,7 +861,7 @@ def phase_group_lasso(torch, card, device="cuda", M=GL_M, N=GL_N, gs=GL_GS, B=GL
     for g in on:
         xt[g * gs:(g + 1) * gs] = rng.randn(gs)
     ys = (A @ xt)[None, :] + 0.01 * rng.randn(B, M)
-    res, _, times = family_solve(
+    res, _, times, _ = family_solve(
         torch, card, f"group lasso A {M}x{N} groups of {gs} B={B}",
         group_lasso_model(A, ys[0], 0.5, gs), {(0, "y"): torch.as_tensor(ys, device=device)},
         niter, device, single=lambda b: group_lasso_model(A, ys[b], 0.5, gs))
@@ -812,7 +885,7 @@ def phase_huber(torch, card, device="cuda", M=HUB_M, N=HUB_N, B=HUB_B, niter=HUB
     xt = rng.randn(N)
     ys = (A @ xt)[None, :] + 0.01 * rng.randn(B, M)
     ys = ys + (rng.rand(B, M) < 0.05) * 8.0 * rng.randn(B, M)
-    res, _, times = family_solve(
+    res, _, times, _ = family_solve(
         torch, card, f"Huber regression A {M}x{N} delta={delta} B={B}",
         robust_regression_model(A, ys[0], delta=delta),
         {(1, "y"): torch.as_tensor(ys, device=device)}, niter, device,
@@ -845,7 +918,7 @@ def phase_tv(torch, card, device="cuda", N=TV_N, B=TV_B, niter=TV_NITER, lam=TV_
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
     ov = {(0, "y"): ys_dev}
-    res, bs, times = family_solve(
+    res, bs, times, _ = family_solve(
         torch, card, f"TV denoising N={N} B={B} lam={lam}", tv_denoise_model(ys[0], lam),
         ov, niter, device, lanes=(0, 1), tol=1e-9,
         single=lambda b: tv_denoise_model(ys[b], lam))
@@ -864,8 +937,216 @@ def phase_tv(torch, card, device="cuda", N=TV_N, B=TV_B, niter=TV_NITER, lam=TV_
             "profile": lambda: bs.solve(ov, niter=5, rtol=0.0, record_residuals=False)}
 
 
+# 10. the spectral routes: the Jacobi kernel, the Gram SVD and the matrix sign
+def spectral_routes(**values):
+    """Set the PSD dispatch constants (admmsolver_tpu_torch.ops.prox) for the
+    span of a with-block, then restore them."""
+    from admmsolver_tpu_torch.ops import prox
+
+    return mock.patch.multiple(prox, **values)
+
+
+def routed_solve(torch, card, what, model, ov, niter, device, k=None, profile_iters=0):
+    """``family_solve`` through the routes the caller set (its Jacobi
+    kernel launches counted in one solve), the PSD gate where ``k`` is
+    given, and with ``profile_iters`` a profiled short solve's launches an
+    iteration and busy share (on the card)."""
+    res, bs, times, launches = family_solve(torch, card, what, model(0), ov, niter, device,
+                                            single=model)
+    out = {"res": res, "ms_per_iter": 1e3 * times[-1] / niter, "jacobi_launches": launches}
+    if k is not None:
+        out["least_eig"] = check_psd(torch, what, res.x[1], k)
+    if profile_iters and device == "cuda":
+        out.update(route_profile(torch, what, lambda: bs.solve(
+            ov, niter=profile_iters, rtol=0.0, record_residuals=False), profile_iters))
+    return out
+
+
+def route_profile(torch, what, solve, iters):
+    """Launches an iteration and busy share of a profiled ``iters``-iteration
+    solve."""
+    prof = profile_solve(torch, f"{what}, {iters} iterations", "gemm", solve, iters=iters)
+    return {"launches_per_iter": prof["launches"] / iters, "busy": prof["busy"]}
+
+
+def max_rel_diff(xs, ys):
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+               for a, b in zip(xs, ys))
+
+
+def phase_cov_routes(torch, card, cov, device="cuda", k=COV_K, B=COV_B, niter=COV_NITER):
+    """10a. Covariance denoising at 8a's inputs through the library eigh
+    (USE_SIGN_ABOVE_JACOBI = False) with 8a's gates, against 8a's solve
+    ``cov`` through the card's default (the matrix sign above the Jacobi
+    boundary): x of the two within SIGN_VS_EIGH_TOL of max|x|; each route's
+    launches an iteration and busy share from a profiled 2-iteration
+    solve."""
+    model, ov = cov_problem(torch, k, B, device)
+    out = {"sign": dict(cov)}
+    if device == "cuda":
+        out["sign"].update(route_profile(torch, "10a covariance, sign route (8a's solver)",
+                                         lambda: cov["profile"](2), 2))
+    with spectral_routes(USE_SIGN_ABOVE_JACOBI=False):
+        out["eigh"] = routed_solve(torch, card, f"10a covariance k={k} B={B}, eigh route",
+                                   model, ov, niter, device, k=k, profile_iters=2)
+    d = max_rel_diff(cov["res"].x, out["eigh"]["res"].x)
+    print(f"[{card}] 10a covariance: {cov['ms_per_iter']:.3f} ms per iteration (sign, 8a) "
+          f"against {out['eigh']['ms_per_iter']:.3f} (eigh); x of the routes max |dx|/max|x| "
+          f"{d:.3e} (bound {SIGN_VS_EIGH_TOL:g})", flush=True)
+    if not d <= SIGN_VS_EIGH_TOL:
+        raise AssertionError(f"10a: the sign route departs from the eigh route by {d:.3e}")
+    out["sign_vs_eigh"] = d
+    return out
+
+
+def phase_sdp_routes(torch, card, sdp, device="cuda", k=SDP_K, rest=SDP_REST, B=SDP_B,
+                     niter=SDP_NITER):
+    """10b. The SDP at 8b's inputs through the library eigh (the boundary
+    set below k, the sign route off) with 8b's gates, against 8b's solve
+    ``sdp`` through the Jacobi kernel (the default at n <= JACOBI_MAX_N): x
+    of the two within JACOBI_VS_EIGH_TOL."""
+    model, ov, what = sdp_problem(torch, k, rest, B, device)
+    with spectral_routes(JACOBI_MAX_N=k - 1, USE_SIGN_ABOVE_JACOBI=False):
+        eigh = routed_solve(torch, card, f"10b SDP k={k} rest={rest} B={B}, eigh route",
+                            model, ov, niter, device, k=k)
+    d = max_rel_diff(sdp["res"].x, eigh["res"].x)
+    print(f"[{card}] 10b SDP: {sdp['ms_per_iter']:.3f} ms per iteration (Jacobi kernel, 8b) "
+          f"against {eigh['ms_per_iter']:.3f} (eigh); x of the routes max |dx|/max|x| "
+          f"{d:.3e} (bound {JACOBI_VS_EIGH_TOL:g})", flush=True)
+    if not d <= JACOBI_VS_EIGH_TOL:
+        raise AssertionError(f"10b: the Jacobi route departs from the eigh route by {d:.3e}")
+    return {"jacobi": sdp, "eigh": eigh, "jacobi_vs_eigh": d}
+
+
+def phase_rpca_routes(torch, card, rpca, device="cuda", m=RPCA_M, n=RPCA_N, B=RPCA_B,
+                      niter=RPCA_NITER, m96=RPCA96_M, n96=RPCA96_N, B96=RPCA96_B,
+                      niter96=RPCA96_NITER):
+    """10c. RPCA at 8c's 32 x 32 through "xla" against 8c's solve ``rpca``
+    ("auto": on the card the Gram route through the kernel), and at
+    bench_rpca96's 96 x 96 through "sign", "gram" and "xla" (run once: ~0.3 s
+    an iteration); x of each other route within RPCA_ROUTE_TOL[route] of
+    max|x| of the "xla" route's on the same inputs."""
+    big = dict(m=m96, n=n96, B=B96, niter=niter96, rank=4, seed=17)
+    out = {"32_auto": rpca,
+           "32_xla": phase_rpca(torch, card, device, m=m, n=n, B=B, niter=niter, method="xla"),
+           **{f"96_{method}": phase_rpca(torch, card, device, method=method, **big)
+              for method in ("sign", "gram")},
+           "96_xla": phase_rpca(torch, card, device, method="xla", runs=1, **big)}
+    for part, ref, route in (("32_auto", "32_xla", "gram" if device == "cuda" else "xla"),
+                             ("96_sign", "96_xla", "sign"), ("96_gram", "96_xla", "gram")):
+        d = max_rel_diff(out[part]["res"].x, out[ref]["res"].x)
+        out[part]["vs_xla"] = d
+        print(f"[{card}] 10c RPCA {part}: {out[part]['ms_per_iter']:.3f} ms per iteration "
+              f"against {out[ref]['ms_per_iter']:.3f} ({ref}); x of the routes max "
+              f"|dx|/max|x| {d:.3e} (bound {RPCA_ROUTE_TOL[route]:g})", flush=True)
+        if not d <= RPCA_ROUTE_TOL[route]:
+            raise AssertionError(f"10c: RPCA {part} departs from {ref} by {d:.3e}")
+    return out
+
+
+def jacobi_bound_ms(B, n, sweeps, dtype_bits):
+    """(least ms, what bounds it) for ``sweeps`` Jacobi sweeps of B slices:
+    9 n^2 (n - 1) flops a sweep and slice over the FMA peak of the type, or
+    the input read and w, V written once over the memory rate."""
+    t_ops = 9.0 * n * n * (n - 1) * sweeps * B / (PEAK_F64_FLOPS if dtype_bits == 64
+                                                   else PEAK_F32_FLOPS)
+    t_bytes = B * (2 * n * n + n) * dtype_bits / 8 / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_jacobi_alone(torch, card, device="cuda", shapes=JACOBI_SHAPES):
+    """10d. The Jacobi kernel alone at each (slices, n) in float64 and
+    float32, at the default sweeps: against its plain version (sorted
+    eigenvalues within 10·n·eps·max|w|, inside the 100·n·eps·||A||_F asked
+    of it) with its own V reconstructing A to the same limit and orthogonal
+    within 10·n·eps; its time, the plain version's, the library eigh's and
+    the bound."""
+    from admmsolver_tpu_torch.ops import kernels
+    from admmsolver_tpu_torch.ops.linop import _jacobi_sweeps
+
+    rows = []
+    for B, n in shapes:
+        for dtype in (torch.float64, torch.float32):
+            rng = np.random.RandomState(n)
+            a = rng.randn(B, n, n)
+            a = torch.as_tensor(a + a.transpose(0, 2, 1), dtype=dtype, device=device)
+            sweeps = _jacobi_sweeps(n, n <= 16, dtype)
+            w, v = kernels.jacobi_eigh(a, sweeps)
+            wr, _ = kernels.jacobi_eigh_reference(a, sweeps)
+            eps = torch.finfo(dtype).eps
+            tol, orth_tol = 10 * n * eps * float(wr.abs().max()), 10 * n * eps
+            err = float((torch.sort(w).values - torch.sort(wr).values).abs().max())
+            recon = float(((v * w[:, None, :]) @ v.mT - a).abs().max())
+            orth = float((v.mT @ v - torch.eye(n, dtype=dtype, device=device)).abs().max())
+            name = str(dtype).replace("torch.", "")
+            print(f"10d Jacobi ({B}, {n}, {n}) {name}: eigenvalues {err:.3e}, reconstruction "
+                  f"{recon:.3e} (bound {tol:.3e}: {max(err, recon) / tol:.3f} of it), "
+                  f"orthogonality {orth:.3e} (bound {orth_tol:.3e}: {orth / orth_tol:.3f})",
+                  flush=True)
+            if not (err <= tol and recon <= tol and orth <= orth_tol):
+                raise AssertionError(f"10d Jacobi ({B}, {n}, {n}) {name} departs from its "
+                                     "plain version")
+            row = {"B": B, "n": n, "dtype": name, "sweeps": sweeps, "max_abs_err": err,
+                   "recon": recon, "orth": orth, "tol": tol}
+            if device == "cuda":
+                row["ms"], row["library_ms"] = median_ms(
+                    torch, [lambda: kernels.jacobi_eigh(a, sweeps), lambda: torch.linalg.eigh(a)])
+                # the plain version launches ~36 kernels a round: one timed call
+                start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                kernels.jacobi_eigh_reference(a, sweeps)
+                stop.record()
+                torch.cuda.synchronize()
+                row["plain_ms"] = start.elapsed_time(stop)
+                row["bound_ms"], row["bound_by"] = jacobi_bound_ms(B, n, sweeps,
+                                                                   torch.finfo(dtype).bits)
+                print(f"[{card}] 10d Jacobi ({B}, {n}, {n}) {name}, {sweeps} sweeps: kernel "
+                      f"{row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, torch.linalg.eigh "
+                      f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+                      f"({row['bound_by']})", flush=True)
+            rows.append(row)
+    return rows
+
+
+def phase_spectral(torch, card, fam, device="cuda"):
+    """Phase 10: 10a-10c drive the other spectral routes through
+    BatchedSolver and hold each against phase 8's solve (``fam``: 8a-8c
+    through the card's defaults) on the same inputs, 10d holds the kernel
+    alone; returns the kernels line's entry for the kernel, with its
+    launches in one solve of each part of the main path that takes it."""
+    t0 = time.perf_counter()
+    phase_cov_routes(torch, card, fam["cov"], device)
+    phase_sdp_routes(torch, card, fam["sdp"], device)
+    rpca = phase_rpca_routes(torch, card, fam["rpca"], device)
+    parts = {"8b": (fam["sdp"], SDP_NITER), "8c": (fam["rpca"], RPCA_NITER),
+             "10c_96_gram": (rpca["96_gram"], RPCA96_NITER)}
+    by_part = {part: {"per_solve": r["jacobi_launches"],
+                      "per_iteration": r["jacobi_launches"] / niter}
+               for part, (r, niter) in parts.items()}
+    print(f"Jacobi kernel launches in one solve: {by_part}", flush=True)
+    if device == "cuda":
+        missing = [part for part, count in by_part.items() if not count["per_solve"]]
+        if missing:
+            raise AssertionError(f"the Jacobi kernel was not launched in {missing}")
+    rows = phase_jacobi_alone(torch, card, device)
+    print(f"spectral phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    main = next(r for r in rows if (r["B"], r["n"], r["dtype"]) == JACOBI_MAIN)
+    return {"name": "jacobi_eigh", "route": "cuda",
+            "source": "admmsolver_tpu_torch/csrc/jacobi_eigh.cu",
+            "replaces": "admmsolver_tpu/ops/linop.py:184",
+            "launches": sum(count["per_solve"] for count in by_part.values()),
+            "shape": list(JACOBI_MAIN),
+            **{key: main.get(key) for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms")},
+            "launches_by_part": by_part,
+            "shapes": [{key: r.get(key) for key in ("B", "n", "dtype", "ms", "plain_ms",
+                                                    "bound_ms", "library_ms", "max_abs_err")}
+                       for r in rows]}
+
+
 def phases_1_to_8(torch, card):
-    """Phases 1 to 8 on the card; the ``kernels`` line of the run."""
+    """Phases 1 to 8 on the card; 8a-8c's results (for phase 10) and the
+    ``kernels`` line of the run."""
     from admmsolver_tpu_torch import (L1Regularizer, LeastSquares, Model,
                                       SimpleOptimizer, identity)
     from admmsolver_tpu_torch.models.applications import spm_model, synthetic_spm_data
@@ -877,7 +1158,7 @@ def phases_1_to_8(torch, card):
     t0 = time.perf_counter()
     libs = _build.load_libraries()
     print(f"build: {time.perf_counter() - t0:.3f} s for {len(libs)} kernels", flush=True)
-    if sorted(libs) != ["fused_spm", "fused_two_block"]:
+    if sorted(libs) != ["fused_spm", "fused_two_block", "jacobi_eigh"]:
         raise AssertionError(f"unexpected kernel libraries {sorted(libs)}")
     smem_limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     for name, lib in sorted(libs.items()):
@@ -1211,8 +1492,7 @@ def phases_1_to_8(torch, card):
 
     # 8. the added model families at full width, float64
     cov = phase_cov_denoise(torch, card, variants="--variants" in sys.argv)
-    phase_sdp(torch, card)
-    phase_rpca(torch, card)
+    fam = {"cov": cov, "sdp": phase_sdp(torch, card), "rpca": phase_rpca(torch, card)}
     phase_group_lasso(torch, card)
     phase_huber(torch, card)
     tv = phase_tv(torch, card)
@@ -1279,7 +1559,7 @@ def phases_1_to_8(torch, card):
                           iters=SCHED_CHUNK)
         profile_solve(torch, "realified complex SpM solve", "gemm", complex_spm["solve"],
                       iters=CSPM_NITER)
-        for what, part, name in (("covariance denoising", cov, "stedc"),
+        for what, part, name in (("covariance denoising", cov, "gemm"),
                                  ("TV denoising", tv, "pad")):
             profile_solve(torch, f"{what} solve, {part['profile_iters']} iterations", name,
                           part["profile"], iters=part["profile_iters"])
@@ -1287,7 +1567,7 @@ def phases_1_to_8(torch, card):
     # No single PyTorch call computes either chunk, so there is no library time.
     # prev_ms is the replaced design's time where this run still builds and
     # times it (the SpM FMA kernel); the two-block kernel's is no longer built.
-    return {"kernels": [
+    return fam, {"kernels": [
         {"name": "fused_two_block_chunk", "route": "cuda",
          "source": "admmsolver_tpu_torch/csrc/fused_two_block.cu",
          "replaces": "admmsolver_tpu/ops/kernels.py:119",
@@ -1662,7 +1942,11 @@ def main():
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
           f"{sys.version.split()[0]}", flush=True)
-    kernels_line = phases_1_to_8(torch, card)
+    fam, kernels_line = phases_1_to_8(torch, card)
+
+    # 10. the spectral routes (before 9, whose 16 GiB part frees its tensors last)
+    kernels_line["kernels"].append(phase_spectral(torch, card, fam))
+    del fam
 
     # 9. multi-device, once the earlier phases' tensors are freed
     gc.collect()

@@ -2,7 +2,9 @@
 
 Decompose a corrupted data matrix ``Y = L + S`` into a low-rank part ``L``
 and a sparse outlier part ``S`` by solving ``min_L ||L||_* + lam |Y - L|_1``
-(nuclear norm through a batched ``torch.linalg.svd``, plus offset L1).  The
+(nuclear norm through the route ``svd_method`` names: on the GPU by default
+the Gram SVD with the Jacobi eigh kernel, or the SVD-free polar route above
+the Jacobi boundary; on the CPU ``torch.linalg.svd``; plus offset L1).  The
 batched section decomposes many matrices at once with per-instance ``Y``
 through the offset batch field.  Runs on the GPU; ``main(small=True)`` runs
 small problems on the CPU.

@@ -3,11 +3,11 @@ version of ``sdp.py``).
 
 Recover a stack of positive-semidefinite k x k slices from noisy linear
 measurements by solving  min |y - Ax|^2  s.t.  x ⪰ 0 slice-wise (z = x
-coupling; the PSD-cone prox projects every slice of every lane with one
-batched ``torch.linalg.eigh``, where the reference loops ``np.linalg.eigh``
-over the slices, ``objectivefunc.py:320-327``).  A single instance, then a
-batch of noisy replicas.  Runs on the GPU; ``main(small=True)`` runs a small
-problem on the CPU.
+coupling; the PSD-cone prox projects every slice of every lane in one
+batched call, here the Jacobi eigh kernel on the GPU, where the reference
+loops ``np.linalg.eigh`` over the slices, ``objectivefunc.py:320-327``).  A
+single instance, then a batch of noisy replicas.  Runs on the GPU;
+``main(small=True)`` runs a small problem on the CPU.
 """
 import os
 

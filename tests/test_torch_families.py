@@ -145,12 +145,86 @@ def test_nuclear_checks_and_svd_methods():
     with pytest.raises(ValueError, match="uniform penalty"):
         T.NuclearNormPenalty(1.0, (2, 3)).solve(torch.zeros(6), T.DiagonalMatrix(
             np.r_[np.ones(3), 2 * np.ones(3)]))
-    for method in ("gram", "sign"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            T.NuclearNormPenalty(1.0, (2, 3), svd_method=method)
+    for method in ("auto", "xla", "gram", "sign"):     # every method of the JAX package
+        assert T.NuclearNormPenalty(1.0, (2, 3), svd_method=method)._svd_method == method
     with pytest.raises(ValueError, match="unknown svd_method"):
         T.NuclearNormPenalty(1.0, (2, 3), svd_method="lapack")
-    assert T.NuclearNormPenalty(1.0, (2, 3), svd_method="xla")._svd_method == "xla"
+
+
+@pytest.mark.parametrize("method,shape", [("gram", (8, 6)), ("gram", (5, 9)),
+                                          ("sign", (24, 20)), ("sign", (18, 30))])
+def test_nuclear_gram_and_sign_routes_match_jax(method, shape):
+    """tests/test_model_families.py:281-305 and 587-610: the Gram-SVD and
+    polar (sign) routes, each against the same route of the JAX package
+    (1e-10 relative) and against the exact SVD (1e-9: the Gram route's
+    sqrt(eps) floor and the sign route's delta·||X||_F floor sit in the
+    threshold's dead zone), eagerly and batched with per-lane alpha and
+    penalty; the value (the Gram singular values for both routes)."""
+    m, n = shape
+    h, mu = _h_mu(m * n, 13, uniform=True)
+    ft = T.NuclearNormPenalty(0.9, shape, svd_method=method)
+    fj = J.NuclearNormPenalty(0.9, shape, svd_method=method)
+    got, want = _prox_pair(ft, fj, h, mu)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-10 * np.abs(want).max())
+    exact, _ = _prox_pair(T.NuclearNormPenalty(0.9, shape, svd_method="xla"), fj, h, mu)
+    np.testing.assert_allclose(got, exact, rtol=0, atol=1e-9)
+    x = np.random.RandomState(7).randn(m * n)
+    assert np.isclose(ft(torch.as_tensor(x)), float(fj(jnp.asarray(x))), rtol=1e-12)
+    hb = np.stack([h, 0.3 * h])
+    mub = np.stack([mu, 2.0 * mu])
+    got_b = ft.clone_with(alpha=np.array([0.9, 0.4])).prox_diag(
+        torch.as_tensor(hb), torch.as_tensor(mub), batched=True).numpy()
+    for b, a in enumerate((0.9, 0.4)):
+        want_b = np.asarray(J.NuclearNormPenalty(a, shape, svd_method=method).prox_diag(
+            jnp.asarray(hb[b]), jnp.asarray(mub[b])))
+        np.testing.assert_allclose(got_b[b], want_b, rtol=0, atol=1e-10 * np.abs(want_b).max())
+
+
+def _rpca_data(m, n, seed):
+    rng = np.random.RandomState(seed)
+    L0 = rng.randn(m, 2) @ rng.randn(2, n)
+    Ys = np.stack([L0, 0.5 * L0])
+    mask = rng.rand(*Ys.shape) < 0.08
+    Ys[mask] += 5.0 * rng.randn(int(mask.sum()))
+    return Ys
+
+
+@pytest.mark.parametrize("method", ["auto", "xla", "gram", "sign"])
+def test_rpca_model_solves_per_method_match_jax(method):
+    """rpca_model(svd_method=...) through BatchedSolver in both packages
+    (per-lane Y through (1, "offset"), 60 iterations): x, h, mu and the
+    residual histories to 1e-9·max|x|; and through SimpleOptimizer, at 8 x 6,
+    the route's solve equals the exact-SVD solve to 5e-7 after 400
+    iterations (tests/test_model_families.py:308-331)."""
+    m, n = 12, 10
+    Ys = _rpca_data(m, n, 14)
+    ov = {(1, "offset"): Ys.reshape(2, -1)}
+    rt = BatchedSolver(TA.rpca_model(Ys[0], svd_method=method), device="cpu").solve(ov, niter=60)
+    rj = JBatched(JA.rpca_model(Ys[0], svd_method=method)).solve(
+        {k: jnp.asarray(v) for k, v in ov.items()}, niter=60)
+    _assert_batches_match(rt, rj)
+
+    Y = _rpca_data(8, 6, 15)[0]
+
+    def run(meth):
+        o = T.SimpleOptimizer(TA.rpca_model(Y, svd_method=meth), device="cpu")
+        o.solve(400)
+        return o.x[0].numpy()
+    np.testing.assert_allclose(run(method), run("xla"), rtol=0, atol=5e-7)
+
+
+@pytest.mark.parametrize("method", ["auto", "xla", "gram", "sign"])
+def test_from_jax_model_carries_the_svd_method(method):
+    """interop.from_jax_model keeps the JAX model's svd_method and runs its
+    trajectory."""
+    Ys = _rpca_data(6, 5, 3)
+    mj = JA.rpca_model(Ys[0], svd_method=method)
+    mt = interop.from_jax_model(mj, device="cpu")
+    assert mt.functions[0]._svd_method == method
+    ot, oj = T.SimpleOptimizer(mt, device="cpu"), J.SimpleOptimizer(mj)
+    ot.solve(20)
+    oj.solve(20)
+    _assert_runs_match(ot, oj)
 
 
 def _ls(rng, M, N):

@@ -1,5 +1,6 @@
 """Tests of the port that need a CUDA card: the hand-written chunk kernels
-against their plain versions, and the solvers on the card against the same
+and the Jacobi eigh kernel against their plain versions, the spectral prox
+routes the card takes, and the solvers on the card against the same
 solvers on the CPU.  They import torch only (no jax), so on a machine with
 a card they run with
 
@@ -546,6 +547,86 @@ def test_batched_tv_on_cuda_matches_simple_optimizer(cuda):
         np.testing.assert_allclose(rc.x[0][b].cpu().numpy(), o.x[0].cpu().numpy(),
                                    rtol=0, atol=1e-9)
         assert int(rc.iterations[b]) == o.iterations
+
+
+def _sym_batch(B, n, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    a = rng.randn(B, n, n)
+    return torch.as_tensor(a + a.transpose(0, 2, 1), dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("B,n,dtype,mode", [
+    (300, 8, torch.float64, None),      # A and V in shared memory
+    (16, 64, torch.float32, None),
+    (4, 128, torch.float64, None),      # float64 above 120: device memory
+    (2, 256, torch.float32, None),      # float32 above 168: device memory
+    (6, 32, torch.float64, 1),          # device memory forced at a small n
+], ids=["shared-f64", "shared-f32", "global-f64", "global-f32", "forced-global"])
+def test_cuda_jacobi_kernel_matches_plain_version(cuda, B, n, dtype, mode):
+    """The Jacobi kernel against its plain version on the same slices at
+    the default sweep count: sorted eigenvalues within 10·n·eps·max|w|, its
+    own V reconstructing A to the same limit and orthogonal within
+    10·n·eps; one launch counted.  (The limits follow chip_smoke.py 10d's
+    readings, which it prints against them.)"""
+    from admmsolver_tpu_torch.ops import kernels
+    from admmsolver_tpu_torch.ops.linop import _jacobi_sweeps
+
+    a = _sym_batch(B, n, dtype, cuda)
+    sweeps = _jacobi_sweeps(n, n <= 16, dtype)
+    launches = kernels.jacobi_eigh.launches
+    if mode is None:
+        w, v = kernels.jacobi_eigh(a, sweeps)
+    else:
+        w, v = kernels._jacobi_launch(a, sweeps, mode=mode)
+    wr, _ = kernels.jacobi_eigh_reference(a, sweeps)
+    torch.cuda.synchronize()
+    assert kernels.jacobi_eigh.launches == launches + 1
+    assert w.is_cuda and w.dtype == dtype and tuple(v.shape) == (B, n, n)
+    eps = torch.finfo(dtype).eps
+    tol = 10 * n * eps * float(wr.abs().max())
+    # sorted: where an angle sits within rounding of the fold at pi/4 the
+    # two may end with the same eigenvalues on other diagonal positions
+    assert float((torch.sort(w).values - torch.sort(wr).values).abs().max()) <= tol
+    recon = (v * w[:, None, :]) @ v.mT
+    assert float((recon - a).abs().max()) <= tol
+    eye = torch.eye(n, dtype=dtype, device=cuda)
+    assert float((v.mT @ v - eye).abs().max()) <= 10 * n * eps
+
+
+def test_cuda_spectral_dispatch_takes_the_card_routes(cuda, monkeypatch):
+    """On the card the PSD prox takes the Jacobi kernel up to the boundary
+    and the matrix sign above it, and the nuclear prox the Gram route (the
+    kernel) below the boundary and the polar route above it; each agrees
+    with the host's exact route."""
+    from admmsolver_tpu_torch.ops import kernels, prox
+
+    calls = {"sign": 0}
+    sign = prox.psd_project_sign
+
+    def counted(*a, **k):
+        calls["sign"] += 1
+        return sign(*a, **k)
+    monkeypatch.setattr(prox, "psd_project_sign", counted)
+    rng = np.random.RandomState(8)
+    for n, kernel, route in ((20, 1, 0), (80, 0, 1)):
+        x = rng.randn(n * n * 2)
+        before = kernels.jacobi_eigh.launches, calls["sign"]
+        got = prox.psd_project(torch.as_tensor(x, device=cuda), (n, n, 2), 2)
+        want = prox.psd_project(torch.as_tensor(x), (n, n, 2), 2)
+        assert kernels.jacobi_eigh.launches - before[0] == kernel
+        assert calls["sign"] - before[1] == route
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-9)
+    for shape, kernel in (((20, 16), 1), ((96, 80), 0)):
+        m, n = shape
+        h = 2.0 * rng.randn(3, m * n)
+        mu = np.full((3, m * n), 1.3)
+        f = T.NuclearNormPenalty(1.3, shape)
+        before = kernels.jacobi_eigh.launches
+        got = f.prox_diag(torch.as_tensor(h, device=cuda), torch.as_tensor(mu, device=cuda),
+                          batched=True)
+        assert kernels.jacobi_eigh.launches - before == kernel
+        want = f.prox_diag(torch.as_tensor(h), torch.as_tensor(mu), batched=True)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-9)
 
 
 @pytest.fixture
