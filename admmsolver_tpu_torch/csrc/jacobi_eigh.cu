@@ -23,7 +23,58 @@
 // (ops/kernels.py, jacobi_eigh_reference), which keeps the matrix in a
 // permuted layout instead of indexing pairs by label.
 //
-// Design: one thread block a slice.  A round is two steps with a block-wide
+// Two designs, chosen by the wrapper (ops/kernels.py, _jacobi_mode):
+//
+// Warp path, n <= 32 (mode 2).  One warp holds floor(32 / n) slices, one
+// lane a column: lane L of a slice keeps column L of A and column L of V in
+// registers, n values each, for the whole call; lanes past the last slice
+// run along on zeros and store nothing.  Every loop over rows is unrolled
+// and every register index is a constant, so A and V never leave the
+// register file; there is no block barrier, only warp shuffles and
+// __syncwarp.  A lane keeps one label's column for good (columns are never
+// permuted), while the rows within a lane sit in the plain version's paired
+// layout: round k's pairs are the row positions (2i, 2i+1), and each round
+// ends with the plain version's permutation `pi` as a fixed register
+// permutation (register moves, no shuffle).  That halves the shuffles of
+// the plain version's layout, in which the columns are permuted too (a
+// shuffle of every register of A and V a round), and keeps the round loop
+// rolled (one body a type and n, where keeping the rows by label would
+// need a sweep's n - 1 rounds unrolled).  A round of lane L, label L at
+// position t of the circle arrangement (t advances by one a round):
+//   angle     the pair's two rows of this column, positions 2i and 2i+1
+//             (i is the lane's pair index, a runtime value: picked by a
+//             tree of selects over the registers), swapped with the partner
+//             lane by two shuffles; both lanes take a_pp and a_qq from the
+//             diagonal and a_pq from row p of column q, as the plain
+//             version does, and compute the same angle bit for bit
+//             (atan2, the fold to |theta| <= pi/4, then sin and cos by a
+//             polynomial on that range: sincos_folded);
+//   columns   A <- A G and V <- V G: each register rotated with the partner
+//             column's, fetched by one shuffle a register (A's before the
+//             angle, so that the shuffles run under its latency);
+//   rows      A <- G^T A: each register pair (2j, 2j+1) rotated by pair j's
+//             (c, s), which the pair's first lane wrote to a 32-entry table
+//             of the warp in shared memory (between two __syncwarp) and
+//             every lane reads back as one 8- or 16-byte broadcast a pair.
+// V's rows stay in label order.  Output: w (the diagonal, by label) and V,
+// as the block kernel's; no scratch.  A block is one warp: the finest grain
+// lets the block scheduler spread the warps evenly over the SMs (256
+// slices of 32 x 32 are 256 warps, two an SM at most).
+// What bounds it: the latency of a round, which is one dependent chain
+// (select, shuffle, atan2 with its division and long polynomial, sin/cos,
+// the table, then the rotations: ~6n flops and ~2n shuffles a lane, a
+// float64 shuffle being two), with too few warps to hide it.  At n = 8, 4096 slices
+// are 1024 warps, about two a scheduler, and the float64 atan2 is most of
+// a round; at n = 32, 256 slices are 256 warps, at most one a scheduler,
+// and the round's ~6n float64 flops run at 16 lanes a clock.  The flop
+// bound of the `bound_ms` column (9 n^2 (n - 1) a sweep) is far below
+// either (PERF.md).  Float32 keeps the same chain in float32 arithmetic.
+// ptxas keeps every instantiation in registers, float64 n = 32 included
+// (254 registers, no stack frame, no spill); chip_smoke.py 10d reads its
+// report in the build log and fails on any local memory.
+//
+// Block path, any even n to 256 (modes 0 and 1).  One thread block a
+// slice.  A round is two steps with a block-wide
 // barrier after each: the n/2 angles (one thread each), then every 2x2
 // block (rows p_i, q_i; columns p_j, q_j) of A rotated on both sides by one
 // thread, and every row's pair of columns of V.  Pairs are disjoint, so no
@@ -36,13 +87,11 @@
 // consecutive, so reads and writes are largely unit-stride.  All sweeps
 // run in one launch.
 //
-// What bounds it on this card: operations.  A round costs about 9 n^2
-// flops (12 for each of A's n^2/4 blocks, 6 for each of V's n^2/2 pairs), a
-// call 9 n^2 (n - 1) sweeps per slice, against 16 n^2 bytes of device
-// memory per slice read and written once.  The kernel is far from that
-// bound: each round waits on two barriers and on n/2 atan2/sincos, and a
-// block of a slice with n <= 16 keeps most of a warp idle.  Fusing several
-// small slices a block, or a slice's rounds into registers, is later work.
+// What bounds the block path on this card: operations.  A round costs about
+// 9 n^2 flops (12 for each of A's n^2/4 blocks, 6 for each of V's n^2/2
+// pairs), a call 9 n^2 (n - 1) sweeps per slice, against 16 n^2 bytes of
+// device memory per slice read and written once.  The kernel is far from
+// that bound: each round waits on two barriers and on n/2 atan2/sincos.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -51,6 +100,9 @@ namespace {
 
 constexpr int MODE_SHARED = 0;  // A and V in shared memory
 constexpr int MODE_GLOBAL = 1;  // both in device memory
+constexpr int MODE_WARP = 2;    // n <= 32: A and V in registers, a lane a column
+constexpr int WARP_MAX_N = 32;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 
 __device__ __forceinline__ float atan2_(float y, float x) { return atan2f(y, x); }
 __device__ __forceinline__ double atan2_(double y, double x) { return atan2(y, x); }
@@ -63,6 +115,47 @@ __device__ __forceinline__ double fold_(double th, double quarter, double half) 
   return fabs(th) > quarter ? th - copysign(half, th) : th;
 }
 
+// sin and cos of a folded angle, |x| <= pi/4, by their Taylor series to
+// x^15 / x^16 (float: x^9 / x^10), whose remainder there is below half an
+// ulp (within 0.5 ulp of sin and cos over the range, measured).  The
+// library's sincos would give the same to an ulp but keeps a slow path
+// for large arguments that works in local memory and makes ptxas save
+// registers around its call; the warp path must not leave registers.
+__device__ __forceinline__ void sincos_folded(double x, double* s, double* c) {
+  const double x2 = x * x;
+  double ps = -1.0 / 1307674368000.0;
+  ps = fma(ps, x2, 1.0 / 6227020800.0);
+  ps = fma(ps, x2, -1.0 / 39916800.0);
+  ps = fma(ps, x2, 1.0 / 362880.0);
+  ps = fma(ps, x2, -1.0 / 5040.0);
+  ps = fma(ps, x2, 1.0 / 120.0);
+  ps = fma(ps, x2, -1.0 / 6.0);
+  *s = fma(x * x2, ps, x);
+  double pc = 1.0 / 20922789888000.0;
+  pc = fma(pc, x2, -1.0 / 87178291200.0);
+  pc = fma(pc, x2, 1.0 / 479001600.0);
+  pc = fma(pc, x2, -1.0 / 3628800.0);
+  pc = fma(pc, x2, 1.0 / 40320.0);
+  pc = fma(pc, x2, -1.0 / 720.0);
+  pc = fma(pc, x2, 1.0 / 24.0);
+  pc = fma(pc, x2, -0.5);
+  *c = fma(x2, pc, 1.0);
+}
+__device__ __forceinline__ void sincos_folded(float x, float* s, float* c) {
+  const float x2 = x * x;
+  float ps = 1.0f / 362880.0f;
+  ps = fmaf(ps, x2, -1.0f / 5040.0f);
+  ps = fmaf(ps, x2, 1.0f / 120.0f);
+  ps = fmaf(ps, x2, -1.0f / 6.0f);
+  *s = fmaf(x * x2, ps, x);
+  float pc = -1.0f / 3628800.0f;
+  pc = fmaf(pc, x2, 1.0f / 40320.0f);
+  pc = fmaf(pc, x2, -1.0f / 720.0f);
+  pc = fmaf(pc, x2, 1.0f / 24.0f);
+  pc = fmaf(pc, x2, -0.5f);
+  *c = fmaf(x2, pc, 1.0f);
+}
+
 // Label at position t of round k's arrangement (circle method, n even).
 __device__ __forceinline__ int label(int t, int k, int n) {
   if (t == 0) return 0;
@@ -70,10 +163,160 @@ __device__ __forceinline__ int label(int t, int k, int n) {
   return 1 + (r < 0 ? r + n - 1 : r);
 }
 
+// The paired layout of the plain version (ops/kernels.py, _jacobi_layout):
+// the label at row position j in round 0 (d0), and the permutation that
+// takes each round's rows to the next round's (new row j = old row pi[j]).
+__host__ __device__ constexpr int layout0(int j, int n) {
+  return j % 2 == 0 ? j / 2 : n - 1 - j / 2;
+}
+__host__ __device__ constexpr int position0(int l, int n) {
+  return l < n / 2 ? 2 * l : 2 * (n - 1 - l) + 1;
+}
+__host__ __device__ constexpr int arrangement1(int t, int n) {
+  return t == 0 ? 0 : t == 1 ? n - 1 : t - 1;
+}
+__host__ __device__ constexpr int perm(int j, int n) {
+  return position0(arrangement1(j % 2 == 0 ? j / 2 : n - 1 - j / 2, n), n);
+}
+
+template <typename T>
+struct Rot;
+template <>
+struct Rot<float> {
+  using type = float2;
+};
+template <>
+struct Rot<double> {
+  using type = double2;
+};
+
+// u[0] <- u[i] for a runtime i < LEN, by a tree of selects on i's bits:
+// every index a constant, so u stays in registers.
+template <int LEN, typename T>
+__device__ __forceinline__ void pick(T* u, int i) {
+  if constexpr (LEN > 1) {
+    const bool hi = i & 1;
+#pragma unroll
+    for (int j = 0; j < (LEN + 1) / 2; ++j) {
+      if (2 * j + 1 < LEN)
+        u[j] = hi ? u[2 * j + 1] : u[2 * j];
+      else
+        u[j] = u[2 * j];
+    }
+    pick<(LEN + 1) / 2>(u, i >> 1);
+  }
+}
+
+// The warp path (see the header): floor(32 / N) slices a warp, lane L of a
+// slice holds column L of A (x, rows in the round's paired layout) and of V
+// (y, rows by label).
+template <typename T, int N>
+__global__ void __launch_bounds__(32)
+    jacobi_warp_kernel(const T* __restrict__ a, T* __restrict__ w, T* __restrict__ v,
+                       int batch, int sweeps) {
+  using T2 = typename Rot<T>::type;
+  constexpr int M = N / 2, S = 32 / N;
+  constexpr size_t NN = (size_t)N * N;
+  __shared__ T2 table[32];  // each pair's (c, s), S * M <= 32
+  const int lane = threadIdx.x;
+  const int group = lane / N, base = group * N, L = lane - base;
+  const long long slice = (long long)blockIdx.x * S + group;
+  const bool active = group < S && slice < batch;
+  T2* cs = table + group * M;  // idle lanes: entries no slice reads
+
+  T x[N], y[N];
+  const T* a_in = a + (active ? slice : 0) * NN + L;
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    x[r] = active ? a_in[layout0(r, N) * N] : T(0);
+    y[r] = r == L ? T(1) : T(0);
+  }
+
+  const T quarter_pi = T(0.78539816339744830962);
+  const T half_pi = T(1.57079632679489661923);
+  const int rounds = sweeps * (N - 1);
+  int t = L, k = 0;  // the label's position in round k's arrangement
+  for (int r = 0; r < rounds; ++r) {
+    const bool first = t < M;
+    const int i = first ? t : N - 1 - t;
+    const int partner = base + (t == N - 1 ? 0 : 1 + (3 * N - 4 - t - k) % (N - 1));
+    T u[M], z[M];
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      u[j] = x[2 * j];
+      z[j] = x[2 * j + 1];
+    }
+    pick<M>(u, i);
+    pick<M>(z, i);
+    T o[N];  // the partner's column of A, fetched while the angle is computed
+#pragma unroll
+    for (int j = 0; j < N; ++j) o[j] = __shfl_sync(FULL_MASK, x[j], partner);
+    const T uo = __shfl_sync(FULL_MASK, u[0], partner);
+    const T zo = __shfl_sync(FULL_MASK, z[0], partner);
+    const T app = first ? u[0] : uo, apq = first ? uo : u[0], aqq = first ? zo : z[0];
+    const T th =
+        fold_(T(0.5) * atan2_(T(2) * apq, aqq - app), quarter_pi, half_pi);
+    T s, c;
+    sincos_folded(th, &s, &c);
+    __syncwarp();  // every lane has read the last round's table
+    if (first) cs[i] = T2{c, s};
+    // columns: p <- p c - q s, q <- p s + q c
+    const T sg = first ? -s : s;
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = x[j] * c + o[j] * sg;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const T ov = __shfl_sync(FULL_MASK, y[j], partner);
+      y[j] = y[j] * c + ov * sg;
+    }
+    __syncwarp();  // the table is written
+    // rows, pair j at positions (2j, 2j+1)
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      const T2 g = cs[j];
+      const T r0 = x[2 * j], r1 = x[2 * j + 1];
+      x[2 * j] = r0 * g.x - r1 * g.y;
+      x[2 * j + 1] = r0 * g.y + r1 * g.x;
+    }
+    T nx[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) nx[j] = x[perm(j, N)];
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = nx[j];
+    t = t == 0 ? 0 : t == N - 1 ? 1 : t + 1;
+    k = k == N - 2 ? 0 : k + 1;
+  }
+
+  // After whole sweeps the rows are in round 0's layout again.
+  T u[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) u[j] = x[j];
+  pick<N>(u, position0(L, N));
+  if (active) {
+    w[slice * N + L] = u[0];
+    T* v_out = v + slice * NN + L;
+#pragma unroll
+    for (int r = 0; r < N; ++r) v_out[r * N] = y[r];
+  }
+}
+
+template <typename T, int N = 2>
+int launch_warp(int n, const T* a, T* w, T* v, int batch, int sweeps, cudaStream_t stream) {
+  if constexpr (N > WARP_MAX_N) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (n != N) return launch_warp<T, N + 2>(n, a, w, v, batch, sweeps, stream);
+    constexpr int S = 32 / N;
+    jacobi_warp_kernel<T, N><<<(batch + S - 1) / S, 32, 0, stream>>>(a, w, v, batch, sweeps);
+    return cudaGetLastError();
+  }
+}
+
 // Shared memory of a block: the matrices the mode keeps there, then each
 // pair's cos and sin (n values), then its two labels (n ints).
 template <typename T>
 size_t smem_bytes(int n, int mode) {
+  if (mode == MODE_WARP) return 0;  // a static table of 32 (c, s)
   const size_t nn = (size_t)n * n;
   return ((mode == MODE_SHARED ? 2 * nn : 0) + n) * sizeof(T) + n * sizeof(int);
 }
@@ -169,6 +412,9 @@ int launch_mode(const void* a, void* work, void* w, void* v, int batch, int n, i
       return launch<T, MODE_SHARED>(a_, work_, w_, v_, batch, n, sweeps, threads, stream);
     case MODE_GLOBAL:
       return launch<T, MODE_GLOBAL>(a_, work_, w_, v_, batch, n, sweeps, threads, stream);
+    case MODE_WARP:
+      if (threads != 32) return cudaErrorInvalidValue;
+      return launch_warp<T>(n, a_, w_, v_, batch, sweeps, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -179,7 +425,8 @@ int launch_mode(const void* a, void* work, void* w, void* v, int batch, int n, i
 extern "C" {
 
 // Dynamic shared memory, in bytes, of one block for slices of n x n in
-// float64 (f64 = 1) or float32, in `mode` (0: A and V shared, 1: neither).
+// float64 (f64 = 1) or float32, in `mode` (0: A and V shared, 1: neither,
+// 2: the warp path, none).
 size_t jacobi_eigh_smem_bytes(int n, int f64, int mode) {
   return f64 ? smem_bytes<double>(n, mode) : smem_bytes<float>(n, mode);
 }
@@ -194,8 +441,9 @@ const char* jacobi_eigh_error_string(int err) { return cudaGetErrorString((cudaE
 // Launch on `stream` without synchronising; returns cudaGetLastError() after
 // the launch (0 on success).  a: (batch, n, n) input, row-major, not
 // written; work: (batch, n, n) scratch, used in mode 1 only; w: (batch, n)
-// and v: (batch, n, n) outputs.  n even, 2..256; one block of `threads`
-// threads a slice.
+// and v: (batch, n, n) outputs.  n even, 2..256; modes 0 and 1: one block
+// of `threads` threads a slice; mode 2 (n <= 32): blocks of one warp
+// (`threads` = 32), floor(32 / n) slices a block.
 int jacobi_eigh_launch(int device, const void* a, void* work, void* w, void* v, int batch, int n,
                        int sweeps, int f64, int mode, int threads, void* stream) {
   if (batch < 1 || n < 2 || n > 256 || n % 2 || sweeps < 0 || threads < 1 || threads > 1024)

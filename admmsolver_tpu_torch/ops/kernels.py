@@ -379,9 +379,11 @@ fused_spm_chunk.launches = 0
 
 #: Largest slice the Jacobi kernel takes (the JAX package's envelope).
 JACOBI_MAX = 256
-# Where the kernel keeps A and V (_jacobi_mode): in shared memory, or in
-# device memory.
-_JACOBI_MODES = ("shared", "global")
+# Where the kernel keeps A and V (_jacobi_mode): the block kernel's shared
+# memory or device memory, or the warp path's registers (n <= 32).
+_JACOBI_MODES = ("shared", "global", "warp")
+#: Largest n the warp path takes by default (it takes no n above 32).
+_JACOBI_WARP_MAX_N = 32
 
 
 def _jacobi_layout(n: int):
@@ -452,19 +454,25 @@ def _check_jacobi(a: torch.Tensor, sweeps: int) -> None:
         raise ValueError(f"sweeps must be >= 0, got {sweeps}")
 
 
-def _jacobi_threads(n: int) -> int:
-    """Threads a block: one a 2x2 block of V's column pairs (n * n/2 of
-    them), in whole warps, at most 1024."""
+def _jacobi_threads(n: int, mode: int) -> int:
+    """Threads a block.  Block kernel: one a 2x2 block of V's column pairs
+    (n * n/2 of them), in whole warps, at most 1024.  Warp path: one warp
+    (of 32 // n slices)."""
+    if _JACOBI_MODES[mode] == "warp":
+        return 32
     return min(1024, max(32, -(-n * (n // 2) // 32) * 32))
 
 
 def _jacobi_mode(lib, device: int, n: int, f64: bool) -> int:
-    """The first of _JACOBI_MODES whose shared memory fits one block."""
+    """The warp path up to _JACOBI_WARP_MAX_N; above it the first block
+    mode whose shared memory fits one block."""
+    if n <= _JACOBI_WARP_MAX_N:
+        return _JACOBI_MODES.index("warp")
     limit = ctypes.c_int()
     err = lib.jacobi_eigh_max_smem(device, ctypes.byref(limit))
     if err:
         raise RuntimeError(lib.jacobi_eigh_error_string(err).decode())
-    for mode in range(len(_JACOBI_MODES)):
+    for mode in (_JACOBI_MODES.index("shared"), _JACOBI_MODES.index("global")):
         if lib.jacobi_eigh_smem_bytes(n, int(f64), mode) <= limit.value:
             return mode
     raise ValueError(f"n={n} does not fit this device's {limit.value}-byte shared memory")
@@ -474,7 +482,8 @@ def _jacobi_launch(a: torch.Tensor, sweeps: int,
                    mode: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on a checked, contiguous CUDA tensor.
     ``mode`` (an index of _JACOBI_MODES) overrides :func:`_jacobi_mode`; a
-    mode that does not fit fails at the launch."""
+    mode that does not fit (the warp path above n = 32) fails at the
+    launch."""
     B, n, _ = a.shape
     lib = _build.load_libraries()["jacobi_eigh"]
     index = a.device.index if a.device.index is not None else torch.cuda.current_device()
@@ -486,7 +495,7 @@ def _jacobi_launch(a: torch.Tensor, sweeps: int,
     work = torch.empty_like(a) if _JACOBI_MODES[mode] == "global" else a
     err = lib.jacobi_eigh_launch(
         index, a.data_ptr(), work.data_ptr(), w.data_ptr(), v.data_ptr(), B, n,
-        int(sweeps), int(f64), int(mode), _jacobi_threads(n),
+        int(sweeps), int(f64), int(mode), _jacobi_threads(n, mode),
         torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError("jacobi_eigh launch failed: "
@@ -508,7 +517,8 @@ def jacobi_eigh(a: torch.Tensor, sweeps: int) -> Tuple[torch.Tensor, torch.Tenso
     :func:`admmsolver_tpu_torch.ops.linop.jacobi_eigh`.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel
-    (``csrc/jacobi_eigh.cu``) on the current stream without synchronising
+    (``csrc/jacobi_eigh.cu``: its warp path for n <= _JACOBI_WARP_MAX_N,
+    its block kernel above) on the current stream without synchronising
     (and count it in ``jacobi_eigh.launches``); they must be contiguous.
     """
     _check_jacobi(a, sweeps)

@@ -124,7 +124,9 @@ fails raises and the script exits non-zero without printing a result.
    the same limit and orthogonal within 10·n·eps; its time, the plain
    version's (one call), ``torch.linalg.eigh``'s and the bound (9 n^2
    (n-1) flops a sweep and slice over the FMA peak of the type, or the
-   bytes over 3.35 TB/s).
+   bytes over 3.35 TB/s).  Slices of n <= 32 take the warp path, and the
+   block kernel it replaced there is timed beside it (``prev_ms``); no warp
+   kernel may use local memory (ptxas's report in the build log).
 
 9. Multi-device on the one card.  9a, a process group of one rank through
    NCCL (a TCP store on localhost, destroyed at the end): the sharded
@@ -164,6 +166,7 @@ The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU,
 """
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -230,7 +233,7 @@ JACOBI_VS_EIGH_TOL = 1e-10
 # square of the condition of X)
 RPCA_ROUTE_TOL = {"gram": 1e-6, "sign": 1e-10, "xla": 0.0}
 # 10d: the Jacobi kernel alone, (slices, n) in float64 and float32
-JACOBI_SHAPES = ((4096, 8), (256, 32), (64, 64), (128, 96), (64, 128))
+JACOBI_SHAPES = ((4096, 8), (1024, 12), (256, 32), (64, 64), (128, 96), (64, 128))
 JACOBI_MAIN = (128, 96, "float64")   # the kernels line's shape: 10c's Gram route
 
 
@@ -316,23 +319,41 @@ def check_ratio(what, family, chosen_err, fma_err):
                              "the FMA kernel's")
 
 
-def median_ms(torch, fns):
+def median_ms(torch, fns, inner=INNER, per=1):
     """Median CUDA-event time in ms of one call of each of ``fns``: every
-    timing spans INNER calls in a row (so that the host's preparation of a
+    timing spans ``inner`` calls in a row (so that the host's preparation of a
     launch overlaps the call before it), REPEATS timings of each taken in
-    turns, after one warm-up turn."""
+    turns, after one warm-up turn; each call counts as ``per`` calls."""
     times = [[] for _ in fns]
     for rep in range(REPEATS + 1):
         for fn, t in zip(fns, times):
             start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-            for _ in range(INNER):
+            for _ in range(inner):
                 fn()
             stop.record()
             torch.cuda.synchronize()
             if rep:
-                t.append(start.elapsed_time(stop) / INNER)
+                t.append(start.elapsed_time(stop) / (inner * per))
     return [float(np.median(t)) for t in times]
+
+
+def graph_ms(torch, fns):
+    """Median CUDA-event time in ms of one call of each of ``fns`` on the
+    device alone: INNER calls captured in a CUDA graph after a warm-up call,
+    the graph replayed REPEATS times in turns after one warm-up turn (a
+    kernel of a few tens of microseconds is shorter than the host's path to
+    its launch, which back-to-back eager calls would time instead)."""
+    graphs = []
+    for fn in fns:
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(INNER):
+                fn()
+        graphs.append(graph)
+    return median_ms(torch, [graph.replay for graph in graphs], inner=1, per=INNER)
 
 
 def median_wall(torch, fns):
@@ -1054,16 +1075,51 @@ def jacobi_bound_ms(B, n, sweeps, dtype_bits):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def jacobi_warp_ptxas():
+    """{"<f|d> N": (registers, stack frame bytes, spill bytes stored and
+    loaded)} of every warp kernel, from ptxas's report in the build log
+    beside the Jacobi library."""
+    from admmsolver_tpu_torch.ops import _build
+
+    log = _build._lib_path(_build.SOURCE_DIR / "jacobi_eigh.cu").with_suffix(".log")
+    out, entry = {}, None
+    for line in log.read_text().splitlines():
+        name = re.search(r"jacobi_warp_kernelI([df])Li(\d+)E", line)
+        if "Compiling entry function" in line or "Function properties for" in line:
+            entry = f"{name.group(1)} {name.group(2)}" if name else None
+            if entry:
+                out.setdefault(entry, [None, None, None])
+        elif entry and "spill stores" in line:
+            out[entry][1] = int(re.search(r"(\d+) bytes stack frame", line).group(1))
+            out[entry][2] = sum(int(b) for b in re.findall(r"(\d+) bytes spill", line))
+        elif entry and "Used" in line and "registers" in line:
+            out[entry][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return {key: tuple(val) for key, val in sorted(out.items())}
+
+
 def phase_jacobi_alone(torch, card, device="cuda", shapes=JACOBI_SHAPES):
     """10d. The Jacobi kernel alone at each (slices, n) in float64 and
     float32, at the default sweeps: against its plain version (sorted
     eigenvalues within 10·n·eps·max|w|, inside the 100·n·eps·||A||_F asked
     of it) with its own V reconstructing A to the same limit and orthogonal
     within 10·n·eps; its time, the plain version's, the library eigh's and
-    the bound."""
-    from admmsolver_tpu_torch.ops import kernels
+    the bound.  Slices of n <= 32 must take the warp path; beside it the
+    block kernel it replaced there (mode "shared") is timed in the same
+    turns as ``prev_ms``.  On the card, no warp kernel may spill (ptxas's
+    report)."""
+    from admmsolver_tpu_torch.ops import _build, kernels
     from admmsolver_tpu_torch.ops.linop import _jacobi_sweeps
 
+    if device == "cuda":
+        ptxas = jacobi_warp_ptxas()
+        print(f"10d warp kernels, ptxas (registers, stack frame, spill bytes): {ptxas}",
+              flush=True)
+        spilled = [key for key, (_, stack, spill) in ptxas.items() if stack or spill]
+        if len(ptxas) != 32 or spilled:
+            raise AssertionError(f"10d: {len(ptxas)} warp kernels in the build log (32 "
+                                 f"expected), spilling: {spilled}")
+        lib = _build.load_libraries()["jacobi_eigh"]
+    shared = kernels._JACOBI_MODES.index("shared")
     rows = []
     for B, n in shapes:
         for dtype in (torch.float64, torch.float32):
@@ -1087,9 +1143,18 @@ def phase_jacobi_alone(torch, card, device="cuda", shapes=JACOBI_SHAPES):
                 raise AssertionError(f"10d Jacobi ({B}, {n}, {n}) {name} departs from its "
                                      "plain version")
             row = {"B": B, "n": n, "dtype": name, "sweeps": sweeps, "max_abs_err": err,
-                   "recon": recon, "orth": orth, "tol": tol}
+                   "recon": recon, "orth": orth, "tol": tol, "mode": "plain", "prev_ms": None}
             if device == "cuda":
-                row["ms"], row["library_ms"] = median_ms(
+                row["mode"] = kernels._JACOBI_MODES[kernels._jacobi_mode(
+                    lib, torch.cuda.current_device(), n, dtype == torch.float64)]
+                if (row["mode"] == "warp") != (n <= 32):
+                    raise AssertionError(f"10d: n={n} takes mode {row['mode']}")
+                fns = [lambda: kernels.jacobi_eigh(a, sweeps)]
+                if n <= 32:
+                    fns.append(lambda: kernels._jacobi_launch(a, sweeps, mode=shared))
+                times = graph_ms(torch, fns)
+                row["ms"], row["prev_ms"] = times[0], (times[1] if n <= 32 else None)
+                row["call_ms"], row["library_ms"] = median_ms(
                     torch, [lambda: kernels.jacobi_eigh(a, sweeps), lambda: torch.linalg.eigh(a)])
                 # the plain version launches ~36 kernels a round: one timed call
                 start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -1100,8 +1165,12 @@ def phase_jacobi_alone(torch, card, device="cuda", shapes=JACOBI_SHAPES):
                 row["plain_ms"] = start.elapsed_time(stop)
                 row["bound_ms"], row["bound_by"] = jacobi_bound_ms(B, n, sweeps,
                                                                    torch.finfo(dtype).bits)
+                prev = (f" (block kernel, mode shared: {row['prev_ms']:.4f} ms)" if n <= 32
+                        else "")
                 print(f"[{card}] 10d Jacobi ({B}, {n}, {n}) {name}, {sweeps} sweeps: kernel "
-                      f"{row['ms']:.3f} ms, plain {row['plain_ms']:.1f} ms, torch.linalg.eigh "
+                      f"mode {row['mode']} {row['ms']:.4f} ms{prev}, called eagerly "
+                      f"{row['call_ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.1f} ms, torch.linalg.eigh "
                       f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
                       f"({row['bound_by']})", flush=True)
             rows.append(row)
@@ -1139,8 +1208,9 @@ def phase_spectral(torch, card, fam, device="cuda"):
             **{key: main.get(key) for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms")},
             "launches_by_part": by_part,
-            "shapes": [{key: r.get(key) for key in ("B", "n", "dtype", "ms", "plain_ms",
-                                                    "bound_ms", "library_ms", "max_abs_err")}
+            "shapes": [{key: r.get(key) for key in ("B", "n", "dtype", "mode", "ms", "prev_ms",
+                                                    "call_ms", "plain_ms", "bound_ms",
+                                                    "library_ms", "max_abs_err")}
                        for r in rows]}
 
 

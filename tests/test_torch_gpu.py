@@ -556,18 +556,30 @@ def _sym_batch(B, n, dtype, device, seed=0):
 
 
 @pytest.mark.parametrize("B,n,dtype,mode", [
-    (300, 8, torch.float64, None),      # A and V in shared memory
+    (300, 8, torch.float64, 0),         # the block kernel, A and V in shared memory
     (16, 64, torch.float32, None),
     (4, 128, torch.float64, None),      # float64 above 120: device memory
     (2, 256, torch.float32, None),      # float32 above 168: device memory
     (6, 32, torch.float64, 1),          # device memory forced at a small n
-], ids=["shared-f64", "shared-f32", "global-f64", "global-f32", "forced-global"])
+    (301, 8, torch.float64, None),      # warp path: 4 slices a warp, the last warp partly filled
+    (97, 6, torch.float32, None),       # n does not divide 32: 5 slices a warp, 2 idle lanes
+    (33, 16, torch.float64, None),
+    (64, 30, torch.float32, None),      # one slice a warp, 2 idle lanes
+    (256, 32, torch.float64, None),     # 8c's slices
+    (256, 32, torch.float32, None),
+    (5, 2, torch.float64, None),        # 16 slices a warp
+    (6, 32, torch.float64, 0),          # the block kernel forced below the boundary
+    (4, 34, torch.float64, None),       # the first n of the block kernel
+], ids=["shared-f64", "shared-f32", "global-f64", "global-f32", "forced-global",
+        "warp-f64-partial", "warp-f32-n6", "warp-f64-n16", "warp-f32-n30", "warp-f64-n32",
+        "warp-f32-n32", "warp-f64-n2", "forced-shared-n32", "block-f64-n34"])
 def test_cuda_jacobi_kernel_matches_plain_version(cuda, B, n, dtype, mode):
     """The Jacobi kernel against its plain version on the same slices at
     the default sweep count: sorted eigenvalues within 10·n·eps·max|w|, its
     own V reconstructing A to the same limit and orthogonal within
     10·n·eps; one launch counted.  (The limits follow chip_smoke.py 10d's
-    readings, which it prints against them.)"""
+    readings, which it prints against them.)  Without ``mode`` the
+    dispatch picks the warp path for n <= 32 and the block kernel above."""
     from admmsolver_tpu_torch.ops import kernels
     from admmsolver_tpu_torch.ops.linop import _jacobi_sweeps
 
@@ -591,6 +603,16 @@ def test_cuda_jacobi_kernel_matches_plain_version(cuda, B, n, dtype, mode):
     assert float((recon - a).abs().max()) <= tol
     eye = torch.eye(n, dtype=dtype, device=cuda)
     assert float((v.mT @ v - eye).abs().max()) <= 10 * n * eps
+
+
+def test_cuda_jacobi_warp_path_refuses_n_above_32(cuda):
+    """Forcing the warp path at n = 34 raises at the launch; nothing falls
+    back to the block kernel."""
+    from admmsolver_tpu_torch.ops import kernels
+
+    with pytest.raises(RuntimeError, match="launch failed"):
+        kernels._jacobi_launch(_sym_batch(2, 34, torch.float64, cuda), 2,
+                               mode=kernels._JACOBI_MODES.index("warp"))
 
 
 def test_cuda_spectral_dispatch_takes_the_card_routes(cuda, monkeypatch):

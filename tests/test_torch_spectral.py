@@ -167,6 +167,112 @@ def test_kernel_label_schedule_equals_plain_version(n):
     np.testing.assert_allclose(v.numpy(), vk, rtol=0, atol=1e-12)
 
 
+def _warp_layout(n):
+    """The warp path's constants as csrc/jacobi_eigh.cu writes them:
+    ``layout0`` (the label at row position j in round 0), ``position0`` (its
+    inverse) and ``perm`` (new row j = old row perm[j] after each round)."""
+    def arrangement1(t):
+        return 0 if t == 0 else n - 1 if t == 1 else t - 1
+
+    layout0 = [j // 2 if j % 2 == 0 else n - 1 - j // 2 for j in range(n)]
+    position0 = [2 * lab if lab < n // 2 else 2 * (n - 1 - lab) + 1 for lab in range(n)]
+    perm = [position0[arrangement1(j // 2 if j % 2 == 0 else n - 1 - j // 2)]
+            for j in range(n)]
+    return layout0, position0, perm
+
+
+def _warp_schedule(a, sweeps):
+    """The warp path of the CUDA kernel in numpy, lane by lane: 32 // n
+    slices a warp of 32 lanes (idle lanes and the last warp's missing slices
+    on zeros), lane L of a slice holding column L of A (rows in the round's
+    paired layout) and of V (rows by label); a shuffle from lane ``src`` is
+    ``value[src % 32]``, the warp's (c, s) table 32 entries."""
+    B, n, _ = a.shape
+    m, S = n // 2, 32 // n
+    layout0, position0, perm = _warp_layout(n)
+    warps = -(-B // S)
+    lane = np.arange(32)
+    group, L = lane // n, lane % n
+    base = group * n
+    slice_ = np.arange(warps)[:, None] * S + group[None, :]
+    active = (group[None, :] < S) & (slice_ < B)
+    src = np.where(active, slice_, 0)
+    x = np.where(active[..., None], a[src][:, :, layout0, :][
+        np.arange(warps)[:, None, None], lane[None, :, None], np.arange(n)[None, None, :],
+        L[None, :, None]], 0.0)
+    y = np.broadcast_to((np.arange(n)[None, :] == L[:, None]).astype(float),
+                        (warps, 32, n)).copy()
+    t, k = L.copy(), 0
+    w_ = np.arange(warps)[:, None]
+    for _ in range(sweeps * (n - 1)):
+        first = t < m
+        i = np.where(first, t, n - 1 - t)
+        partner = (base + np.where(t == n - 1, 0, 1 + (3 * n - 4 - t - k) % (n - 1))) % 32
+        u0, z0 = x[:, lane, 2 * i], x[:, lane, 2 * i + 1]
+        uo, zo = u0[:, partner], z0[:, partner]
+        app, apq, aqq = (np.where(first, u0, uo), np.where(first, uo, u0),
+                         np.where(first, zo, z0))
+        th = 0.5 * np.arctan2(2.0 * apq, aqq - app)
+        th = th - np.where(np.abs(th) > np.pi / 4, np.sign(th) * (np.pi / 2), 0.0)
+        c, s = np.cos(th), np.sin(th)
+        table = np.zeros((warps, 32, 2))
+        slot = group * m + i
+        table[:, slot[first]] = np.stack([c, s], axis=-1)[:, first]
+        sg = np.where(first, -s, s)
+        x = x * c[..., None] + x[:, partner] * sg[..., None]
+        y = y * c[..., None] + y[:, partner] * sg[..., None]
+        for j in range(m):
+            g = table[:, group * m + j]
+            r0, r1 = x[..., 2 * j].copy(), x[..., 2 * j + 1].copy()
+            x[..., 2 * j] = r0 * g[..., 0] - r1 * g[..., 1]
+            x[..., 2 * j + 1] = r0 * g[..., 1] + r1 * g[..., 0]
+        x = x[..., perm]
+        t = np.where(t == 0, 0, np.where(t == n - 1, 1, t + 1))
+        k = 0 if k == n - 2 else k + 1
+    pos = np.array(position0)[L]
+    diag = x[w_, lane[None, :], pos[None, :]]
+    w = np.zeros((B, n))
+    v = np.zeros((B, n, n))
+    act = np.nonzero(active)
+    w[slice_[act], L[act[1]]] = diag[act]
+    v[slice_[act], :, L[act[1]]] = y[act]
+    return w, v
+
+
+@pytest.mark.parametrize("n", [2, 6, 8, 16, 32])
+def test_kernel_warp_schedule_equals_plain_version(n):
+    """The warp path (one lane a column, floor(32/n) slices a warp, columns
+    kept by label, rows in the paired layout permuted in registers, pairs'
+    partners and (c, s) exchanged as the kernel does) run in numpy at the
+    default sweep count against the plain version, on a batch whose last
+    warp is partly filled; the kernel's closed-form layout equals the plain
+    version's."""
+    d0, pi = kernels._jacobi_layout(n)
+    layout0, position0, perm = _warp_layout(n)
+    assert layout0 == d0 and perm == pi
+    assert [position0[lab] for lab in d0] == list(range(n))
+    rng = np.random.RandomState(60 + n)
+    A = _sym(rng, (2 * (32 // n) + 1,), n)
+    sweeps = TL._jacobi_sweeps(n, n <= 16, torch.float64)
+    w, v = kernels.jacobi_eigh_reference(torch.as_tensor(A), sweeps)
+    wk, vk = _warp_schedule(A, sweeps)
+    np.testing.assert_allclose(w.numpy(), wk, rtol=0, atol=1e-13 * np.abs(A).max())
+    np.testing.assert_allclose(v.numpy(), vk, rtol=0, atol=1e-12)
+
+
+def test_kernel_jacobi_dispatch_takes_the_warp_path_to_32():
+    """n <= _JACOBI_WARP_MAX_N goes to the warp path without asking the
+    device; its blocks are one warp; the block kernel's size is unchanged."""
+    warp = kernels._JACOBI_MODES.index("warp")
+    assert kernels._JACOBI_WARP_MAX_N == 32
+    for n in range(2, 33, 2):
+        assert kernels._jacobi_mode(None, 0, n, True) == warp
+        assert kernels._jacobi_mode(None, 0, n, False) == warp
+    assert kernels._jacobi_threads(8, warp) == kernels._jacobi_threads(32, warp) == 32
+    assert kernels._jacobi_threads(8, 0) == 32
+    assert kernels._jacobi_threads(34, 0) == 608        # 34 * 17 in whole warps
+
+
 # ---------------------------------------------------------------------
 # svd_via_gram
 # ---------------------------------------------------------------------
