@@ -23,7 +23,7 @@
 // (ops/kernels.py, jacobi_eigh_reference), which keeps the matrix in a
 // permuted layout instead of indexing pairs by label.
 //
-// Two designs, chosen by the wrapper (ops/kernels.py, _jacobi_mode):
+// Three designs, chosen by the wrapper (ops/kernels.py, _jacobi_mode):
 //
 // Warp path, n <= 32 (mode 2).  One warp holds floor(32 / n) slices, one
 // lane a column: lane L of a slice keeps column L of A and column L of V in
@@ -73,8 +73,56 @@
 // (254 registers, no stack frame, no spill); chip_smoke.py 10d reads its
 // report in the build log and fails on any local memory.
 //
-// Block path, any even n to 256 (modes 0 and 1).  One thread block a
-// slice.  A round is two steps with a block-wide
+// Tile path, 34 <= n <= 128 (mode 3).  One thread block a slice and one
+// __syncthreads a round.  Shared memory holds V transposed (Vt[l][row],
+// n^2), A's strict upper triangle (n (n - 1) / 2 values, row-major: entry
+// (a, b) of a != b at tri(min, max)) and, in two parities (r & 1), each
+// pair's (c, s), the diagonal d (n) and each pair's pivot a_pq (e, n/2):
+// (3 n^2 + 9 n) / 2 values, 201,216 bytes at float64 n = 128, so A and V
+// stay on chip at every n of the path.  A is rotated in place: each of
+// the m (m - 1) / 2 blocks of two pairs (m = n / 2) is read and written by
+// one thread, once a round, so no entry is written twice in a round; the m
+// diagonal blocks live in d and e and never touch A.  What makes one
+// barrier enough: the next round's angles are computed in this round.  The
+// circle schedule puts pair t of round k + 1 inside block (t - 1, t + 1)
+// of round k (three exceptions at the ends, tile_block), and the thread
+// that rotates that block takes the pair's a_pq from its own result,
+// recomputes the pair's two diagonal entries from this round's d, e and
+// (c, s) (tables no thread writes in this round), computes the angle
+// (rotation_folded), writes the next round's tables, and stores the
+// pivot entry of A at its value after the next round, since no block
+// touches it then.  So a round reads only what the round before wrote.
+// The first ceil(m / 32) warps take only those m pivot blocks, one a
+// thread, so that the angle chain runs beside the rotations of the other
+// warps; these take the other blocks (band dl of the circulant order,
+// pairs i and i + dl mod m, consecutive threads on consecutive i) and V's
+// m n / 2 items (pair j, rows 2 rp and 2 rp + 1 as one 16- or 8-byte
+// vector, consecutive threads on consecutive rp: unit stride).  Threads:
+// 256, 512 or 768 by n (_jacobi_threads, from a sweep on the H100).  The
+// angle is the plain version's, atan2 and the fold, with sin and cos by
+// sincos_folded (rotation_folded), not the library's sincos, whose slow
+// path keeps a stack frame.  A rational form (t = tan theta as the smaller
+// root of t^2 + 2 tau t - 1 = 0, c = 1 / sqrt(1 + t^2), s = t c) was timed
+// against it on the H100 80GB HBM3 at 700 W: 2% faster in the block
+// kernel's design (64 slices of 64 x 64, float64: 1.207 against 1.231 ms,
+// the library's sincos 1.282), and in this path 2-5% faster at n <= 64 but
+// 0.5-4% slower at n >= 96; and it left V four times less orthogonal
+// (0.12-0.19 of 10 n eps against 0.02-0.05): its c^2 + s^2 strays from 1
+// by 0.7 ulp rms where sin and cos stray by 0.3.  ptxas keeps both
+// instantiations in registers (no stack frame, no spill; chip_smoke.py 10d
+// fails otherwise).
+// What bounds it, by estimate (a bank model at an assumed 1.755 GHz clock,
+// not a profile): shared-memory bandwidth.  A round moves about 3 n^2
+// values (A's triangle and V, each read and written once) through the SM's
+// 128 bytes a clock, and most of A's accesses cost two wavefronts where one
+// would do (a bank model of the schedule: the labels of a warp's blocks
+// fall into two or three runs whose banks overlap).  At small n the
+// barrier and the pivot warps' chain (one block, two diagonal entries,
+// atan2 and sincos_folded) weigh more.  The flop bound of `bound_ms`,
+// 9 n^2 (n - 1) a sweep over all 132 SMs, is far below it (PERF.md).
+//
+// Block path, any even n to 256 (modes 0 and 1; the default above n =
+// 128).  One thread block a slice.  A round is two steps with a block-wide
 // barrier after each: the n/2 angles (one thread each), then every 2x2
 // block (rows p_i, q_i; columns p_j, q_j) of A rotated on both sides by one
 // thread, and every row's pair of columns of V.  Pairs are disjoint, so no
@@ -101,6 +149,8 @@ namespace {
 constexpr int MODE_SHARED = 0;  // A and V in shared memory
 constexpr int MODE_GLOBAL = 1;  // both in device memory
 constexpr int MODE_WARP = 2;    // n <= 32: A and V in registers, a lane a column
+constexpr int MODE_TILE = 3;    // 34 <= n <= 128: one stored triangle of A, one barrier a round
+constexpr int TILE_MIN_N = 34, TILE_MAX_N = 128, TILE_MAX_THREADS = 768;
 constexpr int WARP_MAX_N = 32;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
@@ -120,7 +170,8 @@ __device__ __forceinline__ double fold_(double th, double quarter, double half) 
 // ulp (within 0.5 ulp of sin and cos over the range, measured).  The
 // library's sincos would give the same to an ulp but keeps a slow path
 // for large arguments that works in local memory and makes ptxas save
-// registers around its call; the warp path must not leave registers.
+// registers around its call; the warp and tile paths must not leave
+// registers.
 __device__ __forceinline__ void sincos_folded(double x, double* s, double* c) {
   const double x2 = x * x;
   double ps = -1.0 / 1307674368000.0;
@@ -154,6 +205,15 @@ __device__ __forceinline__ void sincos_folded(float x, float* s, float* c) {
   pc = fmaf(pc, x2, 1.0f / 24.0f);
   pc = fmaf(pc, x2, -0.5f);
   *c = fmaf(x2, pc, 1.0f);
+}
+
+// (c, s) of the plain version's folded angle: atan2, the fold, then
+// sincos_folded.
+template <typename T>
+__device__ __forceinline__ void rotation_folded(T app, T apq, T aqq, T* c, T* s) {
+  const T th = fold_(T(0.5) * atan2_(T(2) * apq, aqq - app), T(0.78539816339744830962),
+                     T(1.57079632679489661923));
+  sincos_folded(th, s, c);
 }
 
 // Label at position t of round k's arrangement (circle method, n even).
@@ -318,6 +378,9 @@ template <typename T>
 size_t smem_bytes(int n, int mode) {
   if (mode == MODE_WARP) return 0;  // a static table of 32 (c, s)
   const size_t nn = (size_t)n * n;
+  // tile: V^T, two (c, s) tables, two diagonals, two pivot tables, A's
+  // strict upper triangle
+  if (mode == MODE_TILE) return (nn + 2 * n + 2 * n + n + nn / 2 - n / 2) * sizeof(T);
   return ((mode == MODE_SHARED ? 2 * nn : 0) + n) * sizeof(T) + n * sizeof(int);
 }
 
@@ -400,6 +463,218 @@ int launch(const T* a, T* work, T* w, T* v, int batch, int n, int sweeps, int th
   return cudaGetLastError();
 }
 
+// The tile path (see the header).  A's strict upper triangle, row-major:
+// entry (a, b) of a != b at tri(min, max).
+__device__ __forceinline__ int tri(int a, int b, int n) {
+  const int lo = min(a, b), hi = max(a, b);
+  return ((lo * (2 * n - lo - 1)) >> 1) + hi - lo - 1;
+}
+
+// label(t, k, n) without the modulo (0 <= t < n, 0 <= k < n - 1).
+__device__ __forceinline__ int tile_label(int t, int k, int n) {
+  const int r = t - 1 - k;
+  return t == 0 ? 0 : 1 + (r < 0 ? r + n - 1 : r);
+}
+
+// A pair's diagonal block [[app, apq], [apq, aqq]] after its rotation by
+// (c, s), columns first and then rows as in the plain version: new a_pp,
+// a_qq and a_pq.
+template <typename T>
+__device__ __forceinline__ T rotated_pp(T app, T apq, T aqq, T c, T s) {
+  const T b00 = app * c - apq * s, b10 = apq * c - aqq * s;
+  return b00 * c - b10 * s;
+}
+template <typename T>
+__device__ __forceinline__ T rotated_qq(T app, T apq, T aqq, T c, T s) {
+  const T b01 = app * s + apq * c, b11 = apq * s + aqq * c;
+  return b01 * s + b11 * c;
+}
+template <typename T>
+__device__ __forceinline__ T rotated_pq(T app, T apq, T aqq, T c, T s) {
+  const T b01 = app * s + apq * c, b11 = apq * s + aqq * c;
+  return b01 * c - b11 * s;
+}
+
+// Round k's rotation A <- G^T A G of the 2x2 block of pairs lo < hi, its
+// four entries of the triangle A read and written in place (columns by pair
+// hi first, then rows by pair lo).  With PIVOT the block holds the pivot of
+// round k + 1's pair tn, and also computes that pair's two diagonal entries
+// (from round k's tables d, e and (c, s) of parity cur), its angle, and the
+// tables of parity cur ^ 1; the pivot entry skips to its value after round
+// k + 1.  Pair tn = (p', q') sits in block (tn - 1, tn + 1) at (p_lo,
+// q_hi), except pair 0 in (0, 1) at (p_0, q_1), pair 1 in (0, 2) at (q_0,
+// q_2) and pair m - 1 in (m - 2, m - 1) at (p_lo, p_hi).
+template <typename T, bool PIVOT>
+__device__ __forceinline__ void tile_block(T* A, typename Rot<T>::type* cs, T* d, T* e, int cur,
+                                           int lo, int hi, int tn, int k, int n, int m) {
+  using T2 = typename Rot<T>::type;
+  const int pi = tile_label(lo, k, n), qi = tile_label(n - 1 - lo, k, n);
+  const int pj = tile_label(hi, k, n), qj = tile_label(n - 1 - hi, k, n);
+  const int a00 = tri(pi, pj, n), a01 = tri(pi, qj, n), a10 = tri(qi, pj, n),
+            a11 = tri(qi, qj, n);
+  const T x00 = A[a00], x01 = A[a01], x10 = A[a10], x11 = A[a11];
+  const T2 gi = cs[cur * m + lo], gj = cs[cur * m + hi];
+  const T y00 = x00 * gj.x - x01 * gj.y, y01 = x00 * gj.y + x01 * gj.x;
+  const T y10 = x10 * gj.x - x11 * gj.y, y11 = x10 * gj.y + x11 * gj.x;
+  T z00 = y00 * gi.x - y10 * gi.y, z01 = y01 * gi.x - y11 * gi.y;
+  const T z10 = y00 * gi.y + y10 * gi.x;
+  T z11 = y01 * gi.y + y11 * gi.x;
+  if (PIVOT) {
+    const T* d_r = d + cur * n;
+    const T* e_r = e + cur * m;
+    const int nxt = cur ^ 1;
+    const bool q_lo = tn == 1, p_hi = tn == m - 1;
+    const T apq = q_lo ? z11 : p_hi ? z00 : z01;
+    const T app = q_lo ? rotated_qq(d_r[pi], e_r[lo], d_r[qi], gi.x, gi.y)
+                       : rotated_pp(d_r[pi], e_r[lo], d_r[qi], gi.x, gi.y);
+    const T aqq = p_hi ? rotated_pp(d_r[pj], e_r[hi], d_r[qj], gj.x, gj.y)
+                       : rotated_qq(d_r[pj], e_r[hi], d_r[qj], gj.x, gj.y);
+    T c, s;
+    rotation_folded(app, apq, aqq, &c, &s);
+    cs[nxt * m + tn] = T2{c, s};
+    e[nxt * m + tn] = apq;
+    d[nxt * n + (q_lo ? qi : pi)] = app;
+    d[nxt * n + (p_hi ? pj : qj)] = aqq;
+    const T piv = rotated_pq(app, apq, aqq, c, s);
+    if (q_lo)
+      z11 = piv;
+    else if (p_hi)
+      z00 = piv;
+    else
+      z01 = piv;
+  }
+  A[a00] = z00;
+  A[a01] = z01;
+  A[a10] = z10;
+  A[a11] = z11;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(TILE_MAX_THREADS)
+    jacobi_tile_kernel(const T* __restrict__ a, T* __restrict__ w, T* __restrict__ v, int n,
+                       int sweeps) {
+  using T2 = typename Rot<T>::type;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m = n / 2, nb = m * (m - 1) / 2, h = n / 2;
+  const size_t nn = (size_t)n * n;
+  const size_t slice = blockIdx.x;
+  T* Vt = reinterpret_cast<T*>(smem_raw);  // Vt[l * n + row] = V[row][l]
+  T2* cs = reinterpret_cast<T2*>(Vt + nn);  // round r's pair i: cs[(r & 1) * m + i]
+  T* d = reinterpret_cast<T*>(cs + 2 * m);  // a_ll before round r: d[(r & 1) * n + l]
+  T* e = d + 2 * n;                         // a_{p_i q_i} before round r: e[(r & 1) * m + i]
+  T* A = e + 2 * m;                         // the strict upper triangle, tri()
+  const T* a_in = a + slice * nn;
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  for (int x = tid; x < (int)nn; x += nt) {
+    const int row = x / n, col = x - row * n;
+    const T val = a_in[x];
+    if (row < col)
+      A[tri(row, col, n)] = val;
+    else if (row == col)
+      d[row] = val;
+    Vt[x] = row == col ? T(1) : T(0);
+  }
+  __syncthreads();
+  // Round 0's angles; each pivot entry of A takes its value after round 0.
+  for (int t = tid; t < m; t += nt) {
+    const int p = tile_label(t, 0, n), q = tile_label(n - 1 - t, 0, n), at = tri(p, q, n);
+    const T app = d[p], apq = A[at], aqq = d[q];
+    T c, s;
+    rotation_folded(app, apq, aqq, &c, &s);
+    cs[t] = T2{c, s};
+    e[t] = apq;
+    A[at] = rotated_pq(app, apq, aqq, c, s);
+  }
+  __syncthreads();
+
+  // The first ceil(m / 32) warps rotate the m pivot blocks of the next
+  // round, one a thread, and compute its angles.  The other warps (thread
+  // tp of ntp) rotate the other blocks and V.  The blocks in the circulant
+  // order u = (dl - 1) m + i (pairs i and i + dl mod m) are the pivot
+  // blocks at u = 0, m - 2 and m .. 2m - 3; the other warps take the rest
+  // as u' = tp + g ntp: u' < m the other m blocks of bands 1 and 2, u' >= m
+  // block u = u' + m.  Their V items: u = tp + g ntp, pair j = u / h, row
+  // pair rp = u % h.
+  const int npt = (m + 31) / 32 * 32;
+  const bool pivot_warp = tid < npt;
+  const int tp = tid - npt, ntp = nt - npt;
+  const int up0 = tp < m ? tp + ntp : tp;  // the first u' >= m
+  const int i0 = (up0 + m) % m, dl0 = 1 + (up0 + m) / m;
+  const int step_i = ntp % m, step_dl = ntp / m, step_j = ntp / h, step_rp = ntp % h;
+  const int rounds = sweeps * (n - 1);
+  for (int r = 0, k = 0; r < rounds; ++r, k = k == n - 2 ? 0 : k + 1) {
+    const int cur = r & 1;
+    if (pivot_warp) {
+      const int tn = tid;
+      if (tn < m) {
+        const int lo = tn == 0 ? 0 : tn == m - 1 ? m - 2 : tn - 1;
+        tile_block<T, true>(A, cs, d, e, cur, lo, tn == 0 ? 1 : tn == m - 1 ? m - 1 : tn + 1,
+                            tn, k, n, m);
+      }
+    } else {
+      if (tp < m) {
+        const int i = tp < m - 3 ? tp + 1 : tp == m - 3 ? m - 1 : tp;
+        int j = i + (tp < m - 2 ? 1 : 2);
+        j -= j >= m ? m : 0;
+        tile_block<T, false>(A, cs, d, e, cur, min(i, j), max(i, j), -1, k, n, m);
+      }
+      for (int up = up0, i = i0, dl = dl0; up < nb - m; up += ntp) {
+        int j = i + dl;
+        j -= j >= m ? m : 0;
+        tile_block<T, false>(A, cs, d, e, cur, min(i, j), max(i, j), -1, k, n, m);
+        i += step_i;
+        dl += step_dl;
+        if (i >= m) {
+          i -= m;
+          ++dl;
+        }
+      }
+      // V <- V G: rows 2 rp and 2 rp + 1 of pair j's two columns (rows of Vt)
+      const T2* cs_r = cs + cur * m;
+      for (int u = tp, j = tp / h, rp = tp % h; u < m * h; u += ntp) {
+        const T2 g = cs_r[j];
+        T2* vp = reinterpret_cast<T2*>(Vt + tile_label(j, k, n) * n) + rp;
+        T2* vq = reinterpret_cast<T2*>(Vt + tile_label(n - 1 - j, k, n) * n) + rp;
+        const T2 x0 = *vp, x1 = *vq;
+        *vp = T2{x0.x * g.x - x1.x * g.y, x0.y * g.x - x1.y * g.y};
+        *vq = T2{x0.x * g.y + x1.x * g.x, x0.y * g.y + x1.y * g.x};
+        j += step_j;
+        rp += step_rp;
+        if (rp >= h) {
+          rp -= h;
+          ++j;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const T* w_out = d + (rounds & 1) * n;
+  for (int l = tid; l < n; l += nt) w[slice * n + l] = w_out[l];
+  for (int x = tid; x < (int)nn; x += nt) {
+    const int row = x / n, l = x - row * n;
+    v[slice * nn + x] = Vt[l * n + row];
+  }
+}
+
+template <typename T>
+int launch_tile(const T* a, T* w, T* v, int batch, int n, int sweeps, int threads,
+                cudaStream_t stream) {
+  // the pivot warps and at least m threads beside them (each of which takes
+  // one of the other blocks of bands 1 and 2)
+  const int m = n / 2;
+  if (n < TILE_MIN_N || n > TILE_MAX_N || threads % 32 || threads > TILE_MAX_THREADS ||
+      threads < (m + 31) / 32 * 32 + m)
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<T>(n, MODE_TILE);
+  cudaError_t err = cudaFuncSetAttribute(
+      jacobi_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  jacobi_tile_kernel<T><<<batch, threads, smem, stream>>>(a, w, v, n, sweeps);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_mode(const void* a, void* work, void* w, void* v, int batch, int n, int sweeps,
                 int mode, int threads, cudaStream_t stream) {
@@ -415,6 +690,8 @@ int launch_mode(const void* a, void* work, void* w, void* v, int batch, int n, i
     case MODE_WARP:
       if (threads != 32) return cudaErrorInvalidValue;
       return launch_warp<T>(n, a_, w_, v_, batch, sweeps, stream);
+    case MODE_TILE:
+      return launch_tile<T>(a_, w_, v_, batch, n, sweeps, threads, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -426,7 +703,7 @@ extern "C" {
 
 // Dynamic shared memory, in bytes, of one block for slices of n x n in
 // float64 (f64 = 1) or float32, in `mode` (0: A and V shared, 1: neither,
-// 2: the warp path, none).
+// 2: the warp path, none, 3: the tile path).
 size_t jacobi_eigh_smem_bytes(int n, int f64, int mode) {
   return f64 ? smem_bytes<double>(n, mode) : smem_bytes<float>(n, mode);
 }
@@ -443,7 +720,9 @@ const char* jacobi_eigh_error_string(int err) { return cudaGetErrorString((cudaE
 // written; work: (batch, n, n) scratch, used in mode 1 only; w: (batch, n)
 // and v: (batch, n, n) outputs.  n even, 2..256; modes 0 and 1: one block
 // of `threads` threads a slice; mode 2 (n <= 32): blocks of one warp
-// (`threads` = 32), floor(32 / n) slices a block.
+// (`threads` = 32), floor(32 / n) slices a block; mode 3 (34 <= n <= 128):
+// one block of `threads` a slice, a multiple of 32, at most 768 and at
+// least ceil(n / 64) warps plus n / 2.
 int jacobi_eigh_launch(int device, const void* a, void* work, void* w, void* v, int batch, int n,
                        int sweeps, int f64, int mode, int threads, void* stream) {
   if (batch < 1 || n < 2 || n > 256 || n % 2 || sweeps < 0 || threads < 1 || threads > 1024)

@@ -379,11 +379,14 @@ fused_spm_chunk.launches = 0
 
 #: Largest slice the Jacobi kernel takes (the JAX package's envelope).
 JACOBI_MAX = 256
-# Where the kernel keeps A and V (_jacobi_mode): the block kernel's shared
-# memory or device memory, or the warp path's registers (n <= 32).
-_JACOBI_MODES = ("shared", "global", "warp")
+# The kernel's paths (_jacobi_mode): the block kernel with A and V in
+# shared memory or in device memory, the warp path (n <= 32, A and V in
+# registers) and the tile path (34 <= n <= 128, one stored triangle of A).
+_JACOBI_MODES = ("shared", "global", "warp", "tile")
 #: Largest n the warp path takes by default (it takes no n above 32).
 _JACOBI_WARP_MAX_N = 32
+#: The n the tile path takes (it refuses any other).
+_JACOBI_TILE_N = (34, 128)
 
 
 def _jacobi_layout(n: int):
@@ -457,33 +460,53 @@ def _check_jacobi(a: torch.Tensor, sweeps: int) -> None:
 def _jacobi_threads(n: int, mode: int) -> int:
     """Threads a block.  Block kernel: one a 2x2 block of V's column pairs
     (n * n/2 of them), in whole warps, at most 1024.  Warp path: one warp
-    (of 32 // n slices)."""
-    if _JACOBI_MODES[mode] == "warp":
+    (of 32 // n slices).  Tile path: 256 below n = 48, 512 to n = 96, 768
+    above.  256 to 768 were timed on the H100 only at n = 34, 64, 96 and
+    128 (chip_smoke.py 10d's shapes), where these counts were the fastest
+    or within 4% of it; the switch points between them are not measured."""
+    name = _JACOBI_MODES[mode]
+    if name == "warp":
         return 32
+    if name == "tile":
+        return 256 if n < 48 else 512 if n <= 96 else 768
     return min(1024, max(32, -(-n * (n // 2) // 32) * 32))
 
 
-def _jacobi_mode(lib, device: int, n: int, f64: bool) -> int:
-    """The warp path up to _JACOBI_WARP_MAX_N; above it the first block
-    mode whose shared memory fits one block."""
-    if n <= _JACOBI_WARP_MAX_N:
-        return _JACOBI_MODES.index("warp")
+def _jacobi_first_fit(lib, device: int, n: int, f64: bool, modes) -> int:
+    """The first of ``modes`` whose shared memory fits one block."""
     limit = ctypes.c_int()
     err = lib.jacobi_eigh_max_smem(device, ctypes.byref(limit))
     if err:
         raise RuntimeError(lib.jacobi_eigh_error_string(err).decode())
-    for mode in (_JACOBI_MODES.index("shared"), _JACOBI_MODES.index("global")):
+    for mode in map(_JACOBI_MODES.index, modes):
         if lib.jacobi_eigh_smem_bytes(n, int(f64), mode) <= limit.value:
             return mode
     raise ValueError(f"n={n} does not fit this device's {limit.value}-byte shared memory")
+
+
+def _jacobi_block_mode(lib, device: int, n: int, f64: bool) -> int:
+    """The block kernel's mode at n: "shared" where A and V fit one block's
+    shared memory, else "global"."""
+    return _jacobi_first_fit(lib, device, n, f64, ("shared", "global"))
+
+
+def _jacobi_mode(lib, device: int, n: int, f64: bool) -> int:
+    """The warp path up to _JACOBI_WARP_MAX_N, the tile path on
+    _JACOBI_TILE_N; above it the block kernel (:func:`_jacobi_block_mode`)."""
+    if n <= _JACOBI_WARP_MAX_N:
+        return _JACOBI_MODES.index("warp")
+    lo, hi = _JACOBI_TILE_N
+    if lo <= n <= hi:
+        return _jacobi_first_fit(lib, device, n, f64, ("tile",))
+    return _jacobi_block_mode(lib, device, n, f64)
 
 
 def _jacobi_launch(a: torch.Tensor, sweeps: int,
                    mode: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on a checked, contiguous CUDA tensor.
     ``mode`` (an index of _JACOBI_MODES) overrides :func:`_jacobi_mode`; a
-    mode that does not fit (the warp path above n = 32) fails at the
-    launch."""
+    mode that does not fit (the warp path above n = 32, the tile path
+    outside _JACOBI_TILE_N) fails at the launch."""
     B, n, _ = a.shape
     lib = _build.load_libraries()["jacobi_eigh"]
     index = a.device.index if a.device.index is not None else torch.cuda.current_device()
@@ -518,8 +541,9 @@ def jacobi_eigh(a: torch.Tensor, sweeps: int) -> Tuple[torch.Tensor, torch.Tenso
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel
     (``csrc/jacobi_eigh.cu``: its warp path for n <= _JACOBI_WARP_MAX_N,
-    its block kernel above) on the current stream without synchronising
-    (and count it in ``jacobi_eigh.launches``); they must be contiguous.
+    its tile path on _JACOBI_TILE_N, its block kernel above) on the
+    current stream without synchronising (and count it in
+    ``jacobi_eigh.launches``); they must be contiguous.
     """
     _check_jacobi(a, sweeps)
     if a.device.type == "cpu":

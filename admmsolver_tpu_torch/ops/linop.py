@@ -647,6 +647,10 @@ class BandedMatrix(MatrixBase):
     def to(self, device) -> "BandedMatrix":
         return BandedMatrix._of(self.offsets, self.bands.to(device), self.shape)
 
+    @property
+    def bandwidth(self) -> int:
+        return max(abs(o) for o in self.offsets)
+
     def hash(self) -> int:
         return hash((self.offsets, self.shape, matrix_hash(self.bands)))
 

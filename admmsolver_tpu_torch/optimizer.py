@@ -198,8 +198,8 @@ class ADMMPlan:
             out = t if out is None else out + t
         return out
 
-    def sweep(self, x, h, mu, factors, update_h: bool, relax: float = 1.0,
-              functions=None, batched: bool = False):
+    def sweep(self, x, h, mu, factors, update_h: bool, functions=None,
+              relax: float = 1.0, batched: bool = False):
         """One Gauss–Seidel sweep + dual ascent (optimizer.py:322-341).
 
         Returns (x_new, h_new, pair_products) where pair_products caches the
@@ -211,8 +211,9 @@ class ADMMPlan:
         relax) * (E_jk x_k_prev)`` in the later block's subproblem and in
         the dual ascent.  Fixed points are unchanged.
 
-        ``functions`` optionally replaces the block objectives; ``batched``
-        runs one instance per row of the state.
+        ``functions`` optionally replaces the block objectives (the
+        arguments are in the JAX package's order, ``batched`` last);
+        ``batched`` runs one instance per row of the state.
         """
         relax_on = float(relax) != 1.0
         if relax_on and self.npairs != 1:

@@ -124,9 +124,13 @@ fails raises and the script exits non-zero without printing a result.
    the same limit and orthogonal within 10·n·eps; its time, the plain
    version's (one call), ``torch.linalg.eigh``'s and the bound (9 n^2
    (n-1) flops a sweep and slice over the FMA peak of the type, or the
-   bytes over 3.35 TB/s).  Slices of n <= 32 take the warp path, and the
-   block kernel it replaced there is timed beside it (``prev_ms``); no warp
-   kernel may use local memory (ptxas's report in the build log).
+   bytes over 3.35 TB/s) with the SMs the grid covers.  Slices of n <= 32
+   take the warp path, 34 <= n <= 128 the tile path, and the block kernel
+   is held to the same limits and timed beside either in the same
+   CUDA-graph turns (``prev_ms``); no warp or tile kernel may use local
+   memory (ptxas's report in the build log).  10e: 8b and 8c through the
+   warp path and through the block kernel, eight solves of each in turns
+   whose order flips every pair; x of the two within WARP_VS_BLOCK_TOL.
 
 9. Multi-device on the one card.  9a, a process group of one rank through
    NCCL (a TCP store on localhost, destroyed at the end): the sharded
@@ -232,8 +236,17 @@ JACOBI_VS_EIGH_TOL = 1e-10
 # 4.9e-13 and 6.4e-9, sign 9.4e-15; the Gram route's own error grows as the
 # square of the condition of X)
 RPCA_ROUTE_TOL = {"gram": 1e-6, "sign": 1e-10, "xla": 0.0}
+# 10e: x of 8b and 8c through the block kernel against the warp path, as a
+# multiple of max|x| (H100 runs: 2.5e-12 and 1.5e-12)
+WARP_VS_BLOCK_TOL = 1e-10
 # 10d: the Jacobi kernel alone, (slices, n) in float64 and float32
-JACOBI_SHAPES = ((4096, 8), (1024, 12), (256, 32), (64, 64), (128, 96), (64, 128))
+JACOBI_SHAPES = ((4096, 8), (1024, 12), (256, 32), (256, 34), (64, 64), (128, 96), (64, 128))
+# the path the dispatch must take at each n of JACOBI_SHAPES, and beside the
+# warp and tile paths the block kernel's own mode, "shared" (A and V in one
+# block's shared memory: float64 to n = 120) but where listed
+JACOBI_MODE = {8: "warp", 12: "warp", 32: "warp", 34: "tile", 64: "tile", 96: "tile",
+               128: "tile"}
+JACOBI_BLOCK_GLOBAL = {(128, "float64")}
 JACOBI_MAIN = (128, 96, "float64")   # the kernels line's shape: 10c's Gram route
 
 
@@ -835,12 +848,13 @@ def sdp_problem(torch, k, rest, B, device):
 def phase_sdp(torch, card, device="cuda", k=SDP_K, rest=SDP_REST, B=SDP_B, niter=SDP_NITER):
     """8b. The SDP (bench_sdp)."""
     model, ov, what = sdp_problem(torch, k, rest, B, device)
-    res, _, times, launches = family_solve(
+    res, bs, times, launches = family_solve(
         torch, card, f"SDP k={k} rest={rest} {what} B={B}", model(0), ov, niter, device,
         single=model)
     least = check_psd(torch, "SDP", res.x[1], k)
     return {"res": res, "ms_per_iter": 1e3 * times[1] / niter, "jacobi_launches": launches,
-            "least_eig": least}
+            "least_eig": least, "niter": niter,
+            "solve": lambda: bs.solve(ov, niter=niter, rtol=0.0, record_residuals=False)}
 
 
 def phase_rpca(torch, card, device="cuda", m=RPCA_M, n=RPCA_N, B=RPCA_B, niter=RPCA_NITER,
@@ -855,10 +869,10 @@ def phase_rpca(torch, card, device="cuda", m=RPCA_M, n=RPCA_N, B=RPCA_B, niter=R
     Ys = L0.copy()
     mask = rng.rand(B, m, n) < 0.05
     Ys[mask] += 6.0 * rng.randn(int(mask.sum()))
-    res, _, times, launches = family_solve(
+    ov = {(1, "offset"): torch.as_tensor(Ys.reshape(B, -1), device=device)}
+    res, bs, times, launches = family_solve(
         torch, card, f"RPCA {m}x{n} B={B} svd_method={method}", rpca_model(Ys[0], svd_method=method),
-        {(1, "offset"): torch.as_tensor(Ys.reshape(B, -1), device=device)}, niter, device,
-        single=lambda b: rpca_model(Ys[b], svd_method=method), runs=runs)
+        ov, niter, device, single=lambda b: rpca_model(Ys[b], svd_method=method), runs=runs)
     L = res.x[0].cpu().numpy().reshape(B, m, n)
     rel = float(np.abs(L - L0).max() / np.abs(L0).max())
     sv = np.linalg.svd(L, compute_uv=False)
@@ -866,7 +880,8 @@ def phase_rpca(torch, card, device="cuda", m=RPCA_M, n=RPCA_N, B=RPCA_B, niter=R
     print(f"RPCA {m}x{n} {method}: max rel error of L {rel:.4f}, median effective rank {rank}, "
           f"finite {bool(np.isfinite(L).all())}", flush=True)
     return {"res": res, "ms_per_iter": 1e3 * times[-1] / niter, "max_rel_err_L": rel,
-            "rank": rank, "jacobi_launches": launches}
+            "rank": rank, "jacobi_launches": launches, "niter": niter,
+            "solve": lambda: bs.solve(ov, niter=niter, rtol=0.0, record_residuals=False)}
 
 
 def phase_group_lasso(torch, card, device="cuda", M=GL_M, N=GL_N, gs=GL_GS, B=GL_B,
@@ -1065,6 +1080,54 @@ def phase_rpca_routes(torch, card, rpca, device="cuda", m=RPCA_M, n=RPCA_N, B=RP
     return out
 
 
+def phase_warp_or_block(torch, card, fam, turns=8):
+    """10e. 8b and 8c through the Jacobi kernel's warp path (their default)
+    and through its block kernel (the warp path switched off for those
+    turns: ``_JACOBI_WARP_MAX_N = 0``) in one process: after one warm-up
+    solve of each, ``turns`` pairs of solves, the order flipped every pair
+    (warp first, then block first), host-clock ms an iteration of each
+    (median, min, max); x of a block solve against a warp solve within
+    WARP_VS_BLOCK_TOL of max|x|."""
+    from admmsolver_tpu_torch.ops import kernels
+
+    def block(solve):
+        keep = kernels._JACOBI_WARP_MAX_N
+        kernels._JACOBI_WARP_MAX_N = 0
+        try:
+            return solve()
+        finally:
+            kernels._JACOBI_WARP_MAX_N = keep
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    out = {}
+    for part, r in (("8b", fam["sdp"]), ("8c", fam["rpca"])):
+        paths = {"warp": r["solve"], "block": lambda r=r: block(r["solve"])}
+        d = max_rel_diff(paths["block"]().x, paths["warp"]().x)
+        times = {"warp": [], "block": []}
+        for turn in range(turns):
+            for name in (("warp", "block") if turn % 2 == 0 else ("block", "warp")):
+                times[name].append(1e3 * timed(paths[name]) / r["niter"])
+        out[part] = {name: {"median": float(np.median(t)), "min": min(t), "max": max(t)}
+                     for name, t in times.items()}
+        out[part]["x_diff"] = d
+        w, b = out[part]["warp"], out[part]["block"]
+        print(f"[{card}] 10e {part}: ms per iteration through the warp path median "
+              f"{w['median']:.3f} ({w['min']:.3f}-{w['max']:.3f}), through the block kernel "
+              f"{b['median']:.3f} ({b['min']:.3f}-{b['max']:.3f}), {turns} solves each in "
+              f"flipped turns; x of the two max |dx|/max|x| {d:.3e} (bound "
+              f"{WARP_VS_BLOCK_TOL:g})", flush=True)
+        if not d <= WARP_VS_BLOCK_TOL:
+            raise AssertionError(f"10e: {part} through the block kernel departs from the "
+                                 f"warp path by {d:.3e}")
+    return out
+
+
 def jacobi_bound_ms(B, n, sweeps, dtype_bits):
     """(least ms, what bounds it) for ``sweeps`` Jacobi sweeps of B slices:
     9 n^2 (n - 1) flops a sweep and slice over the FMA peak of the type, or
@@ -1075,20 +1138,25 @@ def jacobi_bound_ms(B, n, sweeps, dtype_bits):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def jacobi_warp_ptxas():
-    """{"<f|d> N": (registers, stack frame bytes, spill bytes stored and
-    loaded)} of every warp kernel, from ptxas's report in the build log
-    beside the Jacobi library."""
+def jacobi_ptxas():
+    """{"warp <f|d> N" | "tile <f|d>" | "block <f|d> MODE": (registers,
+    stack frame bytes, spill bytes stored and loaded)} of every Jacobi
+    kernel (the warp path, the tile path, the block kernel), from
+    ptxas's report in the build log beside the Jacobi library."""
     from admmsolver_tpu_torch.ops import _build
 
     log = _build._lib_path(_build.SOURCE_DIR / "jacobi_eigh.cu").with_suffix(".log")
+    kinds = (("warp", r"jacobi_warp_kernelI([df])Li(\d+)E"),
+             ("tile", r"jacobi_tile_kernelI([df])E"), ("block", r"jacobi_kernelI([df])Li(\d+)E"))
     out, entry = {}, None
     for line in log.read_text().splitlines():
-        name = re.search(r"jacobi_warp_kernelI([df])Li(\d+)E", line)
         if "Compiling entry function" in line or "Function properties for" in line:
-            entry = f"{name.group(1)} {name.group(2)}" if name else None
-            if entry:
-                out.setdefault(entry, [None, None, None])
+            entry = None
+            for kind, pattern in kinds:
+                name = re.search(pattern, line)
+                if name:
+                    entry = " ".join((kind,) + name.groups())
+                    out.setdefault(entry, [None, None, None])
         elif entry and "spill stores" in line:
             out[entry][1] = int(re.search(r"(\d+) bytes stack frame", line).group(1))
             out[entry][2] = sum(int(b) for b in re.findall(r"(\d+) bytes spill", line))
@@ -1103,23 +1171,28 @@ def phase_jacobi_alone(torch, card, device="cuda", shapes=JACOBI_SHAPES):
     eigenvalues within 10·n·eps·max|w|, inside the 100·n·eps·||A||_F asked
     of it) with its own V reconstructing A to the same limit and orthogonal
     within 10·n·eps; its time, the plain version's, the library eigh's and
-    the bound.  Slices of n <= 32 must take the warp path; beside it the
-    block kernel it replaced there (mode "shared") is timed in the same
-    turns as ``prev_ms``.  On the card, no warp kernel may spill (ptxas's
-    report)."""
+    the bound, with the SMs its grid covers.  Each n must take the path
+    JACOBI_MODE lists (the warp path to 32, the tile path from 34 to 128);
+    beside it, the block kernel in its own mode at that n ("shared", or
+    "global" at JACOBI_BLOCK_GLOBAL) is held to the same limits and timed
+    in the same turns as ``prev_ms``.  On the card no warp or tile kernel
+    may use local memory (ptxas's report); the block kernel's report is
+    printed."""
     from admmsolver_tpu_torch.ops import _build, kernels
     from admmsolver_tpu_torch.ops.linop import _jacobi_sweeps
 
     if device == "cuda":
-        ptxas = jacobi_warp_ptxas()
-        print(f"10d warp kernels, ptxas (registers, stack frame, spill bytes): {ptxas}",
+        ptxas = jacobi_ptxas()
+        print(f"10d Jacobi kernels, ptxas (registers, stack frame, spill bytes): {ptxas}",
               flush=True)
-        spilled = [key for key, (_, stack, spill) in ptxas.items() if stack or spill]
-        if len(ptxas) != 32 or spilled:
-            raise AssertionError(f"10d: {len(ptxas)} warp kernels in the build log (32 "
-                                 f"expected), spilling: {spilled}")
+        spilled = [key for key, (_, stack, spill) in ptxas.items()
+                   if not key.startswith("block") and (stack or spill)]
+        counts = {kind: sum(key.startswith(kind) for key in ptxas) for kind in ("warp", "tile")}
+        if counts != {"warp": 32, "tile": 2} or spilled:
+            raise AssertionError(f"10d: {counts} warp and tile kernels in the build log (32 "
+                                 f"and 2 expected), using local memory: {spilled}")
         lib = _build.load_libraries()["jacobi_eigh"]
-    shared = kernels._JACOBI_MODES.index("shared")
+        n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for B, n in shapes:
         for dtype in (torch.float64, torch.float32):
@@ -1127,33 +1200,52 @@ def phase_jacobi_alone(torch, card, device="cuda", shapes=JACOBI_SHAPES):
             a = rng.randn(B, n, n)
             a = torch.as_tensor(a + a.transpose(0, 2, 1), dtype=dtype, device=device)
             sweeps = _jacobi_sweeps(n, n <= 16, dtype)
-            w, v = kernels.jacobi_eigh(a, sweeps)
             wr, _ = kernels.jacobi_eigh_reference(a, sweeps)
             eps = torch.finfo(dtype).eps
             tol, orth_tol = 10 * n * eps * float(wr.abs().max()), 10 * n * eps
-            err = float((torch.sort(w).values - torch.sort(wr).values).abs().max())
-            recon = float(((v * w[:, None, :]) @ v.mT - a).abs().max())
-            orth = float((v.mT @ v - torch.eye(n, dtype=dtype, device=device)).abs().max())
             name = str(dtype).replace("torch.", "")
-            print(f"10d Jacobi ({B}, {n}, {n}) {name}: eigenvalues {err:.3e}, reconstruction "
-                  f"{recon:.3e} (bound {tol:.3e}: {max(err, recon) / tol:.3f} of it), "
-                  f"orthogonality {orth:.3e} (bound {orth_tol:.3e}: {orth / orth_tol:.3f})",
-                  flush=True)
-            if not (err <= tol and recon <= tol and orth <= orth_tol):
-                raise AssertionError(f"10d Jacobi ({B}, {n}, {n}) {name} departs from its "
-                                     "plain version")
+
+            def check(w, v, path):
+                """Errors of (w, V) against the plain version; raises past the limits."""
+                err = float((torch.sort(w).values - torch.sort(wr).values).abs().max())
+                recon = float(((v * w[:, None, :]) @ v.mT - a).abs().max())
+                orth = float((v.mT @ v - torch.eye(n, dtype=dtype, device=device)).abs().max())
+                print(f"10d Jacobi ({B}, {n}, {n}) {name}{path}: eigenvalues {err:.3e}, "
+                      f"reconstruction {recon:.3e} (bound {tol:.3e}: "
+                      f"{max(err, recon) / tol:.3f} of it), orthogonality {orth:.3e} (bound "
+                      f"{orth_tol:.3e}: {orth / orth_tol:.3f})", flush=True)
+                if not (err <= tol and recon <= tol and orth <= orth_tol):
+                    raise AssertionError(f"10d Jacobi ({B}, {n}, {n}) {name}{path} departs "
+                                         "from its plain version")
+                return err, recon, orth
+
+            err, recon, orth = check(*kernels.jacobi_eigh(a, sweeps), "")
             row = {"B": B, "n": n, "dtype": name, "sweeps": sweeps, "max_abs_err": err,
                    "recon": recon, "orth": orth, "tol": tol, "mode": "plain", "prev_ms": None}
             if device == "cuda":
-                row["mode"] = kernels._JACOBI_MODES[kernels._jacobi_mode(
-                    lib, torch.cuda.current_device(), n, dtype == torch.float64)]
-                if (row["mode"] == "warp") != (n <= 32):
-                    raise AssertionError(f"10d: n={n} takes mode {row['mode']}")
+                f64, index = dtype == torch.float64, torch.cuda.current_device()
+                row["mode"] = kernels._JACOBI_MODES[kernels._jacobi_mode(lib, index, n, f64)]
+                if row["mode"] != JACOBI_MODE[n]:
+                    raise AssertionError(f"10d: n={n} takes mode {row['mode']}, not "
+                                         f"{JACOBI_MODE[n]}")
                 fns = [lambda: kernels.jacobi_eigh(a, sweeps)]
-                if n <= 32:
-                    fns.append(lambda: kernels._jacobi_launch(a, sweeps, mode=shared))
-                times = graph_ms(torch, fns)
-                row["ms"], row["prev_ms"] = times[0], (times[1] if n <= 32 else None)
+                block = kernels._jacobi_block_mode(lib, index, n, f64)
+                row["prev_mode"] = kernels._JACOBI_MODES[block]
+                want = "global" if (n, name) in JACOBI_BLOCK_GLOBAL else "shared"
+                if row["prev_mode"] != want:
+                    raise AssertionError(f"10d: the block kernel takes mode {row['prev_mode']} "
+                                         f"at n={n} {name}, not {want}")
+                # the block kernel beside the warp and tile paths: held to the
+                # same limits, then timed in the same turns
+                prev = check(*kernels._jacobi_launch(a, sweeps, mode=block),
+                             f" block kernel ({row['prev_mode']})")
+                row["prev_max_abs_err"], row["prev_recon"], row["prev_orth"] = prev
+                fns.append(lambda: kernels._jacobi_launch(a, sweeps, mode=block))
+                times = graph_ms(torch, fns + fns[::-1])
+                row["ms"] = 0.5 * (times[0] + times[-1])
+                row["ms_turns"] = [times[0], times[-1]]
+                row["prev_ms"] = 0.5 * (times[1] + times[2])
+                row["prev_ms_turns"] = [times[1], times[2]]
                 row["call_ms"], row["library_ms"] = median_ms(
                     torch, [lambda: kernels.jacobi_eigh(a, sweeps), lambda: torch.linalg.eigh(a)])
                 # the plain version launches ~36 kernels a round: one timed call
@@ -1165,14 +1257,17 @@ def phase_jacobi_alone(torch, card, device="cuda", shapes=JACOBI_SHAPES):
                 row["plain_ms"] = start.elapsed_time(stop)
                 row["bound_ms"], row["bound_by"] = jacobi_bound_ms(B, n, sweeps,
                                                                    torch.finfo(dtype).bits)
-                prev = (f" (block kernel, mode shared: {row['prev_ms']:.4f} ms)" if n <= 32
-                        else "")
+                blocks = -(-B // (32 // n)) if row["mode"] == "warp" else B
+                row["sms"] = min(blocks, n_sms)
                 print(f"[{card}] 10d Jacobi ({B}, {n}, {n}) {name}, {sweeps} sweeps: kernel "
-                      f"mode {row['mode']} {row['ms']:.4f} ms{prev}, called eagerly "
-                      f"{row['call_ms']:.4f} ms, plain "
+                      f"mode {row['mode']} {row['ms_turns'][0]:.4f} / {row['ms_turns'][1]:.4f} "
+                      f"ms (block kernel, mode {row['prev_mode']}: "
+                      f"{row['prev_ms_turns'][0]:.4f} / {row['prev_ms_turns'][1]:.4f} ms), "
+                      f"called eagerly {row['call_ms']:.4f} ms, plain "
                       f"{row['plain_ms']:.1f} ms, torch.linalg.eigh "
                       f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
-                      f"({row['bound_by']})", flush=True)
+                      f"({row['bound_by']}) over all {n_sms} SMs, grid on {row['sms']} SMs",
+                      flush=True)
             rows.append(row)
     return rows
 
@@ -1197,6 +1292,8 @@ def phase_spectral(torch, card, fam, device="cuda"):
         missing = [part for part, count in by_part.items() if not count["per_solve"]]
         if missing:
             raise AssertionError(f"the Jacobi kernel was not launched in {missing}")
+    if device == "cuda":
+        phase_warp_or_block(torch, card, fam)
     rows = phase_jacobi_alone(torch, card, device)
     print(f"spectral phase: {time.perf_counter() - t0:.1f} s", flush=True)
     main = next(r for r in rows if (r["B"], r["n"], r["dtype"]) == JACOBI_MAIN)
@@ -1208,9 +1305,10 @@ def phase_spectral(torch, card, fam, device="cuda"):
             **{key: main.get(key) for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                               "bound_by", "library_ms")},
             "launches_by_part": by_part,
-            "shapes": [{key: r.get(key) for key in ("B", "n", "dtype", "mode", "ms", "prev_ms",
-                                                    "call_ms", "plain_ms", "bound_ms",
-                                                    "library_ms", "max_abs_err")}
+            "shapes": [{key: r.get(key) for key in ("B", "n", "dtype", "mode", "ms", "prev_mode",
+                                                    "prev_ms", "call_ms", "plain_ms",
+                                                    "bound_ms", "sms", "library_ms",
+                                                    "max_abs_err", "prev_max_abs_err")}
                        for r in rows]}
 
 

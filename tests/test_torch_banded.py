@@ -57,6 +57,16 @@ def test_banded_roundtrip_matvec_transpose():
     np.testing.assert_array_equal(D.T.bands.numpy(), np.asarray(Dj.T.bands))
 
 
+@pytest.mark.parametrize("offsets", [(0,), (-1, 0, 1), (-3, 0, 2)])
+def test_banded_bandwidth_matches_jax(offsets):
+    """``bandwidth`` is max |offset| in both packages, an asymmetric band
+    set included."""
+    rng = np.random.RandomState(3)
+    a = sum(np.diag(rng.randn(8 - abs(o)), o) for o in offsets)
+    tb, jb = TL.BandedMatrix.from_dense(a, offsets), JL.BandedMatrix.from_dense(a, offsets)
+    assert tb.bandwidth == jb.bandwidth == max(abs(o) for o in offsets)
+
+
 def test_banded_invariant_and_shift_fill():
     with pytest.raises(ValueError, match="outside the valid row range"):
         T.BandedMatrix((1,), np.ones((1, 4)), (4, 4))        # row 3 has no column 4

@@ -557,8 +557,8 @@ def _sym_batch(B, n, dtype, device, seed=0):
 
 @pytest.mark.parametrize("B,n,dtype,mode", [
     (300, 8, torch.float64, 0),         # the block kernel, A and V in shared memory
-    (16, 64, torch.float32, None),
-    (4, 128, torch.float64, None),      # float64 above 120: device memory
+    (16, 64, torch.float32, 0),
+    (4, 128, torch.float64, 1),         # the block kernel, float64 above 120: device memory
     (2, 256, torch.float32, None),      # float32 above 168: device memory
     (6, 32, torch.float64, 1),          # device memory forced at a small n
     (301, 8, torch.float64, None),      # warp path: 4 slices a warp, the last warp partly filled
@@ -569,17 +569,27 @@ def _sym_batch(B, n, dtype, device, seed=0):
     (256, 32, torch.float32, None),
     (5, 2, torch.float64, None),        # 16 slices a warp
     (6, 32, torch.float64, 0),          # the block kernel forced below the boundary
-    (4, 34, torch.float64, None),       # the first n of the block kernel
+    (4, 34, torch.float64, None),       # the first n of the tile path
+    (7, 48, torch.float32, None),       # tile path
+    (16, 64, torch.float64, None),
+    (5, 96, torch.float32, None),
+    (4, 118, torch.float64, None),
+    (4, 128, torch.float64, None),      # the last n of the tile path, float64 in shared memory
+    (4, 128, torch.float32, None),
+    (16, 64, torch.float64, 0),         # the block kernel forced inside the tile path's range
 ], ids=["shared-f64", "shared-f32", "global-f64", "global-f32", "forced-global",
         "warp-f64-partial", "warp-f32-n6", "warp-f64-n16", "warp-f32-n30", "warp-f64-n32",
-        "warp-f32-n32", "warp-f64-n2", "forced-shared-n32", "block-f64-n34"])
+        "warp-f32-n32", "warp-f64-n2", "forced-shared-n32", "block-f64-n34", "tile-f32-n48",
+        "tile-f64-n64", "tile-f32-n96", "tile-f64-n118", "tile-f64-n128", "tile-f32-n128",
+        "forced-shared-n64"])
 def test_cuda_jacobi_kernel_matches_plain_version(cuda, B, n, dtype, mode):
     """The Jacobi kernel against its plain version on the same slices at
     the default sweep count: sorted eigenvalues within 10·n·eps·max|w|, its
     own V reconstructing A to the same limit and orthogonal within
     10·n·eps; one launch counted.  (The limits follow chip_smoke.py 10d's
     readings, which it prints against them.)  Without ``mode`` the
-    dispatch picks the warp path for n <= 32 and the block kernel above."""
+    dispatch picks the warp path for n <= 32, the tile path for 34 <= n <=
+    128 and the block kernel above."""
     from admmsolver_tpu_torch.ops import kernels
     from admmsolver_tpu_torch.ops.linop import _jacobi_sweeps
 
@@ -603,6 +613,40 @@ def test_cuda_jacobi_kernel_matches_plain_version(cuda, B, n, dtype, mode):
     assert float((recon - a).abs().max()) <= tol
     eye = torch.eye(n, dtype=dtype, device=cuda)
     assert float((v.mT @ v - eye).abs().max()) <= 10 * n * eps
+
+
+@pytest.mark.parametrize("n,f64,mode,block", [
+    (34, True, "tile", "shared"), (34, False, "tile", "shared"),
+    (64, True, "tile", "shared"), (96, False, "tile", "shared"),
+    (118, True, "tile", "shared"), (128, True, "tile", "global"),
+    (128, False, "tile", "shared"), (130, True, "global", "global"),
+    (130, False, "shared", "shared")])
+def test_cuda_jacobi_dispatch_on_the_card(cuda, n, f64, mode, block):
+    """The real library's shared-memory sizes on the card: the mode the
+    dispatch takes at n and the block kernel's own mode there (A and V of
+    float64 fit a block's shared memory to n = 120 only); the tile path at
+    float64 n = 128 needs 201,216 bytes, inside the opt-in limit."""
+    from admmsolver_tpu_torch.ops import _build, kernels
+
+    lib = _build.load_libraries()["jacobi_eigh"]
+    index = torch.cuda.current_device()
+    assert kernels._JACOBI_MODES[kernels._jacobi_mode(lib, index, n, f64)] == mode
+    assert kernels._JACOBI_MODES[kernels._jacobi_block_mode(lib, index, n, f64)] == block
+    if (n, f64) == (128, True):
+        tile = kernels._JACOBI_MODES.index("tile")
+        limit = torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+        assert lib.jacobi_eigh_smem_bytes(128, 1, tile) == 201216 <= limit
+
+
+def test_cuda_jacobi_tile_path_refuses_n_outside_34_to_128(cuda):
+    """Forcing the tile path at n = 32 or n = 130 raises at the launch;
+    nothing falls back to another path."""
+    from admmsolver_tpu_torch.ops import kernels
+
+    tile = kernels._JACOBI_MODES.index("tile")
+    for n in (32, 130):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernels._jacobi_launch(_sym_batch(2, n, torch.float64, cuda), 2, mode=tile)
 
 
 def test_cuda_jacobi_warp_path_refuses_n_above_32(cuda):

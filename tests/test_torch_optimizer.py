@@ -104,6 +104,25 @@ def test_callback_relax_and_reference_api_match_jax():
     assert abs(ot(x) - oj(x)) < 1e-9
 
 
+def test_plan_sweep_takes_the_jax_argument_order():
+    """``ADMMPlan.sweep(x, h, mu, factors, update_h, functions)`` called
+    positionally in both packages on basis pursuit (A 20 x 60, mu0 = 1):
+    ``functions`` is the sixth argument in each, and three sweeps give the
+    same x and h to 1e-12."""
+    from admmsolver_tpu.optimizer import ADMMPlan as JPlan
+    from admmsolver_tpu_torch.optimizer import ADMMPlan as TPlan
+
+    jp, tp = JPlan(_model(J, "bp")), TPlan(_model(T, "bp"), device="cpu")
+    jx, jh, jmu = jp.make_initial_state(mu0=1.0)
+    tx, th, tmu = tp.make_initial_state(mu0=1.0, device="cpu")
+    jf, tf = jp.compute_factors(jmu), tp.compute_factors(tmu)
+    for _ in range(3):
+        jx, jh, _ = jp.sweep(jx, jh, jmu, jf, True, jp.model.functions)
+        tx, th, _ = tp.sweep(tx, th, tmu, tf, True, tp.model.functions)
+    for a, b in zip(tx + th, jx + jh):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-12)
+
+
 def test_converged_solve_stops_and_skips_mu_update():
     oj = J.SimpleOptimizer(_model(J, "bp"))
     ot = T.SimpleOptimizer(_model(T, "bp"), device="cpu")

@@ -273,6 +273,207 @@ def test_kernel_jacobi_dispatch_takes_the_warp_path_to_32():
     assert kernels._jacobi_threads(34, 0) == 608        # 34 * 17 in whole warps
 
 
+class _FitLib:
+    """The two functions of the Jacobi library that _jacobi_mode asks, for
+    a device on which the modes ``fits`` fit one block's shared memory and
+    no other does.  (The card test
+    ``test_cuda_jacobi_dispatch_on_the_card`` holds the real library's
+    sizes on the H100.)"""
+
+    def __init__(self, *fits):
+        self.fits = fits
+
+    @staticmethod
+    def jacobi_eigh_max_smem(device, limit):
+        limit._obj.value = 1
+        return 0
+
+    def jacobi_eigh_smem_bytes(self, n, f64, mode):
+        return 0 if kernels._JACOBI_MODES[mode] in self.fits else 2
+
+
+@pytest.mark.parametrize("n,f64,fits,mode,threads", [
+    (34, True, ("tile",), "tile", 256), (34, False, ("tile",), "tile", 256),
+    (64, True, ("tile",), "tile", 512), (96, False, ("tile",), "tile", 512),
+    (128, True, ("tile",), "tile", 768), (128, False, ("tile",), "tile", 768),
+    (130, True, ("global",), "global", 1024), (130, False, ("shared", "global"), "shared", 1024)])
+def test_kernel_jacobi_dispatch_takes_the_tile_path_from_34_to_128(n, f64, fits, mode, threads):
+    """34 <= n <= 128 asks for the tile path alone, above it the block
+    kernel, in shared memory where that fits, else in device memory; the
+    thread count the wrapper gives each.  A tile path that does not fit
+    raises rather than falling back to the block kernel."""
+    assert kernels._JACOBI_TILE_N == (34, 128)
+    got = kernels._jacobi_mode(_FitLib(*fits), 0, n, f64)
+    assert kernels._JACOBI_MODES[got] == mode
+    assert kernels._jacobi_threads(n, got) == threads
+    if mode == "tile":
+        with pytest.raises(ValueError, match="does not fit"):
+            kernels._jacobi_mode(_FitLib("shared", "global"), 0, n, f64)
+
+
+def _folded_angle(app, apq, aqq):
+    """(c, s) of the folded angle as the plain version and the kernel's
+    tile path take it: atan2, the fold to |θ| ≤ π/4, cos, sin."""
+    th = 0.5 * np.arctan2(2.0 * apq, aqq - app)
+    th = th - np.where(np.abs(th) > np.pi / 4, np.sign(th) * (np.pi / 2), 0.0)
+    return np.cos(th), np.sin(th)
+
+
+def _tile_label(t, k, n):
+    r = t - 1 - k
+    return np.where(t == 0, 0, 1 + np.where(r < 0, r + n - 1, r))
+
+
+def _tri(a, b, n):
+    lo, hi = np.minimum(a, b), np.maximum(a, b)
+    return (lo * (2 * n - lo - 1)) // 2 + hi - lo - 1
+
+
+def _tile_blocks(m):
+    """The tile path's 2x2 blocks of two pairs as csrc/jacobi_eigh.cu
+    enumerates them (u = (dl − 1)·m + i: pairs i and i + dl mod m), as
+    (lo, hi), and the pair tn of the next round whose pivot each holds
+    (−1: none)."""
+    u = np.arange(m * (m - 1) // 2)
+    i, dl = u % m, 1 + u // m
+    j = (i + dl) % m
+    lo, hi = np.minimum(i, j), np.maximum(i, j)
+    tn = np.where(hi == lo + 2, lo + 1, np.where((lo == 0) & (hi == 1), 0,
+                                                  np.where((lo == m - 2) & (hi == m - 1), m - 1, -1)))
+    return lo, hi, tn
+
+
+def _tile_partition(m):
+    """The blocks as the tile kernel deals them out: its first warps the
+    pivot block of each pair tn of the next round; the other threads the
+    other blocks, u' = 0 .. m(m-1)/2 - m - 1: u' < m the non-pivot blocks
+    of bands 1 and 2, u' >= m block u = u' + m of the circulant order."""
+    pivot = [(0 if t == 0 else m - 2 if t == m - 1 else t - 1,
+              1 if t == 0 else m - 1 if t == m - 1 else t + 1) for t in range(m)]
+    rest = []
+    for up in range(m * (m - 1) // 2 - m):
+        if up < m:
+            i = up + 1 if up < m - 3 else m - 1 if up == m - 3 else up
+            j = (i + (1 if up < m - 2 else 2)) % m
+        else:
+            u = up + m
+            i, j = u % m, (u % m + 1 + u // m) % m
+        rest.append((min(i, j), max(i, j)))
+    return pivot, rest
+
+
+def _rot_pp(app, apq, aqq, c, s):
+    return (app * c - apq * s) * c - (apq * c - aqq * s) * s
+
+
+def _rot_qq(app, apq, aqq, c, s):
+    return (app * s + apq * c) * s + (apq * s + aqq * c) * c
+
+
+def _rot_pq(app, apq, aqq, c, s):
+    return (app * s + apq * c) * c - (apq * s + aqq * c) * s
+
+
+def _tile_schedule(a, sweeps):
+    """The tile path of the CUDA kernel in numpy: A's strict upper triangle
+    (row-major, ``_tri``) rotated in place, one 2x2 block of two pairs at a
+    time in the kernel's order; the diagonal a_ll and each round's pivots
+    a_pq in tables of two parities; the block holding a pivot of the next
+    round computes that pair's diagonal entries from this round's tables,
+    its angle, and the pivot's value after the next round; V kept
+    transposed."""
+    B, n, _ = a.shape
+    m = n // 2
+    iu = np.triu_indices(n, 1)
+    A = a[:, iu[0], iu[1]].copy()
+    d = np.diagonal(a, axis1=1, axis2=2).copy()
+    Vt = np.broadcast_to(np.eye(n), (B, n, n)).copy()
+    t = np.arange(m)
+    p, q = _tile_label(t, 0, n), _tile_label(n - 1 - t, 0, n)
+    at = _tri(p, q, n)
+    app, apq, aqq = d[:, p], A[:, at], d[:, q]
+    c, s = _folded_angle(app, apq, aqq)
+    e = apq.copy()
+    A[:, at] = _rot_pq(app, apq, aqq, c, s)
+    lo, hi, tn = _tile_blocks(m)
+    piv = tn >= 0
+    L, H, TN = lo[piv], hi[piv], tn[piv]
+    q_lo, p_hi = TN == 1, TN == m - 1
+    for r in range(sweeps * (n - 1)):
+        k = r % (n - 1)
+        pi, qi = _tile_label(lo, k, n), _tile_label(n - 1 - lo, k, n)
+        pj, qj = _tile_label(hi, k, n), _tile_label(n - 1 - hi, k, n)
+        ci, si, cj, sj = c[:, lo], s[:, lo], c[:, hi], s[:, hi]
+        idx = (_tri(pi, pj, n), _tri(pi, qj, n), _tri(qi, pj, n), _tri(qi, qj, n))
+        x00, x01, x10, x11 = (A[:, ix] for ix in idx)
+        y00, y01 = x00 * cj - x01 * sj, x00 * sj + x01 * cj
+        y10, y11 = x10 * cj - x11 * sj, x10 * sj + x11 * cj
+        z00, z01 = y00 * ci - y10 * si, y01 * ci - y11 * si
+        z10, z11 = y00 * si + y10 * ci, y01 * si + y11 * ci
+        # next round's angles from its pivot blocks
+        apq_n = np.where(q_lo, z11[:, piv], np.where(p_hi, z00[:, piv], z01[:, piv]))
+        pl, ql, ph, qh = pi[piv], qi[piv], pj[piv], qj[piv]
+        args_lo = (d[:, pl], e[:, L], d[:, ql], c[:, L], s[:, L])
+        args_hi = (d[:, ph], e[:, H], d[:, qh], c[:, H], s[:, H])
+        app_n = np.where(q_lo, _rot_qq(*args_lo), _rot_pp(*args_lo))
+        aqq_n = np.where(p_hi, _rot_pp(*args_hi), _rot_qq(*args_hi))
+        cn, sn = _folded_angle(app_n, apq_n, aqq_n)
+        c2, s2, e2, d2 = (np.full_like(c, np.nan), np.full_like(s, np.nan),
+                          np.full_like(e, np.nan), np.full_like(d, np.nan))
+        c2[:, TN], s2[:, TN], e2[:, TN] = cn, sn, apq_n
+        d2[:, np.where(q_lo, ql, pl)] = app_n
+        d2[:, np.where(p_hi, ph, qh)] = aqq_n
+        pv = _rot_pq(app_n, apq_n, aqq_n, cn, sn)
+        z11[:, piv] = np.where(q_lo, pv, z11[:, piv])
+        z00[:, piv] = np.where(p_hi, pv, z00[:, piv])
+        z01[:, piv] = np.where(~q_lo & ~p_hi, pv, z01[:, piv])
+        for ix, z in zip(idx, (z00, z01, z10, z11)):
+            A[:, ix] = z
+        # V <- V G on the rows of V^T
+        j = np.arange(m)
+        pv_, qv_ = _tile_label(j, k, n), _tile_label(n - 1 - j, k, n)
+        x0, x1 = Vt[:, pv_, :], Vt[:, qv_, :]
+        cc, ss = c[:, :, None], s[:, :, None]
+        Vt[:, pv_, :], Vt[:, qv_, :] = x0 * cc - x1 * ss, x0 * ss + x1 * cc
+        c, s, e, d = c2, s2, e2, d2
+    return d, Vt.transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("n", [34, 48, 64, 96])
+def test_kernel_tile_schedule_equals_plain_version(n):
+    """The tile path (one stored triangle of A rotated in place, every pair
+    of pairs once, diagonal and pivots in tables of two parities, next
+    round's angles from this round's pivot blocks) run
+    in numpy at the default sweep count against the plain version: w to
+    1e-12·max|A| and V to 1e-11, both in label order.  Its block order
+    covers every pair of pairs once, its pivot blocks hold each pair of the
+    next round once, at the entry the schedule puts it, and the kernel's
+    split of the blocks between its first warps (the pivot blocks) and the
+    others covers each block once."""
+    m = n // 2
+    lo, hi, tn = _tile_blocks(m)
+    assert sorted(zip(lo, hi)) == [(i, j) for i in range(m) for j in range(i + 1, m)]
+    assert sorted(tn[tn >= 0]) == list(range(m))
+    pivot, rest = _tile_partition(m)
+    assert pivot == [(lo[b], hi[b]) for b in np.argsort(np.where(tn >= 0, tn, m))[:m]]
+    assert sorted(pivot + rest) == sorted(zip(lo, hi))
+    for k in range(n - 1):
+        k1 = (k + 1) % (n - 1)
+        for b in np.nonzero(tn >= 0)[0]:
+            t = tn[b]
+            nxt = (int(_tile_label(t, k1, n)), int(_tile_label(n - 1 - t, k1, n)))
+            first = _tile_label(n - 1 - lo[b] if t == 1 else lo[b], k, n)
+            second = _tile_label(hi[b] if t == m - 1 else n - 1 - hi[b], k, n)
+            assert nxt == (int(first), int(second))
+    rng = np.random.RandomState(80 + n)
+    A = _sym(rng, (3,), n)
+    sweeps = TL._jacobi_sweeps(n, False, torch.float64)
+    w, v = kernels.jacobi_eigh_reference(torch.as_tensor(A), sweeps)
+    wk, vk = _tile_schedule(A, sweeps)
+    np.testing.assert_allclose(w.numpy(), wk, rtol=0, atol=1e-12 * np.abs(A).max())
+    np.testing.assert_allclose(v.numpy(), vk, rtol=0, atol=1e-11)
+
+
 # ---------------------------------------------------------------------
 # svd_via_gram
 # ---------------------------------------------------------------------
