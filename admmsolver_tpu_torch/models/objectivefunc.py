@@ -30,6 +30,8 @@ the JAX package, so both packages iterate on the same eigenbasis.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import copy
 from typing import NamedTuple, Optional, Sequence, Union
 
@@ -54,8 +56,8 @@ from ..ops.linop import (
     svd_via_gram,
     tridiag_cr_factor,
 )
-from ..ops.prox import (_jacobi_boundary, project_nonneg, psd_project, soft_threshold,
-                        svt_sign)
+from ..ops.prox import (ROUTE_CAPTURABLE, _jacobi_boundary, project_nonneg, psd_project,
+                        psd_route, soft_threshold, svt_sign)
 
 __all__ = [
     "ObjectiveFunctionBase",
@@ -87,13 +89,55 @@ class SpectralShift(NamedTuple):
     thin: bool
 
 
+#: The device-side ``info`` of each Cholesky factorization that :func:`inv_hpd`
+#: makes inside :func:`deferred_cholesky_checks`, or None outside it.
+_DEFERRED_INFOS: contextvars.ContextVar = contextvars.ContextVar("deferred_cholesky_infos",
+                                                                 default=None)
+
+
+@contextlib.contextmanager
+def deferred_cholesky_checks():
+    """Inside the block, :func:`inv_hpd` keeps each factorization's ``info``
+    on the device (``torch.linalg.cholesky_ex``) and appends it to the list
+    this yields, where ``torch.linalg.cholesky`` would read it on the host at
+    once: a CUDA graph cannot hold that read.  The caller checks the list
+    later with :func:`raise_if_not_pd`."""
+    infos: list = []
+    token = _DEFERRED_INFOS.set(infos)
+    try:
+        yield infos
+    finally:
+        _DEFERRED_INFOS.reset(token)
+
+
+def any_not_pd(infos) -> torch.Tensor:
+    """A boolean device scalar: whether any factorization of ``infos`` (a
+    list of ``cholesky_ex`` infos) failed."""
+    return torch.stack([(info != 0).any() for info in infos]).any()
+
+
+def raise_if_not_pd(failed) -> None:
+    """Raise what ``torch.linalg.cholesky`` raises when ``failed`` (a value
+    of :func:`any_not_pd`, read on the host here) is set."""
+    if bool(failed):
+        raise torch.linalg.LinAlgError(
+            "inv_hpd: the factorization could not be completed because a matrix is not "
+            "positive-definite")
+
+
 def inv_hpd(a: torch.Tensor) -> torch.Tensor:
     """Inverse of Hermitian positive-definite matrices ``(..., n, n)`` by a
     (batched) Cholesky factorization ``a = L L†``: ``a^{-1} = L^{-†} L^{-1}``
     with ``L^{-1}`` from one batched triangular solve (the reference calls
     ``np.linalg.inv``, ``objectivefunc.py:11,94``); like the reference, a
-    matrix that is not positive definite raises."""
-    L = torch.linalg.cholesky(a)
+    matrix that is not positive definite raises: at once, or inside
+    :func:`deferred_cholesky_checks` where its caller reads the infos."""
+    infos = _DEFERRED_INFOS.get()
+    if infos is None:
+        L = torch.linalg.cholesky(a)
+    else:
+        L, info = torch.linalg.cholesky_ex(a)
+        infos.append(info)
     eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device).expand_as(a)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
     return Linv.mH @ Linv
@@ -227,6 +271,14 @@ class ObjectiveFunctionBase:
     def prox_diag(self, h, mu_diag, batched: bool = False):
         raise NotImplementedError
 
+    def capturable(self, dtype: torch.dtype, device) -> bool:
+        """Whether a CUDA graph can hold this objective's engine steps
+        (factors and prox) for a state of real ``dtype`` on ``device``: none
+        of them reads a value on the host.  Only routes of the spectral
+        proxes cannot (:data:`~admmsolver_tpu_torch.ops.prox.
+        ROUTE_CAPTURABLE`)."""
+        return True
+
 
 class _ShiftedQuadratic:
     """Shared solve machinery for blocks whose prox is ``B @ v`` with
@@ -354,14 +406,29 @@ class _ShiftedQuadratic:
             if mu_op.kind == "scalar" and self._spectral_ok():
                 thin = self._get_eig_thin() is not False and not mu_op.known_zero
                 return SpectralShift(mu_op.data, thin)
-            gram = self._AcA if isinstance(self._AcA, LaneOperators) \
-                else LaneOperators.shared(self._AcA)
-            return _inv_hpd(gram.scale(self._alpha) + mu_op)
+            total = self._lane_gram(mu_op.data.device).scale(self._alpha) + mu_op
+            # per-lane penalties of a large banded block are (B, n) arrays:
+            # the penalty goes before the factorization's transients come
+            del mu_op
+            return _inv_hpd(total)
         if isinstance(mu_op, ScaledIdentityMatrix) and self._spectral_ok():
             shift = _asarray(mu_op.coeff)
             thin = self._get_eig_thin() is not False and bool(torch.any(shift != 0))
             return SpectralShift(shift, thin)
         return _inv_hpd(add(self._AcA * self._alpha, mu_op))
+
+    def _lane_gram(self, device):
+        """A†A as lane operators on ``device``: per-lane ones as they are, a
+        shared one made once a device (made from a Python scalar it lives on
+        the host, and a captured chunk can neither copy it over nor read a
+        diagonal's values to find its structure)."""
+        if isinstance(self._AcA, LaneOperators):
+            return self._AcA
+        cache = self.__dict__.setdefault("_lane_gram_cache", {})
+        if device not in cache:
+            gram = LaneOperators.shared(self._AcA)
+            cache[device] = gram._with(gram.kind, gram.data.to(device)).with_block()
+        return cache[device]
 
     def _apply_B_rows(self, factors, rhs):
         """Lane b's B on row b of ``rhs`` (B, n)."""
@@ -602,7 +669,7 @@ class L1Regularizer(ObjectiveFunctionBase):
         alpha = _lanes(self._alpha, h) if batched else self._alpha
         thr = 0.5 * alpha / mu_diag
         if self._offset is None:
-            return soft_threshold(-(h / mu_diag), thr)
+            return soft_threshold(torch.div(h, mu_diag).neg_(), thr)
         y = _match_precision(_real_if_complex(self._offset), h)
         return y + soft_threshold(-(h / mu_diag) - y, thr)
 
@@ -889,6 +956,28 @@ class NuclearNormPenalty(ObjectiveFunctionBase):
         # fully uniform penalty required; checked at ADMMPlan build
         self.uniform_mu_group = m * n
 
+    def prox_route(self, dtype: torch.dtype, device) -> str:
+        """The route of :meth:`prox_diag` for a real state of ``dtype`` on
+        ``device`` (JAX ``objectivefunc.py:923-970``): ``"sign"``
+        (:func:`~admmsolver_tpu_torch.ops.prox.svt_sign`), ``"jacobi"`` or
+        ``"eigh"`` (the Gram route, its eigh by the Jacobi kernel up to 256
+        and the library's above) or ``"svd"`` (``torch.linalg.svd``).
+        ``"auto"`` takes the sign route on the card above the Jacobi
+        boundary, the Gram route below it, and the library SVD elsewhere."""
+        method = self._svd_method
+        if method == "auto":
+            if torch.device(device).type != "cuda":
+                return "svd"
+            method = "sign" if min(self._mn) > _jacobi_boundary(dtype) else "gram"
+        if method == "sign":
+            return "sign"
+        if method == "gram":
+            return "jacobi" if min(self._mn) <= 256 else "eigh"
+        return "svd"
+
+    def capturable(self, dtype: torch.dtype, device) -> bool:
+        return ROUTE_CAPTURABLE[self.prox_route(dtype, device)]
+
     def _svd(self, X: torch.Tensor):
         """Thin SVD by the route ``svd_method`` names (JAX
         ``objectivefunc.py:895-921``): ``"auto"`` is the Gram route for a
@@ -928,15 +1017,12 @@ class NuclearNormPenalty(ObjectiveFunctionBase):
         # one penalty a lane (uniform by contract)
         mu0 = torch.broadcast_to(mu_diag, v.shape)[..., 0]
         tau = 0.5 * _match_precision(self._alpha, h) / mu0           # () or (B,)
-        method = self._svd_method
-        if method == "auto" and not X.is_complex() and X.device.type == "cuda" \
-                and min(self._mn) > _jacobi_boundary(X.dtype):
+        route = self.prox_route(X.dtype, X.device)
+        if route == "sign":
             # above the Gram-Jacobi envelope the SVD-free polar route: the
             # threshold annihilates the polynomial's inexact small directions
-            method = "sign"
-        if method == "sign":
             return svt_sign(X, tau).reshape(v.shape)
-        U, s, Vh = self._svd(X)
+        U, s, Vh = svd_via_gram(X) if route != "svd" else torch.linalg.svd(X, full_matrices=False)
         s2 = torch.clamp_min(s - tau[..., None], 0.0)
         return ((U * s2[..., None, :].to(U.dtype)) @ Vh).reshape(v.shape)
 
@@ -970,6 +1056,10 @@ class SemiPositiveDefinitePenalty(ObjectiveFunctionBase):
         if mu is None:
             raise ValueError("mu must not be None!")
         return self.prox_diag(_asarray(h), _mu_diagonal(mu))
+
+    def capturable(self, dtype: torch.dtype, device) -> bool:
+        n = [s for i, s in enumerate(self._shape) if i != self._axis][-1]
+        return ROUTE_CAPTURABLE[psd_route(n, dtype, device)]
 
     def prox_diag(self, h, mu_diag, batched: bool = False):
         h = _real_if_complex(h)

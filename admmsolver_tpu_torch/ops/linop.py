@@ -17,6 +17,7 @@ value is a tensor.
 """
 from __future__ import annotations
 
+import math
 import numbers
 from typing import Optional, Tuple, Union
 
@@ -580,7 +581,8 @@ def _banded_rows(offsets, bands: torch.Tensor, shape, v: torch.Tensor) -> torch.
     for k, o in enumerate(offsets):
         lo, hi = _band_range(o, shape)
         if hi > lo:
-            out[..., lo:hi] += bands[..., k, lo:hi] * v[..., lo + o:hi + o]
+            # multiplied and added in place: no (B, M) product beside ``out``
+            out[..., lo:hi].addcmul_(bands[..., k, lo:hi], v[..., lo + o:hi + o])
     return out
 
 
@@ -793,23 +795,41 @@ def tridiag_cr_factor(dl, d, du) -> TridiagFactor:
     """
     dl, d, du = torch.broadcast_tensors(_asarray(dl), _asarray(d), _asarray(du))
     n = d.shape[-1]
-    # never-used corner entries must not pollute level 0
-    dl = torch.nn.functional.pad(dl[..., 1:], (1, 0))
-    du = torch.nn.functional.pad(du[..., :-1], (0, 1))
-    levels, sizes = [], []
-    while d.shape[-1] > 1:
-        m = d.shape[-1]
+    sizes, halves = [], []
+    m = n
+    while m > 1:
         sizes.append(m)
+        m = (m + m % 2) // 2
+        halves.append(m)
+    # every level's five arrays in one block, made first: the factor is one
+    # allocation rather than many among the cascade's transients
+    store = torch.empty(tuple(d.shape[:-1]) + (5, sum(halves)),
+                        dtype=torch.promote_types(torch.promote_types(dl.dtype, d.dtype),
+                                                  du.dtype), device=d.device)
+    levels, start = [], 0
+    for m, half in zip(sizes, halves):
         if m % 2:
             # a decoupled identity row keeps every level even
             d = torch.nn.functional.pad(d, (0, 1), value=1.0)
             dl = torch.nn.functional.pad(dl, (0, 1))
             du = torch.nn.functional.pad(du, (0, 1))
-        d_e, d_o = d[..., 0::2], d[..., 1::2].contiguous()
-        dl_e, dl_o = dl[..., 0::2], dl[..., 1::2].contiguous()
-        du_e, du_o = du[..., 0::2], du[..., 1::2].contiguous()
-        alpha = dl_e / _cr_prev(d_o, fill=1.0)
-        beta = du_e / d_o
+        alpha, beta, dl_o, d_o, du_o = (store[..., c, start:start + half] for c in range(5))
+        d_e, dl_e, du_e = d[..., 0::2], dl[..., 0::2], du[..., 0::2]
+        d_o.copy_(d[..., 1::2])
+        dl_o.copy_(dl[..., 1::2])
+        du_o.copy_(du[..., 1::2])
+        if not start and n % 2 == 0:
+            # the never-used corner du[n-1] as zero (in an odd n it meets
+            # only beta's last entry, set below)
+            du_o[..., -1] = 0.0
+        torch.div(dl_e, _cr_prev(d_o, fill=1.0), out=alpha)
+        torch.div(du_e, d_o, out=beta)
+        if not start:
+            # the never-used corner dl[0] as zero
+            alpha[..., 0] = 0.0
+            if n % 2:
+                beta[..., -1] = 0.0
+        start += half
         d_new = d_e - alpha * _cr_prev(du_o) - beta * dl_o
         dl_new = -alpha * _cr_prev(dl_o)
         du_new = -beta * du_o
@@ -1150,14 +1170,15 @@ def _add_bands(offs_x, bx: torch.Tensor, offs_y, by: torch.Tensor):
     shape = np.broadcast_shapes(bx.shape[:-2], by.shape[:-2]) + bx.shape[-1:]
     dt = _result_dtype(bx, by)
 
-    def row(o):
+    # each row written into its place: no row is made twice
+    out = torch.empty(tuple(shape[:-1]) + (len(offs),) + tuple(shape[-1:]), dtype=dt,
+                      device=bx.device)
+    for k, o in enumerate(offs):
         if o in px and o in py:
-            r = bx[..., px[o], :] + by[..., py[o], :]
+            torch.add(bx[..., px[o], :], by[..., py[o], :], out=out[..., k, :])
         else:
-            r = bx[..., px[o], :] if o in px else by[..., py[o], :]
-        return r.to(dt).expand(shape)
-
-    return offs, torch.stack([row(o) for o in offs], dim=-2)
+            out[..., k, :] = bx[..., px[o], :] if o in px else by[..., py[o], :]
+    return offs, out
 
 
 class LaneOperators:
@@ -1173,14 +1194,21 @@ class LaneOperators:
     JAX package maps the structured operators over the batch: ``scale`` and
     ``+`` keep the cheapest structure that holds the result, as :func:`add`
     does, and densify only where none does.  ``known_zero`` marks the
-    penalty of a block without couplings.
+    penalty of a block without couplings.  ``block`` (kind ``"diag"``): a
+    width w, dividing n, such that every lane's diagonal is known to be
+    constant on each run ``[i w, (i + 1) w)`` (1: nothing known beyond the
+    trivial), or None where no one has looked; it decides ``kron + diag``
+    without reading values (:meth:`with_block` sets it where an operator is
+    made once: the penalty terms and the Gram of a batched solve, whose
+    structure no iteration changes).
     """
 
     _NDIM = {"scalar": 1, "diag": 2, "banded": 3, "kron": 3, "dense": 3}
     _RANK = {"scalar": 0, "diag": 1, "banded": 2, "kron": 3, "dense": 4}
 
     def __init__(self, kind: str, data: torch.Tensor, n: int,
-                 known_zero: bool = False, rest: int = 1, offsets=()) -> None:
+                 known_zero: bool = False, rest: int = 1, offsets=(),
+                 block: Optional[int] = None) -> None:
         if data.ndim != self._NDIM[kind]:
             raise ValueError(f"{kind} lane operators need {self._NDIM[kind]}-D data, "
                              f"got {tuple(data.shape)}")
@@ -1192,6 +1220,7 @@ class LaneOperators:
         self.kind, self.data, self.n, self.known_zero = kind, data, int(n), known_zero
         self.rest = int(rest)
         self.offsets = tuple(offsets) if kind == "banded" else ()
+        self.block = block if kind == "diag" else None
 
     @classmethod
     def shared(cls, op: MatrixBase) -> "LaneOperators":
@@ -1220,7 +1249,28 @@ class LaneOperators:
 
     def _with(self, kind: str, data: torch.Tensor) -> "LaneOperators":
         return LaneOperators(kind, data, self.n, rest=self.rest if kind == "kron" else 1,
-                             offsets=self.offsets if kind == "banded" else ())
+                             offsets=self.offsets if kind == "banded" else (),
+                             block=self.block if kind == self.kind else None)
+
+    def blockwise_constant(self, width: int) -> bool:
+        """Whether every lane's diagonal (kind ``"diag"``) is constant over
+        each run of ``width`` entries: from ``block`` where it is known,
+        else read from the values (a host read)."""
+        if self.block is not None:
+            return self.block % width == 0
+        blocks = self.data.reshape(self.data.shape[0], -1, width)
+        return bool((blocks == blocks[..., :1]).all())
+
+    def with_block(self) -> "LaneOperators":
+        """This operator with ``block`` set, for kind ``"diag"``, to the
+        widest run its values are constant on (host reads: once, where the
+        operator is made); the widths that hold are the divisors of it."""
+        if self.kind != "diag" or self.block is not None:
+            return self
+        out = self._with(self.kind, self.data)
+        out.block = next(w for w in range(self.n, 0, -1)
+                         if self.n % w == 0 and self.blockwise_constant(w))
+        return out
 
     def scale(self, c) -> "LaneOperators":
         """Every lane's operator times its coefficient (scalar or ``(B,)``);
@@ -1262,14 +1312,19 @@ class LaneOperators:
             if lo.kind == "scalar":
                 eye = torch.eye(m, dtype=hi.data.dtype, device=hi.data.device)
                 return hi._with("kron", hi.data + lo.data[:, None, None] * eye)
-            if lo.kind == "diag":
+            if lo.kind == "diag" and lo.blockwise_constant(hi.rest):
                 # G ⊗ I + D stays Kronecker where D is constant over each
                 # block of rest entries (the check of :func:`add`)
-                blocks = lo.data.reshape(lo.data.shape[0], m, hi.rest)
-                if bool((blocks == blocks[..., :1]).all()):
-                    return hi._with("kron", hi.data + torch.diag_embed(blocks[..., 0]))
+                first = lo.data.reshape(lo.data.shape[0], m, hi.rest)[..., 0]
+                return hi._with("kron", hi.data + torch.diag_embed(first))
             return LaneOperators("dense", lo._as("dense") + hi._as("dense"), self.n)
-        return LaneOperators(hi.kind, lo._as(hi.kind) + hi.data, self.n)
+        block = None
+        if hi.kind == "diag":
+            # a scalar is constant over the whole diagonal
+            lo_block = self.n if lo.kind == "scalar" else lo.block
+            if hi.block is not None and lo_block is not None:
+                block = math.gcd(hi.block, lo_block)
+        return LaneOperators(hi.kind, lo._as(hi.kind) + hi.data, self.n, block=block)
 
     def matvec_rows(self, v):
         """Lane b's operator on row b of ``v`` (B, n)."""

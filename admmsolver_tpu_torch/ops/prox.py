@@ -10,7 +10,7 @@ from typing import Sequence
 import torch
 
 __all__ = ["soft_threshold", "project_nonneg", "psd_project", "psd_project_sign",
-           "svt_sign"]
+           "svt_sign", "psd_route", "ROUTE_CAPTURABLE"]
 
 
 def soft_threshold(y: torch.Tensor, lam) -> torch.Tensor:
@@ -19,7 +19,9 @@ def soft_threshold(y: torch.Tensor, lam) -> torch.Tensor:
     ``y - lam`` where ``y > lam``; ``y + lam`` where ``y < -lam``; else 0
     (``objectivefunc.py:335-355``).
     """
-    return torch.sign(y) * torch.clamp_min(torch.abs(y) - lam, 0.0)
+    shrunk = torch.abs(y) - lam
+    # in place on the one temporary: the values of sign(y) * max(|y| - lam, 0)
+    return shrunk.clamp_min_(0.0).mul_(torch.sign(y))
 
 
 def project_nonneg(x: torch.Tensor) -> torch.Tensor:
@@ -79,11 +81,38 @@ def _jacobi_boundary(dtype: torch.dtype) -> int:
     return JACOBI_MAX_N
 
 
-def _sign_active(x: torch.Tensor) -> bool:
-    """Whether the sign route is on for operand ``x``: the JAX package's
-    ``jax.default_backend() == "tpu"`` reads "x is on a CUDA device"."""
+def _sign_active(where) -> bool:
+    """Whether the sign route is on for an operand ``where`` (a tensor or its
+    device): the JAX package's ``jax.default_backend() == "tpu"`` reads "the
+    operand is on a CUDA device"."""
+    device = where.device if isinstance(where, torch.Tensor) else torch.device(where)
     return USE_SIGN_ABOVE_JACOBI == "always" or (
-        bool(USE_SIGN_ABOVE_JACOBI) and x.device.type == "cuda")
+        bool(USE_SIGN_ABOVE_JACOBI) and device.type == "cuda")
+
+
+#: Whether a CUDA graph can hold each route of the spectral proxes (the
+#: batched engine captures a chunk only where every route it takes can):
+#: the Jacobi kernel and the matrix sign are launches and products only; the
+#: library eigh and SVD read their ``info`` on the host (a sync, which a
+#: capture refuses) and have no ``_ex`` form.  The nuclear prox's routes are
+#: :meth:`~admmsolver_tpu_torch.models.objectivefunc.NuclearNormPenalty.
+#: prox_route`'s.
+ROUTE_CAPTURABLE = {"jacobi": True, "sign": True, "eigh": False, "complex_eigh": False,
+                    "svd": False}
+
+
+def psd_route(n: int, dtype: torch.dtype, device) -> str:
+    """The route :func:`_psd_project_herm` takes for Hermitian slices of
+    n × n of ``dtype`` on ``device``: real slices ``"jacobi"`` (n at most
+    the boundary), ``"sign"`` above it where :func:`_sign_active`, else
+    ``"eigh"``; complex slices the real route of their 2n × 2n embedding
+    where that is not ``"eigh"``, else ``"complex_eigh"``."""
+    if dtype.is_complex:
+        real = psd_route(2 * n, dtype.to_real(), device)
+        return "complex_eigh" if real == "eigh" else real
+    if n <= _jacobi_boundary(dtype):
+        return "jacobi"
+    return "sign" if _sign_active(device) else "eigh"
 
 
 # Matrix-sign polynomial schedules (quintic steps, cubic steps) by float
@@ -175,7 +204,8 @@ def _rebuild(w: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
 
 def _psd_project_herm(herm: torch.Tensor) -> torch.Tensor:
     """PSD projection of exactly Hermitian slices (K, n, n), by the JAX
-    package's dispatch (``prox.py:193-250``), branch for branch.
+    package's dispatch (``prox.py:193-250``), branch for branch
+    (:func:`psd_route`).
 
     Real n <= :func:`_jacobi_boundary`: :func:`~..linop.jacobi_eigh`
     unsorted, then the rebuild.  Larger real slices: :func:`psd_project_sign`
@@ -187,17 +217,18 @@ def _psd_project_herm(herm: torch.Tensor) -> torch.Tensor:
     from .linop import jacobi_eigh
 
     n = herm.shape[-1]
+    route = psd_route(n, herm.dtype, herm.device)
     if herm.is_complex():
-        if 2 * n <= _jacobi_boundary(herm.real.dtype) or _sign_active(herm):
-            X, Y = herm.real, herm.imag
-            R = torch.cat([torch.cat([X, -Y], dim=-1), torch.cat([Y, X], dim=-1)], dim=-2)
-            Rp = _psd_project_herm(R)
-            Xp = 0.5 * (Rp[..., :n, :n] + Rp[..., n:, n:])
-            Yp = 0.5 * (Rp[..., n:, :n] - Rp[..., :n, n:])
-            return torch.complex(Xp, Yp)
-        return _rebuild(*torch.linalg.eigh(herm))
-    if n <= _jacobi_boundary(herm.dtype):
+        if route == "complex_eigh":
+            return _rebuild(*torch.linalg.eigh(herm))
+        X, Y = herm.real, herm.imag
+        R = torch.cat([torch.cat([X, -Y], dim=-1), torch.cat([Y, X], dim=-1)], dim=-2)
+        Rp = _psd_project_herm(R)
+        Xp = 0.5 * (Rp[..., :n, :n] + Rp[..., n:, n:])
+        Yp = 0.5 * (Rp[..., n:, :n] - Rp[..., :n, n:])
+        return torch.complex(Xp, Yp)
+    if route == "jacobi":
         return _rebuild(*jacobi_eigh(herm, sort=False))
-    if _sign_active(herm):
+    if route == "sign":
         return psd_project_sign(herm)
     return _rebuild(*torch.linalg.eigh(herm))

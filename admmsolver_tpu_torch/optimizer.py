@@ -28,8 +28,6 @@ package maps over the batch).
 """
 from __future__ import annotations
 
-import functools
-import operator
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -59,12 +57,41 @@ def _apply(op: MatrixBase, v: torch.Tensor, batched: bool) -> torch.Tensor:
     return op.matvec_rows(v) if batched else op @ v
 
 
+def _write_column(buf: torch.Tensor, idx, active: torch.Tensor, value) -> None:
+    """``buf[:, idx] = where(active, value, buf[:, idx])`` in place; ``idx``
+    an int or a (1,) index tensor on ``buf``'s device (the slot of a
+    captured chunk, which steps it on the device)."""
+    if isinstance(idx, torch.Tensor):
+        old = buf.index_select(1, idx)[:, 0]
+        buf.index_copy_(1, idx, torch.where(active, value, old)[:, None])
+    else:
+        buf[:, idx] = torch.where(active, value, buf[:, idx])
+
+
+def _shared_penalty(ece2: MatrixBase, device) -> LaneOperators:
+    """A penalty term ``ece2`` as lane operators that every lane shares, on
+    ``device``; a diagonal one with its ``block`` found
+    (:meth:`~admmsolver_tpu_torch.ops.linop.LaneOperators.with_block`), so
+    that no refactor reads its values."""
+    op = LaneOperators.shared(ece2)
+    return op._with(op.kind, op.data.to(device)).with_block()
+
+
 def _has_complex(v) -> bool:
     if isinstance(v, torch.Tensor):
         return v.is_complex()
     if isinstance(v, MatrixBase):
         return any(_has_complex(a) for a in vars(v).values())
     return isinstance(v, (complex, np.complexfloating))
+
+
+def _sum_taken(terms: list):
+    """``terms[0] + terms[1] + ...`` in that order, taking each term out of
+    the list: once summed, no term is referenced from here."""
+    total = terms.pop(0)
+    while terms:
+        total = total + terms.pop(0)
+    return total
 
 
 class ADMMPlan:
@@ -94,6 +121,9 @@ class ADMMPlan:
         # Per-block k: penalty terms (pair_idx, EcE2[(i,k)])
         # (optimizer.py:209-230).
         self.mu_terms: List[List[Tuple[int, MatrixBase]]] = []
+        # The same terms as lane operators, by device, made at the first
+        # batched refactor (:meth:`_lane_penalties`).
+        self._mu_lanes: Dict[torch.device, List[List[Tuple[int, LaneOperators]]]] = {}
         # For diagonal-penalty blocks: (pair_idx, effective diagonal vector).
         self.mu_diag_terms: List[Optional[List[Tuple[int, torch.Tensor]]]] = []
 
@@ -129,7 +159,13 @@ class ADMMPlan:
                             f"block {k} has no diagonal interpretation "
                             "(reference assert at objectivefunc.py:187,296)")
                     # E†E is Hermitian: its diagonal is real
-                    diag_terms.append((p_idx, (d.real if d.is_complex() else d).to(device)))
+                    d = (d.real if d.is_complex() else d).to(device)
+                    if d.ndim == 1 and d.numel() > 1 and bool((d == d[:1]).all()):
+                        # a uniform diagonal (an identity coupling) as one
+                        # entry: the penalty broadcasts to the same values
+                        # without a (B, n) array of them
+                        d = d[:1].clone()
+                    diag_terms.append((p_idx, d))
                 self._check_uniform_mu(k, f, diag_terms)
                 self.mu_diag_terms.append(diag_terms)
             else:
@@ -163,6 +199,16 @@ class ADMMPlan:
                     "couple this block through identity/ScaledIdentity "
                     "operators")
 
+    def _lane_penalties(self, k: int, device) -> List[Tuple[int, LaneOperators]]:
+        """Block k's penalty terms as shared lane operators on ``device``
+        (:func:`_shared_penalty`), made once a device."""
+        if device not in self._mu_lanes:
+            fs = self.model.functions
+            self._mu_lanes[device] = [
+                [(p_idx, _shared_penalty(ece2, device)) for p_idx, ece2 in terms]
+                if fs[j].is_quadratic else [] for j, terms in enumerate(self.mu_terms)]
+        return self._mu_lanes[device][k]
+
     # ------------------------------------------------------------------
     # Functions of one iteration
     # ------------------------------------------------------------------
@@ -178,15 +224,15 @@ class ADMMPlan:
                 factors.append(())
                 continue
             if batched:
-                terms = [LaneOperators.shared(ece2).scale(mu[:, p_idx])
-                         for p_idx, ece2 in self.mu_terms[k]]
+                terms = [op.scale(mu[:, p_idx])
+                         for p_idx, op in self._lane_penalties(k, mu.device)]
                 zero = LaneOperators("scalar", mu.new_zeros(1), f.size_x, known_zero=True)
             else:
                 terms = [ece2 * mu[p_idx] for p_idx, ece2 in self.mu_terms[k]]
                 zero = ScaledIdentityMatrix(f.size_x, 0.0)
-            # MatrixBase and LaneOperators both add through ``+``
-            mu_op = functools.reduce(operator.add, terms) if terms else zero
-            factors.append(f.make_factors(mu_op))
+            # MatrixBase and LaneOperators both add through ``+``; the sum is
+            # passed on unnamed, so that make_factors can drop it once used
+            factors.append(f.make_factors(_sum_taken(terms) if terms else zero))
         return tuple(factors)
 
     def mu_diag(self, k: int, mu, batched: bool = False):
@@ -249,6 +295,7 @@ class ADMMPlan:
             else:
                 xk = f.solve(hk, None)
             x_new[k] = xk.to(x[k].dtype)
+            hk = xk = None
 
         # Shared per-pair products: p1 = E_ij x_j, p2 = E_ji x_i.
         p1s, p2s = [], []
@@ -266,7 +313,8 @@ class ADMMPlan:
                 if relax_on:
                     p1 = (relax * p1
                           + (1.0 - relax) * _apply(self.E_ji[idx], x[i], batched))
-                h_new[idx] = h[idx] + mu_of(idx) * (p2s[idx] - p1)
+                # the values of h + mu * (p2 - p1), made in one array
+                h_new[idx] = (p2s[idx] - p1).mul_(mu_of(idx)).add_(h[idx])
 
         return tuple(x_new), tuple(h_new), (p1s, p2s)
 
@@ -284,24 +332,33 @@ class ADMMPlan:
             p2s = [_apply(self.E_ji[idx], x_new[i], batched)
                    for idx, (i, j) in enumerate(self.pairs)]
         else:
+            # the sweep's lists, emptied below as their products are used
             p1s, p2s = pair_products
 
         norm = _row_norm if batched else _norm
         primal_norms, dual_norms, convs = [], [], []
         for idx, (i, j) in enumerate(self.pairs):
             p1, p2 = p1s[idx], p2s[idx]
+            # the products' last use: the lists let go of them, so that they
+            # go once used (a pair's arrays are (B, n) each)
+            p1s[idx] = p2s[idx] = None
             mu_p = mu[:, idx, None] if batched else mu[idx]
             pn = norm(p1 - p2)
+            n_p1, n_p2 = norm(p1), norm(p2)
+            dual1 = mu_p * _apply(self.E_ji[idx], p1, batched)
+            del p1, p2
+            n_dual1 = norm(dual1)
             # dual residual: mu * E[j,i] @ E[i,j] @ (x_j - x_j_old)
             d_dual = mu_p * _apply(self.E_ji[idx], _apply(
                 self.E_ij[idx], x_new[j] - x_old[j], batched), batched)
-            dual1 = mu_p * _apply(self.E_ji[idx], p1, batched)
-            dual2 = dual1 - d_dual
             dn = norm(d_dual)
+            # dual2 = dual1 - d_dual, made in dual1's place once its norm is taken
+            n_dual2 = norm(dual1.sub_(d_dual))
+            del d_dual, dual1
             primal_norms.append(pn)
             dual_norms.append(dn)
-            convs.append((pn / torch.maximum(norm(p1), norm(p2)),
-                          dn / torch.maximum(norm(dual1), norm(dual2))))
+            convs.append((pn / torch.maximum(n_p1, n_p2),
+                          dn / torch.maximum(n_dual1, n_dual2)))
         return primal_norms, dual_norms, convs
 
     def updated_mu(self, mu, primal_norms, dual_norms,
@@ -324,7 +381,8 @@ class ADMMPlan:
         ``carry`` = (x, h, mu, factors, done, count, primal_buf, dual_buf)
         with a leading batch axis: ``done``/``count`` (B,), the histories
         (B, hist); the JAX package also carries the previous x, which
-        nothing reads.  ``buf_idx`` is the history column to write,
+        nothing reads.  ``buf_idx`` is the history column to write (an int,
+        or a (1,) index tensor on the state's device),
         ``global_it`` drives the penalty-update schedule.  Finished lanes
         are frozen; the caller refactorizes.  With
         ``compute_residuals=False`` this is the sweep-only iteration of the
@@ -365,12 +423,12 @@ class ADMMPlan:
                 conv = conv & (rp < rtol) & (rd < rtol)
             # Optional absolute-residual stop (atol=0 disables it).
             conv = conv | ((primal < atol) & (dual < atol))
-            pbuf[:, buf_idx] = torch.where(active, primal.to(pbuf.dtype), pbuf[:, buf_idx])
-            dbuf[:, buf_idx] = torch.where(active, dual.to(dbuf.dtype), dbuf[:, buf_idx])
+            _write_column(pbuf, buf_idx, active, primal.to(pbuf.dtype))
+            _write_column(dbuf, buf_idx, active, dual.to(dbuf.dtype))
         else:
             conv = torch.ones_like(done)
-            pbuf[:, buf_idx] = torch.where(active, 0.0, pbuf[:, buf_idx])
-            dbuf[:, buf_idx] = torch.where(active, 0.0, dbuf[:, buf_idx])
+            _write_column(pbuf, buf_idx, active, 0.0)
+            _write_column(dbuf, buf_idx, active, 0.0)
         done_new = done | conv
 
         # The mu update fires on the reference schedule (optimizer.py:

@@ -18,6 +18,17 @@ the batched analogue of the reference's hash-keyed cache
 the done flags once per chunk, never per iteration, and not at all when no
 lane can finish (``rtol <= 0`` and ``atol <= 0``).
 
+The chunks after iteration 0 run through a static chunk program
+(:class:`_ChunkProgram`, the JAX package's one compiled program of a solve,
+``batch.py:251-470``): fixed buffers for the state, the chunk's work over
+them, and on a CUDA device one captured CUDA graph a chunk length, replayed
+once a chunk.  A solver keeps its programs in a cache like the JAX
+package's (:data:`PROGRAM_CACHE_SIZE`, the oldest dropped first), and their
+graphs in one memory pool (:class:`_GraphPool`).  The chunk runs directly,
+without a graph, on the CPU, with :data:`CAPTURE_CHUNKS` off, and for a
+model with a route that a graph cannot hold (:meth:`~admmsolver_tpu_torch.
+models.objectivefunc.ObjectiveFunctionBase.capturable`).
+
 Sharding (``sharding=batch_sharding(mesh)``): each rank of the mesh solves
 its block of lanes on its own device, and the only collective of a solve is
 the exit predicate: where the host reads the done flags, every rank sums its
@@ -26,19 +37,32 @@ same chunks.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple, Union
+import gc
+import time
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..config import ADMMConfig
+from ..models.objectivefunc import any_not_pd, deferred_cholesky_checks, raise_if_not_pd
 from ..models.problem import Model
 from ..optimizer import ADMMPlan
-from ..ops.linop import _asarray, _real_dtype
+from ..ops.linop import LaneOperators, _asarray, _real_dtype
 from ..utils import telemetry
 
 __all__ = ["BatchedSolver", "BatchResult"]
+
+#: Whether solves on a CUDA device replay their chunks as captured graphs;
+#: False runs each chunk of the program directly, as on the CPU.
+#: ``chip_smoke.py`` and the card's tests set it for their comparisons.
+CAPTURE_CHUNKS = True
+#: Chunk programs a solver keeps, the oldest dropped first (the JAX
+#: package's ``_compiled_cache``, ``batch.py:141,261-262``).
+PROGRAM_CACHE_SIZE = 32
 
 
 def _as_dtype(dtype) -> torch.dtype:
@@ -159,6 +183,268 @@ def _pad_last(a: torch.Tensor, pad_n: int) -> torch.Tensor:
     return torch.cat([a, a[-1:].expand((pad_n,) + tuple(a.shape[1:]))])
 
 
+def _route_switches() -> tuple:
+    """The module constants that choose a spectral route or a path of the
+    Jacobi kernel: a captured graph keeps what they chose at its capture."""
+    from ..ops import kernels, prox
+
+    return (prox.USE_SIGN_ABOVE_JACOBI, prox.JACOBI_MAX_N, prox.JACOBI_MAX_N_F32,
+            tuple(sorted(prox.SIGN_SCHEDULES.items())), kernels._JACOBI_WARP_MAX_N,
+            kernels._JACOBI_TILE_N)
+
+
+def _counted_kernels() -> tuple:
+    """The kernel wrappers that count their launches."""
+    from ..ops import kernels
+
+    return (kernels.jacobi_eigh, kernels.fused_two_block_chunk, kernels.fused_spm_chunk)
+
+
+def _leaves(v) -> List[torch.Tensor]:
+    """The tensors of an objective's field (a tensor, lane operators, or a
+    tuple or list of them) in a fixed order."""
+    if isinstance(v, torch.Tensor):
+        return [v]
+    if isinstance(v, LaneOperators):
+        return [v.data]
+    if isinstance(v, (tuple, list)):
+        return [t for a in v for t in _leaves(a)]
+    return []
+
+
+def _fresh(v):
+    """``v`` with every tensor of it a new contiguous copy."""
+    if isinstance(v, torch.Tensor):
+        return v.clone(memory_format=torch.contiguous_format)
+    if isinstance(v, LaneOperators):
+        out = copy.copy(v)
+        out.data = _fresh(v.data)
+        return out
+    if isinstance(v, (tuple, list)):
+        return type(v)(_fresh(a) for a in v)
+    return v
+
+
+class _GraphPool:
+    """The memory of a solver's chunk graphs on one CUDA device: one
+    ``torch.cuda.MemPool`` that every program of the solver captures into
+    (their replays run one after another on the solver's stream, and no
+    tensor of the pool outlives a capture), the side stream the captures
+    run on, and the bytes the pool reserved.  The eager work of a solve
+    whose program is warm (iteration 0, chunks without a graph) allocates
+    from the pool too (:meth:`allocating`), so that a solver holds one
+    working set of a solve, not one in the pool and one beside it."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = torch.device("cuda", torch.cuda.current_device()) \
+            if device.index is None else device
+        self.stream = torch.cuda.Stream(self.device)
+        self.mempool = torch.cuda.MemPool()
+        #: the device memory the pool's captures reserved
+        self.bytes = 0
+
+    @contextlib.contextmanager
+    def on_stream(self):
+        """The pool's stream, ordered after and before the current one."""
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        try:
+            with torch.cuda.stream(self.stream):
+                yield
+        finally:
+            current.wait_stream(self.stream)
+
+    @contextlib.contextmanager
+    def allocating(self):
+        """Work on the pool's stream with its allocations from the pool:
+        the tensors made inside must be dead before the next replay."""
+        with self.on_stream(), torch.cuda.use_mem_pool(self.mempool, self.device):
+            yield
+
+
+class _ChunkProgram:
+    """The static chunk program of one cache key: the counterpart of the JAX
+    package's compiled ``_build`` (``batch.py:345-470``) from the chunk after
+    iteration 0 on.
+
+    It owns the buffers a chunk reads and writes: the state x, h, mu, done,
+    count and the histories, the per-solve fields of the bound objectives
+    (overrides and what the prologue derives from them), the tolerances and
+    the first global iteration of the chunk, all loaded per solve
+    (:meth:`load`).  A chunk (:meth:`_chunk`) refactors from mu, runs its
+    iterations and copies the results into the buffers; the factors live
+    only inside it, so that old and new factors never coexist.  The penalty
+    update fires at the chunk's last position only in a full chunk, so one
+    program of each length serves every chunk of a solve; the history slot
+    of each iteration is computed on the device.  The Cholesky
+    factorizations keep their info on the device
+    (:func:`~admmsolver_tpu_torch.models.objectivefunc.deferred_cholesky_checks`),
+    gathered in :attr:`failed`.
+
+    On a CUDA device a captured solve runs the program's first chunk
+    eagerly (libraries load, the objectives fill their caches), then
+    captures each chunk length once into a graph of the solver's pool
+    (:class:`_GraphPool`) and replays it once a chunk; a replay adds the
+    kernel launches its capture counted.  Otherwise (the CPU,
+    :data:`CAPTURE_CHUNKS` off, a route a graph cannot hold) the chunk runs
+    directly.
+    """
+
+    def __init__(self, plan: ADMMPlan, cfg: ADMMConfig, template, functions, carry,
+                 record: bool, stride: int, chunked_checks: bool, freeze: bool) -> None:
+        self.plan, self.cfg = plan, cfg
+        self.chunked_checks, self.freeze = chunked_checks, freeze
+        # the fields a solve supplies: those its bound objectives do not share
+        # with the template
+        self._fields = [(k, name) for k, (f, t) in enumerate(zip(functions, template))
+                        if f is not t for name, v in vars(f).items()
+                        if v is not vars(t).get(name) and _leaves(v)]
+        self.functions = list(functions)
+        for k in {k for k, _ in self._fields}:
+            self.functions[k] = copy.copy(functions[k])
+        for k, name in self._fields:
+            setattr(self.functions[k], name, _fresh(getattr(functions[k], name)))
+        x, h, mu, _, done, count, pbuf, dbuf = carry
+        self.x, self.h = tuple(map(_fresh, x)), tuple(map(_fresh, h))
+        self.mu, self.done, self.count, self.pbuf, self.dbuf = map(
+            _fresh, (mu, done, count, pbuf, dbuf))
+        dev = mu.device
+        self.tols = (mu.new_zeros(()), mu.new_zeros(()))
+        self.record, self.stride = record, stride
+        # the first global iteration of the chunk, and the chunk's offsets
+        self.it = torch.ones(1, dtype=torch.long, device=dev)
+        self.steps = torch.arange(cfg.interval_update_mu, device=dev)
+        self.failed = torch.zeros((), dtype=torch.bool, device=dev)
+        self.checks = False
+        self.warm = False
+        #: chunk length -> (graph, kernel launches of one replay)
+        self.graphs: Dict[int, tuple] = {}
+        #: host seconds of each length's capture
+        self.capture_s: Dict[int, float] = {}
+
+    def load(self, functions, carry, tols, infos) -> None:
+        """A solve's inputs into the buffers: its objectives' fields, the
+        state after iteration 0, the tolerances and the infos of iteration
+        0's factorizations (on the pool's stream when the solve's eager
+        work allocates from it: nothing here allocates a lasting tensor)."""
+        for k, name in self._fields:
+            dst = _leaves(getattr(self.functions[k], name))
+            src = _leaves(getattr(functions[k], name))
+            if [t.shape for t in dst] != [t.shape for t in src]:
+                raise ValueError(f"block {k} field {name}: the solve's tensors do not fit "
+                                 "the program's")
+            for d, t in zip(dst, src):
+                d.copy_(t)
+        x, h, mu, _, done, count, pbuf, dbuf = carry
+        self.hist = pbuf.shape[1]
+        for d, t in zip(self.x + self.h + (self.mu, self.done, self.count,
+                                           self.pbuf[:, :self.hist], self.dbuf[:, :self.hist]),
+                        x + h + (mu, done, count, pbuf, dbuf)):
+            d.copy_(t)
+        for d, t in zip(self.tols, tols):
+            d.fill_(t)
+        self.it.fill_(1)
+        self.failed.fill_(False)
+        if infos:
+            self.checks = True
+            self.failed.logical_or_(any_not_pd(infos))
+
+    def reserve(self, hist: int) -> None:
+        """History buffers of at least ``hist`` columns: longer ones than the
+        program holds are new buffers, and so need new graphs."""
+        if hist > self.pbuf.shape[1]:
+            self.pbuf, self.dbuf = (torch.full((self.pbuf.shape[0], hist), float("nan"),
+                                               dtype=self.pbuf.dtype, device=self.pbuf.device)
+                                    for _ in range(2))
+            self.graphs.clear()
+
+    def _chunk(self, n: int) -> None:
+        """Refactor from mu, then ``n`` iterations, their results copied
+        into the buffers.  The penalty schedule repeats every chunk, so the
+        iterations take the first chunk's global indices 1..n."""
+        plan, cfg = self.plan, self.cfg
+        with deferred_cholesky_checks() as infos:
+            factors = plan.compute_factors(self.mu, self.functions, batched=True)
+        if infos:
+            self.checks = True
+            self.failed.logical_or_(any_not_pd(infos))
+        carry = (self.x, self.h, self.mu, factors, self.done, self.count, self.pbuf, self.dbuf)
+        slots = torch.div(self.it + self.steps[:n], self.stride,
+                          rounding_mode="floor") if self.record else None
+        last = cfg.interval_update_mu - 1
+        for j in range(n):
+            # each iteration steps the buffers: the previous state is theirs,
+            # so a chunk holds one new state at a time beside them
+            x, h, mu, _, done, count = plan.iteration(
+                carry, slots[j:j + 1] if self.record else 0, 1 + j, cfg, self.tols,
+                self.functions, compute_residuals=not self.chunked_checks or j == last,
+                freeze=self.freeze)[:6]
+            for d, t in zip(self.x + self.h + (self.mu, self.done, self.count),
+                            x + h + (mu, done, count)):
+                d.copy_(t)
+            del x, h, mu, done, count
+        self.it.add_(cfg.interval_update_mu)
+
+    def run(self, n: int, capture: bool, pool: Optional[_GraphPool]) -> None:
+        """One chunk of ``n`` iterations: with ``capture`` (and ``pool``) a
+        replay of its graph, once the program is warm; else the chunk
+        itself, from ``pool`` where there is one and the program is warm."""
+        if not (capture and self.warm):
+            if pool is None:
+                self._chunk(n)
+            else:
+                with pool.allocating() if self.warm else pool.on_stream():
+                    self._chunk(n)
+            if capture:
+                # this length's graph, for the chunks after this one
+                self._capture(n, pool)
+            self.warm = True
+            return
+        if n not in self.graphs:
+            self._capture(n, pool)
+        graph, launches = self.graphs[n]
+        graph.replay()
+        for kernel, count in zip(_counted_kernels(), launches):
+            kernel.launches += count
+
+    def _capture(self, n: int, pool: _GraphPool) -> None:
+        """Capture a chunk of ``n`` iterations (nothing runs) into a graph
+        of ``pool``; a model that a graph cannot hold raises."""
+        kernels = _counted_kernels()
+        before = [kernel.launches for kernel in kernels]
+        # torch.cuda.graph empties the allocator's cache as it enters; done
+        # here first, the reserved bytes then grow by the pool's alone
+        torch.cuda.synchronize(pool.device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(pool.device)
+        graph = torch.cuda.CUDAGraph()
+        current = torch.cuda.current_stream(pool.device)
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.device(pool.device), \
+                    torch.cuda.graph(graph, pool=pool.mempool.id, stream=pool.stream):
+                self._chunk(n)
+        finally:
+            launches = [kernel.launches - b for kernel, b in zip(kernels, before)]
+            for kernel, b in zip(kernels, before):
+                kernel.launches = b
+            # a capture that fails leaves its stream current
+            torch.cuda.set_stream(current)
+        self.capture_s[n] = time.perf_counter() - t0
+        pool.bytes += torch.cuda.memory_reserved(pool.device) - reserved
+        self.graphs[n] = (graph, launches)
+
+    def result(self) -> "BatchResult":
+        """The solve's result, copied out of the buffers that the next solve
+        overwrites."""
+        return BatchResult(x=tuple(map(torch.clone, self.x)), h=tuple(map(torch.clone, self.h)),
+                           mu=self.mu.clone(), iterations=self.count.clone(),
+                           converged=self.done.clone(),
+                           primal_residual=self.pbuf[:, :self.hist].clone(),
+                           dual_residual=self.dbuf[:, :self.hist].clone())
+
+
 class BatchedSolver:
     """Solve a batch of same-structure problems.
 
@@ -194,6 +480,10 @@ class BatchedSolver:
         self.plan = ADMMPlan(self.model, self.device)
         # real problems get a real state (see ADMMPlan.is_complex)
         self.dtype = self.plan.default_dtype() if dtype is None else _as_dtype(dtype)
+        #: the chunk programs by key (:meth:`_program`), oldest first
+        self._programs: Dict[tuple, _ChunkProgram] = {}
+        #: the memory of the programs' graphs, made by the first captured solve
+        self._pool: Optional[_GraphPool] = None
 
     # -- parameter binding -------------------------------------------------
     def _bind(self, ov: Dict):
@@ -326,13 +616,19 @@ class BatchedSolver:
         return x, h, mu, done0
 
     # -- sharding ------------------------------------------------------------
-    def _all_done(self, done: torch.Tensor) -> bool:
-        """Whether every lane of the batch is done.  On a sharded solver the
-        lanes of every rank: one ``all_reduce`` of the count of lanes not
-        done, which every rank makes at the same point of the schedule."""
-        if self.sharding is None:
-            return bool(done.all())
-        return int(self.sharding.mesh.all_reduce((~done).sum().reshape(1))) == 0
+    def _all_done(self, done: torch.Tensor, failed: Optional[torch.Tensor] = None) -> bool:
+        """Whether every lane of the batch is done, in one host read that
+        also takes ``failed`` (a factorization's failure flag, raised here).
+        On a sharded solver the lanes and flags of every rank: one
+        ``all_reduce`` of the count of lanes not done and of the failures,
+        which every rank makes at the same point of the schedule."""
+        flags = torch.stack([(~done).sum(), (done.new_zeros(()) if failed is None
+                                             else failed).to(torch.int64)])
+        if self.sharding is not None:
+            flags = self.sharding.mesh.all_reduce(flags)
+        not_done, failures = flags.tolist()
+        raise_if_not_pd(failures > 0)
+        return not_done == 0
 
     def _gathered(self, res: BatchResult, B: int) -> BatchResult:
         """All B lanes of a result of this solver, on every rank."""
@@ -404,31 +700,24 @@ class BatchedSolver:
     def _run(self, cfg: ADMMConfig, ov: Dict, x, h, mu, tols, done0,
              record: bool, stride: int, chunked_checks: bool,
              read_done0: bool = True) -> BatchResult:
-        """One batch through the schedule: prologue, factors, iteration 0,
-        refactor, then chunks of ``interval_update_mu`` iterations (those
-        past ``niter`` are not run) with a refactor at each chunk's end,
-        until every lane is done.  ``ov`` is already cast and on the device;
-        ``done0`` is a (B,) mask or None.  The host reads the done flags
-        only before a chunk that could be skipped: after a chunk that is not
-        the last, and (``read_done0``) once for ``done0``."""
+        """One batch through the schedule: prologue, factors and iteration
+        0, then chunks of ``interval_update_mu`` iterations (those past
+        ``niter`` are not run) through the solve's chunk program
+        (:meth:`_program`), each refactoring first, until every lane is
+        done.  ``ov`` is already cast and on the device; ``done0`` is a (B,)
+        mask or None.  The host reads the done flags, with the failure flag
+        of the factorizations, only before a chunk that could be skipped:
+        after a chunk that is not the last, and (``read_done0``) once for
+        ``done0``; the failure flag alone after the last chunk where the
+        model factorizes.  The chunks are replays of captured graphs where
+        :meth:`_captures`."""
         plan = self.plan
         interval, niter = cfg.interval_update_mu, cfg.niter
         rtol, atol = tols
         B = mu.shape[0]
-        functions = self._bind(self._prologue_overrides(ov))
-        refactored = lambda c: c[:3] + (
-            plan.compute_factors(c[2], functions, batched=True),) + c[4:]
-        # A carry without its factors: the caller drops the old ones before
-        # the new ones are made, so that both never coexist (per-lane factors
-        # of a large banded block are several (B, n) arrays).
-        unfactored = lambda c: c[:3] + (None,) + c[4:]
-
         # Strided history: one slot per `stride` iterations (the last
         # in-window value wins).
         hist = (niter + stride - 1) // stride if record else 1
-        slot = (lambda git: min(git // stride, hist - 1)) if record else (lambda git: 0)
-        nan = lambda: torch.full((B, hist), float("nan"), dtype=torch.float64,
-                                 device=self.device)
         # No lane's flag can change when neither tolerance can be met: then
         # the host never reads the flags.
         can_finish = rtol > 0 or atol > 0
@@ -437,35 +726,83 @@ class BatchedSolver:
         freeze = can_finish or done0 is not None
         if done0 is None:
             done0 = torch.zeros(B, dtype=torch.bool, device=self.device)
-        carry = refactored((x, h, mu, None, done0,
-                            torch.zeros(B, dtype=torch.int32, device=self.device),
-                            nan(), nan()))
-
-        def step(carry, git, residuals=True):
-            return plan.iteration(carry, slot(git), git, cfg, tols, functions,
-                                  compute_residuals=residuals, freeze=freeze)
-
-        # iteration 0, then refactor (the mu update fires at global_it=0,
-        # reference optimizer.py:319-320)
-        carry = unfactored(step(carry, 0))
-        carry = refactored(carry)
-        telemetry.check_chunk("BatchedSolver", carry[0], carry[1])
-        it = 1
-        while it < niter and not all_done:
-            boundary = it + interval - 1
-            for git in range(it, min(it + interval, niter)):
-                # chunked checks: residuals, convergence and the penalty
-                # update only on the chunk's boundary iteration
-                carry = step(carry, git, not chunked_checks or git == boundary)
-            carry = unfactored(carry)
-            carry = refactored(carry)
-            it += interval
+        capture = self._captures(self.model.functions, mu.dtype)
+        pool = self._graph_pool(capture)
+        key = (dataclasses.replace(cfg, niter=0),
+               tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(ov.items())),
+               record, chunked_checks, stride, B, x[0].dtype, str(self.device), freeze,
+               can_finish, _route_switches())
+        nan = lambda: torch.full((B, hist), float("nan"), dtype=torch.float64,
+                                 device=self.device)
+        program = self._programs.get(key)
+        if program is not None:
+            program.reserve(hist)
+        # A warm program's solve takes its eager working set (the prologue,
+        # iteration 0) from the pool: none of it outlives the load.
+        with pool.allocating() if pool is not None and program is not None and program.warm \
+                else contextlib.nullcontext():
+            functions = self._bind(self._prologue_overrides(ov))
+            carry = (x, h, mu, None, done0,
+                     torch.zeros(B, dtype=torch.int32, device=self.device), nan(), nan())
+            if program is None:
+                # its buffers before iteration 0's working set, which they
+                # would otherwise split and hold on to
+                program = self._program(key, cfg, functions, carry, record, stride,
+                                        chunked_checks, freeze)
+            # iteration 0 (the mu update fires at global_it=0, reference
+            # optimizer.py:319-320); the program checks its factorizations
+            with deferred_cholesky_checks() as infos:
+                carry = plan.iteration(
+                    carry[:3] + (plan.compute_factors(mu, functions, batched=True),) + carry[4:],
+                    0, 0, cfg, tols, functions, freeze=freeze)
+            carry = carry[:3] + (None,) + carry[4:]
             telemetry.check_chunk("BatchedSolver", carry[0], carry[1])
+            program.load(functions, carry, tols, infos)
+            # the program holds its own copies of the state and the fields
+            del carry, infos, functions
+        it, unread = 1, program.checks
+        while it < niter and not all_done:
+            program.run(min(interval, niter - it), capture, pool)
+            it += interval
+            telemetry.check_chunk("BatchedSolver", program.x, program.h)
+            unread = program.checks
             if can_finish and it < niter:
-                all_done = self._all_done(carry[4])
-        x, h, mu, _, done, count, pbuf, dbuf = carry
-        return BatchResult(x=x, h=h, mu=mu, iterations=count, converged=done,
-                           primal_residual=pbuf, dual_residual=dbuf)
+                all_done = self._all_done(program.done, program.failed if unread else None)
+                unread = False
+        if unread:
+            raise_if_not_pd(program.failed)
+        return program.result()
+
+    def _captures(self, functions, dtype: torch.dtype) -> bool:
+        """Whether a solve's chunks are replays of captured graphs: with
+        :data:`CAPTURE_CHUNKS`, on a CUDA device, where every objective
+        declares its steps capturable."""
+        return CAPTURE_CHUNKS and self.device.type == "cuda" and all(
+            f.capturable(_real_dtype(dtype), self.device) for f in functions)
+
+    def _graph_pool(self, create: bool) -> Optional[_GraphPool]:
+        """The solver's graph pool, made by its first captured solve."""
+        if self._pool is None and create:
+            self._pool = _GraphPool(self.device)
+        return self._pool
+
+    def _program(self, key, cfg, functions, carry, record, stride, chunked_checks,
+                 freeze) -> _ChunkProgram:
+        """A new chunk program for ``key``; at most :data:`PROGRAM_CACHE_SIZE`
+        of them, the oldest dropped first.  The key: the JAX package's
+        ``(cfg, ov_keys, record, chunked_checks, record_stride)``
+        (``batch.py:251-264``) without ``niter`` (the host loop counts the
+        chunks, and a longer history takes new buffers: :meth:`_ChunkProgram.
+        reserve`), with the overrides' shapes and dtypes, what the schedule
+        branches on (B, dtype, device, freeze, whether a lane can finish)
+        and the route switches a graph keeps (:func:`_route_switches`); the
+        tolerances are values of the program."""
+        if len(self._programs) >= PROGRAM_CACHE_SIZE:
+            self._programs.pop(next(iter(self._programs)))
+        program = self._programs[key] = _ChunkProgram(
+            self.plan, cfg, self.model.functions, functions, carry, record, stride,
+            chunked_checks, freeze)
+        return program
 
     def solve(self,
               overrides: Optional[Dict] = None,

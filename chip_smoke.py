@@ -158,13 +158,32 @@ fails raises and the script exits non-zero without printing a result.
    against world size 1 (1e-9, equal counts), each rank's checkpoint shard
    reassembled against the unsharded solve, and a 2-rank gloo all_reduce.
 
+Captured chunks against chunks without a graph: ``BatchedSolver`` runs
+each chunk of a solve as a replay of a captured CUDA graph; every part of
+phases 6, 7, 8 and 10 that solves through it (the bench solve, the f64
+polish of ``solve_mixed``, one wave of each stream mode,
+``solve_resumable``, the realified SpM, 8a-8f, 10a-10c) solves once more
+through the captured chunks and once with ``batch.CAPTURE_CHUNKS = False``
+(the same chunk program run directly, its working set taken from the
+solver's graph pool once the program is warm), the order flipped every
+part, and gates x, h, mu, iterations and flags of the two bitwise; it
+prints ms an iteration both ways, each graph's capture seconds and the
+pool's bytes.  A part whose route a graph cannot hold (the library eigh or
+SVD: 10a and 10b's eigh, 10c's ``xla``) runs its chunks without a graph and
+says so.  8f's memory gate covers every solve of the part (the timed ones,
+the turn, ``--profile``'s): the peak of the bytes allocated outside the
+graph pool plus the pool's reserved segments, from the allocator's trace.
+``--profile`` profiles each such part both ways: device kernels and the
+host's launch calls an iteration (a graph replay is one), busy share.
+
 ``--variants`` also times both chunks at other tilings and routes, the
 two-block chunk's two products as ``torch.matmul``, the card's L2 read rate,
 the factor refresh's batched inverse by other routes and batched eigh by both
 linear-algebra libraries; ``--profile`` prints a torch.profiler breakdown of
 both fused solves, of the float64 ``BatchedSolver`` solve, of one scheduler
-wave in each stream mode and of short covariance-denoising and TV solves,
-and times each stream mode a second time.
+wave in each stream mode and of every family (8a and 8f in 5-iteration
+solves), captured and eager, and times each stream mode a second time.  The
+whole run's seconds are printed before the ``kernels`` line.
 The last line is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU,
 ``nvcc`` and no network.
 """
@@ -192,6 +211,10 @@ INNER = 4           # calls in a row inside one CUDA-event timing
 PEAK_F32_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12   # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+# the runtime calls by which the host puts work on a stream (profiler keys)
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                     "cudaMemsetAsync")
 # Most that a split-TF32 kernel's max abs difference to the plain version may
 # be, as a multiple of the f32 FMA kernel's on the same inputs.
 TC_ERR_RATIO = {"two-block": 2.0, "SpM": 4.0}
@@ -212,6 +235,7 @@ HUB_M, HUB_N, HUB_B, HUB_NITER, HUB_DELTA = 256, 128, 1024, 200, 0.1   # bench_h
 # tv_denoise_model's own scale (admmsolver_tpu/models/applications.py:186-188)
 TV_N, TV_B, TV_NITER, TV_LAM, TV_JUMPS = 100_000, 64, 200, 0.4, 20
 TV_MEMORY_LIMIT = 1 << 30   # a dense N x N factor would be 80 GB a lane
+TV_TRACE_ENTRIES = 8_000_000   # allocator events the TV part's memory reading keeps
 # 9. multi-device on one card
 PEAK_F64_TC_FLOPS = 67e12   # H100 SXM, float64 on the tensor cores (DGEMM)
 RANKS_NITER, RANKS_RTOL = 1200, 1e-8  # lanes converge at different iterations, none before 800
@@ -415,20 +439,25 @@ def profile_solve(torch, what, kernel_name, solve, iters=None):
         solve()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
     rows = [(e.key, getattr(e, "device_time_total", 0.0) / 1e3, e.count)
-            for e in prof.key_averages() if getattr(e, "device_time_total", 0.0) > 0
+            for e in events if getattr(e, "device_time_total", 0.0) > 0
             and e.device_type.name == "CUDA"]
     total = sum(r[1] for r in rows)
     kern = sum(r[1] for r in rows if kernel_name in r[0])
     launches = sum(r[2] for r in rows)
+    # the host's calls that put work on the stream: a graph replay is one
+    host = sum(e.count for e in events if e.key in HOST_LAUNCH_CALLS)
     print(f"profile, {what}: wall {wall:.2f} ms (profiled), device kernels {total:.2f} ms "
           f"(busy {total / wall:.2f}), {kernel_name} kernels {kern:.2f} ms, other kernels "
           f"{total - kern:.2f} ms in {launches} launches"
-          + (f" = {launches / iters:.1f} per iteration" if iters else ""))
+          + (f" = {launches / iters:.1f} per iteration" if iters else "")
+          + f"; host launch calls {host}"
+          + (f" = {host / iters:.2f} per iteration" if iters else ""))
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"  {ms:8.3f} ms  x{count:<5d} {key[:90]}")
     return {"wall_ms": wall, "busy": total / wall, "launches": launches,
-            "kernel_ms": kern}
+            "host_launches": host, "kernel_ms": kern}
 
 
 def l2_read_rate(torch, lib, nbytes, rotate, passes=50):
@@ -559,6 +588,14 @@ def phase_scheduler(torch, card, device="cuda", S=SCHED_S, B=SCHED_B, niter_max=
         sync()
         print(f"[{card}] scheduler {mode}, second run: {time.perf_counter() - t0:.2f} s",
               flush=True)
+    one_wave = ScenarioScheduler(bs, batch_size=B, chunk_iters=SCHED_CHUNK,
+                                 niter_max=SCHED_CHUNK, rtol=0.0, atol=SCHED_ATOL)
+    for mode in ("run", "run_compiled"):
+        captured_vs_eager(
+            torch, card, f"scheduler {mode}, one wave of {SCHED_CHUNK} iterations",
+            lambda mode=mode: getattr(one_wave, mode)(iter(scen[:B])), SCHED_CHUNK, [bs],
+            state=lambda res: [a for r in res for a in r.x]
+            + [np.array([(r.iterations, r.converged) for r in res])])
     return {"static_s": t_static, "run_s": out["run_s"], "run_compiled_s": out["run_compiled_s"],
             "solver": bs, "scenarios": scen[:B]}
 
@@ -608,6 +645,11 @@ def phase_resumable(torch, card, A, ys, device="cuda", niter=RESUME_NITER):
             t_read.append(time.perf_counter() - t0)
         if not all(torch.equal(a, b) for a, b in zip(back.x, straight.x)):
             raise AssertionError("a checkpoint read back differs from what was written")
+        fresh = iter(range(4))
+        captured_vs_eager(
+            torch, card, f"solve_resumable ({niter} iters in segments of {RESUME_EVERY})",
+            lambda: bs.solve_resumable(os.path.join(tmp, f"turn{next(fresh)}.npz"), ov,
+                                       niter=niter, **kw), niter, [bs])
     B = ys.shape[0]
     print(f"solve_resumable: A {A.shape[0]}x{n}, B={B}, f64, {niter} iterations in segments of "
           f"{RESUME_EVERY}: stopped after one segment and resumed == uninterrupted (atol 0)",
@@ -660,6 +702,8 @@ def phase_complex_spm(torch, card, device="cuda", B=CSPM_B, niter=CSPM_NITER, nl
     (t,) = median_wall(torch, [solve])
     print(f"[{card}] realified complex SpM BatchedSolver solve (B={B}, {niter} iters, f64): "
           f"{t * 1e3:.1f} ms = {B * niter / t:.0f} inst-iters/s", flush=True)
+    captured_vs_eager(torch, card, f"realified complex SpM (B={B}, {niter} iters)", solve,
+                      niter, [bs])
     return {"s": t, "solve": solve}
 
 
@@ -711,14 +755,19 @@ def phase_complex_bp(torch, card, kernels, fused, plain_chunk, real_solve, devic
 
 
 def family_solve(torch, card, what, model, ov, niter, device, lanes=(0,), tol=1e-8,
-                 single=None, runs=2):
+                 single=None, runs=2, turn=True, profile_iters=None, kernel_name="gemm"):
     """One family through ``BatchedSolver.solve`` in float64 (rtol=0, no
     histories), timed by the host clock on its first run and on a second one
     (``runs=1``: the first only); ``lanes`` of it against ``SimpleOptimizer``
     solves on the same device, to ``tol`` of max|x|.  ``single(b)`` builds
-    lane b's own model.  Returns the result, the solver, the timings and the
-    Jacobi kernel's launches in the last timed solve (the count set to 0
-    just before it and read just after)."""
+    lane b's own model.  With ``turn``, one more solve through the captured
+    chunks and one without graphs (:func:`captured_vs_eager`) where
+    the model's routes are capturable; with ``--profile`` a profiled solve
+    of ``profile_iters`` (default ``niter``; 0: none) iterations each way,
+    ``kernel_name`` the kernels it sums apart.  Returns
+    the result, the solver, the timings and the Jacobi kernel's launches in
+    the last timed solve (the count set to 0 just before it and read just
+    after)."""
     from admmsolver_tpu_torch import SimpleOptimizer
     from admmsolver_tpu_torch.ops import kernels
     from admmsolver_tpu_torch.parallel import BatchedSolver
@@ -737,7 +786,11 @@ def family_solve(torch, card, what, model, ov, niter, device, lanes=(0,), tol=1e
         times.append(time.perf_counter() - t0)
         launches = kernels.jacobi_eigh.launches
     outs = [*res.x, *res.h, res.mu]
-    if not all(t.dtype == torch.float64 and bool(torch.isfinite(t).all()) for t in outs):
+    # eight lanes at a time: the check's temporaries stay small beside 8f's
+    # (B, N) arrays, whose memory the part reads
+    if not all(t.dtype == torch.float64 and all(bool(torch.isfinite(t[b:b + 8]).all())
+                                                for b in range(0, t.shape[0], 8))
+               for t in outs):
         raise AssertionError(f"{what}: non-finite or non-float64 values")
     if not bool((res.iterations == niter).all()):
         raise AssertionError(f"{what}: not every lane ran {niter} iterations")
@@ -757,6 +810,17 @@ def family_solve(torch, card, what, model, ov, niter, device, lanes=(0,), tol=1e
           + f" = {times[-1] * 1e3 / niter:.3f} ms per iteration"
           + (f"; Jacobi kernel launches in one solve {launches}" if launches else ""),
           flush=True)
+    if device == "cuda" and not bs._captures(bs.model.functions, torch.float64):
+        print(f"{what}: chunks without a graph by the declared rule (a route that a CUDA "
+              "graph cannot hold)", flush=True)
+    else:
+        if turn:
+            captured_vs_eager(torch, card, what, solve, niter, [bs])
+        iters = niter if profile_iters is None else profile_iters
+        if "--profile" in sys.argv and device == "cuda" and iters:
+            profile_both(torch, what, lambda: bs.solve(ov, niter=iters, rtol=0.0,
+                                                       record_residuals=False), iters,
+                         kernel_name=kernel_name)
     return res, bs, times, launches
 
 
@@ -797,14 +861,14 @@ def phase_cov_denoise(torch, card, device="cuda", k=COV_K, B=COV_B, niter=COV_NI
     under each linear-algebra library."""
     model, ov = cov_problem(torch, k, B, device)
     rng = np.random.RandomState(16)
-    res, bs, times, launches = family_solve(torch, card, f"covariance denoising k={k} B={B}",
-                                            model(0), ov, niter, device, single=model)
-    # a short solve for the profile (the eigh route launches thousands of
+    # short solves for the profiles (the eigh route launches thousands of
     # kernels an iteration, and the profiler's bookkeeping grows with them)
+    res, bs, times, launches = family_solve(torch, card, f"covariance denoising k={k} B={B}",
+                                            model(0), ov, niter, device, single=model,
+                                            profile_iters=5)
     out = {"res": res, "ms_per_iter": 1e3 * times[1] / niter, "jacobi_launches": launches,
            "least_eig": check_psd(torch, "covariance denoising", res.x[1], k),
-           "profile_iters": 5, "profile": lambda iters=5: bs.solve(
-               ov, niter=iters, rtol=0.0, record_residuals=False)}
+           "profile": lambda iters: bs.solve(ov, niter=iters, rtol=0.0, record_residuals=False)}
     if variants and device == "cuda":
         x = torch.as_tensor(rng.randn(B, k, k), device=device)
         x = x + x.mT
@@ -941,36 +1005,113 @@ def tv_signals(N, B, jumps=TV_JUMPS, seed=11):
     return truth, truth[None, :] + 0.1 * rng.randn(B, N)
 
 
+def device_footprint(torch, snap, pools):
+    """The peak over a recorded window (``snap``: an allocator snapshot with
+    its trace) of the device memory held: the bytes allocated outside the
+    graph pools ``pools`` (MemPool ids) plus the bytes of those pools'
+    segments, which stay reserved while their solver lives.  A pool's
+    segment counts from its last ``segment_alloc`` in the trace on (an
+    earlier segment at that address was the general allocator's).  Returns
+    (peak bytes, the peak of the bytes live in the pools, trace entries)."""
+    import bisect
+
+    pools = {tuple(p) for p in pools}
+    segs = sorted((s["address"], s["address"] + s["total_size"]) for s in snap["segments"]
+                  if tuple(s.get("segment_pool_id", ())) in pools)
+    trace = snap["device_traces"][torch.cuda.current_device()]
+    since = {}
+    for i, e in enumerate(trace):
+        if e["action"] == "segment_alloc":
+            since[e["addr"]] = i
+    starts = [a for a, _ in segs]
+
+    def in_pool(addr, i):
+        k = bisect.bisect_right(starts, addr) - 1
+        return k >= 0 and addr < segs[k][1] and since.get(segs[k][0], -1) <= i
+
+    freed = "free_completed" if any(e["action"] == "free_completed" for e in trace) \
+        else "free_requested"
+    outside = reserved = peak = inside = inside_peak = 0
+    live, pooled = {}, {}
+    for i, e in enumerate(trace):
+        action = e["action"]
+        if action == "segment_alloc" and since.get(e["addr"]) == i and in_pool(e["addr"], i):
+            reserved += e["size"]
+        elif action == "alloc" and not in_pool(e["addr"], i):
+            outside += e["size"]
+            live[e["addr"]] = e["size"]
+        elif action == "alloc":
+            inside += e["size"]
+            pooled[e["addr"]] = e["size"]
+            inside_peak = max(inside_peak, inside)
+        elif action == freed and e["addr"] in live:
+            outside -= live.pop(e["addr"])
+        elif action == freed and e["addr"] in pooled:
+            inside -= pooled.pop(e["addr"])
+        peak = max(peak, outside + reserved)
+    return peak, inside_peak, len(trace)
+
+
 def phase_tv(torch, card, device="cuda", N=TV_N, B=TV_B, niter=TV_NITER, lam=TV_LAM):
     """8f. TV denoising at the scale tv_denoise_model's docstring names: the
     banded penalty per lane and its cyclic-reduction factor; lanes 0 and 1
-    against SimpleOptimizer, and the device memory the solve takes."""
+    against SimpleOptimizer, and the device memory the part takes, over
+    every solve of it (the timed ones, the captured-against-eager turn and
+    ``--profile``'s): the peak of what is allocated outside the solver's
+    graph pool plus the pool's reserved segments, read from the allocator's
+    trace (:func:`device_footprint`), under TV_MEMORY_LIMIT; beside it the
+    peak allocated alone (the reading of the eager engine before the
+    captured chunks) and the pool's bytes."""
     from admmsolver_tpu_torch.models.applications import tv_denoise_model
 
     truth, ys = tv_signals(N, B)
     ys_dev = torch.as_tensor(ys, device=device)
     if device == "cuda":
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        torch.cuda.memory._record_memory_history(enabled="all", context=None,
+                                                  max_entries=TV_TRACE_ENTRIES)
     ov = {(0, "y"): ys_dev}
+    what = f"TV denoising N={N} B={B} lam={lam}"
     res, bs, times, _ = family_solve(
-        torch, card, f"TV denoising N={N} B={B} lam={lam}", tv_denoise_model(ys[0], lam),
-        ov, niter, device, lanes=(0, 1), tol=1e-9,
-        single=lambda b: tv_denoise_model(ys[b], lam))
-    peak = torch.cuda.max_memory_allocated() - before if device == "cuda" else None
-    err = float((res.x[0] - torch.as_tensor(truth, device=device)).abs().mean())
+        torch, card, what, tv_denoise_model(ys[0], lam), ov, niter, device, lanes=(0, 1),
+        tol=1e-9, single=lambda b: tv_denoise_model(ys[b], lam), turn=False, profile_iters=0)
+    # eight lanes at a time: the reading's own temporaries stay small
+    truth_dev = torch.as_tensor(truth, device=device)
+    err = sum(float((res.x[0][b:b + 8] - truth_dev).abs().sum()) for b in range(0, B, 8)) / (B * N)
     noisy = float(np.abs(ys - truth[None]).mean())
+    # the turn and the profile inside the reading, without the timed result
+    res = None
+    solve = lambda iters: bs.solve(ov, niter=iters, rtol=0.0, record_residuals=False)
+    captured_vs_eager(torch, card, what, lambda: solve(niter), niter, [bs])
+    if "--profile" in sys.argv and device == "cuda":
+        profile_both(torch, f"{what}, 5 iterations", lambda: solve(5), 5, kernel_name="pad")
+    foot = peak = pool = pool_live = None
+    if device == "cuda":
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        snap = torch.cuda.memory._snapshot()
+        torch.cuda.memory._record_memory_history(enabled=None)
+        foot, pool_live, entries = device_footprint(torch, snap, [bs._pool.mempool.id])
+        snap = None
+        if entries >= TV_TRACE_ENTRIES:
+            raise AssertionError("the allocator's trace of the TV part overflowed")
+        pool = bs._pool.bytes
     print(f"TV denoising: mean |x - truth| {err:.4f} (noisy input {noisy:.4f})"
-          + ("" if peak is None else f"; peak device memory over the part {peak / 2**20:.0f} MiB "
-             f"(limit {TV_MEMORY_LIMIT / 2**20:.0f} MiB; one (B, N) float64 array is "
-             f"{B * N * 8 / 2**20:.1f} MiB)"), flush=True)
-    if peak is not None and not peak < TV_MEMORY_LIMIT:
-        raise AssertionError(f"the TV solve took {peak / 2**20:.0f} MiB of device memory")
+          + ("" if foot is None else f"; device memory over the part, the graph pool "
+             f"included, {foot / 2**20:.0f} MiB (limit {TV_MEMORY_LIMIT / 2**20:.0f} MiB; one "
+             f"(B, N) float64 array is {B * N * 8 / 2**20:.1f} MiB); the pool {pool / 2**20:.0f}"
+             f" MiB, at most {pool_live / 2**20:.0f} MiB of it live; peak allocated "
+             f"{peak / 2**20:.0f} MiB; trace of {entries} entries"),
+          flush=True)
+    if foot is not None and not foot < TV_MEMORY_LIMIT:
+        raise AssertionError(f"the TV part took {foot / 2**20:.0f} MiB of device memory")
     if not err < noisy:
         raise AssertionError("TV denoising did not denoise")
-    return {"ms_per_iter": 1e3 * times[1] / niter, "peak_bytes": peak, "profile_iters": 5,
-            "profile": lambda: bs.solve(ov, niter=5, rtol=0.0, record_residuals=False)}
+    return {"ms_per_iter": 1e3 * times[1] / niter, "footprint_bytes": foot,
+            "peak_bytes": peak, "pool_bytes": pool, "pool_live_bytes": pool_live}
 
 
 # 10. the spectral routes: the Jacobi kernel, the Gram SVD and the matrix sign
@@ -1003,6 +1144,85 @@ def route_profile(torch, what, solve, iters):
     solve."""
     prof = profile_solve(torch, f"{what}, {iters} iterations", "gemm", solve, iters=iters)
     return {"launches_per_iter": prof["launches"] / iters, "busy": prof["busy"]}
+
+
+# phases 6-10: the engine's chunks captured against the same chunks run directly
+_TURN = [0]
+
+
+def with_capture(capture, fn):
+    """``fn()`` with ``admmsolver_tpu_torch.parallel.batch.CAPTURE_CHUNKS``
+    set to ``capture`` for its span (False: the chunks without graphs)."""
+    from admmsolver_tpu_torch.parallel import batch
+
+    keep = batch.CAPTURE_CHUNKS
+    batch.CAPTURE_CHUNKS = capture
+    try:
+        return fn()
+    finally:
+        batch.CAPTURE_CHUNKS = keep
+
+
+def program_stats(solvers):
+    """(capture seconds by chunk length, graph pool bytes, bytes of the
+    programs' buffers) of the chunk programs of ``solvers`` (BatchedSolver
+    objects; one pool a solver): what the solvers hold between solves."""
+    from admmsolver_tpu_torch.parallel.batch import _leaves
+
+    programs = [p for s in solvers for p in s._programs.values()]
+    held = sum(t.untyped_storage().nbytes() for p in programs
+               for t in p.x + p.h + (p.mu, p.done, p.count, p.pbuf, p.dbuf)
+               + tuple(t for k, name in p._fields for t in _leaves(getattr(p.functions[k], name))))
+    return ({n: t for p in programs for n, t in p.capture_s.items()},
+            sum(s._pool.bytes for s in solvers if s._pool is not None), held)
+
+
+def captured_vs_eager(torch, card, what, solve, niter, solvers, state=None):
+    """One solve through the captured chunks and one without graphs,
+    in an order that flips every call (captured first on even calls), each
+    timed by the host clock with a device synchronize; ``state(result)`` of
+    the two bitwise equal.  Prints ms an iteration both ways and the capture
+    seconds and pool bytes of ``solvers``' chunk programs (``state``: x, h,
+    mu, iterations and flags of a BatchResult by default)."""
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    turn, out = _TURN[0], {}
+    _TURN[0] += 1
+    state = state or state_of
+    for capture in (True, False) if turn % 2 == 0 else (False, True):
+        sync()
+        t0 = time.perf_counter()
+        res = with_capture(capture, solve)
+        sync()
+        t = time.perf_counter() - t0
+        # the state on the host: one solve's result at a time on the card
+        out[capture] = ([np.asarray(a.cpu() if hasattr(a, "cpu") else a) for a in state(res)], t)
+        res = None
+    got, want = (out[c][0] for c in (True, False))
+    same = len(got) == len(want) and all(a.dtype == b.dtype and np.array_equal(a, b)
+                                         for a, b in zip(got, want))
+    diff = max(float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
+               for a, b in zip(got, want))
+    capture_s, pool, held = program_stats(solvers)
+    ms = {c: 1e3 * out[c][1] / niter for c in out}
+    print(f"[{card}] {what}, captured against eager ({'captured' if turn % 2 == 0 else 'eager'} "
+          f"first): {ms[True]:.3f} against {ms[False]:.3f} ms per iteration "
+          f"({ms[False] / ms[True]:.2f}x); captures "
+          + ", ".join(f"{n} iterations {t:.3f} s" for n, t in sorted(capture_s.items()))
+          + f"; pool {pool / 2**20:.1f} MiB, buffers {held / 2**20:.1f} MiB "
+          + f"({sum(len(s._programs) for s in solvers)} programs); states "
+          + ("bitwise equal" if same else f"DIFFER by {diff:.3e}"), flush=True)
+    if not same:
+        raise AssertionError(f"{what}: the captured solve departs from the eager one by {diff:.3e}")
+    return {"ms_captured": ms[True], "ms_eager": ms[False], "capture_s": capture_s,
+            "pool_bytes": pool, "held_bytes": held}
+
+
+def profile_both(torch, what, solve, iters, kernel_name="gemm"):
+    """The profiler over one solve through the captured chunks and one
+    without graphs: launches an iteration and busy share of each."""
+    return {mode: profile_solve(torch, f"{what}, {mode}", kernel_name,
+                                lambda c=capture: with_capture(c, solve), iters=iters)
+            for mode, capture in (("captured", True), ("eager", False))}
 
 
 def max_rel_diff(xs, ys):
@@ -1619,6 +1839,8 @@ def phases_1_to_8(torch, card):
           f"{t_b64 * 1e3:.1f} ms = {B * BATCH_NITER / t_b64:.0f} inst-iters/s; with the done "
           f"flags read once per chunk (atol=1e-300): {t_b64_sync * 1e3:.1f} ms; in f32: "
           f"{t_b32 * 1e3:.1f} ms = {B * BATCH_NITER / t_b32:.0f} inst-iters/s")
+    captured_vs_eager(torch, card, f"BatchedSolver f64 solve (B={B}, {BATCH_NITER} iters)",
+                      lambda: bsolve(rtol=0.0), BATCH_NITER, [batched])
     for dt in (torch.float64, torch.float32):
         rng = np.random.RandomState(1)
         xg, u1, u2 = (torch.as_tensor(rng.randn(*shape) / np.sqrt(shape[0] if i else N),
@@ -1651,6 +1873,8 @@ def phases_1_to_8(torch, card):
           f"(iterations {int(p1.iterations.min())}..{int(p1.iterations.max())}), its f64 "
           f"polish alone {tm_polish * 1e3:.1f} ms = {B * POLISH_NITER / tm_polish:.0f} "
           "inst-iters/s")
+    captured_vs_eager(torch, card, f"SpM solve_mixed's f64 polish (B={B}, {POLISH_NITER} iters)",
+                      polish, POLISH_NITER, [spm._polish_solver])
 
     # 7. the stream drivers and complex problems through the real embedding
     sched = phase_scheduler(torch, card, again="--profile" in sys.argv)
@@ -1663,7 +1887,7 @@ def phases_1_to_8(torch, card):
     fam = {"cov": cov, "sdp": phase_sdp(torch, card), "rpca": phase_rpca(torch, card)}
     phase_group_lasso(torch, card)
     phase_huber(torch, card)
-    tv = phase_tv(torch, card)
+    phase_tv(torch, card)
 
     if "--variants" in sys.argv:
         T = kernels.TwoBlockTiling
@@ -1713,24 +1937,18 @@ def phases_1_to_8(torch, card):
     if "--profile" in sys.argv:
         profile_solve(torch, "basis-pursuit solve", "fused_two_block", solve)
         profile_solve(torch, "SpM solve", "fused_spm", spm_solve)
-        profile_solve(torch, "BatchedSolver f64 solve", "gemm", lambda: bsolve(rtol=0.0),
-                      iters=BATCH_NITER)
+        profile_both(torch, "BatchedSolver f64 solve", lambda: bsolve(rtol=0.0), BATCH_NITER)
         profile_solve(torch, "BatchedSolver f32 solve", "gemm",
                       lambda: bsolve(rtol=0.0, dtype=torch.float32), iters=BATCH_NITER)
-        profile_solve(torch, "SpM solve_mixed f64 polish", "gemm", polish, iters=POLISH_NITER)
+        profile_both(torch, "SpM solve_mixed f64 polish", polish, POLISH_NITER)
         from admmsolver_tpu_torch.parallel import ScenarioScheduler
         one_wave = ScenarioScheduler(sched["solver"], batch_size=SCHED_B, chunk_iters=SCHED_CHUNK,
                                      niter_max=SCHED_CHUNK, rtol=0.0, atol=SCHED_ATOL)
         for mode in ("run", "run_compiled"):
-            profile_solve(torch, f"scheduler {mode}, one wave of {SCHED_CHUNK} iterations", "gemm",
-                          lambda: getattr(one_wave, mode)(iter(sched["scenarios"])),
-                          iters=SCHED_CHUNK)
-        profile_solve(torch, "realified complex SpM solve", "gemm", complex_spm["solve"],
-                      iters=CSPM_NITER)
-        for what, part, name in (("covariance denoising", cov, "gemm"),
-                                 ("TV denoising", tv, "pad")):
-            profile_solve(torch, f"{what} solve, {part['profile_iters']} iterations", name,
-                          part["profile"], iters=part["profile_iters"])
+            profile_both(torch, f"scheduler {mode}, one wave of {SCHED_CHUNK} iterations",
+                         lambda mode=mode: getattr(one_wave, mode)(iter(sched["scenarios"])),
+                         SCHED_CHUNK)
+        profile_both(torch, "realified complex SpM solve", complex_spm["solve"], CSPM_NITER)
 
     # No single PyTorch call computes either chunk, so there is no library time.
     # prev_ms is the replaced design's time where this run still builds and
@@ -2101,6 +2319,7 @@ def rank_of_two(rank, port, outdir, device, nb):
 def main():
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -2125,6 +2344,7 @@ def main():
     phase_two_ranks(torch, card, world_one)
     print(f"multi-device phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
     print(json.dumps(kernels_line))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -773,6 +773,155 @@ def test_checkpoint_loads_default_to_cuda(tmp_path):
         load_batch_result(path)
 
 
+def _captured_model(name):
+    """(model, per-lane overrides, mu0) of the engine's captured-chunk tests,
+    from a seed: the five models of tests/test_torch_batch_program.py, 8a's
+    sign route (covariance denoising, k above the Jacobi boundary) and RPCA's
+    Gram route on the Jacobi kernel's tile path."""
+    from admmsolver_tpu_torch.models import applications as TA
+    from admmsolver_tpu_torch.models.realify import encode
+
+    rng = np.random.RandomState(41)
+    B = 3
+    if name == "basis_pursuit":
+        A = rng.randn(12, 30)
+        return _bp(A, rng.randn(12)), {(0, "y"): rng.randn(B, 12)}, 1.0
+    if name == "sdp_jacobi":
+        A = rng.randn(24, 48)
+        return (TA.sdp_model(A, rng.randn(24), (4, 4, 3), axis=2),
+                {(0, "y"): rng.randn(B, 24)}, 1.0)
+    if name == "huber":
+        A, y = rng.randn(20, 8) / np.sqrt(20), rng.randn(20)
+        return (TA.robust_regression_model(A, y, delta=0.1),
+                {(1, "y"): y[None] + 0.5 * rng.randn(B, 20)}, 1.0)
+    if name == "tv":
+        ys = np.repeat(rng.randn(4), 50)[None] + 0.2 * rng.randn(B, 200)
+        return TA.tv_denoise_model(ys[0], 0.4), {(0, "y"): ys}, 1.0
+    if name == "realified_spm":
+        s, g, prj_sum, prj_w, _, _ = synthetic_spm_data(nl=8, nw=15)
+        gs = g[None] + 1e-4 * (rng.randn(B, g.size) + 1j * rng.randn(B, g.size))
+        return (T.realify_model(spm_model(s, g, prj_sum, prj_w, alpha_l1=1e-3)).model,
+                {(0, "y"): encode(gs).numpy()}, 0.1)
+    if name == "covariance_sign":
+        k = 72
+        Q = rng.randn(k, k)
+        ys = (Q @ Q.T / k).reshape(-1)[None] + 0.1 * rng.randn(B, k * k)
+        return TA.covariance_denoise_model(ys[0].reshape(k, k)), {(0, "y"): ys}, 1.0
+    if name == "rpca_gram_tile":
+        L0 = rng.randn(B, 40, 3) @ rng.randn(3, 40)
+        Ys = L0 + (rng.rand(B, 40, 40) < 0.05) * 6.0
+        return (TA.rpca_model(Ys[0], svd_method="gram"),
+                {(1, "offset"): Ys.reshape(B, -1)}, 1.0)
+    raise ValueError(name)
+
+
+CAPTURED_MODELS = ["basis_pursuit", "sdp_jacobi", "huber", "tv", "realified_spm",
+                   "covariance_sign", "rpca_gram_tile"]
+
+
+def _solve_captured(bs, ov, mu0, capture, **kw):
+    from admmsolver_tpu_torch.parallel import batch
+
+    kw = dict(dict(niter=45, interval_update_mu=10, mu0=mu0, rtol=0.0), **kw)
+    keep = batch.CAPTURE_CHUNKS
+    batch.CAPTURE_CHUNKS = capture
+    try:
+        res = bs.solve(ov, **kw)
+    finally:
+        batch.CAPTURE_CHUNKS = keep
+    torch.cuda.synchronize()
+    return res
+
+
+@pytest.mark.parametrize("name", CAPTURED_MODELS)
+def test_captured_chunks_equal_the_eager_loop(cuda, name):
+    """Each chunk a replay of its captured graph, against the same chunks run
+    directly (``CAPTURE_CHUNKS`` off) by a solver that never captured, on
+    the same card: bitwise in x, h, mu, iterations, flags and histories, on
+    the first solve of a program (the key's first chunk eager, then
+    captures), on a second one with other data (replays only) and on a
+    solve of the capturing solver with ``CAPTURE_CHUNKS`` off (its eager
+    work from the graph pool); rtol 0 runs every chunk, so its program holds
+    the chunk lengths 10 and 4 (the short last chunk)."""
+    model, ov, mu0 = _captured_model(name)
+    bs = BatchedSolver(model)
+    ov2 = {k: v[::-1].copy() for k, v in ov.items()}
+    for o, kw, capture in ((ov, {}, True), (ov2, {}, True),
+                           (ov, dict(rtol=1e-9, record_residuals=3), True),
+                           (ov2, dict(rtol=1e-9, record_residuals=3), True), (ov, {}, False)):
+        got = _solve_captured(bs, o, mu0, capture, **kw)
+        want = _solve_captured(BatchedSolver(model), o, mu0, False, **kw)
+        for a, b in zip(got.x + got.h + (got.mu, got.iterations, got.converged,
+                                         got.primal_residual, got.dual_residual),
+                        want.x + want.h + (want.mu, want.iterations, want.converged,
+                                           want.primal_residual, want.dual_residual)):
+            assert a.is_cuda and a.dtype == b.dtype
+            np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    programs = list(bs._programs.values())
+    assert len(programs) == 2 and sorted(programs[0].graphs) == [4, 10]
+    assert 10 in programs[1].graphs
+
+
+def test_captured_replays_do_not_sync(cuda, monkeypatch):
+    """A chunk's replay and its host bookkeeping read nothing on the host:
+    the chunks of a second solve (rtol 0, so no done flag is read) run under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    from admmsolver_tpu_torch.parallel import batch
+
+    run = batch._ChunkProgram.run
+    replays = []
+
+    def strict(self, n, capture, pool):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run(self, n, capture, pool)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        replays.append(n)
+
+    for name in ("huber", "tv", "sdp_jacobi", "covariance_sign"):
+        model, ov, mu0 = _captured_model(name)
+        bs = BatchedSolver(model)
+        ov = {k: torch.as_tensor(v, device=cuda) for k, v in ov.items()}
+        _solve_captured(bs, ov, mu0, True)
+        monkeypatch.setattr(batch._ChunkProgram, "run", strict)
+        _solve_captured(bs, ov, mu0, True)
+        monkeypatch.setattr(batch._ChunkProgram, "run", run)
+    assert replays == [10, 10, 10, 10, 4] * 4
+
+
+def test_jacobi_launches_per_solve_unchanged_by_capture(cuda):
+    """A replay adds the launches its capture counted: one Jacobi launch an
+    iteration either way."""
+    from admmsolver_tpu_torch.ops import kernels
+
+    model, ov, mu0 = _captured_model("sdp_jacobi")
+    bs = BatchedSolver(model)
+    counts = []
+    for capture in (True, True, False):
+        kernels.jacobi_eigh.launches = 0
+        _solve_captured(bs, ov, mu0, capture)
+        counts.append(kernels.jacobi_eigh.launches)
+    assert counts == [45, 45, 45]
+
+
+def test_failed_capture_of_a_capturable_model_raises(cuda, monkeypatch):
+    """A model declared capturable whose chunk reads a value on the host
+    raises at its capture: no fallback to chunks without a graph."""
+    model, ov, mu0 = _captured_model("huber")
+    prox_diag = T.HuberLoss.prox_diag
+
+    def reading(self, h, mu_diag, batched=False):
+        float(h.sum())      # a host read inside the chunk
+        return prox_diag(self, h, mu_diag, batched)
+
+    monkeypatch.setattr(T.HuberLoss, "prox_diag", reading)
+    assert T.HuberLoss(1.0, np.ones(3)).capturable(torch.float64, cuda)
+    with pytest.raises(RuntimeError):
+        _solve_captured(BatchedSolver(model), ov, mu0, True)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("entry", ["FusedTwoBlockSolver", "FusedSpMSolver", "SimpleOptimizer",
                                    "BatchedSolver", "make_mesh"])
 def test_default_device_raises_without_cuda(entry):
