@@ -254,6 +254,18 @@ class _GraphPool:
         finally:
             current.wait_stream(self.stream)
 
+    def end_failed_capture(self) -> None:
+        """After a capture into the pool that raised: a capture whose end
+        failed still routes the allocator to the pool and holds a use of
+        it, and the allocator's next emptying of any pool would then stop
+        the process (``captures_underway.empty()`` asserted); end both."""
+        index = self.device.index
+        try:
+            torch._C._cuda_endAllocateToPool(index, self.mempool.id)
+        except RuntimeError:
+            return   # the capture's end had stopped the routing, and kept its use
+        torch._C._cuda_releasePool(index, self.mempool.id)
+
     @contextlib.contextmanager
     def allocating(self):
         """Work on the pool's stream with its allocations from the pool:
@@ -262,7 +274,109 @@ class _GraphPool:
             yield
 
 
-class _ChunkProgram:
+def _keep(programs: Dict, key, program):
+    """``program`` stored under ``key`` in a solver's cache of programs, the
+    oldest dropped first once it holds :data:`PROGRAM_CACHE_SIZE`."""
+    if len(programs) >= PROGRAM_CACHE_SIZE:
+        programs.pop(next(iter(programs)))
+    programs[key] = program
+    return program
+
+
+def _flags_read(done: torch.Tensor, failed: Optional[torch.Tensor] = None,
+                mesh=None) -> bool:
+    """Whether every lane is done, in one host read that also takes
+    ``failed`` (a factorization's failure flag, raised here); over a
+    ``mesh``, the lanes and flags of every rank by one ``all_reduce`` of the
+    count of lanes not done and of the failures."""
+    flags = torch.stack([(~done).sum(), (done.new_zeros(()) if failed is None
+                                         else failed).to(torch.int64)])
+    if mesh is not None:
+        flags = mesh.all_reduce(flags)
+    not_done, failures = flags.tolist()
+    raise_if_not_pd(failures > 0)
+    return not_done == 0
+
+
+class _GraphProgram:
+    """What every static chunk program shares: a chunk (:meth:`_chunk`, by
+    a key that names its length and kind) that reads and writes only the
+    program's buffers, run directly or, on a CUDA device, captured once a
+    key into a graph of the solver's pool and replayed.
+
+    On a CUDA device a captured solve runs the program's first chunk
+    eagerly (libraries load, caches fill), then captures each key once
+    into a graph of the solver's pool (:class:`_GraphPool`) and replays it
+    once a chunk; a replay adds the kernel launches its capture counted.
+    Otherwise (the CPU, :data:`CAPTURE_CHUNKS` off, a route a graph cannot
+    hold) the chunk runs directly, from the pool where there is one and the
+    program is warm.  A chunk that fails to capture raises."""
+
+    def __init__(self) -> None:
+        self.warm = False
+        #: chunk key -> (graph, kernel launches of one replay)
+        self.graphs: Dict = {}
+        #: host seconds of each key's capture
+        self.capture_s: Dict = {}
+
+    def _chunk(self, key) -> None:
+        raise NotImplementedError
+
+    def _run_chunk(self, key, capture: bool, pool: Optional[_GraphPool]) -> None:
+        """One chunk: with ``capture`` (and ``pool``) a replay of its graph,
+        once the program is warm; else the chunk itself, from ``pool``
+        where there is one and the program is warm."""
+        if not (capture and self.warm):
+            if pool is None:
+                self._chunk(key)
+            else:
+                with pool.allocating() if self.warm else pool.on_stream():
+                    self._chunk(key)
+            if capture:
+                # this key's graph, for the chunks after this one
+                self._capture(key, pool)
+            self.warm = True
+            return
+        if key not in self.graphs:
+            self._capture(key, pool)
+        graph, launches = self.graphs[key]
+        graph.replay()
+        for kernel, count in zip(_counted_kernels(), launches):
+            kernel.launches += count
+
+    def _capture(self, key, pool: _GraphPool) -> None:
+        """Capture the chunk of ``key`` (nothing runs) into a graph of
+        ``pool``; a chunk that a graph cannot hold raises."""
+        kernels = _counted_kernels()
+        before = [kernel.launches for kernel in kernels]
+        # torch.cuda.graph empties the allocator's cache as it enters; done
+        # here first, the reserved bytes then grow by the pool's alone
+        torch.cuda.synchronize(pool.device)
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(pool.device)
+        graph = torch.cuda.CUDAGraph()
+        current = torch.cuda.current_stream(pool.device)
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.device(pool.device), \
+                    torch.cuda.graph(graph, pool=pool.mempool.id, stream=pool.stream):
+                self._chunk(key)
+        except BaseException:
+            pool.end_failed_capture()
+            raise
+        finally:
+            launches = [kernel.launches - b for kernel, b in zip(kernels, before)]
+            for kernel, b in zip(kernels, before):
+                kernel.launches = b
+            # a capture that fails leaves its stream current
+            torch.cuda.set_stream(current)
+        self.capture_s[key] = time.perf_counter() - t0
+        pool.bytes += torch.cuda.memory_reserved(pool.device) - reserved
+        self.graphs[key] = (graph, launches)
+
+
+class _ChunkProgram(_GraphProgram):
     """The static chunk program of one cache key: the counterpart of the JAX
     package's compiled ``_build`` (``batch.py:345-470``) from the chunk after
     iteration 0 on.
@@ -281,17 +395,12 @@ class _ChunkProgram:
     (:func:`~admmsolver_tpu_torch.models.objectivefunc.deferred_cholesky_checks`),
     gathered in :attr:`failed`.
 
-    On a CUDA device a captured solve runs the program's first chunk
-    eagerly (libraries load, the objectives fill their caches), then
-    captures each chunk length once into a graph of the solver's pool
-    (:class:`_GraphPool`) and replays it once a chunk; a replay adds the
-    kernel launches its capture counted.  Otherwise (the CPU,
-    :data:`CAPTURE_CHUNKS` off, a route a graph cannot hold) the chunk runs
-    directly.
+    Its chunks are keyed by their length alone (:class:`_GraphProgram`).
     """
 
     def __init__(self, plan: ADMMPlan, cfg: ADMMConfig, template, functions, carry,
                  record: bool, stride: int, chunked_checks: bool, freeze: bool) -> None:
+        super().__init__()
         self.plan, self.cfg = plan, cfg
         self.chunked_checks, self.freeze = chunked_checks, freeze
         # the fields a solve supplies: those its bound objectives do not share
@@ -316,11 +425,6 @@ class _ChunkProgram:
         self.steps = torch.arange(cfg.interval_update_mu, device=dev)
         self.failed = torch.zeros((), dtype=torch.bool, device=dev)
         self.checks = False
-        self.warm = False
-        #: chunk length -> (graph, kernel launches of one replay)
-        self.graphs: Dict[int, tuple] = {}
-        #: host seconds of each length's capture
-        self.capture_s: Dict[int, float] = {}
 
     def load(self, functions, carry, tols, infos) -> None:
         """A solve's inputs into the buffers: its objectives' fields, the
@@ -386,54 +490,13 @@ class _ChunkProgram:
         self.it.add_(cfg.interval_update_mu)
 
     def run(self, n: int, capture: bool, pool: Optional[_GraphPool]) -> None:
-        """One chunk of ``n`` iterations: with ``capture`` (and ``pool``) a
-        replay of its graph, once the program is warm; else the chunk
-        itself, from ``pool`` where there is one and the program is warm."""
-        if not (capture and self.warm):
-            if pool is None:
-                self._chunk(n)
-            else:
-                with pool.allocating() if self.warm else pool.on_stream():
-                    self._chunk(n)
-            if capture:
-                # this length's graph, for the chunks after this one
-                self._capture(n, pool)
-            self.warm = True
-            return
-        if n not in self.graphs:
-            self._capture(n, pool)
-        graph, launches = self.graphs[n]
-        graph.replay()
-        for kernel, count in zip(_counted_kernels(), launches):
-            kernel.launches += count
+        """One chunk of ``n`` iterations (:meth:`_GraphProgram._run_chunk`)."""
+        self._run_chunk(n, capture, pool)
 
-    def _capture(self, n: int, pool: _GraphPool) -> None:
-        """Capture a chunk of ``n`` iterations (nothing runs) into a graph
-        of ``pool``; a model that a graph cannot hold raises."""
-        kernels = _counted_kernels()
-        before = [kernel.launches for kernel in kernels]
-        # torch.cuda.graph empties the allocator's cache as it enters; done
-        # here first, the reserved bytes then grow by the pool's alone
-        torch.cuda.synchronize(pool.device)
-        gc.collect()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(pool.device)
-        graph = torch.cuda.CUDAGraph()
-        current = torch.cuda.current_stream(pool.device)
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.device(pool.device), \
-                    torch.cuda.graph(graph, pool=pool.mempool.id, stream=pool.stream):
-                self._chunk(n)
-        finally:
-            launches = [kernel.launches - b for kernel, b in zip(kernels, before)]
-            for kernel, b in zip(kernels, before):
-                kernel.launches = b
-            # a capture that fails leaves its stream current
-            torch.cuda.set_stream(current)
-        self.capture_s[n] = time.perf_counter() - t0
-        pool.bytes += torch.cuda.memory_reserved(pool.device) - reserved
-        self.graphs[n] = (graph, launches)
+    def buffers(self) -> Tuple[torch.Tensor, ...]:
+        """Every tensor the program holds between solves."""
+        return self.x + self.h + (self.mu, self.done, self.count, self.pbuf, self.dbuf) + tuple(
+            t for k, name in self._fields for t in _leaves(getattr(self.functions[k], name)))
 
     def result(self) -> "BatchResult":
         """The solve's result, copied out of the buffers that the next solve
@@ -622,13 +685,7 @@ class BatchedSolver:
         On a sharded solver the lanes and flags of every rank: one
         ``all_reduce`` of the count of lanes not done and of the failures,
         which every rank makes at the same point of the schedule."""
-        flags = torch.stack([(~done).sum(), (done.new_zeros(()) if failed is None
-                                             else failed).to(torch.int64)])
-        if self.sharding is not None:
-            flags = self.sharding.mesh.all_reduce(flags)
-        not_done, failures = flags.tolist()
-        raise_if_not_pd(failures > 0)
-        return not_done == 0
+        return _flags_read(done, failed, None if self.sharding is None else self.sharding.mesh)
 
     def _gathered(self, res: BatchResult, B: int) -> BatchResult:
         """All B lanes of a result of this solver, on every rank."""
@@ -797,12 +854,9 @@ class BatchedSolver:
         branches on (B, dtype, device, freeze, whether a lane can finish)
         and the route switches a graph keeps (:func:`_route_switches`); the
         tolerances are values of the program."""
-        if len(self._programs) >= PROGRAM_CACHE_SIZE:
-            self._programs.pop(next(iter(self._programs)))
-        program = self._programs[key] = _ChunkProgram(
+        return _keep(self._programs, key, _ChunkProgram(
             self.plan, cfg, self.model.functions, functions, carry, record, stride,
-            chunked_checks, freeze)
-        return program
+            chunked_checks, freeze))
 
     def solve(self,
               overrides: Optional[Dict] = None,

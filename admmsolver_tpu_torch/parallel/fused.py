@@ -2,12 +2,20 @@
 
 Counterpart of :mod:`admmsolver_tpu.parallel.fused`.  Drives
 :func:`admmsolver_tpu_torch.ops.kernels.fused_two_block_chunk`, which runs
-``interval_update_mu``-iteration chunks with the state kept on chip;
-between chunks a torch step computes residuals, the convergence predicate
-and the adaptive penalty update (the engine's residual-balancing rule,
-reference ``optimizer.py:277-299``), then refreshes the spectral
-denominators.  The chunk schedule is a Python loop; after each chunk the
-host checks whether every lane is done.
+``interval_update_mu``-iteration chunks with the state kept on chip.  A
+chunk is the spectral denominators and threshold, one kernel launch, then
+the residuals, the convergence predicate and the adaptive penalty update
+(the engine's residual-balancing rule, reference ``optimizer.py:277-299``).
+
+The solve runs through a static run program (:class:`_FusedProgram`, the
+JAX package's one compiled ``_compiled_run``): fixed buffers for the state,
+the solve's inputs, its tolerances and knobs, and the residual histories;
+on a CUDA device each kind of chunk (iteration 0, a full chunk, the
+remainder) is captured once into a CUDA graph and replayed once a chunk
+(:class:`~admmsolver_tpu_torch.parallel.batch._GraphProgram`).  The host
+reads the done flags between chunks only where a lane can finish
+(``rtol > 0`` or ``atol > 0``), the counterpart of the JAX
+``while_loop``'s exit; it runs every chunk, reading nothing, otherwise.
 
 Scope: ``Model([LeastSquares-like spectral block, L1 or NonNegative],
 [(1, 0, I, I)])`` in float32, and its real embedding from
@@ -19,18 +27,20 @@ run up to one chunk longer than strictly needed; solutions are unaffected.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ..models.objectivefunc import (L1Regularizer, NonNegativePenalty,
-                                    _ShiftedQuadratic)
+from ..models.objectivefunc import (L1Regularizer, NonNegativePenalty, _ShiftedQuadratic,
+                                    any_not_pd, deferred_cholesky_checks, raise_if_not_pd)
 from ..models.problem import Model
 from ..models.realify import RealPartProx
 from ..ops import kernels
 from ..ops.linop import ScaledIdentityMatrix
 from ..utils import telemetry
+from . import batch
 
 __all__ = ["FusedTwoBlockSolver", "FusedResult"]
 
@@ -81,7 +91,166 @@ def _check_fused_overrides(overrides, path: str) -> Optional[int]:
     return B
 
 
-class FusedTwoBlockSolver:
+def _schedule(niter: int, interval: int):
+    """The chunks of a solve as (iterations, penalty update): iteration 0,
+    the full chunks, the remainder."""
+    nfull, nrem = divmod(niter - 1, interval)
+    return [(1, True)] + [(interval, True)] * nfull + ([(nrem, False)] if nrem else [])
+
+
+class _FusedProgram(batch._GraphProgram):
+    """The static run program of a fused solver for one cache key: the
+    counterpart of an entry of the JAX package's ``_run_cache``
+    (``fused.py:234-302``, ``fused_spm.py:235-384``) without ``niter``.
+
+    It owns the buffers its chunks read and write: the solver's state (the
+    blocks, then mu, done and count), the solve's inputs (``inputs[0]`` the
+    lanes' A†y, or their data where ``prologue`` makes A†y from it in the
+    first chunk), the tolerances and penalty knobs (rtol, atol, fact_incr,
+    th_change, max_mu) as device scalars, the history row and the
+    ``(nchunks, B)`` residual histories, all loaded per solve
+    (:meth:`load`).  A chunk (``key`` = (iterations, penalty update,
+    prologue)) runs the solver's ``step`` on them, under deferred Cholesky
+    checks (a failure is gathered in :attr:`failed`), and copies the new
+    state into the buffers and the residuals into the history row, which it
+    advances; rows no chunk wrote stay NaN.  So three graphs serve every
+    solve: iteration 0, a full chunk and the remainder.
+    """
+
+    def __init__(self, step, state, inputs, nchunks: int, prologue=None) -> None:
+        super().__init__()
+        # the solver's methods, held weakly: the solver holds the program
+        self._step = weakref.WeakMethod(step)
+        self._prologue = None if prologue is None else weakref.WeakMethod(prologue)
+        self.state = [batch._fresh(t) for t in state]
+        self.inputs = [batch._fresh(t) for t in inputs]
+        dev = self.state[0].device
+        # the lanes' A†y: made from the data in the first chunk, or an input
+        self.acy = prologue(self.inputs[0]) if prologue is not None else self.inputs[0]
+        self.knobs = torch.zeros(5, dtype=torch.float32, device=dev)
+        self.row = torch.zeros(1, dtype=torch.long, device=dev)
+        self.failed = torch.zeros((), dtype=torch.bool, device=dev)
+        self.checks = False
+        B = self.state[0].shape[0]
+        self.pbuf, self.dbuf = (torch.full((nchunks, B), float("nan"), dtype=torch.float32,
+                                           device=dev) for _ in range(2))
+
+    @property
+    def done(self) -> torch.Tensor:
+        return self.state[-2]
+
+    def reserve(self, nchunks: int) -> None:
+        """Histories of at least ``nchunks`` rows: longer ones than the
+        program holds are new buffers, and so need new graphs."""
+        if nchunks > self.pbuf.shape[0]:
+            self.pbuf, self.dbuf = (torch.full((nchunks, t.shape[1]), float("nan"),
+                                               dtype=t.dtype, device=t.device)
+                                    for t in (self.pbuf, self.dbuf))
+            self.graphs.clear()
+
+    def load(self, state, inputs, knobs, nchunks: int) -> None:
+        """A solve's initial state, inputs and knobs into the buffers, and
+        its number of chunks."""
+        self.nchunks = nchunks
+        for d, t in zip(self.state + self.inputs, tuple(state) + tuple(inputs)):
+            d.copy_(t)
+        for d, v in zip(self.knobs.unbind(), knobs):
+            d.fill_(float(v))
+        self.row.zero_()
+        self.failed.zero_()
+        self.pbuf.fill_(float("nan"))
+        self.dbuf.fill_(float("nan"))
+
+    def _chunk(self, key) -> None:
+        n_iters, do_mu, prologue = key
+        if prologue:
+            self.acy.copy_(self._prologue()(self.inputs[0]))
+        with deferred_cholesky_checks() as infos:
+            state, (pn, dn) = self._step()(self.state, self.acy, *self.inputs[1:],
+                                           self.knobs.unbind(), n_iters, do_mu)
+        if infos:
+            self.checks = True
+            self.failed.logical_or_(any_not_pd(infos))
+        for d, t in zip(self.state, state):
+            d.copy_(t)
+        self.pbuf.index_copy_(0, self.row, pn[None])
+        self.dbuf.index_copy_(0, self.row, dn[None])
+        self.row.add_(1)
+
+    def run_schedule(self, niter: int, interval: int, can_finish: bool, read_done0: bool,
+                     capture: bool, pool, what: str) -> None:
+        """The solve's chunk schedule (reference ``optimizer.py:319-320``):
+        iteration 0, then full ``interval`` chunks, then a remainder; the
+        penalty update fires after iteration 0 and after every full chunk,
+        never after the remainder.  The chunks after the first run while a
+        lane is not done: the host reads the done flags, with the failure
+        flag of the factorizations, after a chunk that is not the last where
+        a lane can finish, and (``read_done0``) once before the first chunk
+        for a caller's ``done0`` where no such read follows; the failure flag
+        alone after the last chunk where it was not read."""
+        schedule = _schedule(niter, interval)
+        all_done = (read_done0 and not can_finish and len(schedule) > 1
+                    and batch._flags_read(self.done))
+        unread = False
+        for k, (n, do_mu) in enumerate(schedule):
+            if k and all_done:
+                break
+            self._run_chunk((n, do_mu, k == 0 and self._prologue is not None), capture, pool)
+            telemetry.check_chunk(what, self.state[:-3])
+            unread = self.checks
+            if can_finish and k + 1 < len(schedule):
+                all_done = batch._flags_read(self.done, self.failed if unread else None)
+                unread = False
+        if unread:
+            raise_if_not_pd(self.failed)
+
+    def buffers(self):
+        """Every tensor the program holds between solves."""
+        return tuple(self.state + self.inputs) + (self.acy, self.pbuf, self.dbuf)
+
+    def histories(self, B: int):
+        """The solve's (B, nchunks) primal and dual residual histories,
+        copied out of the buffers that the next solve overwrites."""
+        return tuple(t[:self.nchunks, :B].T.clone() for t in (self.pbuf, self.dbuf))
+
+
+class _FusedSolverBase:
+    """The run programs of a fused solver, by key, and the graph pool their
+    captures share (:mod:`admmsolver_tpu_torch.parallel.batch`)."""
+
+    def _init_programs(self) -> None:
+        #: the run programs by key (:meth:`_run`), oldest first
+        self._programs: Dict[tuple, _FusedProgram] = {}
+        #: the memory of the programs' graphs, made by the first captured solve
+        self._pool: Optional[batch._GraphPool] = None
+
+    def _run(self, key, state, inputs, knobs, niter: int, interval: int, can_finish: bool,
+             read_done0: bool, prologue=None) -> _FusedProgram:
+        """A solve through the program of ``key`` (made on a miss; at most
+        :data:`~admmsolver_tpu_torch.parallel.batch.PROGRAM_CACHE_SIZE` a
+        solver, the oldest dropped first); its chunks are replays of
+        captured graphs on a CUDA device with
+        :data:`~admmsolver_tpu_torch.parallel.batch.CAPTURE_CHUNKS`.
+        Returns the program, its buffers holding the result."""
+        if niter < 1 or interval < 1:
+            raise ValueError(f"niter and interval_update_mu must be >= 1, got {niter}, "
+                             f"{interval}")
+        nchunks = len(_schedule(niter, interval))
+        capture = batch.CAPTURE_CHUNKS and self.device.type == "cuda"
+        if capture and self._pool is None:
+            self._pool = batch._GraphPool(self.device)
+        program = self._programs.get(key)
+        if program is None:
+            program = batch._keep(self._programs, key, _FusedProgram(
+                self._step, state, inputs, nchunks, prologue))
+        program.reserve(nchunks)
+        program.load(state, inputs, knobs, nchunks)
+        program.run_schedule(niter, interval, can_finish, read_done0, capture, self._pool,
+                             type(self).__name__)
+        return program
+
+
+class FusedTwoBlockSolver(_FusedSolverBase):
     """Fused chunk solver for the flagship 2-block family, in float32.
 
     ``device`` is where the solve runs: on ``cuda`` (the default; without a
@@ -143,14 +312,16 @@ class FusedTwoBlockSolver:
         self.lam = torch.as_tensor(np.asarray(lam), **f32)
         self.U = torch.as_tensor(U, **f32).contiguous()
         self.Ut = self.U.T.contiguous()
+        # A† on the device once: a copy from the host would wait for the card
+        self.Ac = torch.as_tensor(f0._Ac.asmatrix(), **f32)
+        self._init_programs()
 
-    def _step(self, state, acy, alpha_ls, alpha1, tols, knobs,
-              n_iters: int, do_mu: bool):
+    def _step(self, state, acy, alpha_ls, alpha1, knobs, n_iters: int, do_mu: bool):
         """One chunk: ``n_iters`` kernel iterations, then residuals,
-        convergence and (if ``do_mu``) the penalty update."""
+        convergence and (if ``do_mu``) the penalty update.  ``knobs``:
+        rtol, atol, fact_incr, th_change, max_mu."""
         x0, x1, h, mu, done, count = state
-        rtol, atol = tols
-        fact_incr, th_change, max_mu = knobs
+        rtol, atol, fact_incr, th_change, max_mu = knobs
         dinv = 1.0 / (alpha_ls[:, None] * self.lam[None, :] + mu)
         if self.thin:
             dinv = dinv - 1.0 / mu
@@ -185,7 +356,7 @@ class FusedTwoBlockSolver:
         # residual-balancing penalty update (chunk-granular)
         mu_new = torch.where(pn > th_change * dn, mu1 * fact_incr, mu1)
         mu_new = torch.where(dn > th_change * pn, mu_new / fact_incr, mu_new)
-        mu_new = torch.clamp_max(mu_new, max_mu)
+        mu_new = torch.minimum(mu_new, max_mu)
         if do_mu:
             upd = active & ~done_new
             mu = torch.where(upd, mu_new, mu1)[:, None]
@@ -237,8 +408,7 @@ class FusedTwoBlockSolver:
         f0 = self.f0
         ys = overrides.get((0, "y"))
         if ys is not None:
-            Ac = torch.as_tensor(f0._Ac.asmatrix(), **f32)
-            acy = pad_first(torch.as_tensor(ys, **f32) @ Ac.T)
+            acy = pad_first(torch.as_tensor(ys, **f32) @ self.Ac.T)
         else:
             acy = torch.as_tensor(f0._Acy, **f32).expand(Bp, self.N)
         alpha_ls = batch_of((0, "alpha"), f0._alpha)
@@ -266,38 +436,16 @@ class FusedTwoBlockSolver:
                 raise ValueError(f"done0 has shape {tuple(d0.shape)}, expected ({B},)")
         # padding lanes start done: they never iterate
         d0 = torch.cat([d0, torch.ones(Bp - B, dtype=torch.bool, device=dev)])
-
-        # reference schedule: penalty update after iterations 0, interval,
-        # 2*interval, ... (optimizer.py:319-320); chunk boundaries align
-        # with it, the remainder chunk skips the update.
-        interval = int(interval_update_mu)
-        niter = int(niter)
-        nfull = (niter - 1) // interval
-        nrem = (niter - 1) % interval
-        nchunks = 1 + nfull + (1 if nrem else 0)
-        tols = (rtol, atol)
-        knobs = (fact_incr, th_change, max_mu)
         state = (x0a, x1a, ha, mu, d0, torch.zeros(Bp, dtype=torch.int32, device=dev))
-        pbuf = torch.full((nchunks, Bp), float("nan"), **f32)
-        dbuf = torch.full((nchunks, Bp), float("nan"), **f32)
-
-        schedule = [(0, 1, True)]
-        schedule += [(1 + k, interval, True) for k in range(nfull)]
-        if nrem:
-            schedule.append((nchunks - 1, nrem, False))
-        for k, (row, n_iters, do_mu) in enumerate(schedule):
-            if k > 0 and bool(state[4].all()):
-                break
-            state, (pn, dn) = self._step(state, acy, alpha_ls, alpha1, tols,
-                                         knobs, n_iters, do_mu)
-            telemetry.check_chunk("FusedTwoBlockSolver", state[:3])
-            pbuf[row] = pn
-            dbuf[row] = dn
-
-        x0f, x1f, hf, muf, done, count = state
+        interval, niter = int(interval_update_mu), int(niter)
+        can_finish = rtol > 0 or atol > 0
+        program = self._run((interval, Bp, str(dev), can_finish), state,
+                            (acy, alpha_ls, alpha1), (rtol, atol, fact_incr, th_change, max_mu),
+                            niter, interval, can_finish, done0 is not None)
+        x0f, x1f, hf, muf, done, count = program.state
+        primal, dual = program.histories(B)
+        # copies: the next solve overwrites the buffers
         return FusedResult(
-            x0=x0f[:B], x1=x1f[:B], h=hf[:B], mu=muf[:B, 0],
-            iterations=torch.clamp_max(count, niter)[:B],
-            converged=done[:B],
-            primal_residual=pbuf.T[:B],
-            dual_residual=dbuf.T[:B])
+            x0=x0f[:B].clone(), x1=x1f[:B].clone(), h=hf[:B].clone(), mu=muf[:B, 0].clone(),
+            iterations=torch.clamp_max(count[:B], niter), converged=done[:B].clone(),
+            primal_residual=primal, dual_residual=dual)

@@ -3,12 +3,16 @@
 Counterpart of :mod:`admmsolver_tpu.parallel.fused_spm`.  Drives
 :func:`admmsolver_tpu_torch.ops.kernels.fused_spm_chunk`: per chunk the
 kernel runs ``interval_update_mu`` iterations with all per-lane state kept
-on chip; between chunks a torch step computes the pair residuals, the
-convergence predicate, the residual-balancing penalty update (reference
-``optimizer.py:277-299``) and the refreshed per-lane affine factor, at
+on chip.  A chunk is the refreshed per-lane affine factor, one kernel
+launch, then the pair residuals, the convergence predicate and the
+residual-balancing penalty update (reference ``optimizer.py:277-299``), at
 chunk granularity like :class:`~admmsolver_tpu_torch.parallel.fused.
-FusedTwoBlockSolver`.  The chunk schedule is a Python loop; after each
-chunk the host checks whether every lane is done.
+FusedTwoBlockSolver`, through the same static run program
+(:class:`~admmsolver_tpu_torch.parallel.fused._FusedProgram`: on a CUDA
+device one replay of a captured graph a chunk).  As in the JAX package's
+``_compiled_solve``, the A†y product of the lanes' data is part of the
+program (its first chunk); the factorizations keep their Cholesky infos on
+the device, read with the done flags or once after the solve.
 
 Scope: ``Model([ConstrainedLeastSquares-or-LeastSquares, L1Regularizer,
 NonNegativePenalty], [(0, 1, I, I), (0, 2, P, I)])`` — the reference's SpM
@@ -39,9 +43,8 @@ from ..models.objectivefunc import (ConstrainedLeastSquares, L1Regularizer,
                                     LeastSquares, NonNegativePenalty, inv_hpd)
 from ..models.problem import Model
 from ..ops import kernels
-from ..utils import telemetry
 from .batch import BatchedSolver, BatchResult
-from .fused import _check_fused_overrides, _is_identity_si
+from .fused import _check_fused_overrides, _FusedSolverBase, _is_identity_si
 
 __all__ = ["FusedSpMSolver", "FusedSpMResult"]
 
@@ -68,7 +71,7 @@ def _dense32(op) -> np.ndarray:
     return np.asarray(a, np.float32)
 
 
-class FusedSpMSolver:
+class FusedSpMSolver(_FusedSolverBase):
     """Fused chunk solver for the SpM 3-block family, in float32.
 
     ``device`` is where the solve runs: on ``cuda`` (the default; without a
@@ -124,6 +127,8 @@ class FusedSpMSolver:
         if self.is_cls:
             self.C = torch.as_tensor(_dense32(f0._C), **f32)      # (nc, nl)
             self.D = torch.as_tensor(_dense32(f0._D), **f32)      # (nc,)
+        self.eye = torch.eye(self.nl, **f32)
+        self._init_programs()
 
     # -- factor refresh (chunk boundaries) -----------------------------
     def _factors(self, mu1, mu2, alpha_ls, acy):
@@ -131,9 +136,8 @@ class FusedSpMSolver:
 
         ``mu1``/``mu2``/``alpha_ls``: (B,); ``acy`` = A†y (B, nl).
         """
-        eye = torch.eye(self.nl, dtype=torch.float32, device=self.device)
         Mpen = (alpha_ls[:, None, None] * self.AcA
-                + mu1[:, None, None] * eye
+                + mu1[:, None, None] * self.eye
                 + mu2[:, None, None] * self.W)
         M = inv_hpd(Mpen)                                   # (B, nl, nl)
         b2 = None
@@ -146,13 +150,16 @@ class FusedSpMSolver:
         aMy = alpha_ls[:, None] * (M @ acy[:, :, None])[:, :, 0]
         return M.contiguous(), (aMy if b2 is None else aMy + b2).contiguous()
 
-    def _step(self, state, acy, alpha_ls, alpha1, tols, knobs,
-              n_iters: int, do_mu: bool):
+    def _acy_of(self, data):
+        """A†y of the lanes' data (B, M)."""
+        return data @ self.Ac.T
+
+    def _step(self, state, acy, alpha_ls, alpha1, knobs, n_iters: int, do_mu: bool):
         """One chunk: the factor refresh, ``n_iters`` kernel iterations,
-        then residuals, convergence and (if ``do_mu``) the penalty update."""
+        then residuals, convergence and (if ``do_mu``) the penalty update.
+        ``knobs``: rtol, atol, fact_incr, th_change, max_mu."""
         x0, x1, x2, h10, h20, mu, done, count = state
-        rtol, atol = tols
-        fact_incr, th_change, max_mu = knobs
+        rtol, atol, fact_incr, th_change, max_mu = knobs
         mu1, mu2 = mu[:, 0], mu[:, 1]
 
         M, b2 = self._factors(mu1, mu2, alpha_ls, acy)
@@ -189,7 +196,7 @@ class FusedSpMSolver:
         def balance(m, p, d):
             m2 = torch.where(p > th_change * d, m * fact_incr, m)
             m2 = torch.where(d > th_change * p, m2 / fact_incr, m2)
-            return torch.clamp_max(m2, max_mu)
+            return torch.minimum(m2, max_mu)
 
         if do_mu:
             upd = active & ~done_new
@@ -230,10 +237,10 @@ class FusedSpMSolver:
             return torch.full((B,), float(default), **f32)
 
         ys = overrides.get((0, "y"))
-        if ys is not None:
-            acy = torch.as_tensor(ys, **f32) @ self.Ac.T
-        else:
-            acy = self.Acy.expand(B, self.nl)
+        has_y = ys is not None
+        # the lanes' data, whose A†y the program's first chunk makes, or A†y
+        # of the template
+        first = torch.as_tensor(ys, **f32) if has_y else self.Acy.expand(B, self.nl)
         alpha_ls = batch_of((0, "alpha"), self.f0._alpha)
         alpha1 = batch_of((1, "alpha"), self.f1._alpha)
         if done0 is None:
@@ -243,41 +250,23 @@ class FusedSpMSolver:
             if tuple(d0.shape) != (B,):
                 raise ValueError(f"done0 has shape {tuple(d0.shape)}, expected ({B},)")
 
-        # reference schedule (optimizer.py:319-320): iteration 0, then full
-        # `interval` chunks, then a remainder; the penalty update fires after
-        # iteration 0 and after every full chunk, never after the remainder.
-        interval = int(interval_update_mu)
-        niter = int(niter)
-        nfull = (niter - 1) // interval
-        nrem = (niter - 1) % interval
-        nchunks = 1 + nfull + (1 if nrem else 0)
-        tols = (rtol, atol)
-        knobs = (fact_incr, th_change, max_mu)
         zeros = lambda n: torch.zeros((B, n), **f32)
         state = (zeros(self.nl), zeros(self.nl), zeros(self.nw), zeros(self.nl),
                  zeros(self.nw), torch.full((B, 2), float(mu0), **f32), d0,
                  torch.zeros(B, dtype=torch.int32, device=dev))
-        pbuf = torch.full((nchunks, B), float("nan"), **f32)
-        dbuf = torch.full((nchunks, B), float("nan"), **f32)
-
-        schedule = [(0, 1, True)]
-        schedule += [(1 + k, interval, True) for k in range(nfull)]
-        if nrem:
-            schedule.append((nchunks - 1, nrem, False))
-        for k, (row, n_iters, do_mu) in enumerate(schedule):
-            if k > 0 and bool(state[6].all()):
-                break
-            state, (pn, dn) = self._step(state, acy, alpha_ls, alpha1, tols,
-                                         knobs, n_iters, do_mu)
-            telemetry.check_chunk("FusedSpMSolver", state[:5])
-            pbuf[row] = pn
-            dbuf[row] = dn
-
-        x0, x1, x2, h10, h20, mu, done, count = state
+        interval, niter = int(interval_update_mu), int(niter)
+        can_finish = rtol > 0 or atol > 0
+        program = self._run((interval, B, has_y, str(dev), can_finish), state,
+                            (first, alpha_ls, alpha1), (rtol, atol, fact_incr, th_change, max_mu),
+                            niter, interval, can_finish, done0 is not None,
+                            prologue=self._acy_of if has_y else None)
+        # copies: the next solve overwrites the buffers
+        x0, x1, x2, h10, h20, mu, done, count = (t.clone() for t in program.state)
+        primal, dual = program.histories(B)
         return FusedSpMResult(
             x=(x0, x1, x2), h=(h10, h20), mu=mu,
             iterations=torch.clamp_max(count, niter), converged=done,
-            primal_residual=pbuf.T, dual_residual=dbuf.T)
+            primal_residual=primal, dual_residual=dual)
 
     def solve_mixed(self,
                     overrides: Optional[Dict] = None,

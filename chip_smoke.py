@@ -158,23 +158,28 @@ fails raises and the script exits non-zero without printing a result.
    against world size 1 (1e-9, equal counts), each rank's checkpoint shard
    reassembled against the unsharded solve, and a 2-rank gloo all_reduce.
 
-Captured chunks against chunks without a graph: ``BatchedSolver`` runs
-each chunk of a solve as a replay of a captured CUDA graph; every part of
-phases 6, 7, 8 and 10 that solves through it (the bench solve, the f64
-polish of ``solve_mixed``, one wave of each stream mode,
-``solve_resumable``, the realified SpM, 8a-8f, 10a-10c) solves once more
-through the captured chunks and once with ``batch.CAPTURE_CHUNKS = False``
-(the same chunk program run directly, its working set taken from the
-solver's graph pool once the program is warm), the order flipped every
-part, and gates x, h, mu, iterations and flags of the two bitwise; it
-prints ms an iteration both ways, each graph's capture seconds and the
-pool's bytes.  A part whose route a graph cannot hold (the library eigh or
-SVD: 10a and 10b's eigh, 10c's ``xla``) runs its chunks without a graph and
-says so.  8f's memory gate covers every solve of the part (the timed ones,
-the turn, ``--profile``'s): the peak of the bytes allocated outside the
-graph pool plus the pool's reserved segments, from the allocator's trace.
+Captured chunks against chunks without a graph: ``BatchedSolver``,
+``FusedTwoBlockSolver`` and ``FusedSpMSolver`` run each chunk of a solve
+as a replay of a captured CUDA graph; every part of phases 6, 7, 8 and 10
+that solves through them (the basis-pursuit and SpM fused solves, both
+phases of ``solve_mixed``, the bench solve, one wave of each stream mode,
+``solve_resumable``, the realified SpM and basis pursuit, 8a-8f, 10a-10c)
+solves once more through the captured chunks and once with
+``batch.CAPTURE_CHUNKS = False`` (the same chunk program run directly, its
+working set taken from the solver's graph pool once the program is warm),
+the order flipped every part, and gates x, h, mu, iterations and flags of
+the two bitwise (the fused solves' residual histories too, and their
+chunk kernel's launches equal both ways); it prints ms an iteration both
+ways, each graph's capture seconds and the pool's bytes.  The fused
+solves' plain-version runs go through the same program without graphs.
+A part whose route a graph cannot hold (the library eigh or SVD: 10a and
+10b's eigh, 10c's ``xla``) runs its chunks without a graph and says so.
+8f's memory gate covers every solve of the part (the timed ones, the
+turn, ``--profile``'s): the peak of the bytes allocated outside the graph
+pool plus the pool's reserved segments, from the allocator's trace.
 ``--profile`` profiles each such part both ways: device kernels and the
-host's launch calls an iteration (a graph replay is one), busy share.
+host's launch calls an iteration (a graph replay is one), busy share
+(the fused solves, ``solve_mixed``'s f32 phase and 7d too).
 
 ``--variants`` also times both chunks at other tilings and routes, the
 two-block chunk's two products as ``torch.matmul``, the card's L2 read rate,
@@ -409,8 +414,11 @@ def median_wall(torch, fns):
 
 
 def plain_chunk_solve(plain_chunk, solve):
+    """``solve()`` with the chunk kernel's wrapper patched to its plain
+    version, through the run program without graphs (a replay would launch
+    the kernel its graph holds)."""
     with plain_chunk:
-        return solve()
+        return with_capture(False, solve)
 
 
 def bound_ms(t_ops, tensors):
@@ -751,7 +759,10 @@ def phase_complex_bp(torch, card, kernels, fused, plain_chunk, real_solve, devic
     print(f"[{card}] realified complex fused solve (B={B}, {niter} iters): {t_re * 1e3:.1f} ms = "
           f"{B * niter / t_re:.0f} inst-iters/s; the real bench solve beside it "
           f"{t_real * 1e3:.1f} ms = {B * niter / t_real:.0f} inst-iters/s", flush=True)
-    return {"launches": launches, "s": t_re}
+    captured_vs_eager(torch, card, f"realified complex fused solve (B={B}, {niter} iters)", solve,
+                      niter, [solver],
+                      kernel=kernels.fused_two_block_chunk if device == "cuda" else None)
+    return {"launches": launches, "s": t_re, "solve": solve}
 
 
 def family_solve(torch, card, what, model, ov, niter, device, lanes=(0,), tol=1e-8,
@@ -1164,57 +1175,76 @@ def with_capture(capture, fn):
 
 
 def program_stats(solvers):
-    """(capture seconds by chunk length, graph pool bytes, bytes of the
-    programs' buffers) of the chunk programs of ``solvers`` (BatchedSolver
-    objects; one pool a solver): what the solvers hold between solves."""
-    from admmsolver_tpu_torch.parallel.batch import _leaves
-
+    """(capture seconds by chunk key, graph pool bytes, bytes of the
+    programs' buffers) of the chunk programs of ``solvers`` (BatchedSolver,
+    FusedTwoBlockSolver or FusedSpMSolver objects; one pool a solver): what
+    the solvers hold between solves."""
     programs = [p for s in solvers for p in s._programs.values()]
-    held = sum(t.untyped_storage().nbytes() for p in programs
-               for t in p.x + p.h + (p.mu, p.done, p.count, p.pbuf, p.dbuf)
-               + tuple(t for k, name in p._fields for t in _leaves(getattr(p.functions[k], name))))
+    held = sum(t.untyped_storage().nbytes() for p in programs for t in p.buffers())
     return ({n: t for p in programs for n, t in p.capture_s.items()},
             sum(s._pool.bytes for s in solvers if s._pool is not None), held)
 
 
-def captured_vs_eager(torch, card, what, solve, niter, solvers, state=None):
+def chunk_name(key):
+    """A chunk key of a program: its length (BatchedSolver), or the fused
+    programs' (length, penalty update, A†y made in the chunk)."""
+    if not isinstance(key, tuple):
+        return f"{key} iterations"
+    n, do_mu, prologue = key
+    return (f"{n} iterations" + ("" if do_mu else " without a penalty update")
+            + (" with A†y" if prologue else ""))
+
+
+def captured_vs_eager(torch, card, what, solve, niter, solvers, state=None, kernel=None):
     """One solve through the captured chunks and one without graphs,
     in an order that flips every call (captured first on even calls), each
     timed by the host clock with a device synchronize; ``state(result)`` of
     the two bitwise equal.  Prints ms an iteration both ways and the capture
     seconds and pool bytes of ``solvers``' chunk programs (``state``: x, h,
-    mu, iterations and flags of a BatchResult by default)."""
+    mu, iterations and flags of a result, :func:`state_of`).  With
+    ``kernel`` (a counted wrapper), its launches in each solve, which must
+    be equal and not 0."""
     sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
-    turn, out = _TURN[0], {}
+    turn, out, launches = _TURN[0], {}, {}
     _TURN[0] += 1
     state = state or state_of
     for capture in (True, False) if turn % 2 == 0 else (False, True):
+        if kernel is not None:
+            kernel.launches = 0
         sync()
         t0 = time.perf_counter()
         res = with_capture(capture, solve)
         sync()
         t = time.perf_counter() - t0
+        if kernel is not None:
+            launches[capture] = kernel.launches
         # the state on the host: one solve's result at a time on the card
         out[capture] = ([np.asarray(a.cpu() if hasattr(a, "cpu") else a) for a in state(res)], t)
         res = None
     got, want = (out[c][0] for c in (True, False))
-    same = len(got) == len(want) and all(a.dtype == b.dtype and np.array_equal(a, b)
+    same = len(got) == len(want) and all(a.dtype == b.dtype and a.shape == b.shape
+                                         and a.tobytes() == b.tobytes()
                                          for a, b in zip(got, want))
-    diff = max(float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
+    diff = max(float(np.nanmax(np.abs(a.astype(np.float64) - b.astype(np.float64)), initial=0.0))
                for a, b in zip(got, want))
     capture_s, pool, held = program_stats(solvers)
     ms = {c: 1e3 * out[c][1] / niter for c in out}
     print(f"[{card}] {what}, captured against eager ({'captured' if turn % 2 == 0 else 'eager'} "
           f"first): {ms[True]:.3f} against {ms[False]:.3f} ms per iteration "
-          f"({ms[False] / ms[True]:.2f}x); captures "
-          + ", ".join(f"{n} iterations {t:.3f} s" for n, t in sorted(capture_s.items()))
+          f"({ms[False] / ms[True]:.2f}x; solve {1e3 * out[True][1]:.2f} against "
+          f"{1e3 * out[False][1]:.2f} ms); captures "
+          + ", ".join(f"{chunk_name(n)} {t:.3f} s"
+                      for n, t in sorted(capture_s.items(), key=str))
           + f"; pool {pool / 2**20:.1f} MiB, buffers {held / 2**20:.1f} MiB "
-          + f"({sum(len(s._programs) for s in solvers)} programs); states "
-          + ("bitwise equal" if same else f"DIFFER by {diff:.3e}"), flush=True)
+          + f"({sum(len(s._programs) for s in solvers)} programs); "
+          + (f"kernel launches {launches[True]} / {launches[False]}; " if kernel else "")
+          + "states " + ("bitwise equal" if same else f"DIFFER by {diff:.3e}"), flush=True)
     if not same:
         raise AssertionError(f"{what}: the captured solve departs from the eager one by {diff:.3e}")
+    if kernel is not None and not launches[True] == launches[False] > 0:
+        raise AssertionError(f"{what}: kernel launches {launches} captured / eager")
     return {"ms_captured": ms[True], "ms_eager": ms[False], "capture_s": capture_s,
-            "pool_bytes": pool, "held_bytes": held}
+            "pool_bytes": pool, "held_bytes": held, "launches": launches.get(True)}
 
 
 def profile_both(torch, what, solve, iters, kernel_name="gemm"):
@@ -1792,6 +1822,8 @@ def phases_1_to_8(torch, card):
     print(f"[{card}] fused solve (B={B}, {NITER} iters): kernel {t_kernel * 1e3:.1f} ms = "
           f"{B * NITER / t_kernel:.0f} inst-iters/s, plain {t_plain * 1e3:.1f} ms = "
           f"{B * NITER / t_plain:.0f} inst-iters/s")
+    captured_vs_eager(torch, card, f"basis-pursuit fused solve (B={B}, {NITER} iters)", solve,
+                      NITER, [solver], kernel=kernels.fused_two_block_chunk)
     print(f"[{card}] SimpleOptimizer f64 solve (1 instance, 200 iters): "
           f"{t_opt * 1e3:.1f} ms")
 
@@ -1828,6 +1860,8 @@ def phases_1_to_8(torch, card):
     print(f"[{card}] fused SpM solve (B={B}, {SPM_NITER} iters): kernel "
           f"{ts_kernel * 1e3:.1f} ms = {B * SPM_NITER / ts_kernel:.0f} inst-iters/s, plain "
           f"{ts_plain * 1e3:.1f} ms = {B * SPM_NITER / ts_plain:.0f} inst-iters/s")
+    captured_vs_eager(torch, card, f"fused SpM solve (B={B}, {SPM_NITER} iters)", spm_solve,
+                      SPM_NITER, [spm], kernel=kernels.fused_spm_chunk)
     print(f"[{card}] SimpleOptimizer f64 SpM solve (1 instance, 1000 iters): "
           f"{ts_opt * 1e3:.1f} ms")
 
@@ -1858,21 +1892,25 @@ def phases_1_to_8(torch, card):
               f"{str(dt).split('.')[-1]} torch.matmul chained 50 times: {pair_ms:.3f} ms = "
               f"{50 * 4e-9 * B * N * M / pair_ms:.1f} TFLOP/s, so {BATCH_NITER} iterations' "
               f"products take {BATCH_NITER / 50 * pair_ms:.1f} ms")
-    p1 = spm.solve({(0, "y"): gs_dev}, niter=SPM_NITER, mu0=SPM_MU0, rtol=0.0, atol=1e-5)
+    # solve_mixed's float32 phase: the SpM program where lanes can finish (atol)
+    low_solve = lambda: spm.solve({(0, "y"): gs_dev}, niter=SPM_NITER, mu0=SPM_MU0, rtol=0.0,
+                                  atol=1e-5)
+    p1 = low_solve()
     p1_state = dict(x0=[a.double() for a in p1.x], h0=[a.double() for a in p1.h],
                     mu0=p1.mu.double())
     polish = lambda: spm._polish_solver.solve({(0, "y"): gs_dev}, niter=POLISH_NITER, rtol=0.0,
                                               record_residuals=False, **p1_state)
     tm_all, tm_low, tm_polish = median_wall(torch, [
         mixed_solve,
-        lambda: spm.solve({(0, "y"): gs_dev}, niter=SPM_NITER, mu0=SPM_MU0, rtol=0.0,
-                          atol=1e-5),
+        low_solve,
         polish])
     print(f"[{card}] SpM solve_mixed (B={B}, {SPM_NITER} f32 + {POLISH_NITER} f64 iters): "
           f"{tm_all * 1e3:.1f} ms; its f32 kernel phase alone {tm_low * 1e3:.1f} ms "
           f"(iterations {int(p1.iterations.min())}..{int(p1.iterations.max())}), its f64 "
           f"polish alone {tm_polish * 1e3:.1f} ms = {B * POLISH_NITER / tm_polish:.0f} "
           "inst-iters/s")
+    captured_vs_eager(torch, card, f"SpM solve_mixed's f32 phase (B={B}, {SPM_NITER} iters, "
+                      "atol 1e-5)", low_solve, SPM_NITER, [spm], kernel=kernels.fused_spm_chunk)
     captured_vs_eager(torch, card, f"SpM solve_mixed's f64 polish (B={B}, {POLISH_NITER} iters)",
                       polish, POLISH_NITER, [spm._polish_solver])
 
@@ -1935,8 +1973,10 @@ def phases_1_to_8(torch, card):
         for (name, _), t_ms in zip(routes.items(), median_ms(torch, list(routes.values()))):
             print(f"  {name}: {t_ms:.3f} ms")
     if "--profile" in sys.argv:
-        profile_solve(torch, "basis-pursuit solve", "fused_two_block", solve)
-        profile_solve(torch, "SpM solve", "fused_spm", spm_solve)
+        profile_both(torch, "basis-pursuit solve", solve, NITER, kernel_name="fused_two_block")
+        profile_both(torch, "SpM solve", spm_solve, SPM_NITER, kernel_name="fused_spm")
+        profile_both(torch, "SpM solve_mixed f32 phase", low_solve, SPM_NITER,
+                     kernel_name="fused_spm")
         profile_both(torch, "BatchedSolver f64 solve", lambda: bsolve(rtol=0.0), BATCH_NITER)
         profile_solve(torch, "BatchedSolver f32 solve", "gemm",
                       lambda: bsolve(rtol=0.0, dtype=torch.float32), iters=BATCH_NITER)
@@ -1949,6 +1989,8 @@ def phases_1_to_8(torch, card):
                          lambda mode=mode: getattr(one_wave, mode)(iter(sched["scenarios"])),
                          SCHED_CHUNK)
         profile_both(torch, "realified complex SpM solve", complex_spm["solve"], CSPM_NITER)
+        profile_both(torch, "realified complex basis-pursuit fused solve", realified["solve"],
+                     NITER, kernel_name="fused_two_block")
 
     # No single PyTorch call computes either chunk, so there is no library time.
     # prev_ms is the replaced design's time where this run still builds and
@@ -2006,7 +2048,15 @@ def same_tensors(torch, got, want):
 
 
 def state_of(res):
-    return res.x + res.h + (res.mu, res.iterations, res.converged)
+    """x, h, mu, iterations and flags of a ``BatchResult``, and of the fused
+    solvers' results with their residual histories."""
+    if hasattr(res, "x0"):   # FusedResult
+        return (res.x0, res.x1, res.h, res.mu, res.iterations, res.converged,
+                res.primal_residual, res.dual_residual)
+    out = tuple(res.x) + tuple(res.h) + (res.mu, res.iterations, res.converged)
+    if not hasattr(res, "lane_index"):   # FusedSpMResult
+        out += (res.primal_residual, res.dual_residual)
+    return out
 
 
 def lanes_close(what, got_x, got_it, want_x, want_it, tol):

@@ -922,6 +922,182 @@ def test_failed_capture_of_a_capturable_model_raises(cuda, monkeypatch):
     torch.cuda.synchronize()
 
 
+FUSED = ["two_block", "spm"]
+
+
+def _fused_case(kind, device):
+    """(solver, overrides, other overrides, solve keywords) of the fused
+    programs' card tests: 37 lanes (the two-block solver pads them to 40),
+    A 24 x 64 (thin basis, clusters of two blocks) or SpM nl = 12, nw = 25."""
+    rng = np.random.RandomState(43)
+    lanes = 37
+    if kind == "two_block":
+        A = rng.randn(24, 64)
+        ys, ys2 = rng.randn(2, lanes, 24)
+        return (FusedTwoBlockSolver(_bp(A, ys[0]), tile_b=8, device=device), {(0, "y"): ys},
+                {(0, "y"): ys2, (1, "alpha"): np.linspace(0.05, 0.2, lanes)}, {})
+    s, g, prj_sum, prj_w, _, _ = synthetic_spm_data(nl=12, nw=25)
+    gs, gs2 = g[None] + 1e-4 * rng.randn(2, lanes, g.size)
+    return (FusedSpMSolver(spm_model(s, g, prj_sum, prj_w, alpha_l1=1e-3), device=device),
+            {(0, "y"): gs}, {(0, "y"): gs2, (1, "alpha"): np.linspace(5e-4, 5e-3, lanes)},
+            {"mu0": 0.1})
+
+
+def _fused_solve(solver, ov, capture, **kw):
+    from admmsolver_tpu_torch.parallel import batch
+
+    kw = dict(dict(niter=45, interval_update_mu=10, rtol=0.0), **kw)
+    keep = batch.CAPTURE_CHUNKS
+    batch.CAPTURE_CHUNKS = capture
+    try:
+        res = solver.solve(ov, **kw)
+    finally:
+        batch.CAPTURE_CHUNKS = keep
+    torch.cuda.synchronize()
+    return res
+
+
+def _fused_outputs(r):
+    blocks = [r.x0, r.x1, r.h] if hasattr(r, "x0") else list(r.x) + list(r.h)
+    return blocks + [r.mu, r.iterations, r.converged, r.primal_residual, r.dual_residual]
+
+
+def _assert_bitwise(got, want):
+    for a, b in zip(_fused_outputs(got), _fused_outputs(want)):
+        assert a.is_cuda and a.dtype == b.dtype
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+
+
+@pytest.mark.parametrize("kind", FUSED)
+def test_fused_captured_chunks_equal_graph_less(cuda, kind):
+    """Each chunk of a fused solve a replay of its captured graph, against
+    the same run program with ``CAPTURE_CHUNKS`` off on a solver that never
+    captured: bitwise in every output, on the program's first solve (its
+    first chunk eager, then captures), on a second one with new data and
+    alphas (replays only), where lanes can finish, with done0, and on a
+    solve of the capturing solver with capture off.  45 iterations in
+    chunks of 10: graphs for iteration 0, the full chunk and a remainder
+    of 4."""
+    solver, ov, ov2, kw = _fused_case(kind, cuda)
+    done0 = np.arange(37) % 5 == 0
+    for o, extra, capture in ((ov, {}, True), (ov2, {}, True), (ov, dict(rtol=1e-5), True),
+                              (ov2, dict(rtol=1e-5, done0=done0), True), (ov, {}, False)):
+        got = _fused_solve(solver, o, capture, **kw, **extra)
+        want = _fused_solve(_fused_case(kind, cuda)[0], o, False, **kw, **extra)
+        _assert_bitwise(got, want)
+    programs = list(solver._programs.values())
+    assert len(programs) == 2
+    assert sorted(programs[0].graphs) == [(1, True, kind == "spm"), (4, False, False),
+                                          (10, True, False)]
+
+
+@pytest.mark.parametrize("kind", FUSED)
+def test_fused_replays_count_their_kernel_launches(cuda, kind):
+    """A replay adds the launch its capture counted: one a chunk, captured
+    or not (45 iterations: 1 + 4 x 10 + 4, six chunks)."""
+    solver, ov, _, kw = _fused_case(kind, cuda)
+    kernel = fused_two_block_chunk if kind == "two_block" else fused_spm_chunk
+    counts = []
+    for capture in (True, True, False):
+        kernel.launches = 0
+        _fused_solve(solver, ov, capture, **kw)
+        counts.append(kernel.launches)
+    assert counts == [6, 6, 6]
+
+
+@pytest.mark.parametrize("kind", FUSED)
+def test_fused_cached_program_takes_new_inputs(cuda, kind):
+    """A warm program reused with new data, alphas, tolerances and penalty
+    knobs equals a fresh solver's solve of those, bitwise."""
+    solver, ov, ov2, kw = _fused_case(kind, cuda)
+    _fused_solve(solver, ov, True, rtol=1e-6, **kw)
+    extra = dict(rtol=1e-4, fact_incr=3.0, max_mu=50.0)
+    got = _fused_solve(solver, ov2, True, **kw, **extra)
+    assert len(solver._programs) == 1
+    _assert_bitwise(got, _fused_solve(_fused_case(kind, cuda)[0], ov2, True, **kw, **extra))
+
+
+@pytest.mark.parametrize("kind", FUSED)
+def test_fused_buffers_keep_their_addresses(cuda, kind, monkeypatch):
+    """Every buffer of the program stays where the graphs read and write it,
+    across chunks and solves."""
+    from admmsolver_tpu_torch.parallel import fused
+
+    solver, ov, ov2, kw = _fused_case(kind, cuda)
+    run_chunk = fused._FusedProgram._run_chunk
+    seen = []
+
+    def recording(self, key, capture, pool):
+        run_chunk(self, key, capture, pool)
+        seen.append([t.data_ptr() for t in self.buffers() + (self.knobs, self.row, self.failed)])
+
+    monkeypatch.setattr(fused._FusedProgram, "_run_chunk", recording)
+    for o in (ov, ov2, ov):
+        _fused_solve(solver, o, True, **kw)
+    assert len(seen) == 18 and all(ptrs == seen[0] for ptrs in seen)
+
+
+@pytest.mark.parametrize("kind", FUSED)
+def test_fused_replays_do_not_sync(cuda, kind, monkeypatch):
+    """At rtol = atol = 0 a warm solve's chunks read nothing on the host:
+    they run under ``torch.cuda.set_sync_debug_mode("error")`` and the
+    done flags are never read."""
+    from admmsolver_tpu_torch.parallel import batch, fused
+
+    solver, ov, _, kw = _fused_case(kind, cuda)
+    ov = {k: torch.as_tensor(v, device=cuda) for k, v in ov.items()}
+    _fused_solve(solver, ov, True, **kw)
+    run_chunk = fused._FusedProgram._run_chunk
+    replays = []
+
+    def strict(self, key, capture, pool):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run_chunk(self, key, capture, pool)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        replays.append(key[0])
+
+    def no_read(*args, **kwargs):
+        raise AssertionError("the done flags were read")
+
+    monkeypatch.setattr(fused._FusedProgram, "_run_chunk", strict)
+    monkeypatch.setattr(batch, "_flags_read", no_read)
+    _fused_solve(solver, ov, True, **kw)
+    assert replays == [1, 10, 10, 10, 10, 4]
+
+
+@pytest.mark.parametrize("kind", FUSED)
+def test_fused_failed_capture_raises(cuda, kind, monkeypatch):
+    """A chunk that reads a value on the host fails its capture and the
+    solve raises: no fallback to chunks without a graph or to the plain
+    chunk."""
+    solver, ov, _, kw = _fused_case(kind, cuda)
+    step = type(solver)._step
+
+    def reading(self, state, *args):
+        float(state[0].sum())      # a host read inside the chunk
+        return step(self, state, *args)
+
+    monkeypatch.setattr(type(solver), "_step", reading)
+    with pytest.raises(RuntimeError):
+        _fused_solve(solver, ov, True, **kw)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("rtol", [0.0, 1e-4])
+def test_fused_spm_not_positive_definite_raises_on_the_card(cuda, rtol):
+    """The captured factor refresh keeps its Cholesky infos on the card; a
+    lane whose penalty matrix is not positive definite still raises
+    LinAlgError, read after the solve or with the done flags."""
+    solver, ov, _, kw = _fused_case("spm", cuda)
+    alpha = np.ones(37)
+    alpha[5] = -1e4
+    _fused_solve(solver, ov, True, **kw)
+    with pytest.raises(torch.linalg.LinAlgError):
+        _fused_solve(solver, {**ov, (0, "alpha"): alpha}, True, rtol=rtol, **kw)
+
+
 @pytest.mark.parametrize("entry", ["FusedTwoBlockSolver", "FusedSpMSolver", "SimpleOptimizer",
                                    "BatchedSolver", "make_mesh"])
 def test_default_device_raises_without_cuda(entry):
