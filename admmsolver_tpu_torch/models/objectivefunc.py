@@ -53,6 +53,8 @@ from ..ops.linop import (
     asmatrixtype,
     matmul,
     matrix_hash,
+    static_structure,
+    structure_is_static,
     svd_via_gram,
     tridiag_cr_factor,
 )
@@ -101,11 +103,15 @@ def deferred_cholesky_checks():
     on the device (``torch.linalg.cholesky_ex``) and appends it to the list
     this yields, where ``torch.linalg.cholesky`` would read it on the host at
     once: a CUDA graph cannot hold that read.  The caller checks the list
-    later with :func:`raise_if_not_pd`."""
+    later with :func:`raise_if_not_pd`.  Nor does the factors' structure
+    read a value (:func:`~admmsolver_tpu_torch.ops.linop.static_structure`):
+    a spectral shift takes the thin basis wherever there is one, as the JAX
+    package's traced solve does (the engine's penalties are positive)."""
     infos: list = []
     token = _DEFERRED_INFOS.set(infos)
     try:
-        yield infos
+        with static_structure():
+            yield infos
     finally:
         _DEFERRED_INFOS.reset(token)
 
@@ -413,7 +419,8 @@ class _ShiftedQuadratic:
             return _inv_hpd(total)
         if isinstance(mu_op, ScaledIdentityMatrix) and self._spectral_ok():
             shift = _asarray(mu_op.coeff)
-            thin = self._get_eig_thin() is not False and bool(torch.any(shift != 0))
+            thin = self._get_eig_thin() is not False and (
+                structure_is_static() or bool(torch.any(shift != 0)))
             return SpectralShift(shift, thin)
         return _inv_hpd(add(self._AcA * self._alpha, mu_op))
 

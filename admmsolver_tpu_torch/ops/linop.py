@@ -17,6 +17,8 @@ value is a tensor.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 import numbers
 from typing import Optional, Tuple, Union
@@ -353,7 +355,8 @@ class DiagonalMatrix(MatrixBase):
         d = self._diagonals
         k = d.shape[0]
         out = torch.zeros(self.shape, dtype=d.dtype, device=d.device)
-        out[torch.arange(k), torch.arange(k)] = d
+        # no index tensor: one made on the host would be copied to the device
+        out.diagonal()[:k].copy_(d)
         return out
 
     def _scale(self, c) -> "DiagonalMatrix":
@@ -821,14 +824,14 @@ def tridiag_cr_factor(dl, d, du) -> TridiagFactor:
         if not start and n % 2 == 0:
             # the never-used corner du[n-1] as zero (in an odd n it meets
             # only beta's last entry, set below)
-            du_o[..., -1] = 0.0
+            du_o[..., -1:].zero_()
         torch.div(dl_e, _cr_prev(d_o, fill=1.0), out=alpha)
         torch.div(du_e, d_o, out=beta)
         if not start:
             # the never-used corner dl[0] as zero
-            alpha[..., 0] = 0.0
+            alpha[..., :1].zero_()
             if n % 2:
-                beta[..., -1] = 0.0
+                beta[..., -1:].zero_()
         start += half
         d_new = d_e - alpha * _cr_prev(du_o) - beta * dl_o
         dl_new = -alpha * _cr_prev(dl_o)
@@ -981,10 +984,37 @@ def svd_via_gram(x: torch.Tensor, eigh_fn=None):
     return U, s, torch.matmul(_safe_div(U, s).mT, x)
 
 
+#: set while a solve program's chunk runs (:func:`static_structure`)
+_STATIC_STRUCTURE: contextvars.ContextVar = contextvars.ContextVar("static_structure",
+                                                                  default=False)
+
+
+@contextlib.contextmanager
+def static_structure():
+    """Inside, the structure of an operator is decided without reading a
+    value on the host, as the JAX package decides it on traced values (a
+    CUDA graph cannot hold the read): a collapse that depends on values
+    (:func:`_blockwise_first`) is not taken, and a spectral shift takes the
+    thin basis wherever there is one."""
+    token = _STATIC_STRUCTURE.set(True)
+    try:
+        yield
+    finally:
+        _STATIC_STRUCTURE.reset(token)
+
+
+def structure_is_static() -> bool:
+    """Whether :func:`static_structure` is in force."""
+    return _STATIC_STRUCTURE.get()
+
+
 def _blockwise_first(d: torch.Tensor, nblocks: int):
     """The first entry of each of ``nblocks`` contiguous blocks of ``d``
     when ``d`` is (close to) constant within each block, else None (the
-    JAX package's concrete-value check, ``np.allclose``)."""
+    JAX package's concrete-value check, ``np.allclose``); None under
+    :func:`static_structure`, as for the JAX package's traced values."""
+    if structure_is_static():
+        return None
     blocks = d.reshape(nblocks, -1)
     if torch.allclose(blocks, blocks[:, :1].expand_as(blocks)):
         return blocks[:, 0]
@@ -1152,7 +1182,10 @@ def add(a: MatrixBase, b: MatrixBase) -> MatrixBase:
         if isinstance(x, BandedMatrix) and x.is_square() and \
                 isinstance(y, (ScaledIdentityMatrix, DiagonalMatrix)):
             if isinstance(y, ScaledIdentityMatrix):
-                dvec = _asarray(y.coeff).to(x.bands.device).expand(x.shape[0])
+                # a Python coefficient made on the device: no copy from the host
+                c = y.coeff
+                dvec = (c.to(x.bands.device) if isinstance(c, torch.Tensor) else torch.full(
+                    (), c, dtype=_asarray(c).dtype, device=x.bands.device)).expand(x.shape[0])
             else:
                 dvec = y.diagonals
             return BandedMatrix._of(*_add_bands(x.offsets, x.bands, (0,), dvec[None]), x.shape)

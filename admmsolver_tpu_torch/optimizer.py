@@ -3,12 +3,15 @@
 Counterpart of :mod:`admmsolver_tpu.optimizer` (reference
 ``optimizer.py:121-341``).  :class:`ADMMPlan` resolves the constraint
 graph, operator structures and block order once; :class:`SimpleOptimizer`
-runs the solve as a Python loop over iterations.  Factorizations are
-recomputed only when the penalty ``mu`` changes, which replaces the
-reference's hash-keyed cache (``objectivefunc.py:89-96``).  The per-pair
-coupling products ``E x`` are computed once per iteration and shared by the
-dual update, the residual norms, the convergence test and the penalty
-update.
+runs the solve through a static run program (:class:`_RunProgram`, the JAX
+package's one jitted ``while_loop``): iteration 0, then chunks of
+``interval_update_mu`` iterations over fixed buffers, on a CUDA device each
+chunk a replay of a captured CUDA graph.  Factorizations are recomputed at
+the start of a chunk, where the penalty ``mu`` may have changed, which
+replaces the reference's hash-keyed cache (``objectivefunc.py:89-96``).
+The per-pair coupling products ``E x`` are computed once per iteration and
+shared by the dual update, the residual norms, the convergence test and
+the penalty update.
 
 Semantics preserved exactly: Gauss–Seidel sweep order and sign
 conventions (``optimizer.py:183-207``), dual ascent (``optimizer.py:
@@ -35,6 +38,7 @@ import torch
 
 from .backend import default_dtype
 from .config import ADMMConfig
+from .models.objectivefunc import any_not_pd, deferred_cholesky_checks, raise_if_not_pd
 from .models.problem import Model
 from .ops.linop import (LaneOperators, MatrixBase, ScaledIdentityMatrix,
                         _asarray, _match_precision)
@@ -92,6 +96,121 @@ def _sum_taken(terms: list):
     while terms:
         total = total + terms.pop(0)
     return total
+
+
+class _RunProgram:
+    """The static run program of one ``SimpleOptimizer`` solve key: the
+    counterpart of the JAX package's jitted ``_build_run``
+    (``optimizer.py:424-461``).
+
+    It owns the buffers its chunks read and write: x, the x before the last
+    iteration, h, mu, the done flag, the count of iterations run (the
+    history slot of the next one, ``min(count, hist - 1)``), the (hist,)
+    residual histories (NaN where not written) and the tolerances as device
+    scalars of the residuals' real dtype, all loaded per solve
+    (:meth:`load`).  A chunk (key = (iterations, penalty update)) refactors
+    from mu, then runs its iterations, each freezing the state once done;
+    the penalty update fires at its last iteration where the key says so and
+    the solve is not done.  So three chunks serve a solve (iteration 0, a
+    full chunk of ``interval_update_mu``, the remainder: :func:`~admmsolver_
+    tpu_torch.parallel.batch._schedule`), run directly or, on a CUDA device,
+    captured once each into a graph and replayed (:class:`~admmsolver_tpu_
+    torch.parallel.batch._GraphProgram`, which it holds).  The Cholesky
+    factorizations keep their info on the device, gathered in
+    :attr:`failed`.
+    """
+
+    def __init__(self, plan: "ADMMPlan", cfg: ADMMConfig, record: bool, x, h, mu) -> None:
+        from .parallel import batch   # batch imports this module
+
+        self.plan, self.cfg = plan, cfg
+        self.hist = cfg.niter if record else 1
+        self.x, self.x_old, self.h = (tuple(t.clone(memory_format=torch.contiguous_format)
+                                            for t in v) for v in (x, x, h))
+        self.mu = mu.clone()
+        dev = mu.device
+        self.done = torch.zeros((), dtype=torch.bool, device=dev)
+        self.count = torch.zeros((), dtype=torch.long, device=dev)
+        self.pbuf, self.dbuf = (torch.full((self.hist,), float("nan"), dtype=mu.dtype,
+                                           device=dev) for _ in range(2))
+        self.tols = (mu.new_zeros(()), mu.new_zeros(()))
+        self.failed = torch.zeros((), dtype=torch.bool, device=dev)
+        self.checks = False
+        self.graphs = batch._GraphProgram(self._chunk)
+
+    def load(self, x, h, mu, tols) -> None:
+        """A solve's initial state and tolerances into the buffers."""
+        for d, t in zip(self.x + self.x_old + self.h + (self.mu,), x + x + h + (mu,)):
+            d.copy_(t)
+        for d, t in zip(self.tols, tols):
+            d.fill_(t)
+        self.done.fill_(False)
+        self.count.zero_()
+        self.pbuf.fill_(float("nan"))
+        self.dbuf.fill_(float("nan"))
+        self.failed.fill_(False)
+
+    def _chunk(self, key) -> None:
+        n, update = key
+        with deferred_cholesky_checks() as infos:
+            factors = self.plan.compute_factors(self.mu)
+        if infos:
+            self.checks = True
+            self.failed.logical_or_(any_not_pd(infos))
+        for j in range(n):
+            self._iteration(factors, update and j == n - 1)
+
+    def _iteration(self, factors, update: bool) -> None:
+        """One iteration of the JAX ``iteration`` (``optimizer.py:323-401``)
+        on the buffers: sweep, residuals and convergence, the history row,
+        and with ``update`` the penalty update; nothing changes once done."""
+        plan, cfg = self.plan, self.cfg
+        rtol, atol = self.tols
+        x, h, mu = self.x, self.h, self.mu
+        active = ~self.done
+        x_new, h_new, prods = plan.sweep(x, h, mu, factors, cfg.update_h, relax=cfg.relax)
+        if plan.npairs:
+            primal_norms, dual_norms, convs = plan.pair_residuals(x_new, x, mu, prods)
+            primal = sum(primal_norms[1:], primal_norms[0])
+            dual = sum(dual_norms[1:], dual_norms[0])
+            # NaN (0/0) and Inf (x/0) both fail `< rtol`, matching the
+            # reference's float semantics at optimizer.py:244-247.
+            conv = torch.stack([(rp < rtol) & (rd < rtol) for rp, rd in convs]).all()
+            conv = conv | ((primal < atol) & (dual < atol))
+        else:
+            primal = dual = mu.new_zeros(())
+            conv = torch.ones_like(active)
+        slot = torch.clamp_max(self.count, self.hist - 1).view(1)
+        for buf, value in ((self.pbuf, primal), (self.dbuf, dual)):
+            buf.index_copy_(0, slot, torch.where(active, value.to(buf.dtype),
+                                                 buf.index_select(0, slot)))
+        for d, a in zip(self.x_old, x):
+            d.copy_(torch.where(active, a, d))
+        for d, a in zip(self.x + self.h, x_new + h_new):
+            d.copy_(torch.where(active, a, d))
+        del x_new, h_new
+        done = self.done | conv
+        if update and plan.npairs:
+            # never after the converging iteration (optimizer.py:319-320)
+            mu_new = plan.updated_mu(mu, primal_norms, dual_norms,
+                                     cfg.fact_incr, cfg.th_change, cfg.max_mu)
+            self.mu.copy_(torch.where(done, mu, mu_new))
+        self.count.add_(active.to(self.count.dtype))
+        self.done.copy_(done)
+
+    def run(self, key, capture: bool, pool) -> None:
+        """One chunk: a replay of its graph where ``capture``, else run
+        directly."""
+        self.graphs._run_chunk(key, capture, pool)
+
+    def buffers(self) -> Tuple[torch.Tensor, ...]:
+        """Every tensor the program holds between solves."""
+        return self.x + self.x_old + self.h + (self.mu, self.done, self.count, self.pbuf,
+                                               self.dbuf, self.failed) + self.tols
+
+    @property
+    def capture_s(self) -> Dict:
+        return self.graphs.capture_s
 
 
 class ADMMPlan:
@@ -175,6 +294,10 @@ class ADMMPlan:
         # E[(j,i)] acts on x_i (optimizer.py:251-274).
         self.E_ij = [model.E[(i, j)] for (i, j) in self.pairs]
         self.E_ji = [model.E[(j, i)] for (i, j) in self.pairs]
+        #: the single-instance run programs by key (:meth:`_compiled_run`)
+        self._run_cache: Dict[tuple, _RunProgram] = {}
+        #: the memory of their graphs, made by the first captured solve
+        self._pool = None
 
     def _check_uniform_mu(self, k, f, diag_terms) -> None:
         """Verify blockwise-uniform penalty contracts at plan-build time.
@@ -440,6 +563,30 @@ class ADMMPlan:
             mu = torch.where(done_new[:, None], mu, mu_adapted)
         return (x_out, h_out, mu, factors, done_new, count, pbuf, dbuf)
 
+    # ------------------------------------------------------------------
+    # Single-instance run program
+    # ------------------------------------------------------------------
+    def _compiled_run(self, cfg: ADMMConfig, record: bool, x, h, mu) -> _RunProgram:
+        """The run program of a solve of the state ``x, h, mu``: cached per
+        plan as the JAX package's ``_run_cache`` (``optimizer.py:406-422``),
+        keyed by ``(cfg, record)`` with the state's dtypes and the route
+        switches a graph keeps, at most 32, the oldest dropped first."""
+        from .parallel import batch   # batch imports this module
+
+        key = (cfg, record, tuple(t.dtype for t in x + h + (mu,)), batch._route_switches())
+        program = self._run_cache.get(key)
+        if program is None:
+            program = batch._keep(self._run_cache, key, _RunProgram(self, cfg, record, x, h, mu))
+        return program
+
+    def _graph_pool(self, device: torch.device):
+        """The plan's graph pool, made by its first captured solve."""
+        from .parallel import batch
+
+        if self._pool is None:
+            self._pool = batch._GraphPool(device)
+        return self._pool
+
     def is_complex(self) -> bool:
         """True when any operator or objective data is complex; drives the
         default state dtype."""
@@ -548,65 +695,92 @@ class SimpleOptimizer:
         update after iteration 0 and every ``interval_update_mu``
         iterations — never after the converging one.  ``callback`` runs
         after every iteration.
+
+        The solve runs through the plan's run program (:class:`_RunProgram`,
+        the JAX package's one jitted ``while_loop``): iteration 0, then
+        chunks of ``interval_update_mu`` iterations, each refactoring first;
+        on a CUDA device each chunk is a replay of a captured graph (not for
+        a route a graph cannot hold, nor with
+        :data:`~admmsolver_tpu_torch.parallel.batch.CAPTURE_CHUNKS` off).
+        The host reads the done flag after a chunk only where the solve can
+        finish (``rtol`` > 0 or ``atol`` > 0).  With ``callback`` the host
+        runs one iteration at a time, as the JAX package does.
         """
         if niter <= 0:
             # The reference's `for iter in range(0)` is a no-op
             # (optimizer.py:310).
             return
+        from .parallel import batch   # batch imports this module
+
+        interval = int(interval_update_mu)
+        if interval < 1:
+            raise ValueError(f"interval_update_mu must be >= 1, got {interval}")
+        plan = self._plan
         cfg = ADMMConfig(
-            niter=int(niter), interval_update_mu=int(interval_update_mu),
+            niter=1 if callback is not None else int(niter), interval_update_mu=interval,
             update_h=bool(update_h), max_mu=self._max_mu,
             fact_incr=float(fact_incr), th_change=float(th_change),
             relax=float(relax))
-        plan = self._plan
-        x, h, mu = self._x, self._h, self._mu
-        rdtype = mu.dtype
-        pbuf = torch.full((cfg.niter,), float("nan"), dtype=rdtype, device=mu.device)
-        dbuf = torch.full((cfg.niter,), float("nan"), dtype=rdtype, device=mu.device)
-        factors = plan.compute_factors(mu)
-        n = 0
-        for it in range(cfg.niter):
-            x_new, h_new, prods = plan.sweep(x, h, mu, factors, cfg.update_h,
-                                             relax=cfg.relax)
-            primal_norms, dual_norms, convs = plan.pair_residuals(
-                x_new, x, mu, prods)
-            if plan.npairs:
-                primal = sum(primal_norms[1:], primal_norms[0])
-                dual = sum(dual_norms[1:], dual_norms[0])
-                # NaN (0/0) and Inf (x/0) both fail `< rtol`, matching the
-                # reference's float semantics at optimizer.py:244-247.
-                conv = torch.stack([(rp < rtol) & (rd < rtol) for rp, rd in convs]).all()
-                conv = conv | ((primal < atol) & (dual < atol))
-                pbuf[it] = primal
-                dbuf[it] = dual
-            else:
-                conv = torch.tensor(True)
-                pbuf[it] = 0.0
-                dbuf[it] = 0.0
-            x_old, x, h = x, x_new, h_new
-            n = it + 1
-            telemetry.check_chunk("SimpleOptimizer", x, h)
-            done = bool(conv)
-            if callback is not None:
-                self._x, self._h, self._mu, self._x_old = x, h, mu, x_old
-                self._record(record_residuals, pbuf, dbuf, it, it + 1)
-                callback()
-            if done:
-                break
-            if it % cfg.interval_update_mu == 0 and plan.npairs:
-                mu_new = plan.updated_mu(mu, primal_norms, dual_norms,
-                                         cfg.fact_incr, cfg.th_change, cfg.max_mu)
-                if not torch.equal(mu_new, mu):
-                    factors = plan.compute_factors(mu_new)
-                mu = mu_new
-        self._x, self._h, self._mu, self._x_old = x, h, mu, x_old
-        if callback is None:
-            self._record(record_residuals, pbuf, dbuf, 0, n)
+        # the callback's one-iteration program records every row (JAX
+        # optimizer.py:603-617)
+        record = bool(record_residuals) or callback is not None
+        state = (self._x, self._h, self._mu)
+        program = plan._compiled_run(cfg, record, *state)
+        program.load(*state, (rtol, atol))
+        dev = self._mu.device
+        capture = batch._captures(self._model.functions, self._mu.dtype, dev)
+        pool = plan._graph_pool(dev) if capture else plan._pool
+        if callback is not None:
+            self._solve_with_callback(program, int(niter), interval, callback, capture, pool)
+            return
+        # no iteration converges where neither tolerance can be met (a model
+        # without pairs converges at once)
+        can_finish = rtol > 0 or atol > 0 or not plan.npairs
+        schedule = batch._schedule(cfg.niter, interval)
+        unread = False
+        for k, key in enumerate(schedule):
+            program.run(key, capture, pool)
+            telemetry.check_chunk("SimpleOptimizer", program.x, program.h)
+            unread = program.checks
+            if can_finish and k + 1 < len(schedule):
+                done = batch._flags_read(program.done, program.failed if unread else None)
+                unread = False
+                if done:
+                    break
+        if unread:
+            raise_if_not_pd(program.failed)
+        self._take(program)
+        if record_residuals:
+            n = int(program.count)
+            self._primal_residual.extend(program.pbuf[:n].tolist())
+            self._dual_residual.extend(program.dbuf[:n].tolist())
 
-    def _record(self, record: bool, pbuf, dbuf, start: int, stop: int) -> None:
-        if record:
-            self._primal_residual.extend(pbuf[start:stop].tolist())
-            self._dual_residual.extend(dbuf[start:stop].tolist())
+    def _solve_with_callback(self, program: _RunProgram, niter: int, interval: int,
+                             callback, capture: bool, pool) -> None:
+        """The per-iteration host loop of a solve with a callback: one
+        iteration a chunk (refactor, the iteration, the penalty update where
+        the schedule fires), the state and the iteration's history row taken
+        after each, then ``callback``; the loop stops at the converging
+        iteration (JAX ``optimizer.py:600-620``)."""
+        from .parallel import batch
+
+        for it in range(niter):
+            program.run((1, it % interval == 0), capture, pool)
+            telemetry.check_chunk("SimpleOptimizer", program.x, program.h)
+            done = batch._flags_read(program.done, program.failed if program.checks else None)
+            self._take(program)
+            self._primal_residual.append(float(program.pbuf[0]))
+            self._dual_residual.append(float(program.dbuf[0]))
+            callback()
+            if done:
+                return
+
+    def _take(self, program: _RunProgram) -> None:
+        """The state of a solve, copied out of the buffers that the next
+        solve overwrites."""
+        clone = lambda v: tuple(t.clone() for t in v)
+        self._x, self._x_old, self._h = clone(program.x), clone(program.x_old), clone(program.h)
+        self._mu = program.mu.clone()
 
     def one_sweep(self, update_h: bool = True) -> None:
         """Single Gauss–Seidel sweep + dual ascent (optimizer.py:322-341)."""

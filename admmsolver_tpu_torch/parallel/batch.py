@@ -298,11 +298,30 @@ def _flags_read(done: torch.Tensor, failed: Optional[torch.Tensor] = None,
     return not_done == 0
 
 
+def _schedule(niter: int, interval: int):
+    """The chunks of a one-program solve as (iterations, penalty update):
+    iteration 0, the full chunks of ``interval``, the remainder (reference
+    ``optimizer.py:319-320``: the update fires after iteration 0 and after
+    every full chunk, never after the remainder)."""
+    nfull, nrem = divmod(niter - 1, interval)
+    return [(1, True)] + [(interval, True)] * nfull + ([(nrem, False)] if nrem else [])
+
+
+def _captures(functions, dtype: torch.dtype, device: torch.device) -> bool:
+    """Whether a solve of ``functions`` (a state of ``dtype`` on ``device``)
+    replays its chunks as captured graphs: with :data:`CAPTURE_CHUNKS`, on a
+    CUDA device, where every objective declares its steps capturable."""
+    return CAPTURE_CHUNKS and device.type == "cuda" and all(
+        f.capturable(_real_dtype(dtype), device) for f in functions)
+
+
 class _GraphProgram:
     """What every static chunk program shares: a chunk (:meth:`_chunk`, by
     a key that names its length and kind) that reads and writes only the
     program's buffers, run directly or, on a CUDA device, captured once a
-    key into a graph of the solver's pool and replayed.
+    key into a graph of the solver's pool and replayed.  A program that
+    holds one of these rather than deriving from it passes its chunk
+    function as ``chunk``.
 
     On a CUDA device a captured solve runs the program's first chunk
     eagerly (libraries load, caches fill), then captures each key once
@@ -312,15 +331,16 @@ class _GraphProgram:
     hold) the chunk runs directly, from the pool where there is one and the
     program is warm.  A chunk that fails to capture raises."""
 
-    def __init__(self) -> None:
+    def __init__(self, chunk=None) -> None:
         self.warm = False
         #: chunk key -> (graph, kernel launches of one replay)
         self.graphs: Dict = {}
         #: host seconds of each key's capture
         self.capture_s: Dict = {}
+        self._chunk_fn = chunk
 
     def _chunk(self, key) -> None:
-        raise NotImplementedError
+        self._chunk_fn(key)
 
     def _run_chunk(self, key, capture: bool, pool: Optional[_GraphPool]) -> None:
         """One chunk: with ``capture`` (and ``pool``) a replay of its graph,
@@ -831,11 +851,9 @@ class BatchedSolver:
         return program.result()
 
     def _captures(self, functions, dtype: torch.dtype) -> bool:
-        """Whether a solve's chunks are replays of captured graphs: with
-        :data:`CAPTURE_CHUNKS`, on a CUDA device, where every objective
-        declares its steps capturable."""
-        return CAPTURE_CHUNKS and self.device.type == "cuda" and all(
-            f.capturable(_real_dtype(dtype), self.device) for f in functions)
+        """Whether a solve's chunks are replays of captured graphs
+        (:func:`_captures`)."""
+        return _captures(functions, dtype, self.device)
 
     def _graph_pool(self, create: bool) -> Optional[_GraphPool]:
         """The solver's graph pool, made by its first captured solve."""

@@ -91,13 +91,6 @@ def _check_fused_overrides(overrides, path: str) -> Optional[int]:
     return B
 
 
-def _schedule(niter: int, interval: int):
-    """The chunks of a solve as (iterations, penalty update): iteration 0,
-    the full chunks, the remainder."""
-    nfull, nrem = divmod(niter - 1, interval)
-    return [(1, True)] + [(interval, True)] * nfull + ([(nrem, False)] if nrem else [])
-
-
 class _FusedProgram(batch._GraphProgram):
     """The static run program of a fused solver for one cache key: the
     counterpart of an entry of the JAX package's ``_run_cache``
@@ -188,7 +181,7 @@ class _FusedProgram(batch._GraphProgram):
         a lane can finish, and (``read_done0``) once before the first chunk
         for a caller's ``done0`` where no such read follows; the failure flag
         alone after the last chunk where it was not read."""
-        schedule = _schedule(niter, interval)
+        schedule = batch._schedule(niter, interval)
         all_done = (read_done0 and not can_finish and len(schedule) > 1
                     and batch._flags_read(self.done))
         unread = False
@@ -235,7 +228,7 @@ class _FusedSolverBase:
         if niter < 1 or interval < 1:
             raise ValueError(f"niter and interval_update_mu must be >= 1, got {niter}, "
                              f"{interval}")
-        nchunks = len(_schedule(niter, interval))
+        nchunks = len(batch._schedule(niter, interval))
         capture = batch.CAPTURE_CHUNKS and self.device.type == "cuda"
         if capture and self._pool is None:
             self._pool = batch._GraphPool(self.device)

@@ -81,9 +81,8 @@ def debug_nans(enabled: bool = True):
     the scope.
 
     Torch has no per-operation trap like ``jax_debug_nans``: in this scope
-    ``SimpleOptimizer`` checks its state after every iteration and the
-    batched and fused engines after every chunk, which costs one host read
-    each.  A fault is therefore reported at the end of the chunk that made
+    every engine checks its state after every chunk (``SimpleOptimizer``
+    with a callback: every iteration), which costs one host read each.  A fault is therefore reported at the end of the chunk that made
     it, not at the operation.  Like ``jax_debug_nans`` the switch is one
     for the whole process."""
     global _debug_nans

@@ -51,8 +51,11 @@ fails raises and the script exits non-zero without printing a result.
    through the plain version.  Basis pursuit recovers every lane's planted
    signal to 1e-2 * max|x*|; SpM gives finite outputs, a nonnegative
    spectrum and the sum rule (median |x0.prj_sum - 1| <= 1e-3).
-4. ``SimpleOptimizer`` in float64 on the GPU: one bench instance recovered;
-   one SpM instance for 1000 iterations with the sum rule to 1e-6.
+4. ``SimpleOptimizer`` in float64 on the GPU, through its run program (each
+   chunk a replay of a captured graph): one bench instance recovered; one
+   SpM instance for 1000 iterations with the sum rule to 1e-6; each once
+   more captured and once without graphs (the order flipped), x, x_old, h,
+   mu, the count and both histories bitwise equal, ms a solve both ways.
 5. The batched engine.  ``BatchedSolver`` in float64 on the bench problem, as
    bench.py runs it (rtol=0, no histories): every lane recovers its planted
    signal and runs 200 iterations; with rtol=1e-8, 4 lanes of the batch
@@ -144,7 +147,11 @@ fails raises and the script exits non-zero without printing a result.
    from a seeded generator, U as big: 16 GiB in all) recovering its 32-sparse
    planted signal to 1e-2 of max|x*| within LN_NITER iterations, and at
    M=256, N=65,536 equal to ``SimpleOptimizer`` on the card to 1e-9 of max|x|
-   with equal iteration counts.  Printed beside the card: LargeN's ms per
+   with equal iteration counts; both LargeN solves run their chunks as
+   replays of captured graphs (the two all_reduces inside), and a
+   LN_TURN_NITER solve at full width and the 256 x 65,536 solve run once
+   more captured and once without graphs, bitwise equal with equal counts.
+   Printed beside the card: LargeN's ms per
    iteration, its bound (U read twice over 3.35 TB/s) and its two GEMVs alone,
    ``sharded_gram`` against its DGEMM bound (67 TFLOP/s), a 1-rank NCCL
    all_reduce, the part's peak device memory, and under ``--profile`` the
@@ -155,22 +162,26 @@ fails raises and the script exits non-zero without printing a result.
    ``--rank-of-two``: the bench problem at rtol 1e-8 (each rank's lanes
    bitwise a one-process solve of them, and within 1e-10 of max|x| of the
    unsharded solve with equal iteration counts), LargeN at M=256, N=65,536
-   against world size 1 (1e-9, equal counts), each rank's checkpoint shard
+   against world size 1 (1e-9, equal counts; its chunks without graphs by
+   the declared rule: gloo's collectives run on the host), each rank's checkpoint shard
    reassembled against the unsharded solve, and a 2-rank gloo all_reduce.
 
 Captured chunks against chunks without a graph: ``BatchedSolver``,
-``FusedTwoBlockSolver`` and ``FusedSpMSolver`` run each chunk of a solve
-as a replay of a captured CUDA graph; every part of phases 6, 7, 8 and 10
-that solves through them (the basis-pursuit and SpM fused solves, both
-phases of ``solve_mixed``, the bench solve, one wave of each stream mode,
-``solve_resumable``, the realified SpM and basis pursuit, 8a-8f, 10a-10c)
-solves once more through the captured chunks and once with
-``batch.CAPTURE_CHUNKS = False`` (the same chunk program run directly, its
-working set taken from the solver's graph pool once the program is warm),
-the order flipped every part, and gates x, h, mu, iterations and flags of
-the two bitwise (the fused solves' residual histories too, and their
-chunk kernel's launches equal both ways); it prints ms an iteration both
-ways, each graph's capture seconds and the pool's bytes.  The fused
+``FusedTwoBlockSolver``, ``FusedSpMSolver``, ``SimpleOptimizer`` and
+``LargeNTwoBlockSolver`` run each chunk of a solve as a replay of a
+captured CUDA graph; phase 4's two solves, 9a's LargeN solves and every
+part of phases 6, 7, 8 and 10 that solves through them (the basis-pursuit
+and SpM fused solves, both phases of ``solve_mixed``, the bench solve, one
+wave of each stream mode, ``solve_resumable``, the realified SpM and basis
+pursuit, 8a-8f, 10a-10c) solves once more through the captured chunks and
+once with ``batch.CAPTURE_CHUNKS = False`` (the same chunk program run
+directly, its working set taken from the solver's graph pool once the
+program is warm), the order flipped every part, and gates x, h, mu,
+iterations and flags of the two bitwise (the residual histories too where
+a solve keeps them, and the fused chunk kernel's launches equal both
+ways); it prints ms an iteration both ways, each graph's capture seconds
+and the pool's bytes.  The lane checks against ``SimpleOptimizer`` (5, 7,
+8, 9) run through its captured program.  The fused
 solves' plain-version runs go through the same program without graphs.
 A part whose route a graph cannot hold (the library eigh or SVD: 10a and
 10b's eigh, 10c's ``xla``) runs its chunks without a graph and says so.
@@ -179,7 +190,8 @@ turn, ``--profile``'s): the peak of the bytes allocated outside the graph
 pool plus the pool's reserved segments, from the allocator's trace.
 ``--profile`` profiles each such part both ways: device kernels and the
 host's launch calls an iteration (a graph replay is one), busy share
-(the fused solves, ``solve_mixed``'s f32 phase and 7d too).
+(the fused solves, ``solve_mixed``'s f32 phase, 7d, phase 4's two solves
+and a 20-iteration LargeN solve too).
 
 ``--variants`` also times both chunks at other tilings and routes, the
 two-block chunk's two products as ``torch.matmul``, the card's L2 read rate,
@@ -252,6 +264,7 @@ LN_M, LN_N, LN_K, LN_SEED = 1024, 1 << 20, 32, 7
 # (0.10-0.28 of max|x*| after 1000 for every mu0 in 1..100, 6.8e-3 after 7500)
 LN_NITER, LN_MU0, LN_RTOL = 7500, 3.0, 1e-8
 LNS_M, LNS_N, LNS_K, LNS_SEED, LNS_NITER = 256, 1 << 16, 8, 8, 300
+LN_TURN_NITER = 300   # full width, captured against graph-less
 # 10. the spectral routes
 PEAK_F64_FLOPS = 34e12      # H100 SXM, float64 FMA outside the tensor cores
 RPCA96_M, RPCA96_N, RPCA96_B, RPCA96_NITER = 96, 96, 128, 200   # bench_rpca96, (17)
@@ -1174,25 +1187,60 @@ def with_capture(capture, fn):
         batch.CAPTURE_CHUNKS = keep
 
 
+def programs_of(solver):
+    """(programs by key, graph pool) of a solver, or of a SimpleOptimizer's
+    plan: one pool a solver or plan."""
+    if hasattr(solver, "_programs"):
+        return solver._programs, solver._pool
+    return solver._plan._run_cache, solver._plan._pool
+
+
 def program_stats(solvers):
     """(capture seconds by chunk key, graph pool bytes, bytes of the
     programs' buffers) of the chunk programs of ``solvers`` (BatchedSolver,
-    FusedTwoBlockSolver or FusedSpMSolver objects; one pool a solver): what
-    the solvers hold between solves."""
-    programs = [p for s in solvers for p in s._programs.values()]
-    held = sum(t.untyped_storage().nbytes() for p in programs for t in p.buffers())
+    FusedTwoBlockSolver, FusedSpMSolver, LargeNTwoBlockSolver or
+    SimpleOptimizer objects): what the solvers hold between solves."""
+    held = [programs_of(s) for s in solvers]
+    programs = [p for progs, _ in held for p in progs.values()]
+    nbytes = sum(t.untyped_storage().nbytes() for p in programs for t in p.buffers())
     return ({n: t for p in programs for n, t in p.capture_s.items()},
-            sum(s._pool.bytes for s in solvers if s._pool is not None), held)
+            sum(pool.bytes for _, pool in held if pool is not None), nbytes)
 
 
 def chunk_name(key):
-    """A chunk key of a program: its length (BatchedSolver), or the fused
+    """A chunk key of a program: its length (BatchedSolver, LargeN), the
+    single-instance program's (length, penalty update) or the fused
     programs' (length, penalty update, A†y made in the chunk)."""
     if not isinstance(key, tuple):
         return f"{key} iterations"
-    n, do_mu, prologue = key
+    n, do_mu, prologue = key + (False,) * (3 - len(key))
     return (f"{n} iterations" + ("" if do_mu else " without a penalty update")
             + (" with A†y" if prologue else ""))
+
+
+def restarted(opt, niter, mu0=1.0, **kw):
+    """``opt`` (a SimpleOptimizer) after a solve of ``niter`` iterations from
+    its initial state (x = h = 0, ``mu0``), its histories cleared: each such
+    solve reuses the optimizer's warm run program."""
+    opt._x, opt._h, opt._mu = opt._plan.make_initial_state(mu0=mu0, device=opt._mu.device)
+    opt._primal_residual, opt._dual_residual = [], []
+    opt.solve(niter, **kw)
+    return opt
+
+
+def single_state(opt):
+    """x, the x before the last iteration, h, mu, the iteration count and both
+    histories of a SimpleOptimizer."""
+    return (tuple(opt.x) + tuple(opt._x_old) + tuple(opt.h)
+            + (opt.mu, np.array(opt.iterations), np.array(opt.primal_residual_history),
+               np.array(opt.dual_residual_history)))
+
+
+def large_n_state(res):
+    """x0, x1, h, mu, both histories, the iteration count and the flag of a
+    LargeNResult."""
+    return (res.x0, res.x1, res.h, res.mu, res.primal_residual, res.dual_residual,
+            np.array([res.iterations, res.converged]))
 
 
 def captured_vs_eager(torch, card, what, solve, niter, solvers, state=None, kernel=None):
@@ -1236,7 +1284,7 @@ def captured_vs_eager(torch, card, what, solve, niter, solvers, state=None, kern
           + ", ".join(f"{chunk_name(n)} {t:.3f} s"
                       for n, t in sorted(capture_s.items(), key=str))
           + f"; pool {pool / 2**20:.1f} MiB, buffers {held / 2**20:.1f} MiB "
-          + f"({sum(len(s._programs) for s in solvers)} programs); "
+          + f"({sum(len(programs_of(s)[0]) for s in solvers)} programs); "
           + (f"kernel launches {launches[True]} / {launches[False]}; " if kernel else "")
           + "states " + ("bitwise equal" if same else f"DIFFER by {diff:.3e}"), flush=True)
     if not same:
@@ -1721,17 +1769,18 @@ def phases_1_to_8(torch, card):
     if not np.all((ratio >= 0.49) & (ratio <= 2.01)):
         raise AssertionError("SpM penalties differ by more than one balancing step")
 
-    # 4. single instances, float64
-    opt_run = lambda: SimpleOptimizer(model).solve(200)
+    # 4. single instances, float64, through the run program (each chunk a
+    # replay of a captured graph; the solves after the first reuse it)
     opt = SimpleOptimizer(model)
-    opt.solve(200)
+    opt_run = lambda: restarted(opt, 200)
+    opt_run()
     assert opt.x[0].dtype == torch.float64 and opt.x[0].is_cuda
     worst = check_recovery(opt.x[0].cpu().numpy()[None], xtrue[:1], "SimpleOptimizer")
     print(f"SimpleOptimizer f64 on cuda, 200 iters: worst err/bound {worst:.4f}", flush=True)
 
-    sopt_run = lambda: SimpleOptimizer(smodel, mu=SPM_MU0).solve(1000)
     sopt = SimpleOptimizer(smodel, mu=SPM_MU0)
-    sopt.solve(1000)
+    sopt_run = lambda: restarted(sopt, 1000, SPM_MU0)
+    sopt_run()
     xs = [x.cpu().numpy() for x in sopt.x]
     sum_one = abs(float(xs[0] @ prj_sum) - 1.0)
     print(f"SimpleOptimizer f64 on cuda, SpM, 1000 iters: min spectrum {xs[2].min():.3e}, "
@@ -1740,6 +1789,13 @@ def phases_1_to_8(torch, card):
             and all(np.all(np.isfinite(x)) for x in xs) and xs[2].min() >= 0.0
             and sum_one <= 1e-6):
         raise AssertionError("SimpleOptimizer on the SpM model misses its properties")
+    for what, run, niter, o in (("SimpleOptimizer f64 bench solve (1 instance, 200 iters)",
+                                 opt_run, 200, opt),
+                                ("SimpleOptimizer f64 SpM solve (1 instance, 1000 iters)",
+                                 sopt_run, 1000, sopt)):
+        captured_vs_eager(torch, card, what, run, niter, [o], state=single_state)
+        if "--profile" in sys.argv:
+            profile_both(torch, what, run, niter, kernel_name="gemv")
 
     # 5a. the batched engine in float64 at full width, as bench.py runs it
     batched = BatchedSolver(model)
@@ -2072,13 +2128,14 @@ def lanes_close(what, got_x, got_it, want_x, want_it, tol):
 
 
 def large_n_small(torch, mesh, device, m=LNS_M, n=LNS_N, k=LNS_K):
-    """The second large-N gate's problem and its solve on ``mesh``."""
+    """The second large-N gate's problem, its solver on ``mesh`` and a
+    solve of it (a function that solves again)."""
     from admmsolver_tpu_torch.parallel import LargeNTwoBlockSolver
 
     A, xt, y = planted_wide(torch, m, n, k, LNS_SEED, device)
-    res = LargeNTwoBlockSolver(A, mesh, prox="l1", alpha1=ALPHA).solve(
-        y, niter=LNS_NITER, rtol=0.0)
-    return A, y, res
+    sol = LargeNTwoBlockSolver(A, mesh, prox="l1", alpha1=ALPHA)
+    solve = lambda: sol.solve(y, niter=LNS_NITER, rtol=0.0)
+    return A, y, solve(), sol, solve
 
 
 def time_all_reduce(torch, mesh, n, calls=50):
@@ -2189,6 +2246,7 @@ def phase_world_one(torch, card, device="cuda", backend="nccl", nb=B, ops_b=OPS_
         lres = sol.solve(y, niter=LN_NITER, mu0=LN_MU0, rtol=LN_RTOL)
         sync()
         t_solve = time.perf_counter() - t0
+        graphs = "captured chunks" if sol.captures else "chunks without graphs"
         err = float((lres.x1 - xt).abs().max())
         scale = float(xt.abs().max())
         print(f"LargeNTwoBlockSolver M={M_} N={N_} (R={sol.lam.numel()}, l1, alpha1 {ALPHA}, "
@@ -2210,8 +2268,8 @@ def phase_world_one(torch, card, device="cuda", backend="nccl", nb=B, ops_b=OPS_
             gram_bound = 1e3 * max(gram_flops / PEAK_F64_TC_FLOPS,
                                    (A.numel() + N_ + M_ * M_ + M_) * 8 / PEAK_BYTES_PER_S)
             nccl_ms = [time_all_reduce(torch, mesh, n) for n in (5, sol.lam.numel())]
-            print(f"[{card}] LargeN solve: {it_ms:.3f} ms per iteration ({lres.iterations} "
-                  f"iterations in {t_solve:.3f} s); bound {ln_bound:.3f} ms (U, "
+            print(f"[{card}] LargeN solve ({graphs}): {it_ms:.3f} ms per iteration "
+                  f"({lres.iterations} iterations in {t_solve:.3f} s); bound {ln_bound:.3f} ms (U, "
                   f"{u_bytes / 2**30:.2f} GiB, read twice over {PEAK_BYTES_PER_S / 1e12:.2f} "
                   f"TB/s); its two GEMVs alone as torch.matmul {gemv_t_ms:.3f} + {gemv_ms:.3f} "
                   f"= {gemv_t_ms + gemv_ms:.3f} ms", flush=True)
@@ -2223,9 +2281,15 @@ def phase_world_one(torch, card, device="cuda", backend="nccl", nb=B, ops_b=OPS_
             print(f"[{card}] peak device memory of the full-width part: "
                   f"{peak / 2**30:.2f} GiB (A {A.numel() * 8 / 2**30:.2f} GiB, U "
                   f"{u_bytes / 2**30:.2f} GiB)", flush=True)
+            # captured against graph-less on a shorter budget, after one solve
+            # that captures its chunks
+            turn = lambda: sol.solve(y, niter=LN_TURN_NITER, mu0=LN_MU0, rtol=0.0)
+            turn()
+            captured_vs_eager(torch, card, f"LargeN M={M_} N={N_}, {LN_TURN_NITER} iters",
+                              turn, LN_TURN_NITER, [sol], state=large_n_state)
             if profile:
-                profile_solve(torch, "LargeN solve, 20 iterations", "gemv",
-                              lambda: sol.solve(y, niter=20, rtol=0.0), iters=20)
+                profile_both(torch, "LargeN solve, 20 iterations",
+                             lambda: sol.solve(y, niter=20, rtol=0.0), 20, kernel_name="gemv")
         if variants:
             # the recovery against the budget: what sets LN_NITER
             for mu0, n in [(m, 1000) for m in (1.0, 3.0, 10.0, 30.0, 100.0)] + [
@@ -2238,8 +2302,12 @@ def phase_world_one(torch, card, device="cuda", backend="nccl", nb=B, ops_b=OPS_
         if cuda:
             torch.cuda.empty_cache()
 
-        # the second gate: M=256, N=65536 against SimpleOptimizer on the card
-        A, y, sres = large_n_small(torch, mesh, device)
+        # the second gate: M=256, N=65536 against SimpleOptimizer on the card,
+        # and its captured chunks against graph-less
+        A, y, sres, sol, ln_solve = large_n_small(torch, mesh, device)
+        if cuda:
+            captured_vs_eager(torch, card, f"LargeN M={LNS_M} N={LNS_N}, {LNS_NITER} iters",
+                              ln_solve, LNS_NITER, [sol], state=large_n_state)
         o = SimpleOptimizer(bp_model(A, y), device=device)
         o.solve(LNS_NITER, rtol=0.0)
         d, scale = float((sres.x0 - o.x[0]).abs().max()), float(o.x[0].abs().max())
@@ -2309,8 +2377,10 @@ def phase_two_ranks(torch, card, world_one, device="cuda", nb=B):
     d = max(float(np.abs(ln["ln_x0"] - host(small.x0)).max()),
             float(np.abs(ln["ln_x1"] - host(small.x1)).max()))
     scale = float(np.abs(host(small.x0)).max())
-    print(f"LargeNTwoBlockSolver M={LNS_M} N={LNS_N} on 2 ranks vs world size 1: max |x "
-          f"diff| {d:.3e} (bound 1e-9 * {scale:.3e}), iterations {int(ln['ln_it'])} / "
+    graphs = "captured chunks" if bool(ln["ln_captures"]) else \
+        "chunks without graphs: gloo's collectives run on the host"
+    print(f"LargeNTwoBlockSolver M={LNS_M} N={LNS_N} on 2 ranks ({graphs}) vs world size 1: "
+          f"max |x diff| {d:.3e} (bound 1e-9 * {scale:.3e}), iterations {int(ln['ln_it'])} / "
           f"{small.iterations}", flush=True)
     if not (d <= 1e-9 * scale and int(ln["ln_it"]) == small.iterations):
         raise AssertionError("the two-rank large-N solve departs from world size 1")
@@ -2352,7 +2422,7 @@ def rank_of_two(rank, port, outdir, device, nb):
               f"{'bitwise equal' if bitwise else 'DIFFERENT'} to a one-process solve of them; "
               f"sharded solve {t_solve:.3f} s", flush=True)
         save_batch_result_local(os.path.join(outdir, f"ckpt_p{rank}.npz"), res)
-        _, _, ln = large_n_small(torch, mesh, device)
+        _, _, ln, ln_solver, _ = large_n_small(torch, mesh, device)
         n = LNS_M
         gloo_ms = [time_all_reduce(torch, mesh, k) for k in (5, n)]
         host = lambda t: t.cpu().numpy()
@@ -2360,6 +2430,7 @@ def rank_of_two(rank, port, outdir, device, nb):
                  x0=host(res.x[0]), x1=host(res.x[1]), it=host(its),
                  ln_x0=host(process_allgather(ln.x0, mesh)),
                  ln_x1=host(process_allgather(ln.x1, mesh)), ln_it=ln.iterations,
+                 ln_captures=ln_solver.captures,
                  gloo_ms=np.array(gloo_ms), gloo_n=n)
     finally:
         dist.destroy_process_group()

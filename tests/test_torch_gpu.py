@@ -1098,6 +1098,216 @@ def test_fused_spm_not_positive_definite_raises_on_the_card(cuda, rtol):
         _fused_solve(solver, {**ov, (0, "alpha"): alpha}, True, rtol=rtol, **kw)
 
 
+def _single(name):
+    """(model, mu0) of the single-instance program's card tests: lane 0 of
+    the captured-chunk models, and the 3-block SpM model."""
+    if name == "spm":
+        s, g, prj_sum, prj_w, _, _ = synthetic_spm_data(nl=10, nw=21)
+        return spm_model(s, g, prj_sum, prj_w, alpha_l1=1e-3), 0.1
+    model, _, mu0 = _captured_model(name)
+    return model, mu0
+
+
+def _single_solve(model, mu0, capture, opt=None, **kw):
+    """A ``SimpleOptimizer`` solve (45 iterations in chunks of 10 by default)
+    with ``CAPTURE_CHUNKS`` set to ``capture``: x, the x before the last
+    iteration, h, mu, the count and both histories, on the host."""
+    from admmsolver_tpu_torch.parallel import batch
+
+    kw = dict(dict(niter=45, interval_update_mu=10, rtol=0.0), **kw)
+    opt = opt or T.SimpleOptimizer(model, mu=mu0)
+    keep = batch.CAPTURE_CHUNKS
+    batch.CAPTURE_CHUNKS = capture
+    try:
+        opt.solve(kw.pop("niter"), **kw)
+    finally:
+        batch.CAPTURE_CHUNKS = keep
+    torch.cuda.synchronize()
+    assert opt.x[0].is_cuda
+    return [t.cpu().numpy() for t in opt.x + list(opt._x_old) + opt.h + [opt.mu]] + [
+        np.array(opt.iterations), np.array(opt.primal_residual_history),
+        np.array(opt.dual_residual_history)]
+
+
+def _equal(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["spm"] + CAPTURED_MODELS)
+def test_simple_optimizer_captured_equals_graph_less(cuda, name):
+    """Each chunk of a SimpleOptimizer solve a replay of its captured graph,
+    against the same run program with ``CAPTURE_CHUNKS`` off on an optimizer
+    that never captured: bitwise in x, x_old, h, mu, the count and both
+    histories, on the program's first solve (its first chunk eager, then
+    captures), a second one (replays only), an exit inside a chunk (the
+    done flag read once a chunk), and with capture off on the capturing
+    optimizer; the Jacobi kernel's launches equal both ways."""
+    from admmsolver_tpu_torch.ops import kernels
+
+    model, mu0 = _single(name)
+    opt = T.SimpleOptimizer(model, mu=mu0)
+    launches = []
+    for kw, capture in (({}, True), ({}, True), (dict(niter=300, rtol=1e-7), True),
+                        ({}, False)):
+        kernels.jacobi_eigh.launches = 0
+        want = _single_solve(model, mu0, False, **kw)
+        launches.append(kernels.jacobi_eigh.launches)
+        kernels.jacobi_eigh.launches = 0
+        # each solve from the start: a fresh state in the same optimizer
+        opt._x, opt._h, opt._mu = opt._plan.make_initial_state(mu0=mu0)
+        opt._primal_residual, opt._dual_residual = [], []
+        _equal(_single_solve(model, mu0, capture, opt, **kw), want)
+        launches.append(kernels.jacobi_eigh.launches)
+    assert launches[0::2] == launches[1::2]
+    programs = list(opt._plan._run_cache.values())
+    assert sorted(programs[0].graphs.graphs) == [(1, True), (4, False), (10, True)]
+
+
+def test_simple_optimizer_cached_program_takes_new_rtol_and_x0(cuda, monkeypatch):
+    """A warm program takes another rtol and another starting state without
+    a new capture, and equals a graph-less solve of them."""
+    from admmsolver_tpu_torch.parallel import batch
+
+    model, mu0 = _single("huber")
+    opt = T.SimpleOptimizer(model, mu=mu0)
+    _single_solve(model, mu0, True, opt, rtol=1e-6)
+    n1 = opt.iterations
+    capture = batch._GraphProgram._capture
+    captures = []
+    monkeypatch.setattr(batch._GraphProgram, "_capture",
+                        lambda self, key, pool: captures.append(key) or capture(self, key, pool))
+    x0 = [t + 0.5 for t in opt.x]
+    ref = T.SimpleOptimizer(model, x0=[t.clone() for t in x0], mu=mu0)
+    ref._h, ref._mu = tuple(t.clone() for t in opt.h), opt.mu.clone()
+    opt._x = tuple(x0)
+    got = _single_solve(model, mu0, True, opt, rtol=1e-9)
+    assert captures == [] and len(opt._plan._run_cache) == 1
+    want = _single_solve(model, mu0, False, ref, rtol=1e-9)
+    _equal(got[:-3] + [got[-3] - n1] + [g[n1:] for g in got[-2:]], want)
+
+
+def test_simple_optimizer_replays_do_not_sync(cuda, monkeypatch):
+    """At rtol = atol = 0 a warm program's chunks read nothing on the host:
+    they run under ``torch.cuda.set_sync_debug_mode("error")`` and the done
+    flag is never read."""
+    from admmsolver_tpu_torch import optimizer
+    from admmsolver_tpu_torch.parallel import batch
+
+    for name in ("spm", "tv", "sdp_jacobi", "covariance_sign"):
+        model, mu0 = _single(name)
+        opt = T.SimpleOptimizer(model, mu=mu0)
+        _single_solve(model, mu0, True, opt, record_residuals=False)
+        run = optimizer._RunProgram.run
+        replays = []
+
+        def strict(self, key, capture, pool):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                run(self, key, capture, pool)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            replays.append(key[0])
+
+        def no_read(*args, **kwargs):
+            raise AssertionError("the done flag was read")
+
+        monkeypatch.setattr(optimizer._RunProgram, "run", strict)
+        monkeypatch.setattr(batch, "_flags_read", no_read)
+        opt.solve(45, interval_update_mu=10, rtol=0.0, record_residuals=False)
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        assert replays == [1, 10, 10, 10, 10, 4]
+
+
+def test_simple_optimizer_failed_capture_raises(cuda, monkeypatch):
+    """A model declared capturable whose chunk reads a value on the host
+    raises at its capture (no fallback to chunks without a graph), and the
+    allocator stays usable: a later captured solve and the freeing of its
+    pool work."""
+    import gc
+
+    model, mu0 = _single("huber")
+    prox_diag = T.HuberLoss.prox_diag
+
+    def reading(self, h, mu_diag, batched=False):
+        float(h.sum())      # a host read inside the chunk
+        return prox_diag(self, h, mu_diag, batched)
+
+    monkeypatch.setattr(T.HuberLoss, "prox_diag", reading)
+    with pytest.raises(RuntimeError):
+        _single_solve(model, mu0, True)
+    monkeypatch.undo()
+    gc.collect()
+    _equal(_single_solve(model, mu0, True), _single_solve(model, mu0, False))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def test_simple_optimizer_not_positive_definite_raises_on_the_card(cuda):
+    rng = np.random.RandomState(6)
+    A = rng.randn(12, 20)
+    model = T.Model([T.LeastSquares(-10.0, A, rng.randn(12)), T.L1Regularizer(0.1, 20)],
+                    [(1, 0, T.identity(20), T.DiagonalMatrix(rng.uniform(0.5, 2.0, 20)))])
+    for rtol in (0.0, 1e-6):
+        with pytest.raises(torch.linalg.LinAlgError):
+            _single_solve(model, 1.0, True, rtol=rtol)
+
+
+def _large_n_case(mesh, seed=13):
+    from admmsolver_tpu_torch.parallel import LargeNTwoBlockSolver
+
+    rng = np.random.RandomState(seed)
+    A = rng.randn(16, 64)
+    xt = np.zeros(64)
+    xt[rng.choice(64, 4, replace=False)] = rng.randn(4)
+    return LargeNTwoBlockSolver(A, mesh, prox="l1", alpha1=0.1), A @ xt
+
+
+def _large_n_solve(solver, y, capture, **kw):
+    from admmsolver_tpu_torch.parallel import batch
+
+    kw = dict(dict(niter=250, interval_update_mu=30, rtol=0.0), **kw)
+    keep = batch.CAPTURE_CHUNKS
+    batch.CAPTURE_CHUNKS = capture
+    try:
+        r = solver.solve(y, **kw)
+    finally:
+        batch.CAPTURE_CHUNKS = keep
+    torch.cuda.synchronize()
+    return [t.cpu().numpy() for t in (r.x0, r.x1, r.h, r.mu, r.primal_residual,
+                                      r.dual_residual)] + [np.array([r.iterations,
+                                                                     r.converged])]
+
+
+def _large_n_captured_equals_graph_less(mesh):
+    solver, y = _large_n_case(mesh)
+    assert solver.captures
+    for kw in ({}, {}, dict(rtol=1e-8, niter=5000)):
+        _equal(_large_n_solve(solver, y, True, **kw),
+               _large_n_solve(_large_n_case(mesh)[0], y, False, **kw))
+    graphs = list(solver._programs.values())[0].graphs
+    assert sorted(graphs) == [1, 9, 30]
+
+
+def test_large_n_without_a_group_captured_equals_graph_less(cuda):
+    """A mesh of one process without a process group (its all_reduce a
+    no-op): each chunk a replay, bitwise the graph-less solve, on the first
+    solve, a second and an exit inside a chunk."""
+    from admmsolver_tpu_torch.parallel import make_mesh
+
+    _large_n_captured_equals_graph_less(make_mesh(1))
+
+
+def test_large_n_over_nccl_captured_equals_graph_less(nccl_world):
+    """World size 1 through NCCL: both all_reduces inside the captured
+    chunk; bitwise the graph-less solve."""
+    _large_n_captured_equals_graph_less(nccl_world)
+
+
 @pytest.mark.parametrize("entry", ["FusedTwoBlockSolver", "FusedSpMSolver", "SimpleOptimizer",
                                    "BatchedSolver", "make_mesh"])
 def test_default_device_raises_without_cuda(entry):
