@@ -315,7 +315,10 @@ class _ShiftedQuadratic:
     def to(self, device):
         obj = ObjectiveFunctionBase.to(self, device)
         obj._B_cache = (None, None)
+        # the clones of a solve share these: made once, not in each
+        # composite group's entry (whose graph cannot read the host)
         obj._basis_cache = {}
+        obj._lane_gram_cache = {}
         return obj
 
     def clone_with(self, **updates):

@@ -42,6 +42,7 @@ import copy
 import dataclasses
 import gc
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -513,6 +514,27 @@ class _ChunkProgram(_GraphProgram):
         """One chunk of ``n`` iterations (:meth:`_GraphProgram._run_chunk`)."""
         self._run_chunk(n, capture, pool)
 
+    def run_chunks(self, niter: int, can_finish: bool, capture: bool,
+                   pool: Optional[_GraphPool], read_flags, all_done: bool = False) -> bool:
+        """The chunks after iteration 0: ``interval_update_mu`` iterations
+        each (those past ``niter`` not run) until every lane is done.  The
+        host reads the done flags, with the failure flag of the
+        factorizations (``read_flags(done, failed or None)``, true when
+        every lane is done), only after a chunk that is not the last where
+        a lane can finish.  Returns whether the failure flag is left
+        unread."""
+        interval = self.cfg.interval_update_mu
+        it, unread = 1, self.checks
+        while it < niter and not all_done:
+            self.run(min(interval, niter - it), capture, pool)
+            it += interval
+            telemetry.check_chunk("BatchedSolver", self.x, self.h)
+            unread = self.checks
+            if can_finish and it < niter:
+                all_done = read_flags(self.done, self.failed if unread else None)
+                unread = False
+        return unread
+
     def buffers(self) -> Tuple[torch.Tensor, ...]:
         """Every tensor the program holds between solves."""
         return self.x + self.h + (self.mu, self.done, self.count, self.pbuf, self.dbuf) + tuple(
@@ -526,6 +548,313 @@ class _ChunkProgram(_GraphProgram):
                            converged=self.done.clone(),
                            primal_residual=self.pbuf[:, :self.hist].clone(),
                            dual_residual=self.dbuf[:, :self.hist].clone())
+
+
+@dataclasses.dataclass
+class _Feed:
+    """Where a fed chunk program (:class:`_FedProgram`) takes each group's
+    inputs and puts its outputs, every tensor on the card.
+
+    ``ov``: the overrides stacked (G, gs, ...) at the solver's dtype;
+    ``seed``: the state a group starts from, x blocks, h blocks and mu, as
+    (G, gs, ...) stacks where ``stacked``, else (gs, ...) tensors of any
+    dtype (another phase's buffers: the entry casts them); ``done``: the
+    flags a group starts from (None: all False); ``out``: the (G, gs, ...)
+    stacks of x, h, mu, done, count and both histories that the exit writes
+    (None: no exit); ``warm``: whether the exit seeds the next group from
+    its last lane (the λ-path)."""
+
+    ov: Dict
+    seed: Tuple[torch.Tensor, ...]
+    stacked: bool = False
+    done: Optional[torch.Tensor] = None
+    out: Optional[Tuple[torch.Tensor, ...]] = None
+    warm: bool = False
+
+
+class _FedProgram(_ChunkProgram):
+    """A chunk program whose solves begin on the card: the group body of the
+    JAX package's ``_build`` as the composites scan or chain it
+    (``batch.py:266-343``, ``:895-921``).
+
+    Besides the chunks (keys: their lengths) it has two steps, keys of the
+    same :class:`_GraphProgram`, captured where the chunks are:
+
+    * ``"entry"`` takes group ``group`` (a device index) of the feed's
+      overrides, runs the prologue and binds them into the program's field
+      buffers, seeds the state from the feed, resets the histories, and
+      runs the factors and iteration 0 (under deferred Cholesky checks);
+    * ``"exit"`` copies x, h, mu, done, count and the histories into rows
+      ``group * gs`` of the feed's output stacks, seeds the next group of a
+      path from this group's last lane, and advances ``group``.
+
+    So the host reads nothing between groups; :meth:`run_group` reads the
+    done flags only before a chunk where a lane can finish.  The Cholesky
+    failure flag gathers over every group and is read once after the last
+    (:meth:`_Composite.run`)."""
+
+    def __init__(self, solver: "BatchedSolver", cfg: ADMMConfig, feed: _Feed, functions, carry,
+                 tols, record: bool, stride: int, chunked_checks: bool) -> None:
+        rtol, atol = tols
+        self.can_finish = rtol > 0 or atol > 0
+        super().__init__(solver.plan, cfg, solver.model.functions, functions, carry, record,
+                         stride, chunked_checks, self.can_finish or feed.done is not None)
+        # the solver holds the program
+        self._bound = weakref.WeakMethod(solver._bound)
+        self.feed = feed
+        self.hist = self.pbuf.shape[1]
+        self.group = torch.zeros(1, dtype=torch.long, device=self.mu.device)
+
+    def load(self, tols, stacks: Optional[Dict] = None, seed=()) -> None:
+        """A solve's tolerances and (where given) its stacked overrides and
+        seeds into the feed; its first group is group 0."""
+        # a program's stacks may hold more groups than this solve's
+        for k, v in (stacks or {}).items():
+            self.feed.ov[k][:v.shape[0]].copy_(v)
+        for d, t in zip(self.feed.seed, seed):
+            d[:t.shape[0]].copy_(t)
+        for d, t in zip(self.tols, tols):
+            d.fill_(t)
+        self.group.zero_()
+        self.failed.zero_()
+
+    def _chunk(self, key) -> None:
+        if key == "entry":
+            self._entry()
+        elif key == "exit":
+            self._exit()
+        else:
+            super()._chunk(key)
+
+    def _entry(self) -> None:
+        feed, plan = self.feed, self.plan
+        take = lambda a: a.index_select(0, self.group)[0]
+        functions = self._bound()({k: _cast_like(self.x[0].dtype, take(v))
+                                   for k, v in feed.ov.items()})
+        for k, name in self._fields:
+            for d, t in zip(_leaves(getattr(self.functions[k], name)),
+                            _leaves(getattr(functions[k], name))):
+                d.copy_(t)
+        # the seeds in this program's dtypes: a phase hand-off promotes here
+        seed = [(take(a) if feed.stacked else a).to(b.dtype)
+                for a, b in zip(feed.seed, self.x + self.h + (self.mu,))]
+        nx, mu = len(self.x), seed.pop()
+        done = torch.zeros_like(self.done) if feed.done is None else feed.done
+        self.pbuf.fill_(float("nan"))
+        self.dbuf.fill_(float("nan"))
+        # iteration 0 (the mu update fires at global_it=0, reference
+        # optimizer.py:319-320)
+        with deferred_cholesky_checks() as infos:
+            carry = plan.iteration(
+                (tuple(seed[:nx]), tuple(seed[nx:]), mu,
+                 plan.compute_factors(mu, functions, batched=True), done,
+                 torch.zeros_like(self.count), self.pbuf, self.dbuf),
+                0, 0, self.cfg, self.tols, functions, freeze=self.freeze)
+        if infos:
+            self.checks = True
+            self.failed.logical_or_(any_not_pd(infos))
+        x, h, mu, _, done, count = carry[:6]
+        for d, t in zip(self.x + self.h + (self.mu, self.done, self.count),
+                        x + h + (mu, done, count)):
+            d.copy_(t)
+        self.it.fill_(1)
+
+    def _exit(self) -> None:
+        feed = self.feed
+        mine = self.x + self.h + (self.mu, self.done, self.count,
+                                  self.pbuf[:, :self.hist], self.dbuf[:, :self.hist])
+        for d, t in zip(feed.out, mine):
+            d.index_copy_(0, self.group, t[None])
+        if feed.warm:
+            for d, t in zip(feed.seed, mine):
+                d.copy_(t[-1:].expand_as(d))
+        self.group.add_(1)
+
+    def run_group(self, capture: bool, pool: Optional[_GraphPool]) -> None:
+        """One group: its entry, then its chunks (:meth:`run_chunks`, the
+        done flags read only where a lane can finish), then its exit where
+        the feed has one.  The failure flag is left to the composite
+        (:meth:`_Composite.run`)."""
+        self._run_chunk("entry", capture, pool)
+        telemetry.check_chunk("BatchedSolver", self.x, self.h)
+        self.run_chunks(self.cfg.niter, self.can_finish, capture, pool, _flags_read)
+        if self.feed.out is not None:
+            self._run_chunk("exit", capture, pool)
+
+    def buffers(self) -> Tuple[torch.Tensor, ...]:
+        feed = self.feed
+        return (super().buffers() + tuple(feed.ov.values()) + tuple(feed.seed)
+                + ((self.group,) if feed.done is None else (self.group, feed.done))
+                + tuple(feed.out or ()))
+
+
+def _phase_program(solver: "BatchedSolver", cfg: ADMMConfig, feed: _Feed, dtype: torch.dtype,
+                   tols, record: bool, stride: int, chunked_checks: bool) -> _FedProgram:
+    """A fed program of ``solver`` whose groups have the lanes of ``feed``'s
+    stacks, its state in ``dtype`` (its buffers sized by group 0's bound
+    objectives, bound here on the host)."""
+    dev = solver.device
+    ov = {k: _cast_like(dtype, v[0]) for k, v in feed.ov.items()}
+    gs = (feed.seed[-1][0] if feed.stacked else feed.seed[-1]).shape[0]
+    plan = solver.plan
+    hist = (cfg.niter + stride - 1) // stride if record else 1
+    rdt = _real_dtype(dtype)
+    x = tuple(torch.zeros(gs, n, dtype=dtype, device=dev) for n in plan.block_sizes)
+    h = tuple(torch.zeros(gs, n, dtype=dtype, device=dev) for n in plan.pair_sizes)
+    nan = lambda: torch.full((gs, hist), float("nan"), dtype=torch.float64, device=dev)
+    carry = (x, h, torch.zeros(gs, plan.npairs, dtype=rdt, device=dev), None,
+             torch.zeros(gs, dtype=torch.bool, device=dev),
+             torch.zeros(gs, dtype=torch.int32, device=dev), nan(), nan())
+    return _FedProgram(solver, cfg, feed, solver._bound(ov), carry, tols, record, stride,
+                       chunked_checks)
+
+
+class _Composite:
+    """What the composite programs share (:class:`_GroupProgram`,
+    :class:`_MixedProgram`, ``fused_spm._MixedProgram``): stages that run
+    in order on the card, each a program and the call that runs one pass of
+    it (None: a group of a fed program, :meth:`_FedProgram.run_group`,
+    looked up at each pass; else a call such as a fused solver's
+    schedule), as many passes as :attr:`repeats` says.  The failure flags
+    of the stages' factorizations are read once, after the last stage: at
+    rtol = atol = 0 the composite's one host read before its result."""
+
+    def __init__(self, stages) -> None:
+        #: (label of the stage's graph keys, program, one pass: fn(capture,
+        #: pool) or None)
+        self.stages = stages
+        #: passes of each stage in a run
+        self.repeats = [1] * len(stages)
+
+    @property
+    def capture_s(self) -> Dict:
+        """Host seconds of each graph's capture, by key (by (label, key)
+        where there are several stages)."""
+        if len(self.stages) == 1:
+            return dict(self.stages[0][1].capture_s)
+        return {(label, key): t for label, program, _ in self.stages
+                for key, t in program.capture_s.items()}
+
+    def run(self, captures, pool: Optional[_GraphPool]) -> None:
+        """Every stage's passes, each captured where ``captures`` says."""
+        for (_, program, step), n, capture in zip(self.stages, self.repeats, captures):
+            for _ in range(n):
+                (step or program.run_group)(capture, pool)
+        for _, program, _ in self.stages:
+            if program.checks:
+                raise_if_not_pd(program.failed)
+
+    def buffers(self) -> Tuple[torch.Tensor, ...]:
+        """Every tensor the stages hold between solves, each once (a stage
+        may seed from another's buffers or share its stacks)."""
+        seen, out = set(), []
+        for _, program, _ in self.stages:
+            for t in program.buffers():
+                if t.untyped_storage().data_ptr() not in seen:
+                    seen.add(t.untyped_storage().data_ptr())
+                    out.append(t)
+        return tuple(out)
+
+
+class _GroupProgram(_Composite):
+    """``solve_path(fused=True)`` and ``solve_scan`` as one program: the JAX
+    package's ``_compiled_path`` (``lax.scan`` over warm-started groups,
+    ``batch.py:266-304``) and ``run_scan`` (``lax.map`` over groups,
+    ``:895-921``).
+
+    It holds the overrides stacked (G, gs, ...) on the card, the seeds (the
+    path's first group from the caller's x0, h0 and mu0, then each group's
+    from the last lane before it; the scan's stacked initial state), the
+    (G, gs, ...) output stacks and one :class:`_FedProgram` that runs every
+    group: entry, chunks, exit.  The inputs go to the card once a solve
+    (:meth:`load`), the result comes out once (:meth:`result`).
+
+    So the caller's inputs are resident twice while the program is cached:
+    the program keeps its stacked copy.  Its key leaves out the number of
+    groups: a solve of fewer groups uses the first rows of the stacks, one
+    of more grows them (and recaptures the entry and exit, which read and
+    write them), so that a solver keeps one set of stacks a key, for its
+    largest solve."""
+
+    def __init__(self, solver: "BatchedSolver", cfg: ADMMConfig, stacks: Dict, seed,
+                 stacked: bool, tols, record: bool, stride: int, chunked_checks: bool,
+                 dtype: torch.dtype) -> None:
+        G, gs = next(iter(stacks.values())).shape[:2]
+        plan, dev = solver.plan, solver.device
+        self.rows = G
+        ov = {k: v.clone() for k, v in stacks.items()}
+        seed = tuple(a.clone(memory_format=torch.contiguous_format) for a in seed)
+        hist = (cfg.niter + stride - 1) // stride if record else 1
+        rdt = _real_dtype(dtype)
+        rows = lambda *shape, dt: torch.zeros((G, gs) + shape, dtype=dt, device=dev)
+        out = (tuple(rows(n, dt=dtype) for n in plan.block_sizes)
+               + tuple(rows(n, dt=dtype) for n in plan.pair_sizes)
+               + (rows(plan.npairs, dt=rdt), rows(dt=torch.bool), rows(dt=torch.int32),
+                  rows(hist, dt=torch.float64), rows(hist, dt=torch.float64)))
+        self.groups = _phase_program(solver, cfg, _Feed(ov, seed, stacked, out=out,
+                                                        warm=not stacked),
+                                     dtype, tols, record, stride, chunked_checks)
+        super().__init__([("groups", self.groups, None)])
+
+    def load(self, stacks: Dict, seed, tols) -> None:
+        """A solve's stacks and seeds, its number of groups the stacks'."""
+        G = next(iter(stacks.values())).shape[0]
+        feed = self.groups.feed
+        if G > self.rows:
+            grow = lambda a: a.new_zeros((G,) + tuple(a.shape[1:]))
+            feed.ov = {k: grow(v) for k, v in feed.ov.items()}
+            if feed.stacked:
+                feed.seed = tuple(map(grow, feed.seed))
+            feed.out = tuple(map(grow, feed.out))
+            for key in ("entry", "exit"):
+                self.groups.graphs.pop(key, None)
+            self.rows = G
+        self.repeats = [G]
+        self.groups.load(tols, stacks, seed)
+
+    def result(self, n: int) -> "BatchResult":
+        """The first ``n`` lanes of the output stacks, copied out."""
+        flat = lambda a: a.reshape((-1,) + tuple(a.shape[2:]))[:n].clone()
+        out = tuple(map(flat, self.groups.feed.out))
+        nx, nh = len(self.groups.x), len(self.groups.h)
+        mu, done, count, pbuf, dbuf = out[nx + nh:]
+        return BatchResult(x=out[:nx], h=out[nx:nx + nh], mu=mu, iterations=count,
+                           converged=done, primal_residual=pbuf, dual_residual=dbuf)
+
+
+class _MixedProgram(_Composite):
+    """``solve_mixed(fused=True)`` as one program: the JAX package's
+    ``_compiled_mixed`` (``batch.py:306-343``).  Two fed programs, the first
+    in ``low_dtype`` seeded from the caller's state, the second in the
+    solver's dtype seeded from the first's buffers: its entry is the
+    hand-off, promoting x, h and mu on the card, every lane not done.  The
+    counts are summed and the histories joined on the card
+    (:meth:`result`)."""
+
+    def __init__(self, solver: "BatchedSolver", cfgs, stacks: Dict, seed, tols, low_dtype,
+                 record: bool, stride: int, chunked_checks: bool) -> None:
+        seed = tuple(a.clone(memory_format=torch.contiguous_format) for a in seed)
+        ov = {k: v.clone() for k, v in stacks.items()}
+        low = _phase_program(solver, cfgs[0], _Feed(ov, seed), low_dtype, tols[0], record,
+                             stride, chunked_checks)
+        high = _phase_program(solver, cfgs[1], _Feed(ov, low.x + low.h + (low.mu,)),
+                              solver.dtype, tols[1], record, stride, chunked_checks)
+        self.phases = (low, high)
+        super().__init__([("phase 1", low, None), ("phase 2", high, None)])
+
+    def load(self, stacks: Dict, seed, tols) -> None:
+        low, high = self.phases
+        low.load(tols[0], stacks, seed)
+        # the second phase shares the stacks; its seeds are the first's state
+        high.load(tols[1])
+
+    def result(self) -> "BatchResult":
+        low, high = self.phases
+        joined = lambda name: torch.cat([getattr(p, name)[:, :p.hist] for p in self.phases], 1)
+        return BatchResult(x=tuple(map(torch.clone, high.x)), h=tuple(map(torch.clone, high.h)),
+                           mu=high.mu.clone(), iterations=low.count + high.count,
+                           converged=high.done.clone(), primal_residual=joined("pbuf"),
+                           dual_residual=joined("dbuf"))
 
 
 class BatchedSolver:
@@ -639,6 +968,11 @@ class BatchedSolver:
                 out[(k, "Acy")] = (f._Ac.matvec_rows(y) if A is None
                                    else (A.mH @ y[..., None])[..., 0])
         return out
+
+    def _bound(self, ov: Dict):
+        """The objectives of a solve: the prologue's values of ``ov`` bound
+        into clones of the template's."""
+        return self._bind(self._prologue_overrides(ov))
 
     def _batch(self, overrides: Dict, batch_size: Optional[int]) -> int:
         """The batch size of a solve, from its overrides or ``batch_size``."""
@@ -780,16 +1114,17 @@ class BatchedSolver:
         """One batch through the schedule: prologue, factors and iteration
         0, then chunks of ``interval_update_mu`` iterations (those past
         ``niter`` are not run) through the solve's chunk program
-        (:meth:`_program`), each refactoring first, until every lane is
-        done.  ``ov`` is already cast and on the device; ``done0`` is a (B,)
-        mask or None.  The host reads the done flags, with the failure flag
+        (:meth:`_program`, :meth:`_ChunkProgram.run_chunks`), each
+        refactoring first, until every lane is done.  ``ov`` is already
+        cast and on the device; ``done0`` is a (B,) mask or None.  The host
+        reads the done flags, with the failure flag
         of the factorizations, only before a chunk that could be skipped:
         after a chunk that is not the last, and (``read_done0``) once for
         ``done0``; the failure flag alone after the last chunk where the
         model factorizes.  The chunks are replays of captured graphs where
         :meth:`_captures`."""
         plan = self.plan
-        interval, niter = cfg.interval_update_mu, cfg.niter
+        niter = cfg.niter
         rtol, atol = tols
         B = mu.shape[0]
         # Strided history: one slot per `stride` iterations (the last
@@ -818,7 +1153,7 @@ class BatchedSolver:
         # iteration 0) from the pool: none of it outlives the load.
         with pool.allocating() if pool is not None and program is not None and program.warm \
                 else contextlib.nullcontext():
-            functions = self._bind(self._prologue_overrides(ov))
+            functions = self._bound(ov)
             carry = (x, h, mu, None, done0,
                      torch.zeros(B, dtype=torch.int32, device=self.device), nan(), nan())
             if program is None:
@@ -837,16 +1172,7 @@ class BatchedSolver:
             program.load(functions, carry, tols, infos)
             # the program holds its own copies of the state and the fields
             del carry, infos, functions
-        it, unread = 1, program.checks
-        while it < niter and not all_done:
-            program.run(min(interval, niter - it), capture, pool)
-            it += interval
-            telemetry.check_chunk("BatchedSolver", program.x, program.h)
-            unread = program.checks
-            if can_finish and it < niter:
-                all_done = self._all_done(program.done, program.failed if unread else None)
-                unread = False
-        if unread:
+        if program.run_chunks(niter, can_finish, capture, pool, self._all_done, all_done):
             raise_if_not_pd(program.failed)
         return program.result()
 
@@ -966,11 +1292,17 @@ class BatchedSolver:
         starts.  Returns concatenated per-value results in input order;
         further ``overrides`` are per value (length ``len(values)``).
 
-        ``fused=True`` (default) pads the last group by repeating the final
-        value, so that every group has ``group_size`` lanes, and trims the
-        padding from the result, as the JAX package's one-program form
-        does; ``fused=False`` solves the shorter last group as it is.  Both
-        give the same lanes.
+        ``fused=True`` (default) runs the whole path as one program, the
+        JAX package's ``lax.scan`` over groups (:class:`_GroupProgram`): the
+        values and overrides go to the card once, stacked by group, the last
+        group padded by repeating the final value (the padding trimmed from
+        the result); each group's prologue, warm start and iteration 0 and
+        its copy into the result are steps on the card, captured as graphs
+        where the chunks are.  It takes the knobs of :meth:`solve` but
+        ``batch_size``, ``done0`` and ``recipe``.  ``fused=False``, a single
+        group and a sharded solver take the host loop: one :meth:`solve` a
+        group (a sharded solver pads as the program does where ``fused``).
+        Both forms give the same lanes.
         """
         values = np.asarray(values)
         n = values.shape[0]
@@ -996,6 +1328,8 @@ class BatchedSolver:
                     f"(length {n}), got leading axis {v.shape[0]}")
         pad_n = (-n) % gs if fused and gs < n else 0
         ov_all = {k: _pad_last(v, pad_n) for k, v in ov_all.items()}
+        if fused and gs < n and self.sharding is None:
+            return self._solve_path_fused(ov_all, n, gs, **kw)
         mu0 = kw.pop("mu0", 1.0)
         x0, h0 = kw.pop("x0", None), kw.pop("h0", None)
         parts = []
@@ -1013,6 +1347,62 @@ class BatchedSolver:
             x0, h0 = tuple(map(take, prev.x)), tuple(map(take, prev.h))
             mu0 = take(prev.mu)
         return _trim(_concat(parts), n)
+
+    def _solve_path_fused(self, ov: Dict, n: int, gs: int,
+                          x0: Optional[Sequence] = None,
+                          h0: Optional[Sequence] = None,
+                          mu0=1.0,
+                          niter: int = 10000,
+                          interval_update_mu: int = 100,
+                          update_h: bool = True,
+                          rtol: float = 1e-12,
+                          atol: float = 0.0,
+                          fact_incr: float = 2.0,
+                          th_change: float = 10.0,
+                          max_mu: float = 1e3,
+                          record_residuals: Union[bool, int] = True,
+                          dtype=None,
+                          chunked_checks: bool = False,
+                          relax: float = 1.0) -> BatchResult:
+        """The path of ``n`` values (``ov``: per value, padded to whole
+        groups of ``gs``) through its group program (JAX
+        ``_solve_path_fused``, ``batch.py:720-813``); x0, h0 and mu0 start
+        the first group."""
+        dtype = self._solve_dtype(dtype)
+        # batch-field validation, on the whole input (JAX batch.py:770)
+        self._validate_overrides(ov)
+        G = next(iter(ov.values())).shape[0] // gs
+        cfg = self._config(niter, interval_update_mu, update_h, max_mu, fact_incr, th_change,
+                           relax)
+        record, stride = _parse_record_residuals(record_residuals)
+        x, h, mu, _ = self._initial_state(gs, dtype, x0, h0, mu0, None)
+        stacks = {k: _cast_like(dtype, v, self.device).reshape((G, gs) + tuple(v.shape[1:]))
+                  for k, v in sorted(ov.items())}
+        return self._groups("path", cfg, stacks, x + h + (mu,), False, (rtol, atol), record,
+                            stride, chunked_checks, dtype).result(n)
+
+    def _groups(self, kind: str, cfg: ADMMConfig, stacks: Dict, seed, stacked: bool, tols,
+                record: bool, stride: int, chunked_checks: bool, dtype) -> _GroupProgram:
+        """A path or scan through its group program, made on a miss.  The
+        key: the JAX package's ``(kind, cfg, ov_keys, record,
+        chunked_checks, stride)`` (``batch.py:277``, ``:895``) with the
+        shape of a group of each stack and its dtype (not the number of
+        groups: :meth:`_GroupProgram.load` grows the stacks), the state
+        dtype, the device, whether a lane can finish and the route switches
+        a graph keeps."""
+        capture = self._captures(self.model.functions, dtype)
+        pool = self._graph_pool(capture)
+        key = (kind, cfg, tuple((k, tuple(v.shape[1:]), v.dtype) for k, v in stacks.items()),
+               record, bool(chunked_checks), stride, dtype, str(self.device),
+               tols[0] > 0 or tols[1] > 0, _route_switches())
+        program = self._programs.get(key)
+        if program is None:
+            program = _keep(self._programs, key, _GroupProgram(
+                self, cfg, stacks, seed, stacked, tols, record, stride, bool(chunked_checks),
+                dtype))
+        program.load(stacks, seed, tols)
+        program.run((capture,), pool)
+        return program
 
     def solve_scan(self,
                    overrides: Dict,
@@ -1038,8 +1428,23 @@ class BatchedSolver:
         every lane's dense factor resident ((B, n, n), which the n <= 128
         cap guards).  Here only ``group_size`` instances' factors exist at
         a time.  Reference analogue: one ``SimpleOptimizer`` per problem
-        (``optimizer.py:121-152``).  The last group holds the instances that
-        are left.
+        (``optimizer.py:121-152``).
+
+        The groups run as one program, the JAX package's ``lax.map`` over
+        groups (:class:`_GroupProgram`): the overrides and initial state go
+        to the card once, stacked by group, the last group padded by
+        repeating the last instance (trimmed from the result), and each
+        group's entry and copy into the result are steps on the card.  A
+        sharded solver solves the groups one after another, each rank its
+        lanes of each.
+
+        Memory: the inputs are resident twice.  The program keeps its own
+        stacked copy of the overrides (all B instances' per-lane A at the
+        solver's dtype, beside the caller's tensors) and the (B, ...)
+        output stacks for as long as the solver caches it; only one
+        group's factors exist at a time.  A later scan of as many groups
+        or fewer, with the same group shape, reuses those stacks, and one
+        of more groups grows them, so a solver keeps one set a key.
 
         Wall-clock is sequential over ``B / group_size`` groups — use
         :meth:`solve` when the factor state fits.  ``record_residuals``
@@ -1060,12 +1465,20 @@ class BatchedSolver:
         lead = [np.shape(a)[0] for a in (*(x0 or ()), *(h0 or ()), *([mu0] if mu0.ndim else []))]
         if any(b != B for b in lead):
             raise ValueError(f"x0, h0 and mu0 need a leading batch axis of {B}, got {lead}")
-        grp = lambda a, s: None if a is None else tuple(v[s:s + g] for v in a)
-        return _concat([_shift(self._solve_lanes(
-            min(g, B - s), cfg, {k: v[s:s + g] for k, v in overrides.items()},
-            self.dtype, grp(x0, s), grp(h0, s), mu0[s:s + g] if mu0.ndim else mu0,
-            None, tols, record, stride, bool(chunked_checks)), s)
-            for s in range(0, B, g)])
+        if self.sharding is not None:
+            grp = lambda a, s: None if a is None else tuple(v[s:s + g] for v in a)
+            return _concat([_shift(self._solve_lanes(
+                min(g, B - s), cfg, {k: v[s:s + g] for k, v in overrides.items()},
+                self.dtype, grp(x0, s), grp(h0, s), mu0[s:s + g] if mu0.ndim else mu0,
+                None, tols, record, stride, bool(chunked_checks)), s)
+                for s in range(0, B, g)])
+        G = -(-B // g)
+        stack = lambda a: _pad_last(a, G * g - B).reshape((G, g) + tuple(a.shape[1:]))
+        x, h, mu, _ = self._initial_state(B, self.dtype, x0, h0, mu0, None)
+        stacks = {k: stack(_cast_like(self.dtype, v, self.device))
+                  for k, v in sorted(overrides.items())}
+        return self._groups("scan", cfg, stacks, tuple(map(stack, x + h + (mu,))), True, tols,
+                            record, stride, chunked_checks, self.dtype).result(B)
 
     def solve_resumable(self,
                         path: str,
@@ -1153,17 +1566,23 @@ class BatchedSolver:
         nothing in final accuracy.  Iteration counts are summed and the
         histories concatenated; the other knobs go to both phases.
 
-        ``fused`` is accepted for the JAX package's callers: there it
-        selects a second program, here both settings run the same two
-        calls and give the same result.  As there, ``fused=True`` polishes
-        at the solver dtype only.
+        ``fused=True`` runs both phases as one program, the JAX package's
+        ``_compiled_mixed`` (:class:`_MixedProgram`): the inputs go to the
+        card once, the hand-off promotes the state on the card, and the
+        result comes out once; it polishes at the solver dtype only and
+        takes the knobs of :meth:`solve` but ``done0``.  ``fused=False``
+        (default) and a sharded solver make two :meth:`solve` calls.  Both
+        give the same result.
         """
         kw.pop("recipe", None)  # the phases ARE the recipe
-        if fused and dtype is not None and _as_dtype(dtype) != self.dtype:
-            raise ValueError(
-                "the fused mixed solve always polishes at the "
-                "solver dtype; construct the solver with the "
-                "desired full precision or use fused=False")
+        if fused and self.sharding is None:
+            if dtype is not None and _as_dtype(dtype) != self.dtype:
+                raise ValueError(
+                    "the fused mixed solve always polishes at the "
+                    "solver dtype; construct the solver with the "
+                    "desired full precision or use fused=False")
+            return self._solve_mixed_fused(overrides, niter_low, niter, low_dtype, low_rtol,
+                                           **kw)
         if niter_low <= 0 or niter <= 0:
             raise ValueError("phase iteration budgets must be positive")
         B = self._batch(dict(overrides or {}), kw.get("batch_size"))
@@ -1190,3 +1609,56 @@ class BatchedSolver:
             dual_residual=torch.cat(
                 [p1.dual_residual, p2.dual_residual], dim=1),
             lane_index=p2.lane_index)
+
+    def _solve_mixed_fused(self,
+                           overrides: Optional[Dict],
+                           niter_low: int,
+                           niter: int,
+                           low_dtype,
+                           low_rtol: float,
+                           batch_size: Optional[int] = None,
+                           x0: Optional[Sequence] = None,
+                           h0: Optional[Sequence] = None,
+                           mu0=1.0,
+                           interval_update_mu: int = 100,
+                           update_h: bool = True,
+                           rtol: float = 1e-12,
+                           atol: float = 0.0,
+                           fact_incr: float = 2.0,
+                           th_change: float = 10.0,
+                           max_mu: float = 1e3,
+                           record_residuals: Union[bool, int] = True,
+                           chunked_checks: bool = False,
+                           relax: float = 1.0) -> BatchResult:
+        """The two phases through their mixed program (JAX
+        ``_solve_mixed_fused``, ``batch.py:1044-1114``), made on a miss;
+        keyed as the JAX package's ``("mixed", cfg_lo, cfg_hi, ov_keys,
+        record, chunked_checks, stride, low_dtype)`` (``batch.py:314``) with
+        the overrides' shapes, B, the dtype, the device, whether a lane of
+        each phase can finish and the route switches."""
+        if niter_low <= 0 or niter <= 0:
+            raise ValueError("phase iteration budgets must be positive")
+        overrides = dict(overrides or {})
+        B = self._batch(overrides, batch_size)
+        low = _as_dtype(low_dtype)
+        cfgs = tuple(self._config(n, interval_update_mu, update_h, max_mu, fact_incr,
+                                  th_change, relax) for n in (niter_low, niter))
+        record, stride = _parse_record_residuals(record_residuals)
+        tols = ((low_rtol, 0.0), (rtol, atol))
+        # phase 1's initial state, as its own solve would take it
+        x, h, mu, _ = self._initial_state(B, low, x0, h0, mu0, None)
+        stacks = {k: _cast_like(self.dtype, v, self.device)[None]
+                  for k, v in sorted(overrides.items())}
+        captures = tuple(self._captures(self.model.functions, d) for d in (low, self.dtype))
+        pool = self._graph_pool(any(captures))
+        key = ("mixed", *cfgs, tuple((k, tuple(v.shape), v.dtype) for k, v in stacks.items()),
+               record, bool(chunked_checks), stride, low, B, self.dtype, str(self.device),
+               tuple(r > 0 or a > 0 for r, a in tols), _route_switches())
+        program = self._programs.get(key)
+        if program is None:
+            program = _keep(self._programs, key, _MixedProgram(
+                self, cfgs, stacks, x + h + (mu,), tols, low, record, stride,
+                bool(chunked_checks)))
+        program.load(stacks, x + h + (mu,), tols)
+        program.run(captures, pool)
+        return program.result()

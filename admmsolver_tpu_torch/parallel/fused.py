@@ -171,7 +171,7 @@ class _FusedProgram(batch._GraphProgram):
         self.row.add_(1)
 
     def run_schedule(self, niter: int, interval: int, can_finish: bool, read_done0: bool,
-                     capture: bool, pool, what: str) -> None:
+                     capture: bool, pool, what: str) -> bool:
         """The solve's chunk schedule (reference ``optimizer.py:319-320``):
         iteration 0, then full ``interval`` chunks, then a remainder; the
         penalty update fires after iteration 0 and after every full chunk,
@@ -179,8 +179,8 @@ class _FusedProgram(batch._GraphProgram):
         lane is not done: the host reads the done flags, with the failure
         flag of the factorizations, after a chunk that is not the last where
         a lane can finish, and (``read_done0``) once before the first chunk
-        for a caller's ``done0`` where no such read follows; the failure flag
-        alone after the last chunk where it was not read."""
+        for a caller's ``done0`` where no such read follows.  Returns whether
+        the failure flag is left unread, for the caller to read."""
         schedule = batch._schedule(niter, interval)
         all_done = (read_done0 and not can_finish and len(schedule) > 1
                     and batch._flags_read(self.done))
@@ -194,8 +194,7 @@ class _FusedProgram(batch._GraphProgram):
             if can_finish and k + 1 < len(schedule):
                 all_done = batch._flags_read(self.done, self.failed if unread else None)
                 unread = False
-        if unread:
-            raise_if_not_pd(self.failed)
+        return unread
 
     def buffers(self):
         """Every tensor the program holds between solves."""
@@ -229,18 +228,26 @@ class _FusedSolverBase:
             raise ValueError(f"niter and interval_update_mu must be >= 1, got {niter}, "
                              f"{interval}")
         nchunks = len(batch._schedule(niter, interval))
-        capture = batch.CAPTURE_CHUNKS and self.device.type == "cuda"
-        if capture and self._pool is None:
-            self._pool = batch._GraphPool(self.device)
+        capture = self._captures()
         program = self._programs.get(key)
         if program is None:
             program = batch._keep(self._programs, key, _FusedProgram(
                 self._step, state, inputs, nchunks, prologue))
         program.reserve(nchunks)
         program.load(state, inputs, knobs, nchunks)
-        program.run_schedule(niter, interval, can_finish, read_done0, capture, self._pool,
-                             type(self).__name__)
+        if program.run_schedule(niter, interval, can_finish, read_done0, capture, self._pool,
+                                type(self).__name__):
+            raise_if_not_pd(program.failed)
         return program
+
+    def _captures(self) -> bool:
+        """Whether the kernel's chunks are replays of captured graphs: on a
+        CUDA device with :data:`~admmsolver_tpu_torch.parallel.batch.
+        CAPTURE_CHUNKS`; the solver's graph pool made by the first."""
+        capture = batch.CAPTURE_CHUNKS and self.device.type == "cuda"
+        if capture and self._pool is None:
+            self._pool = batch._GraphPool(self.device)
+        return capture
 
 
 class FusedTwoBlockSolver(_FusedSolverBase):

@@ -43,8 +43,15 @@ from ..models.objectivefunc import (ConstrainedLeastSquares, L1Regularizer,
                                     LeastSquares, NonNegativePenalty, inv_hpd)
 from ..models.problem import Model
 from ..ops import kernels
+from . import batch
 from .batch import BatchedSolver, BatchResult
-from .fused import _check_fused_overrides, _FusedSolverBase, _is_identity_si
+from .fused import _check_fused_overrides, _FusedProgram, _FusedSolverBase, _is_identity_si
+
+#: the knobs of the one-program mixed solve (the JAX package's fused set,
+#: ``fused_spm.py:477-480``); a solve with another takes the two-dispatch form
+_MIXED_FUSED_KW = frozenset({"interval_update_mu", "update_h", "rtol", "atol", "fact_incr",
+                             "th_change", "max_mu", "record_residuals", "chunked_checks",
+                             "done0"})
 
 __all__ = ["FusedSpMSolver", "FusedSpMResult"]
 
@@ -207,6 +214,36 @@ class FusedSpMSolver(_FusedSolverBase):
         count = count + active.to(count.dtype) * n_iters
         return (x0n, x1n, x2n, h10n, h20n, mu, done_new, count), (pn, dn)
 
+    def _kernel_inputs(self, overrides: Dict, B: int, mu0, done0):
+        """The kernel phase's initial state (five blocks, mu, done, count),
+        its inputs (the lanes' data, whose A†y the program's first chunk
+        makes, or A†y of the template; both alphas) and whether the lanes
+        have data."""
+        dev = self.device
+        f32 = dict(dtype=torch.float32, device=dev)
+
+        def batch_of(key, default):
+            if key in overrides:
+                return torch.as_tensor(overrides[key], **f32)
+            return torch.full((B,), float(default), **f32)
+
+        ys = overrides.get((0, "y"))
+        has_y = ys is not None
+        first = torch.as_tensor(ys, **f32) if has_y else self.Acy.expand(B, self.nl)
+        alpha_ls = batch_of((0, "alpha"), self.f0._alpha)
+        alpha1 = batch_of((1, "alpha"), self.f1._alpha)
+        if done0 is None:
+            d0 = torch.zeros(B, dtype=torch.bool, device=dev)
+        else:
+            d0 = torch.as_tensor(done0, dtype=torch.bool, device=dev)
+            if tuple(d0.shape) != (B,):
+                raise ValueError(f"done0 has shape {tuple(d0.shape)}, expected ({B},)")
+        zeros = lambda n: torch.zeros((B, n), **f32)
+        state = (zeros(self.nl), zeros(self.nl), zeros(self.nw), zeros(self.nl),
+                 zeros(self.nw), torch.full((B, 2), float(mu0), **f32), d0,
+                 torch.zeros(B, dtype=torch.int32, device=dev))
+        return state, (first, alpha_ls, alpha1), has_y
+
     def solve(self,
               overrides: Optional[Dict] = None,
               batch_size: Optional[int] = None,
@@ -228,37 +265,12 @@ class FusedSpMSolver(_FusedSolverBase):
             B = batch_size
         if B is None:
             raise ValueError("pass overrides or batch_size")
-        dev = self.device
-        f32 = dict(dtype=torch.float32, device=dev)
-
-        def batch_of(key, default):
-            if key in overrides:
-                return torch.as_tensor(overrides[key], **f32)
-            return torch.full((B,), float(default), **f32)
-
-        ys = overrides.get((0, "y"))
-        has_y = ys is not None
-        # the lanes' data, whose A†y the program's first chunk makes, or A†y
-        # of the template
-        first = torch.as_tensor(ys, **f32) if has_y else self.Acy.expand(B, self.nl)
-        alpha_ls = batch_of((0, "alpha"), self.f0._alpha)
-        alpha1 = batch_of((1, "alpha"), self.f1._alpha)
-        if done0 is None:
-            d0 = torch.zeros(B, dtype=torch.bool, device=dev)
-        else:
-            d0 = torch.as_tensor(done0, dtype=torch.bool, device=dev)
-            if tuple(d0.shape) != (B,):
-                raise ValueError(f"done0 has shape {tuple(d0.shape)}, expected ({B},)")
-
-        zeros = lambda n: torch.zeros((B, n), **f32)
-        state = (zeros(self.nl), zeros(self.nl), zeros(self.nw), zeros(self.nl),
-                 zeros(self.nw), torch.full((B, 2), float(mu0), **f32), d0,
-                 torch.zeros(B, dtype=torch.int32, device=dev))
+        state, inputs, has_y = self._kernel_inputs(overrides, B, mu0, done0)
         interval, niter = int(interval_update_mu), int(niter)
         can_finish = rtol > 0 or atol > 0
-        program = self._run((interval, B, has_y, str(dev), can_finish), state,
-                            (first, alpha_ls, alpha1), (rtol, atol, fact_incr, th_change, max_mu),
-                            niter, interval, can_finish, done0 is not None,
+        program = self._run((interval, B, has_y, str(self.device), can_finish), state, inputs,
+                            (rtol, atol, fact_incr, th_change, max_mu), niter, interval,
+                            can_finish, done0 is not None,
                             prologue=self._acy_of if has_y else None)
         # copies: the next solve overwrites the buffers
         x0, x1, x2, h10, h20, mu, done, count = (t.clone() for t in program.state)
@@ -285,14 +297,20 @@ class FusedSpMSolver(_FusedSolverBase):
         solver finishes to reference precision with up to ``niter`` more.
         Returns the polish phase's :class:`BatchResult` with
         ``iterations = min(kernel count, niter_low) + polish count``.
+        Lanes the caller marked ``done0`` skip both phases; lanes the
+        kernel phase finished are polished all the same.
 
-        ``kw`` goes to the polish (``rtol``, ``atol``, ``record_residuals``,
-        ``chunked_checks``, ``update_h``, ...); the penalty knobs
-        (``interval_update_mu``, ``fact_incr``, ``th_change``, ``max_mu``)
-        and ``done0`` go to both phases.  Lanes the caller marked ``done0``
-        skip the polish too; lanes the kernel phase finished do not.
-        ``fused`` is accepted for the JAX package's callers, where it selects
-        a one-program form; both settings run the same two phases here.
+        ``fused=True`` (default) runs both phases as one program, the JAX
+        package's composite (:class:`_MixedProgram`): the kernel phase's run
+        program, then the polish's, whose entry is the hand-off on the card
+        (float32 to float64, the caller's ``done0``); ``kw`` (``rtol``,
+        ``atol``, ``record_residuals``, ``chunked_checks``, ``update_h``,
+        the penalty knobs ``interval_update_mu``, ``fact_incr``,
+        ``th_change``, ``max_mu`` and ``done0``) goes to the polish, the
+        penalty knobs and ``done0`` to the kernel phase too.  ``fused=False``
+        and a ``kw`` outside that set take two solves, as the JAX package's
+        two-dispatch form does: the kernel phase with ``niter_low``,
+        ``mu0``, ``low_atol`` and ``done0`` alone, the polish with ``kw``.
         """
         overrides = dict(overrides or {})
         # An engine-legal override that the kernel phase cannot take, like
@@ -304,10 +322,10 @@ class FusedSpMSolver(_FusedSolverBase):
         if bs is None:
             bs = self._polish_solver = BatchedSolver(
                 self.model, dtype=torch.float64, device=self.device)
-        shared = {k: kw[k] for k in ("interval_update_mu", "fact_incr", "th_change",
-                                     "max_mu", "done0") if k in kw}
-        p1 = self.solve(overrides, niter=niter_low, mu0=mu0, rtol=0.0,
-                        atol=low_atol, **shared)
+        if fused and not set(kw) - _MIXED_FUSED_KW:
+            return self._solve_mixed_fused(bs, overrides, niter_low, niter, mu0, low_atol, **kw)
+        p1 = self.solve(overrides, niter=niter_low, mu0=mu0, rtol=0.0, atol=low_atol,
+                        done0=kw.get("done0"))
         f64 = lambda t: tuple(a.double() for a in t)
         p2 = bs.solve(overrides, x0=f64(p1.x), h0=f64(p1.h), mu0=p1.mu.double(),
                       niter=niter, **kw)
@@ -317,3 +335,92 @@ class FusedSpMSolver(_FusedSolverBase):
             converged=p2.converged,
             primal_residual=p2.primal_residual,
             dual_residual=p2.dual_residual)
+
+    def _solve_mixed_fused(self, bs: BatchedSolver, overrides: Dict, niter_low: int,
+                           niter: int, mu0, low_atol: float,
+                           interval_update_mu: int = 100,
+                           update_h: bool = True,
+                           rtol: float = 1e-12,
+                           atol: float = 0.0,
+                           fact_incr: float = 2.0,
+                           th_change: float = 10.0,
+                           max_mu: float = 1e3,
+                           record_residuals=True,
+                           chunked_checks: bool = False,
+                           done0=None) -> BatchResult:
+        """Both phases through their mixed program (JAX
+        ``_solve_mixed_fused``, ``fused_spm.py:498-618``), made on a miss,
+        keyed as the JAX package's ``ckey`` (``:581-582``) with the device,
+        whether a lane of each phase can finish, whether the caller marks
+        lanes done and the route switches."""
+        B = _check_fused_overrides(overrides, "FusedSpMSolver.solve_mixed")
+        state, inputs, has_y = self._kernel_inputs(overrides, B, mu0, done0)
+        interval, niter_low = int(interval_update_mu), int(niter_low)
+        if niter_low < 1 or interval < 1:
+            raise ValueError(f"niter_low and interval_update_mu must be >= 1, got {niter_low}, "
+                             f"{interval}")
+        cfg = bs._config(niter, interval, update_h, max_mu, fact_incr, th_change, 1.0)
+        record, stride = batch._parse_record_residuals(record_residuals)
+        stacks = {k: batch._cast_like(torch.float64, v, self.device)[None]
+                  for k, v in sorted(overrides.items())}
+        tols = (rtol, atol)
+        finish = (low_atol > 0, rtol > 0 or atol > 0)
+        key = ("mixed", niter_low, cfg,
+               tuple((k, tuple(v.shape), v.dtype) for k, v in stacks.items()), record, stride,
+               bool(chunked_checks), B, has_y, str(self.device), finish, done0 is not None,
+               batch._route_switches())
+        program = self._programs.get(key)
+        if program is None:
+            program = batch._keep(self._programs, key, _MixedProgram(
+                self, bs, state, inputs, niter_low, interval, finish[0], has_y, stacks,
+                done0 is not None, cfg, tols, record, stride, bool(chunked_checks)))
+        program.load(state, inputs, (0.0, low_atol, fact_incr, th_change, max_mu), stacks,
+                     tols)
+        program.run((self._captures(), bs._captures(bs.model.functions, torch.float64)),
+                    self._pool)
+        return program.result(niter_low)
+
+
+class _MixedProgram(batch._Composite):
+    """``FusedSpMSolver.solve_mixed(fused=True)`` as one program: the JAX
+    package's composite (``fused_spm.py:591-610``).  The kernel phase's run
+    program (:class:`~admmsolver_tpu_torch.parallel.fused._FusedProgram`),
+    then the polish solver's fed program (:class:`~admmsolver_tpu_torch.
+    parallel.batch._FedProgram`), whose entry is the hand-off on the card:
+    the five state blocks and mu of the kernel phase's buffers in float64,
+    and the caller's ``done0`` (not the kernel phase's flags).  The count
+    ``min(kernel count, niter_low)`` is added on the card (:meth:`result`);
+    the failure flags of both phases are read once, after the polish."""
+
+    def __init__(self, solver: FusedSpMSolver, bs: BatchedSolver, state, inputs, niter_low: int,
+                 interval: int, can_finish: bool, has_y: bool, stacks: Dict, marks_done: bool,
+                 cfg, tols, record: bool, stride: int, chunked_checks: bool) -> None:
+        self.nchunks = len(batch._schedule(niter_low, interval))
+        self.kernel = _FusedProgram(solver._step, state, inputs, self.nchunks,
+                                    solver._acy_of if has_y else None)
+        # the caller's done0, which the kernel phase's flags overwrite
+        done0 = batch._fresh(state[6]) if marks_done else None
+        seed = tuple(self.kernel.state[:6])
+        feed = batch._Feed({k: v.clone() for k, v in stacks.items()}, seed, done=done0)
+        self.polish = batch._phase_program(bs, cfg, feed, torch.float64, tols, record, stride,
+                                           chunked_checks)
+        # the kernel phase's schedule; its failure flag is read after the polish
+        schedule = lambda capture, pool: self.kernel.run_schedule(
+            niter_low, interval, can_finish, False, capture, pool, "FusedSpMSolver")
+        super().__init__([("kernel phase", self.kernel, schedule),
+                          ("polish", self.polish, None)])
+
+    def load(self, state, inputs, knobs, stacks: Dict, tols) -> None:
+        self.kernel.load(state, inputs, knobs, self.nchunks)
+        if self.polish.feed.done is not None:
+            self.polish.feed.done.copy_(state[6])
+        self.polish.load(tols, stacks)
+
+    def result(self, niter_low: int) -> BatchResult:
+        p = self.polish
+        return BatchResult(x=tuple(map(torch.clone, p.x)), h=tuple(map(torch.clone, p.h)),
+                           mu=p.mu.clone(),
+                           iterations=p.count + torch.clamp_max(self.kernel.state[-1], niter_low),
+                           converged=p.done.clone(),
+                           primal_residual=p.pbuf[:, :p.hist].clone(),
+                           dual_residual=p.dbuf[:, :p.hist].clone())

@@ -27,6 +27,9 @@ fails raises and the script exits non-zero without printing a result.
 * the spectral routes: covariance denoising, the SDP and RPCA at 32 x 32 and
   96 x 96 through each route of the PSD and nuclear proxes, and the Jacobi
   eigh kernel alone;
+* the composite drivers, each one program: the λ-path (``solve_path``),
+  ``solve_scan``, and both ``solve_mixed`` (``BatchedSolver``'s on the SDP,
+  ``FusedSpMSolver``'s on the SpM problem);
 * multi-device (no kernel of its own): ``BatchedSolver`` sharded over a world
   of one rank through NCCL and over two gloo ranks on the one card,
   ``sharded_gram`` and ``LargeNTwoBlockSolver`` at M=1024, N=2^20 in float64,
@@ -134,6 +137,25 @@ fails raises and the script exits non-zero without printing a result.
    memory (ptxas's report in the build log).  10e: 8b and 8c through the
    warp path and through the block kernel, eight solves of each in turns
    whose order flips every pair; x of the two within WARP_VS_BLOCK_TOL.
+
+11. The composite drivers (run after 10, before 9), each one program whose
+   groups or phases hand over on the card.  11a the λ-path of bench_lpath
+   (A 256x512 f64, RandomState(4), 20-sparse, 1024 values logspace(0, -3)
+   in 4 groups of 256, 100 iterations at rtol 0, then 1000 at rtol 1e-8);
+   11b ``solve_scan`` of benches/scan_large_hw.py (256 distinct A 128x512
+   f64, RandomState(42), 10-sparse, 16 groups of 16, 200 iterations; median
+   relative fit residual and error against the truth); 11c the SDP of 8b
+   through ``solve_mixed(fused=True)`` (300 f32 + 100 f64 iterations, rtol
+   0; PSD as 8b; Jacobi launches > 0 in each phase); 11d
+   ``FusedSpMSolver.solve_mixed(fused=True)`` at 5c's inputs (chunk kernel
+   launches > 0, its time beside the two phases alone).  Each part once
+   captured and once without graphs (``captured_vs_eager``), and against its
+   loop or two-dispatch form (11b: its first and last groups solved alone),
+   bitwise; ms a solve of each form; ``--profile``: host launch calls a
+   group or phase and busy share.  The ``kernels`` line adds each kernel's
+   launches in one run of each of 11a (both), 11b, 11c and 11d
+   (``launches_phase_11``): every count set to 0 just before such a run
+   and read just after.
 
 9. Multi-device on the one card.  9a, a process group of one rank through
    NCCL (a TCP store on localhost, destroyed at the end): the sharded
@@ -290,6 +312,12 @@ JACOBI_MODE = {8: "warp", 12: "warp", 32: "warp", 34: "tile", 64: "tile", 96: "t
                128: "tile"}
 JACOBI_BLOCK_GLOBAL = {(128, "float64")}
 JACOBI_MAIN = (128, 96, "float64")   # the kernels line's shape: 10c's Gram route
+# 11. the composite drivers: bench_lpath (benches/bench_workloads.py:566-590),
+# benches/scan_large_hw.py:24-42, bench_sdp's mixed recipe (:263-276) and 5c
+PATH_VALUES, PATH_GS, PATH_NITER = 1024, 256, 100
+PATH_RTOL, PATH_RTOL_NITER = 1e-8, 1000   # lanes finish: the done reads run
+SCAN_M, SCAN_N, SCAN_B, SCAN_GS, SCAN_NITER = 128, 512, 256, 16, 200
+MIXED_LOW, MIXED_HIGH = 300, 100
 
 
 def bench_problem(seed=0, nb=B):
@@ -1209,10 +1237,15 @@ def program_stats(solvers):
 
 def chunk_name(key):
     """A chunk key of a program: its length (BatchedSolver, LargeN), the
-    single-instance program's (length, penalty update) or the fused
-    programs' (length, penalty update, A†y made in the chunk)."""
+    single-instance program's (length, penalty update), the fused
+    programs' (length, penalty update, A†y made in the chunk), a composite
+    program's entry or exit step, or (phase, key) of a composite's phase."""
+    if isinstance(key, str):
+        return key
     if not isinstance(key, tuple):
         return f"{key} iterations"
+    if isinstance(key[0], str):
+        return f"{key[0]} {chunk_name(key[1])}"
     n, do_mu, prologue = key + (False,) * (3 - len(key))
     return (f"{n} iterations" + ("" if do_mu else " without a penalty update")
             + (" with A†y" if prologue else ""))
@@ -1608,6 +1641,230 @@ def phase_spectral(torch, card, fam, device="cuda"):
                                                     "bound_ms", "sms", "library_ms",
                                                     "max_abs_err", "prev_max_abs_err")}
                        for r in rows]}
+
+
+# 11. the composite drivers as one program each
+def composite_loop_check(torch, what, fused_res, loop_res):
+    """The composite's result bitwise against its loop or two-dispatch
+    form's (x, h, mu, iterations and flags)."""
+    same = same_tensors(torch, state_of(fused_res), state_of(loop_res))
+    print(f"{what}: one program against its loop / two-dispatch form: "
+          + ("bitwise equal" if same else "DIFFERENT"), flush=True)
+    if not same:
+        raise AssertionError(f"{what}: the one-program form departs from the loop")
+
+
+def composite_times(torch, card, what, fns, work=None):
+    """Median host-clock ms of each of ``fns`` (name -> solve) in turns,
+    with ``work`` instance-iterations, printed beside each other."""
+    ms = dict(zip(fns, (1e3 * t for t in median_wall(torch, list(fns.values())))))
+    print(f"[{card}] {what}: " + ", ".join(
+        f"{name} {t:.2f} ms" + (f" ({1e3 * work / t:.0f} inst-iters/s)" if work else "")
+        for name, t in ms.items()), flush=True)
+    return ms
+
+
+def counted_run(run):
+    """``run()``'s result and the launches of each counted kernel in it, by
+    name: every count set to 0 just before the run and read just after."""
+    from admmsolver_tpu_torch.ops import kernels
+
+    counted = {"fused_two_block_chunk": kernels.fused_two_block_chunk,
+               "fused_spm_chunk": kernels.fused_spm_chunk, "jacobi_eigh": kernels.jacobi_eigh}
+    for kernel in counted.values():
+        kernel.launches = 0
+    res = run()
+    return res, {name: kernel.launches for name, kernel in counted.items()}
+
+
+def phase_composites(torch, card, device="cuda", path_values=PATH_VALUES, path_gs=PATH_GS,
+                     scan_b=SCAN_B, scan_gs=SCAN_GS, sdp_b=SDP_B, spm_b=B, spm_niter=SPM_NITER,
+                     polish_niter=POLISH_NITER):
+    """11. The composite drivers, each one program: 11a the λ-path
+    (``solve_path(fused=True)``), 11b ``solve_scan``, 11c the SDP's
+    ``BatchedSolver.solve_mixed(fused=True)`` and 11d
+    ``FusedSpMSolver.solve_mixed(fused=True)``.  Each part runs once
+    captured against once without graphs (``captured_vs_eager``) and once
+    against its loop or two-dispatch form, bitwise; returns (under
+    ``"launches"``) each counted kernel's launches in one captured run of
+    each part (:func:`counted_run`), summed over the parts."""
+    from admmsolver_tpu_torch.models.applications import (basis_pursuit_model, spm_model,
+                                                          synthetic_spm_data)
+    from admmsolver_tpu_torch.ops import kernels
+    from admmsolver_tpu_torch.parallel import BatchedSolver, FusedSpMSolver, batch
+
+    t0 = time.perf_counter()
+    cuda = device == "cuda"
+    profile = cuda and "--profile" in sys.argv
+    out = {"launches": {}}
+
+    def counted(run):
+        res, launches = counted_run(run)
+        for name, n in launches.items():
+            out["launches"][name] = out["launches"].get(name, 0) + n
+        return res
+
+    # 11a. the λ-path of bench_lpath (benches/bench_workloads.py:566-590)
+    rng = np.random.RandomState(4)
+    A = rng.randn(M, N)
+    xt = np.zeros(N)
+    xt[rng.choice(N, SPARSITY, replace=False)] = rng.randn(SPARSITY)
+    lams = np.logspace(0, -3, path_values)
+    bs = BatchedSolver(basis_pursuit_model(A, A @ xt), device=device)
+    groups = -(-path_values // path_gs)
+    for niter, rtol in ((PATH_NITER, 0.0), (PATH_RTOL_NITER, PATH_RTOL)):
+        what = (f"11a λ-path, A {M}x{N} f64, {path_values} values in {groups} groups of "
+                f"{path_gs}, {niter} iters, rtol {rtol:g}")
+        path = lambda fused, niter=niter, rtol=rtol: bs.solve_path(
+            (1, "alpha"), lams, group_size=path_gs, niter=niter, rtol=rtol,
+            record_residuals=False, fused=fused)
+        res = counted(lambda: path(True))
+        composite_loop_check(torch, what, res, path(False))
+        captured_vs_eager(torch, card, what, lambda: path(True), niter * groups, [bs])
+        err = float((res.x[0][-1].cpu() - torch.as_tensor(xt)).abs().max())
+        its = res.iterations
+        print(f"{what}: iterations {int(its.min())}..{int(its.max())}, max |x - x*| at the "
+              f"smallest λ {err:.3e}", flush=True)
+        if not all(bool(torch.isfinite(t).all()) for t in res.x + res.h):
+            raise AssertionError(f"{what}: values that are not finite")
+        if cuda:
+            composite_times(torch, card, what, {"one program": lambda: path(True),
+                                                "group loop": lambda: path(False)},
+                            int(its.sum()))
+        if profile:
+            profile_both(torch, f"{what} (an 'iteration' is a group)", lambda: path(True),
+                         groups)
+            profile_solve(torch, f"{what}, group loop, captured", "gemm", lambda: path(False),
+                          iters=groups)
+    out["path_err"] = err
+
+    # 11b. solve_scan of benches/scan_large_hw.py:24-42
+    rng = np.random.RandomState(42)
+    sm, sn = SCAN_M, SCAN_N
+    As = rng.randn(scan_b, sm, sn)
+    xts = np.zeros((scan_b, sn))
+    for b in range(scan_b):
+        xts[b, rng.choice(sn, 10, replace=False)] = rng.randn(10)
+    ys = np.einsum("bmn,bn->bm", As, xts)
+    bs = BatchedSolver(basis_pursuit_model(As[0], ys[0]), device=device)
+    ov = {(0, "A"): torch.as_tensor(As, device=device),
+          (0, "y"): torch.as_tensor(ys, device=device)}
+    groups = -(-scan_b // scan_gs)
+    what = (f"11b solve_scan, B={scan_b} distinct A {sm}x{sn} f64 in {groups} groups of "
+            f"{scan_gs}, {SCAN_NITER} iters")
+    scan = lambda: bs.solve_scan(ov, group_size=scan_gs, niter=SCAN_NITER, rtol=0.0)
+    res = counted(scan)
+    cfg = bs._config(SCAN_NITER, 100, True, 1e3, 2.0, 10.0, 1.0)
+    # the group loop (the form a sharded solver keeps): one solve a group
+    group = lambda s: bs._solve_lanes(min(scan_gs, scan_b - s), cfg,
+                                      {k: v[s:s + scan_gs] for k, v in ov.items()}, bs.dtype,
+                                      None, None, 1.0, None, (0.0, 0.0), False, 1, False)
+    for s in (0, (scan_b // scan_gs - 1) * scan_gs):   # the first and last whole groups
+        composite_loop_check(torch, f"{what}, lanes {s}..{s + scan_gs - 1}",
+                             batch._lanewise(lambda a, s=s: a[s:s + scan_gs], res), group(s))
+    captured_vs_eager(torch, card, what, scan, SCAN_NITER * groups, [bs])
+    # what the scan's program holds between solves: the caller's inputs again
+    (held,) = [p for k, p in bs._programs.items() if k[0] == "scan"]
+    mib = lambda ts: sum(t.untyped_storage().nbytes() for t in ts) / 2**20
+    print(f"{what}: its program holds {mib(held.buffers()):.1f} MiB, of which the stacked "
+          f"inputs {mib(held.groups.feed.ov.values()):.1f} MiB (the caller's on the card "
+          f"{mib(ov.values()):.1f} MiB)", flush=True)
+    X = res.x[0].cpu().numpy()
+    fit = (np.linalg.norm(np.einsum("bmn,bn->bm", As, X) - ys, axis=1)
+           / np.linalg.norm(ys, axis=1))
+    rel = np.abs(X - xts).max(axis=1) / np.abs(xts).max(axis=1)
+    print(f"{what}: median relative fit residual {np.median(fit):.3e}, median relative error "
+          f"against the truth {np.median(rel):.3e}", flush=True)
+    if not (np.isfinite(X).all() and np.median(fit) < 0.1):
+        raise AssertionError(f"{what}: the lanes do not fit their data")
+    if cuda:
+        composite_times(torch, card, what, {
+            "one program": scan,
+            "group loop": lambda: [group(s) for s in range(0, scan_b, scan_gs)]},
+            scan_b * SCAN_NITER)
+    if profile:
+        profile_both(torch, f"{what} (an 'iteration' is a group)", scan, groups)
+        profile_solve(torch, f"{what}, group loop, captured", "gemm",
+                      lambda: [group(s) for s in range(0, scan_b, scan_gs)], iters=groups)
+    del As, ov, res
+
+    # 11c. BatchedSolver.solve_mixed of bench_sdp's recipe (benches/bench_workloads.py:263-276)
+    model, ov, label = sdp_problem(torch, SDP_K, SDP_REST, sdp_b, device)
+    bs = BatchedSolver(model(0), device=device)
+    what = (f"11c SDP solve_mixed, k={SDP_K} rest={SDP_REST} {label} B={sdp_b}, "
+            f"{MIXED_LOW} f32 + {MIXED_HIGH} f64 iters")
+    mixed = lambda fused: bs.solve_mixed(ov, niter_low=MIXED_LOW, niter=MIXED_HIGH, rtol=0.0,
+                                         low_rtol=0.0, record_residuals=False, fused=fused)
+    mixed(True)
+    by_phase = {}
+    run_group = batch._FedProgram.run_group
+
+    def by_group(self, capture, pool):
+        before = kernels.jacobi_eigh.launches
+        run_group(self, capture, pool)
+        by_phase[self.mu.dtype] = (by_phase.get(self.mu.dtype, 0)
+                                   + kernels.jacobi_eigh.launches - before)
+
+    with mock.patch.object(batch._FedProgram, "run_group", by_group):
+        res = counted(lambda: mixed(True))
+    print(f"{what}: Jacobi kernel launches "
+          + ", ".join(f"{str(d).split('.')[-1]} phase {n}" for d, n in by_phase.items()),
+          flush=True)
+    if len(by_phase) != 2 or cuda and not all(n > 0 for n in by_phase.values()):
+        raise AssertionError(f"{what}: a phase launched no Jacobi kernel ({by_phase})")
+    composite_loop_check(torch, what, res, mixed(False))
+    check_psd(torch, what, res.x[1], SDP_K)
+    captured_vs_eager(torch, card, what, lambda: mixed(True), MIXED_LOW + MIXED_HIGH, [bs])
+    if cuda:
+        composite_times(torch, card, what, {"one program": lambda: mixed(True),
+                                            "two dispatches": lambda: mixed(False)})
+    if profile:
+        profile_both(torch, f"{what} (an 'iteration' is a phase)", lambda: mixed(True), 2)
+        profile_solve(torch, f"{what}, two dispatches, captured", "gemm", lambda: mixed(False),
+                      iters=2)
+    del ov, res
+
+    # 11d. FusedSpMSolver.solve_mixed at part 5c's inputs
+    s, g, prj_sum, prj_w, _, _ = synthetic_spm_data(nl=NL, nw=NW, noise=1e-5)
+    gs = (g[None, :] + 1e-5 * np.random.RandomState(2).randn(spm_b, g.size)).astype(np.float32)
+    gs = torch.as_tensor(gs, device=device)
+    spm = FusedSpMSolver(spm_model(s, g, prj_sum, prj_w, alpha_l1=SPM_ALPHA), device=device)
+    what = (f"11d SpM solve_mixed, nl={NL} nw={NW} B={spm_b}, {spm_niter} f32 kernel + "
+            f"{polish_niter} f64 iters")
+    kw = dict(niter_low=spm_niter, niter=polish_niter, mu0=SPM_MU0, rtol=0.0,
+              record_residuals=False)
+    composite = lambda fused=True: spm.solve_mixed({(0, "y"): gs}, fused=fused, **kw)
+    composite()
+    launches = dict(out["launches"])
+    res = counted(composite)
+    spm_launches = out["launches"]["fused_spm_chunk"] - launches["fused_spm_chunk"]
+    if cuda and not spm_launches > 0:
+        raise AssertionError(f"{what}: the kernel phase launched no kernel")
+    composite_loop_check(torch, what, res, composite(False))
+    m_sum = float(np.median(np.abs(res.x[0].cpu().numpy() @ prj_sum - 1.0)))
+    print(f"{what}: {spm_launches} kernel launches, min spectrum "
+          f"{float(res.x[2].min()):.3e}, median |sum rule - 1| {m_sum:.3e}", flush=True)
+    if float(res.x[2].min()) < 0.0 or not m_sum <= 1e-6:
+        raise AssertionError(f"{what}: misses the model's properties")
+    captured_vs_eager(torch, card, what, composite, spm_niter + polish_niter,
+                      [spm, spm._polish_solver], kernel=kernels.fused_spm_chunk if cuda else None)
+    if cuda:
+        p1 = spm.solve({(0, "y"): gs}, niter=spm_niter, mu0=SPM_MU0, rtol=0.0, atol=1e-5)
+        f64 = lambda t: [a.double() for a in t]
+        composite_times(torch, card, what, {
+            "one program": composite, "two dispatches": lambda: composite(False),
+            "its kernel phase alone": lambda: spm.solve(
+                {(0, "y"): gs}, niter=spm_niter, mu0=SPM_MU0, rtol=0.0, atol=1e-5),
+            "its polish alone": lambda: spm._polish_solver.solve(
+                {(0, "y"): gs}, x0=f64(p1.x), h0=f64(p1.h), mu0=p1.mu.double(),
+                niter=polish_niter, rtol=0.0, record_residuals=False)})
+    if profile:
+        profile_both(torch, f"{what} (an 'iteration' is a phase)", composite, 2,
+                     kernel_name="fused_spm")
+        profile_solve(torch, f"{what}, two dispatches, captured", "fused_spm",
+                      lambda: composite(False), iters=2)
+    print(f"composite phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def phases_1_to_8(torch, card):
@@ -2455,6 +2712,11 @@ def main():
     # 10. the spectral routes (before 9, whose 16 GiB part frees its tensors last)
     kernels_line["kernels"].append(phase_spectral(torch, card, fam))
     del fam
+
+    # 11. the composite drivers, each one program
+    composites = phase_composites(torch, card)
+    for entry in kernels_line["kernels"]:
+        entry["launches_phase_11"] = composites["launches"][entry["name"]]
 
     # 9. multi-device, once the earlier phases' tensors are freed
     gc.collect()

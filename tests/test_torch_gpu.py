@@ -1308,6 +1308,162 @@ def test_large_n_over_nccl_captured_equals_graph_less(nccl_world):
     _large_n_captured_equals_graph_less(nccl_world)
 
 
+# ---------------------------------------------------------------------
+# the composite drivers as one program each
+# ---------------------------------------------------------------------
+
+COMPOSITES = ["path", "scan", "mixed", "spm_mixed"]
+
+
+def _composite_case(name, device):
+    """(solver, call(fused) -> result) of a composite at a small size: a
+    λ-path of 12 values in groups of 4, a scan of 6 per-lane A in groups of
+    3, the SDP (Jacobi kernel's warp path) through both phases of
+    ``BatchedSolver.solve_mixed`` (chunks of 10), and
+    ``FusedSpMSolver.solve_mixed`` (chunks of 100); every one at rtol 0."""
+    from admmsolver_tpu_torch.models import applications as TA
+
+    rng = np.random.RandomState(47)
+    knobs = dict(interval_update_mu=10, rtol=0.0)
+    if name == "path":
+        A = rng.randn(12, 30)
+        bs = BatchedSolver(_bp(A, rng.randn(12)), device=device)
+        ys = rng.randn(12, 12)
+        return bs, lambda fused: bs.solve_path((1, "alpha"), np.logspace(0, -2, 12),
+                                               overrides={(0, "y"): ys}, group_size=4,
+                                               niter=45, fused=fused, record_residuals=4,
+                                               **knobs)
+    if name == "scan":
+        As, ys = rng.randn(6, 10, 40), rng.randn(6, 10)
+        bs = BatchedSolver(_bp(As[0], ys[0]), device=device)
+        ov = {(0, "A"): As, (0, "y"): ys}
+        cfg = bs._config(45, 10, True, 1e3, 2.0, 10.0, 1.0)
+
+        def scan(fused):
+            if fused:
+                return bs.solve_scan(ov, group_size=3, niter=45, **knobs)
+            # the form a sharded solver keeps: one group after another
+            from admmsolver_tpu_torch.parallel.batch import _concat
+            return _concat([bs._solve_lanes(3, cfg,
+                                            {k: v[s:s + 3] for k, v in ov.items()}, bs.dtype,
+                                            None, None, 1.0, None, (0.0, 0.0), False, 1, False)
+                            for s in range(0, 6, 3)])
+        return bs, scan
+    if name == "mixed":
+        bs = BatchedSolver(TA.sdp_model(rng.randn(24, 48), rng.randn(24), (4, 4, 3), axis=2),
+                           device=device)
+        ys = rng.randn(3, 24)
+        return bs, lambda fused: bs.solve_mixed({(0, "y"): ys}, niter_low=35, niter=25,
+                                                low_rtol=0.0, fused=fused, **knobs)
+    # the penalty knobs at their defaults: the two-dispatch form gives the
+    # kernel phase none of them
+    fs, gs = _spm_solver(device)
+    return fs, lambda fused: fs.solve_mixed({(0, "y"): gs}, niter_low=150, niter=25, mu0=0.1,
+                                            low_atol=0.0, rtol=0.0, fused=fused)
+
+
+def _composite_run(call, fused, capture):
+    from admmsolver_tpu_torch.parallel import batch
+
+    keep = batch.CAPTURE_CHUNKS
+    batch.CAPTURE_CHUNKS = capture
+    try:
+        res = call(fused)
+    finally:
+        batch.CAPTURE_CHUNKS = keep
+    torch.cuda.synchronize()
+    return res
+
+
+@pytest.mark.parametrize("name", COMPOSITES)
+def test_composite_captured_equals_graph_less_and_the_loop(cuda, name):
+    """Each composite's entries, chunks and exits replayed as captured
+    graphs, against the same program without graphs on a solver that never
+    captured, and against the loop or two-dispatch form: bitwise, on the
+    program's first call (then captures) and its second (replays only).
+    The program holds an entry graph for every group step and an exit
+    graph where it has groups."""
+    solver, call = _composite_case(name, cuda)
+    other, other_call = _composite_case(name, cuda)
+    for _ in range(2):
+        got = _composite_run(call, True, True)
+        _assert_bitwise(got, _composite_run(other_call, True, False))
+    _assert_bitwise(got, _composite_run(other_call, False, True))
+    (program,) = [p for k, p in solver._programs.items() if isinstance(k[0], str)]
+    keys = set(program.capture_s)
+    if name in ("path", "scan"):
+        assert {"entry", "exit", 10} <= keys
+    elif name == "mixed":
+        assert {("phase 1", "entry"), ("phase 2", "entry")} <= keys
+    else:
+        assert ("polish", "entry") in keys
+
+
+def test_group_program_grows_and_recaptures(cuda):
+    """A captured scan program serves scans of fewer groups from the first
+    rows of its stacks and grows them for more, recapturing its entry and
+    exit: each scan bitwise a graph-less solver's."""
+    rng = np.random.RandomState(48)
+    As, ys = rng.randn(12, 10, 40), rng.randn(12, 10)
+    knobs = dict(group_size=3, niter=45, interval_update_mu=10, rtol=0.0)
+    ov = lambda B: {(0, "A"): As[:B], (0, "y"): ys[:B]}
+    bs = BatchedSolver(_bp(As[0], ys[0]), device=cuda)
+    other = BatchedSolver(_bp(As[0], ys[0]), device=cuda)
+    for B, rows in ((6, 2), (6, 2), (3, 2), (12, 4), (9, 4)):
+        got = _composite_run(lambda fused: bs.solve_scan(ov(B), **knobs), True, True)
+        _assert_bitwise(got, _composite_run(lambda fused: other.solve_scan(ov(B), **knobs),
+                                            True, False))
+        (program,) = bs._programs.values()
+        assert program.rows == rows and {"entry", "exit"} <= set(program.groups.graphs)
+
+
+def test_composite_launches_count_in_each_phase(cuda):
+    """The SDP mixed program launches the Jacobi kernel in both phases'
+    graphs (one an iteration), the SpM composite its chunk kernel in the
+    kernel phase's."""
+    from admmsolver_tpu_torch.ops import kernels
+
+    solver, call = _composite_case("mixed", cuda)
+    for expect in (None, 60):
+        kernels.jacobi_eigh.launches = 0
+        _composite_run(call, True, True)
+        if expect:
+            assert kernels.jacobi_eigh.launches == expect
+    (program,) = solver._programs.values()
+    for phase in program.phases:
+        assert sum(launches[0] for _, launches in phase.graphs.values()) > 0
+    fs, spm_call = _composite_case("spm_mixed", cuda)
+    for _ in range(2):
+        fused_spm_chunk.launches = 0
+        _composite_run(spm_call, True, True)
+        assert fused_spm_chunk.launches == 3   # 1 + 100 + 49
+
+
+def test_composite_replays_do_not_sync(cuda, monkeypatch):
+    """At rtol 0 a warm composite reads nothing on the host from its first
+    group to its last: every group's and phase's run (entry, chunks, exit
+    and the host loop between) under ``set_sync_debug_mode("error")``."""
+    from admmsolver_tpu_torch.parallel import batch, fused
+
+    def strict(fn):
+        def run(self, *args, **kwargs):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    for name in COMPOSITES:
+        _, call = _composite_case(name, cuda)
+        _composite_run(call, True, True)
+        with monkeypatch.context() as m:
+            m.setattr(batch._FedProgram, "run_group", strict(batch._FedProgram.run_group))
+            m.setattr(fused._FusedProgram, "run_schedule",
+                      strict(fused._FusedProgram.run_schedule))
+            _composite_run(call, True, True)
+
+
 @pytest.mark.parametrize("entry", ["FusedTwoBlockSolver", "FusedSpMSolver", "SimpleOptimizer",
                                    "BatchedSolver", "make_mesh"])
 def test_default_device_raises_without_cuda(entry):

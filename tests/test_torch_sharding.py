@@ -327,6 +327,30 @@ def test_world_of_one_equals_the_unsharded_solve(world_of_one, kind):
         assert torch.equal(a, b)
 
 
+def test_sharded_fused_mixed_takes_the_callers_dtype(world_of_one):
+    """A sharded solver runs ``solve_mixed(fused=True, dtype=...)`` as the
+    two-dispatch form with the caller's dtype, as the JAX package does
+    (its dtype check only guards the one-program form of an unsharded
+    solver): bitwise the unsharded ``fused=False`` solve."""
+    import admmsolver_tpu_torch as T
+    from admmsolver_tpu_torch.parallel import BatchedSolver, batch_sharding, make_mesh
+
+    A, ov, _ = _cases()["sharded"]
+    model = _bp(T, A, ov[(0, "y")][0])
+    kw = dict(niter_low=60, niter=40, rtol=0.0, low_rtol=0.0, dtype=torch.float32)
+    res = BatchedSolver(model, dtype=torch.float64,
+                        sharding=batch_sharding(make_mesh(1, devices="cpu"))).solve_mixed(
+        ov, fused=True, **kw)
+    plain = BatchedSolver(model, dtype=torch.float64, device="cpu").solve_mixed(
+        ov, fused=False, **kw)
+    assert res.x[0].dtype == torch.float32
+    for a, b in zip(res.x + res.h + (res.mu, res.iterations, res.converged,
+                                     res.primal_residual),
+                    plain.x + plain.h + (plain.mu, plain.iterations, plain.converged,
+                                         plain.primal_residual)):
+        assert torch.equal(a, b)
+
+
 def test_batch_sharding_lanes():
     from admmsolver_tpu_torch.parallel.mesh import BatchSharding, Mesh
 
