@@ -99,7 +99,7 @@ class MatrixBase:
     """Abstract structured operator.
 
     Mirrors the reference interface (``matrix.py:9-60``): ``@ + - *``, ``.T``,
-    ``conj``/``conjugate``, ``inv``, ``asmatrix``, ``hash``, plus the
+    ``conj``/``conjugate``, ``inv``, ``asmatrix`` (and ``to_dense``), ``hash``, plus the
     (misnamed in the reference) squareness test ``is_diagonal``.
     """
 
@@ -114,6 +114,12 @@ class MatrixBase:
 
     def asmatrix(self) -> torch.Tensor:
         raise NotImplementedError
+
+    def to_dense(self) -> torch.Tensor:
+        """The operator as a dense tensor: :meth:`asmatrix` of its class
+        (the JAX package's ``to_dense``, ``linop.py:512``, which each class
+        assigns again so that it names that class's ``asmatrix``)."""
+        return self.asmatrix()
 
     def to(self, device) -> "MatrixBase":
         """The same operator with its tensors on ``device``."""

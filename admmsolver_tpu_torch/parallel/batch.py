@@ -18,11 +18,13 @@ the batched analogue of the reference's hash-keyed cache
 the done flags once per chunk, never per iteration, and not at all when no
 lane can finish (``rtol <= 0`` and ``atol <= 0``).
 
-The chunks after iteration 0 run through a static chunk program
-(:class:`_ChunkProgram`, the JAX package's one compiled program of a solve,
-``batch.py:251-470``): fixed buffers for the state, the chunk's work over
-them, and on a CUDA device one captured CUDA graph a chunk length, replayed
-once a chunk.  A solver keeps its programs in a cache like the JAX
+A solve runs through a static program of one group (:class:`_FedProgram`
+on :class:`_ChunkProgram`, the JAX package's one compiled program of a
+solve, ``batch.py:251-470``): fixed buffers for the state and the solve's
+inputs, an entry step (prologue, binding, factors, iteration 0) and the
+chunks' work over them, and on a CUDA device one captured CUDA graph for
+the entry and one a chunk length, each replayed once a solve or a chunk.
+A solver keeps its programs in a cache like the JAX
 package's (:data:`PROGRAM_CACHE_SIZE`, the oldest dropped first), and their
 graphs in one memory pool (:class:`_GraphPool`).  The chunk runs directly,
 without a graph, on the CPU, with :data:`CAPTURE_CHUNKS` off, and for a
@@ -213,16 +215,22 @@ def _leaves(v) -> List[torch.Tensor]:
     return []
 
 
-def _fresh(v):
-    """``v`` with every tensor of it a new contiguous copy."""
+def _storage(t: torch.Tensor) -> int:
+    """The address of the memory ``t`` views."""
+    return t.untyped_storage().data_ptr()
+
+
+def _fresh(v, keep=frozenset()):
+    """``v`` with every tensor of it a new contiguous copy, but those that
+    view the memory at an address in ``keep``."""
     if isinstance(v, torch.Tensor):
-        return v.clone(memory_format=torch.contiguous_format)
+        return v if _storage(v) in keep else v.clone(memory_format=torch.contiguous_format)
     if isinstance(v, LaneOperators):
         out = copy.copy(v)
-        out.data = _fresh(v.data)
+        out.data = _fresh(v.data, keep)
         return out
     if isinstance(v, (tuple, list)):
-        return type(v)(_fresh(a) for a in v)
+        return type(v)(_fresh(a, keep) for a in v)
     return v
 
 
@@ -398,29 +406,31 @@ class _GraphProgram:
 
 
 class _ChunkProgram(_GraphProgram):
-    """The static chunk program of one cache key: the counterpart of the JAX
-    package's compiled ``_build`` (``batch.py:345-470``) from the chunk after
-    iteration 0 on.
+    """The chunks of a static program of one cache key: the counterpart of
+    the JAX package's compiled ``_build`` (``batch.py:345-470``) from the
+    chunk after iteration 0 on; :class:`_FedProgram` adds its entry.
 
     It owns the buffers a chunk reads and writes: the state x, h, mu, done,
     count and the histories, the per-solve fields of the bound objectives
     (overrides and what the prologue derives from them), the tolerances and
-    the first global iteration of the chunk, all loaded per solve
-    (:meth:`load`).  A chunk (:meth:`_chunk`) refactors from mu, runs its
-    iterations and copies the results into the buffers; the factors live
-    only inside it, so that old and new factors never coexist.  The penalty
-    update fires at the chunk's last position only in a full chunk, so one
-    program of each length serves every chunk of a solve; the history slot
-    of each iteration is computed on the device.  The Cholesky
-    factorizations keep their info on the device
+    the first global iteration of the chunk.  A chunk (:meth:`_chunk`)
+    refactors from mu, runs its iterations and copies the results into the
+    buffers; the factors live only inside it, so that old and new factors
+    never coexist.  The penalty update fires at the chunk's last position
+    only in a full chunk, so one program of each length serves every chunk
+    of a solve; the history slot of each iteration is computed on the
+    device.  The Cholesky factorizations keep their info on the device
     (:func:`~admmsolver_tpu_torch.models.objectivefunc.deferred_cholesky_checks`),
     gathered in :attr:`failed`.
 
     Its chunks are keyed by their length alone (:class:`_GraphProgram`).
+    The fields take new buffers but those that view memory at an address
+    in ``keep`` (the program's own slots).
     """
 
     def __init__(self, plan: ADMMPlan, cfg: ADMMConfig, template, functions, carry,
-                 record: bool, stride: int, chunked_checks: bool, freeze: bool) -> None:
+                 record: bool, stride: int, chunked_checks: bool, freeze: bool,
+                 keep=frozenset()) -> None:
         super().__init__()
         self.plan, self.cfg = plan, cfg
         self.chunked_checks, self.freeze = chunked_checks, freeze
@@ -433,7 +443,7 @@ class _ChunkProgram(_GraphProgram):
         for k in {k for k, _ in self._fields}:
             self.functions[k] = copy.copy(functions[k])
         for k, name in self._fields:
-            setattr(self.functions[k], name, _fresh(getattr(functions[k], name)))
+            setattr(self.functions[k], name, _fresh(getattr(functions[k], name), keep))
         x, h, mu, _, done, count, pbuf, dbuf = carry
         self.x, self.h = tuple(map(_fresh, x)), tuple(map(_fresh, h))
         self.mu, self.done, self.count, self.pbuf, self.dbuf = map(
@@ -446,33 +456,6 @@ class _ChunkProgram(_GraphProgram):
         self.steps = torch.arange(cfg.interval_update_mu, device=dev)
         self.failed = torch.zeros((), dtype=torch.bool, device=dev)
         self.checks = False
-
-    def load(self, functions, carry, tols, infos) -> None:
-        """A solve's inputs into the buffers: its objectives' fields, the
-        state after iteration 0, the tolerances and the infos of iteration
-        0's factorizations (on the pool's stream when the solve's eager
-        work allocates from it: nothing here allocates a lasting tensor)."""
-        for k, name in self._fields:
-            dst = _leaves(getattr(self.functions[k], name))
-            src = _leaves(getattr(functions[k], name))
-            if [t.shape for t in dst] != [t.shape for t in src]:
-                raise ValueError(f"block {k} field {name}: the solve's tensors do not fit "
-                                 "the program's")
-            for d, t in zip(dst, src):
-                d.copy_(t)
-        x, h, mu, _, done, count, pbuf, dbuf = carry
-        self.hist = pbuf.shape[1]
-        for d, t in zip(self.x + self.h + (self.mu, self.done, self.count,
-                                           self.pbuf[:, :self.hist], self.dbuf[:, :self.hist]),
-                        x + h + (mu, done, count, pbuf, dbuf)):
-            d.copy_(t)
-        for d, t in zip(self.tols, tols):
-            d.fill_(t)
-        self.it.fill_(1)
-        self.failed.fill_(False)
-        if infos:
-            self.checks = True
-            self.failed.logical_or_(any_not_pd(infos))
 
     def reserve(self, hist: int) -> None:
         """History buffers of at least ``hist`` columns: longer ones than the
@@ -555,35 +538,44 @@ class _Feed:
     """Where a fed chunk program (:class:`_FedProgram`) takes each group's
     inputs and puts its outputs, every tensor on the card.
 
-    ``ov``: the overrides stacked (G, gs, ...) at the solver's dtype;
-    ``seed``: the state a group starts from, x blocks, h blocks and mu, as
-    (G, gs, ...) stacks where ``stacked``, else (gs, ...) tensors of any
-    dtype (another phase's buffers: the entry casts them); ``done``: the
-    flags a group starts from (None: all False); ``out``: the (G, gs, ...)
-    stacks of x, h, mu, done, count and both histories that the exit writes
-    (None: no exit); ``warm``: whether the exit seeds the next group from
-    its last lane (the λ-path)."""
+    ``ov``: the overrides stacked (G, gs, ...) at the solver's dtype, or
+    with ``slots`` the (gs, ...) overrides of a plain solve's one group,
+    which the solve loads (a slot the prologue passes on unchanged is the
+    field buffer that holds it, and one it derives a field of its shape
+    from, such as y for A†y, shares that field's buffer); ``seed``: the
+    state a group starts from, x blocks, h blocks and mu, as (G, gs, ...)
+    stacks where ``stacked``, else (gs, ...) tensors of any dtype (another
+    phase's buffers: the entry casts them), or None: the program's own
+    state buffers (a plain solve loads them; a wave carries them); ``done``:
+    the flags a group starts from (None: all False); ``out``: the (G, gs,
+    ...) stacks of x, h, mu, done, count and both histories that the exit
+    writes (None: no exit); ``warm``: whether the exit seeds the next group
+    from its last lane (the λ-path)."""
 
     ov: Dict
-    seed: Tuple[torch.Tensor, ...]
+    seed: Optional[Tuple[torch.Tensor, ...]]
     stacked: bool = False
     done: Optional[torch.Tensor] = None
     out: Optional[Tuple[torch.Tensor, ...]] = None
     warm: bool = False
+    slots: bool = False
 
 
 class _FedProgram(_ChunkProgram):
-    """A chunk program whose solves begin on the card: the group body of the
-    JAX package's ``_build`` as the composites scan or chain it
+    """A chunk program whose solves begin on the card: the JAX package's
+    compiled ``run`` of one batch (``batch.py:405-466``, :meth:`BatchedSolver.
+    _run`) and its group body as the composites scan or chain it
     (``batch.py:266-343``, ``:895-921``).
 
     Besides the chunks (keys: their lengths) it has two steps, keys of the
     same :class:`_GraphProgram`, captured where the chunks are:
 
-    * ``"entry"`` takes group ``group`` (a device index) of the feed's
-      overrides, runs the prologue and binds them into the program's field
+    * ``"entry"`` takes the group's overrides (:meth:`_overrides`: group
+      ``group``, a device index, of the feed's stacks, or a plain solve's
+      slots), runs the prologue and binds them into the program's field
       buffers, seeds the state from the feed, resets the histories, and
-      runs the factors and iteration 0 (under deferred Cholesky checks);
+      runs the factors and iteration 0 (under deferred Cholesky checks)
+      from the done flags of :meth:`_done0`;
     * ``"exit"`` copies x, h, mu, done, count and the histories into rows
       ``group * gs`` of the feed's output stacks, seeds the next group of a
       path from this group's last lane, and advances ``group``.
@@ -591,28 +583,63 @@ class _FedProgram(_ChunkProgram):
     So the host reads nothing between groups; :meth:`run_group` reads the
     done flags only before a chunk where a lane can finish.  The Cholesky
     failure flag gathers over every group and is read once after the last
-    (:meth:`_Composite.run`)."""
+    (:meth:`_Composite.run`), or after a plain solve's last chunk."""
 
     def __init__(self, solver: "BatchedSolver", cfg: ADMMConfig, feed: _Feed, functions, carry,
-                 tols, record: bool, stride: int, chunked_checks: bool) -> None:
+                 tols, record: bool, stride: int, chunked_checks: bool,
+                 freeze: Optional[bool] = None) -> None:
         rtol, atol = tols
         self.can_finish = rtol > 0 or atol > 0
+        if freeze is None:
+            freeze = self.can_finish or feed.done is not None
+        slots = {_storage(v) for v in feed.ov.values()} if feed.slots else frozenset()
         super().__init__(solver.plan, cfg, solver.model.functions, functions, carry, record,
-                         stride, chunked_checks, self.can_finish or feed.done is not None)
+                         stride, chunked_checks, freeze, slots)
         # the solver holds the program
         self._bound = weakref.WeakMethod(solver._bound)
         self.feed = feed
         self.hist = self.pbuf.shape[1]
         self.group = torch.zeros(1, dtype=torch.long, device=self.mu.device)
+        if feed.slots:
+            self._share_slots(slots)
 
-    def load(self, tols, stacks: Optional[Dict] = None, seed=()) -> None:
+    def _share_slots(self, slots) -> None:
+        """Each slot that no field holds (the prologue derives fields from
+        it) takes the memory of a field buffer of its shape and dtype where
+        there is one: the entry has derived every field before it writes
+        one, and nothing reads the slot after."""
+        fields = [t for k, name in self._fields
+                  for t in _leaves(getattr(self.functions[k], name))]
+        held = {_storage(t) for t in fields}
+        free = [t for t in fields if _storage(t) not in slots]
+        for k, v in self.feed.ov.items():
+            if _storage(v) in held:
+                continue
+            for t in free:
+                if t.shape == v.shape and t.dtype == v.dtype and t.is_contiguous():
+                    self.feed.ov[k] = t
+                    free.remove(t)
+                    break
+
+    def load(self, tols, stacks: Optional[Dict] = None, seed=(), done=None,
+             hist: Optional[int] = None) -> None:
         """A solve's tolerances and (where given) its stacked overrides and
-        seeds into the feed; its first group is group 0."""
+        seeds into the feed; its first group is group 0.  A plain solve
+        (``slots``) loads its overrides into the slots, its initial state
+        into the program's state buffers, its ``done0`` (None: all False)
+        and the length of its histories."""
+        feed = self.feed
         # a program's stacks may hold more groups than this solve's
         for k, v in (stacks or {}).items():
-            self.feed.ov[k][:v.shape[0]].copy_(v)
-        for d, t in zip(self.feed.seed, seed):
+            feed.ov[k][:v.shape[0]].copy_(v)
+        for d, t in zip(self.x + self.h + (self.mu,) if feed.seed is None else feed.seed, seed):
             d[:t.shape[0]].copy_(t)
+        if feed.slots:
+            if done is None:
+                feed.done.zero_()
+            else:
+                feed.done.copy_(done)
+            self.hist = hist
         for d, t in zip(self.tols, tols):
             d.fill_(t)
         self.group.zero_()
@@ -626,20 +653,34 @@ class _FedProgram(_ChunkProgram):
         else:
             super()._chunk(key)
 
+    def _overrides(self) -> Dict:
+        """The overrides of the entry's group, in the state's dtype."""
+        if self.feed.slots:
+            return dict(self.feed.ov)
+        return {k: _cast_like(self.x[0].dtype, v.index_select(0, self.group)[0])
+                for k, v in self.feed.ov.items()}
+
+    def _done0(self) -> torch.Tensor:
+        """The done flags the entry's group starts from."""
+        return torch.zeros_like(self.done) if self.feed.done is None else self.feed.done
+
     def _entry(self) -> None:
         feed, plan = self.feed, self.plan
-        take = lambda a: a.index_select(0, self.group)[0]
-        functions = self._bound()({k: _cast_like(self.x[0].dtype, take(v))
-                                   for k, v in feed.ov.items()})
+        functions = self._bound()(self._overrides())
         for k, name in self._fields:
             for d, t in zip(_leaves(getattr(self.functions[k], name)),
                             _leaves(getattr(functions[k], name))):
-                d.copy_(t)
-        # the seeds in this program's dtypes: a phase hand-off promotes here
-        seed = [(take(a) if feed.stacked else a).to(b.dtype)
-                for a, b in zip(feed.seed, self.x + self.h + (self.mu,))]
+                # a slot bound as it is needs no copy
+                if (d.data_ptr(), d.stride()) != (t.data_ptr(), t.stride()):
+                    d.copy_(t)
+        state = self.x + self.h + (self.mu,)
+        if feed.seed is None:
+            seed = list(state)
+        else:
+            # the seeds in this program's dtypes: a phase hand-off promotes here
+            seed = [(a.index_select(0, self.group)[0] if feed.stacked else a).to(b.dtype)
+                    for a, b in zip(feed.seed, state)]
         nx, mu = len(self.x), seed.pop()
-        done = torch.zeros_like(self.done) if feed.done is None else feed.done
         self.pbuf.fill_(float("nan"))
         self.dbuf.fill_(float("nan"))
         # iteration 0 (the mu update fires at global_it=0, reference
@@ -647,7 +688,7 @@ class _FedProgram(_ChunkProgram):
         with deferred_cholesky_checks() as infos:
             carry = plan.iteration(
                 (tuple(seed[:nx]), tuple(seed[nx:]), mu,
-                 plan.compute_factors(mu, functions, batched=True), done,
+                 plan.compute_factors(mu, functions, batched=True), self._done0(),
                  torch.zeros_like(self.count), self.pbuf, self.dbuf),
                 0, 0, self.cfg, self.tols, functions, freeze=self.freeze)
         if infos:
@@ -670,22 +711,34 @@ class _FedProgram(_ChunkProgram):
                 d.copy_(t[-1:].expand_as(d))
         self.group.add_(1)
 
-    def run_group(self, capture: bool, pool: Optional[_GraphPool]) -> None:
-        """One group: its entry, then its chunks (:meth:`run_chunks`, the
-        done flags read only where a lane can finish), then its exit where
-        the feed has one.  The failure flag is left to the composite
-        (:meth:`_Composite.run`)."""
+    def run_group(self, capture: bool, pool: Optional[_GraphPool], niter: Optional[int] = None,
+                  read_flags=_flags_read, all_done: bool = False) -> bool:
+        """One group: its entry, then its chunks up to ``niter`` (None: the
+        program's; :meth:`run_chunks`, the done flags read by ``read_flags``
+        only where a lane can finish, none with ``all_done``), then its
+        exit where the feed has one.  Returns whether the failure flag is
+        left unread (a composite reads it after its last stage:
+        :meth:`_Composite.run`)."""
         self._run_chunk("entry", capture, pool)
         telemetry.check_chunk("BatchedSolver", self.x, self.h)
-        self.run_chunks(self.cfg.niter, self.can_finish, capture, pool, _flags_read)
+        unread = self.run_chunks(self.cfg.niter if niter is None else niter, self.can_finish,
+                                 capture, pool, read_flags, all_done)
         if self.feed.out is not None:
             self._run_chunk("exit", capture, pool)
+        return unread
 
     def buffers(self) -> Tuple[torch.Tensor, ...]:
+        """Every tensor the program holds between solves, each memory once
+        (a slot may be a field buffer)."""
         feed = self.feed
-        return (super().buffers() + tuple(feed.ov.values()) + tuple(feed.seed)
-                + ((self.group,) if feed.done is None else (self.group, feed.done))
-                + tuple(feed.out or ()))
+        seen, out = set(), []
+        for t in (super().buffers() + tuple(feed.ov.values()) + tuple(feed.seed or ())
+                  + (self.group,) + ((feed.done,) if feed.done is not None else ())
+                  + tuple(feed.out or ())):
+            if _storage(t) not in seen:
+                seen.add(_storage(t))
+                out.append(t)
+        return tuple(out)
 
 
 def _phase_program(solver: "BatchedSolver", cfg: ADMMConfig, feed: _Feed, dtype: torch.dtype,
@@ -1111,19 +1164,20 @@ class BatchedSolver:
     def _run(self, cfg: ADMMConfig, ov: Dict, x, h, mu, tols, done0,
              record: bool, stride: int, chunked_checks: bool,
              read_done0: bool = True) -> BatchResult:
-        """One batch through the schedule: prologue, factors and iteration
-        0, then chunks of ``interval_update_mu`` iterations (those past
-        ``niter`` are not run) through the solve's chunk program
-        (:meth:`_program`, :meth:`_ChunkProgram.run_chunks`), each
-        refactoring first, until every lane is done.  ``ov`` is already
-        cast and on the device; ``done0`` is a (B,) mask or None.  The host
-        reads the done flags, with the failure flag
-        of the factorizations, only before a chunk that could be skipped:
-        after a chunk that is not the last, and (``read_done0``) once for
+        """One batch through the schedule, as one group of a fed program
+        (:meth:`_program`; the JAX package's compiled ``run``, ``batch.py:
+        249-264, 405-466``): its entry (the prologue, the overrides bound
+        into the field buffers, the factors and iteration 0 from the state
+        the solve loads), then chunks of ``interval_update_mu`` iterations
+        (those past ``niter`` are not run), each refactoring first, until
+        every lane is done (:meth:`_FedProgram.run_group`).  ``ov`` is
+        already cast and on the device; ``done0`` is a (B,) mask or None.
+        The host reads the done flags, with the failure flag of the
+        factorizations, only before a chunk that could be skipped: after a
+        chunk that is not the last, and (``read_done0``) once for
         ``done0``; the failure flag alone after the last chunk where the
-        model factorizes.  The chunks are replays of captured graphs where
-        :meth:`_captures`."""
-        plan = self.plan
+        model factorizes.  The entry and the chunks are replays of captured
+        graphs where :meth:`_captures`."""
         niter = cfg.niter
         rtol, atol = tols
         B = mu.shape[0]
@@ -1136,43 +1190,19 @@ class BatchedSolver:
         all_done = False if done0 is None or not read_done0 else self._all_done(done0)
         # no lane to freeze when none starts done and none can finish
         freeze = can_finish or done0 is not None
-        if done0 is None:
-            done0 = torch.zeros(B, dtype=torch.bool, device=self.device)
         capture = self._captures(self.model.functions, mu.dtype)
         pool = self._graph_pool(capture)
         key = (dataclasses.replace(cfg, niter=0),
                tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(ov.items())),
                record, chunked_checks, stride, B, x[0].dtype, str(self.device), freeze,
                can_finish, _route_switches())
-        nan = lambda: torch.full((B, hist), float("nan"), dtype=torch.float64,
-                                 device=self.device)
         program = self._programs.get(key)
-        if program is not None:
-            program.reserve(hist)
-        # A warm program's solve takes its eager working set (the prologue,
-        # iteration 0) from the pool: none of it outlives the load.
-        with pool.allocating() if pool is not None and program is not None and program.warm \
-                else contextlib.nullcontext():
-            functions = self._bound(ov)
-            carry = (x, h, mu, None, done0,
-                     torch.zeros(B, dtype=torch.int32, device=self.device), nan(), nan())
-            if program is None:
-                # its buffers before iteration 0's working set, which they
-                # would otherwise split and hold on to
-                program = self._program(key, cfg, functions, carry, record, stride,
-                                        chunked_checks, freeze)
-            # iteration 0 (the mu update fires at global_it=0, reference
-            # optimizer.py:319-320); the program checks its factorizations
-            with deferred_cholesky_checks() as infos:
-                carry = plan.iteration(
-                    carry[:3] + (plan.compute_factors(mu, functions, batched=True),) + carry[4:],
-                    0, 0, cfg, tols, functions, freeze=freeze)
-            carry = carry[:3] + (None,) + carry[4:]
-            telemetry.check_chunk("BatchedSolver", carry[0], carry[1])
-            program.load(functions, carry, tols, infos)
-            # the program holds its own copies of the state and the fields
-            del carry, infos, functions
-        if program.run_chunks(niter, can_finish, capture, pool, self._all_done, all_done):
+        if program is None:
+            program = self._program(key, cfg, ov, x, h, mu, hist, tols, record, stride,
+                                    chunked_checks, freeze)
+        program.reserve(hist)
+        program.load(tols, ov, x + h + (mu,), done0, hist)
+        if program.run_group(capture, pool, niter, self._all_done, all_done):
             raise_if_not_pd(program.failed)
         return program.result()
 
@@ -1187,20 +1217,28 @@ class BatchedSolver:
             self._pool = _GraphPool(self.device)
         return self._pool
 
-    def _program(self, key, cfg, functions, carry, record, stride, chunked_checks,
-                 freeze) -> _ChunkProgram:
-        """A new chunk program for ``key``; at most :data:`PROGRAM_CACHE_SIZE`
-        of them, the oldest dropped first.  The key: the JAX package's
-        ``(cfg, ov_keys, record, chunked_checks, record_stride)``
-        (``batch.py:251-264``) without ``niter`` (the host loop counts the
-        chunks, and a longer history takes new buffers: :meth:`_ChunkProgram.
-        reserve`), with the overrides' shapes and dtypes, what the schedule
-        branches on (B, dtype, device, freeze, whether a lane can finish)
-        and the route switches a graph keeps (:func:`_route_switches`); the
-        tolerances are values of the program."""
-        return _keep(self._programs, key, _ChunkProgram(
-            self.plan, cfg, self.model.functions, functions, carry, record, stride,
-            chunked_checks, freeze))
+    def _program(self, key, cfg, ov: Dict, x, h, mu, hist: int, tols, record: bool,
+                 stride: int, chunked_checks: bool, freeze: bool) -> _FedProgram:
+        """A new one-group fed program for ``key``, its slots, field and
+        state buffers sized by this solve's; at most
+        :data:`PROGRAM_CACHE_SIZE` of them, the oldest dropped first.  The
+        key: the JAX package's ``(cfg, ov_keys, record, chunked_checks,
+        record_stride)`` (``batch.py:251-264``) without ``niter`` (the host
+        loop counts the chunks, and a longer history takes new buffers:
+        :meth:`_ChunkProgram.reserve`), with the overrides' shapes and
+        dtypes, what the schedule branches on (B, dtype, device, freeze,
+        whether a lane can finish) and the route switches a graph keeps
+        (:func:`_route_switches`); the tolerances are values of the
+        program."""
+        B, dev = mu.shape[0], self.device
+        slots = {k: _fresh(v) for k, v in ov.items()}
+        nan = lambda: torch.full((B, hist), float("nan"), dtype=torch.float64, device=dev)
+        carry = (x, h, mu, None, torch.zeros(B, dtype=torch.bool, device=dev),
+                 torch.zeros(B, dtype=torch.int32, device=dev), nan(), nan())
+        feed = _Feed(slots, None, done=torch.zeros(B, dtype=torch.bool, device=dev), slots=True)
+        return _keep(self._programs, key, _FedProgram(
+            self, cfg, feed, self._bound(slots), carry, tols, record, stride, chunked_checks,
+            freeze))
 
     def solve(self,
               overrides: Optional[Dict] = None,
@@ -1244,16 +1282,15 @@ class BatchedSolver:
 
         ``recipe``: ``"plain"`` is the single-phase solve (exact reference
         trajectory semantics); ``"mixed"`` routes through
-        :meth:`solve_mixed` with 3/4 of the budget in float32 and needs
-        ``niter >= 2``; ``"auto"`` (default) is plain: when the mixed recipe
-        pays on this hardware has not been measured."""
+        :meth:`solve_mixed` with 3/4 of the budget in float32 where
+        ``niter >= 2`` and is plain at ``niter = 1``; ``"auto"`` (default)
+        is plain: when the mixed recipe pays on this hardware has not been
+        measured."""
         if recipe not in ("auto", "plain", "mixed"):
             raise ValueError(f"recipe must be auto|plain|mixed, {recipe!r}")
-        if recipe == "mixed":
-            if niter < 2:
-                raise ValueError(
-                    "recipe='mixed' splits niter into two positive phases "
-                    f"and needs niter >= 2, got {niter}")
+        # niter = 1 cannot split into two positive phases: it runs plain, as
+        # in the JAX package (batch.py:524-531)
+        if recipe == "mixed" and niter >= 2:
             nl = 3 * niter // 4
             return self.solve_mixed(
                 overrides, niter_low=nl, niter=niter - nl,

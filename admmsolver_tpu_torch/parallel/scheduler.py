@@ -11,7 +11,9 @@ Runs on top of :class:`~admmsolver_tpu_torch.parallel.batch.BatchedSolver`.
 The penalty-update schedule restarts every wave, as the reference's does
 under repeated ``solve()`` calls (``optimizer.py:310,319``).  :meth:`run`
 keeps the lane state on the host between waves; :meth:`run_compiled` keeps
-it on the device and does the harvest and refill as tensor code there.
+it on the device in one wave program (:class:`_WaveProgram`), whose entry,
+chunks and exit (the harvest and refill) are replays of captured graphs
+where a solve's chunks are.
 
 On a sharded solver every rank drives the same stream through :meth:`run`:
 each wave's flags, counts and states are gathered to every rank, so that all
@@ -25,7 +27,9 @@ from typing import Dict, Iterable, List, Tuple
 import numpy as np
 import torch
 
+from ..models.objectivefunc import raise_if_not_pd
 from ..ops.linop import _real_dtype
+from . import batch
 from .batch import BatchedSolver, _cast_like
 
 __all__ = ["ScenarioScheduler", "ScenarioResult"]
@@ -159,14 +163,18 @@ class ScenarioScheduler:
         """Drain a materialized stream with the lane state kept on the device.
 
         The JAX package runs this as one compiled ``while_loop`` (one
-        dispatch for the whole stream).  Here it is a Python loop over waves
-        whose bookkeeping is tensor code on the device: the overrides of all
-        S scenarios are staged as ``(S, ...)`` tensors in the solver's dtype,
-        lanes gather their scenario's rows, finished lanes scatter into
-        ``(S+1)``-row outputs (row S takes the lanes that finish nothing),
-        and freed lanes take the next scenarios in lane order with zero state
-        and ``mu0`` — the lanes :meth:`run` assigns.  The host reads one
-        number per wave, the count of harvested scenarios.
+        dispatch for the whole stream, ``scheduler.py:164-323``).  Here it
+        is one wave program (:class:`_WaveProgram`) whose waves the host
+        starts: the overrides of all S scenarios are staged once a run as
+        ``(S, ...)`` tensors in the solver's dtype; each wave's entry
+        gathers every lane's rows by its scenario id, its chunks run the
+        wave's iterations, and its exit scatters the finished lanes into
+        ``(S+1)``-row outputs (row S takes the lanes that finish nothing)
+        and refills the freed lanes with the next scenarios in lane order,
+        zero state and ``mu0``: the lanes :meth:`run` assigns.  The host
+        reads one number a wave, the count of harvested scenarios (with the
+        factorizations' failure flag), beside the done flags the chunks
+        read where a wave has more than one and a lane can finish.
 
         Semantics match :meth:`run`.  ``solve_kw`` beyond the penalty knobs
         and ``recipe="plain"``, and a sharded solver (whose lanes are spread
@@ -183,7 +191,6 @@ class ScenarioScheduler:
             return self.run(scen)
 
         solver = self.solver
-        plan = solver.plan
         keys = tuple(sorted(scen[0].keys()))
         for sid, ov in enumerate(scen):
             if tuple(sorted(ov.keys())) != keys:
@@ -193,62 +200,153 @@ class ScenarioScheduler:
         dtype, dev = solver.dtype, solver.device
         # solve()'s dtype discipline: f64 scenario values must not promote
         # an f32 solve
-        ov_all = {k: _cast_like(dtype, np.stack([np.asarray(ov[k]) for ov in scen]), dev)
+        stacks = {k: _cast_like(dtype, np.stack([np.asarray(ov[k]) for ov in scen]), dev)
                   for k in keys}
         kw = self.solve_kw
         cfg = solver._config(self.chunk_iters, kw.get("interval_update_mu", 100),
                              kw.get("update_h", True), kw.get("max_mu", 1e3),
                              kw.get("fact_incr", 2.0), kw.get("th_change", 10.0), 1.0)
         tols = (self.rtol, self.atol)
-        niter_max, mu0 = self.niter_max, self.mu0
+        program = self._program(cfg, stacks, S, tols)
+        program.load(tols, stacks, self.mu0)
+        capture = solver._captures(solver.model.functions, dtype)
+        pool = solver._graph_pool(capture)
+        while not program.wave(capture, pool):
+            pass
+        return program.results()
 
-        zeros = lambda rows, n, dt=dtype: torch.zeros((rows, n), dtype=dt, device=dev)
-        x = tuple(zeros(B, n) for n in plan.block_sizes)
-        h = tuple(zeros(B, s) for s in plan.pair_sizes)
-        mu = torch.full((B, plan.npairs), mu0, dtype=_real_dtype(dtype), device=dev)
-        # initial fill: scenarios 0..B-1, lanes beyond S parked
-        sid = torch.arange(B, device=dev)
-        sid = torch.where(sid < S, sid, -1)
-        nxt = torch.tensor(min(B, S), device=dev)
-        harvested = torch.tensor(0, device=dev)
-        iters = torch.zeros(B, dtype=torch.int32, device=dev)
-        # row S is the write-off slot of the lanes that finish nothing
-        outx = [zeros(S + 1, n) for n in plan.block_sizes]
-        outmu = zeros(S + 1, plan.npairs, mu.dtype)
-        outit = torch.zeros(S + 1, dtype=torch.int32, device=dev)
-        outcv = torch.zeros(S + 1, dtype=torch.bool, device=dev)
+    def _program(self, cfg, stacks: Dict, S: int, tols) -> "_WaveProgram":
+        """The stream's wave program, made on a miss.  The key: the JAX
+        package's ``("stream", cfg, keys, S, B, niter_max)``
+        (``scheduler.py:228``) with each key's row shape and dtype, the
+        solver's dtype and device, whether a lane can finish and the route
+        switches a graph keeps; ``mu0`` is a value of the program.  A
+        solver keeps the stacks of one stream: a program of another key
+        drops the others."""
+        solver = self.solver
+        key = ("stream", cfg, tuple((k, tuple(v.shape[1:]), v.dtype) for k, v in stacks.items()),
+               S, self.B, self.niter_max, solver.dtype, str(solver.device),
+               tols[0] > 0 or tols[1] > 0, batch._route_switches())
+        program = solver._programs.get(key)
+        if program is None:
+            for other in [k for k, p in solver._programs.items() if isinstance(p, _WaveProgram)]:
+                del solver._programs[other]
+            program = batch._keep(solver._programs, key, _WaveProgram(
+                solver, cfg, stacks, S, self.B, self.niter_max, tols))
+        return program
 
-        while int(harvested) < S:
-            parked = sid < 0
-            sidc = sid.clamp_min(0)
-            ov_lane = {k: v.index_select(0, sidc) for k, v in ov_all.items()}
-            res = solver._run(cfg, ov_lane, x, h, mu, tols, parked, record=False,
-                              stride=1, chunked_checks=False, read_done0=False)
-            iters2 = iters + res.iterations
-            fin = ~parked & (res.converged | (iters2 >= niter_max))
-            slot = torch.where(fin, sidc, S)
-            for o, a in zip(outx, res.x):
-                o[slot] = a
-            outmu[slot] = res.mu
-            outit[slot] = iters2
-            outcv[slot] = res.converged
-            # refill finished lanes with the next scenarios in lane order;
-            # park them when the stream is drained
-            cand = nxt + torch.cumsum(fin.long(), 0) - 1
-            refill = fin & (cand < S)
-            sid = torch.where(refill, cand, torch.where(fin, -1, sid))
-            keep = ~fin & ~parked
-            kb = keep[:, None]
-            x = tuple(torch.where(kb, a, 0.0) for a in res.x)
-            h = tuple(torch.where(kb, a, 0.0) for a in res.h)
-            mu = torch.where(kb, res.mu, mu0)
-            iters = torch.where(keep, iters2, 0)
-            nfin = fin.sum()
-            nxt = nxt + nfin
-            harvested = harvested + nfin
 
-        xs = [o[:S].cpu().numpy() for o in outx]
-        its, cvs, mus = (t[:S].cpu().numpy() for t in (outit, outcv, outmu))
+class _WaveProgram(batch._FedProgram):
+    """A wave of :meth:`ScenarioScheduler.run_compiled`: the body of the JAX
+    package's ``while_loop`` (``scheduler.py:263-296``) step for step, as a
+    fed program of B lanes (:class:`~admmsolver_tpu_torch.parallel.batch.
+    _FedProgram`) whose state buffers carry the lanes from wave to wave.
+
+    It holds the (S, ...) scenario overrides, the lanes' scenario ids
+    (``sid``, -1 for a parked lane), their iteration counts, the next
+    scenario (``nxt``), the harvested count, ``mu0`` and the (S+1)-row
+    outputs of x, mu, the counts and the flags.  A wave:
+
+    * the entry gathers each lane's overrides by ``sid.clamp_min(0)`` and
+      runs the prologue, the factors and iteration 0 from the carried
+      state, the parked lanes done from the start;
+    * the chunks of the wave's iterations;
+    * the exit scatters the finished lanes (converged, or at ``niter_max``)
+      into their rows, refills them with the next scenarios in lane order
+      (parks them once the stream is drained), zeroes x and h and resets mu
+      to ``mu0`` and the counts to 0 of every lane it refills or parks,
+      and advances ``nxt`` and the harvested count.
+
+    Each step is captured where a solve's chunks are."""
+
+    def __init__(self, solver: BatchedSolver, cfg, stacks: Dict, S: int, B: int,
+                 niter_max: int, tols) -> None:
+        plan, dev, dtype = solver.plan, solver.device, solver.dtype
+        rdt = _real_dtype(dtype)
+        self.S, self.niter_max = S, niter_max
+        zeros = lambda *shape, dt=dtype: torch.zeros(shape, dtype=dt, device=dev)
+        out = (tuple(zeros(S + 1, n) for n in plan.block_sizes)
+               + (zeros(S + 1, plan.npairs, dt=rdt), zeros(S + 1, dt=torch.int32),
+                  zeros(S + 1, dt=torch.bool)))
+        # the run's staged scenarios, which no one else holds, become the stacks
+        feed = batch._Feed(dict(stacks), None, out=out)
+        # the buffers sized by a wave of the first scenarios
+        first = torch.arange(B, device=dev).clamp_max(S - 1)
+        carry = (tuple(zeros(B, n) for n in plan.block_sizes),
+                 tuple(zeros(B, n) for n in plan.pair_sizes), zeros(B, plan.npairs, dt=rdt),
+                 None, zeros(B, dt=torch.bool), zeros(B, dt=torch.int32),
+                 zeros(B, 1, dt=torch.float64), zeros(B, 1, dt=torch.float64))
+        super().__init__(solver, cfg, feed, solver._bound(
+            {k: v.index_select(0, first) for k, v in feed.ov.items()}), carry, tols, False, 1,
+            False, freeze=True)
+        self.sid = zeros(B, dt=torch.long)
+        self.iters = zeros(B, dt=torch.int32)
+        self.nxt, self.harvested = zeros(dt=torch.long), zeros(dt=torch.long)
+        self.mu0 = zeros(dt=rdt)
+
+    def load(self, tols, stacks: Dict, mu0: float) -> None:
+        """A run's tolerances, scenarios and ``mu0``: scenarios 0..B-1 in
+        the lanes (the lanes beyond S parked), zero state, empty outputs."""
+        super().load(tols, stacks)
+        B = self.sid.shape[0]
+        torch.arange(B, out=self.sid)
+        self.sid.masked_fill_(self.sid >= self.S, -1)
+        self.nxt.fill_(min(B, self.S))
+        self.harvested.zero_()
+        self.iters.zero_()
+        self.mu0.fill_(mu0)
+        for a in self.x + self.h + self.feed.out:
+            a.zero_()
+        self.mu.fill_(mu0)
+
+    def _overrides(self) -> Dict:
+        sidc = self.sid.clamp_min(0)
+        return {k: v.index_select(0, sidc) for k, v in self.feed.ov.items()}
+
+    def _done0(self) -> torch.Tensor:
+        return self.sid < 0
+
+    def _exit(self) -> None:
+        S = self.S
+        parked = self.sid < 0
+        sidc = self.sid.clamp_min(0)
+        iters = self.iters + self.count
+        fin = ~parked & (self.done | (iters >= self.niter_max))
+        slot = torch.where(fin, sidc, S)
+        for o, a in zip(self.feed.out, self.x + (self.mu, iters, self.done)):
+            o.index_copy_(0, slot, a)
+        # refill the finished lanes with the next scenarios, in lane order;
+        # park them once the stream is drained
+        cand = self.nxt + torch.cumsum(fin.long(), 0) - 1
+        refill = fin & (cand < S)
+        keep = ~fin & ~parked
+        self.sid.copy_(torch.where(refill, cand, torch.where(fin, -1, self.sid)))
+        for a in self.x + self.h:
+            a.copy_(torch.where(keep[:, None], a, 0.0))
+        self.mu.copy_(torch.where(keep[:, None], self.mu, self.mu0))
+        self.iters.copy_(torch.where(keep, iters, 0))
+        nfin = fin.sum()
+        self.nxt.add_(nfin)
+        self.harvested.add_(nfin)
+
+    def wave(self, capture: bool, pool) -> bool:
+        """One wave (:meth:`run_group`); whether the stream is drained, from
+        the wave's one host read of the harvested count, which also takes
+        the failure flag of the factorizations (raised here)."""
+        self.run_group(capture, pool)
+        harvested, failures = torch.stack(
+            [self.harvested, self.failed.to(torch.int64)]).tolist()
+        raise_if_not_pd(failures > 0)
+        return harvested >= self.S
+
+    def buffers(self) -> Tuple[torch.Tensor, ...]:
+        return super().buffers() + (self.sid, self.iters, self.nxt, self.harvested, self.mu0)
+
+    def results(self) -> List[ScenarioResult]:
+        """Every scenario's result, from the outputs in one copy each."""
+        S, nx = self.S, len(self.x)
+        outs = [o[:S].cpu().numpy() for o in self.feed.out]
+        xs, (mus, its, cvs) = outs[:nx], outs[nx:]
         return [ScenarioResult(scenario_id=s, x=tuple(a[s].copy() for a in xs),
                                iterations=int(its[s]), converged=bool(cvs[s]),
                                final_mu=mus[s].copy())

@@ -80,7 +80,8 @@ fails raises and the script exits non-zero without printing a result.
    clock.  Scheduler (the stream of benches/scheduler_hw.py: A 256x512,
    S=1024, B=256, chunks of 100, atol 1e-9, float64; niter_max 3000, cut
    from the bench's 6000 to fit the phase in ~60 s): static batches, ``run``
-   and ``run_compiled`` each once; every scenario comes back once, ``run``
+   and ``run_compiled`` each once (and what ``run_compiled``'s wave program
+   holds between runs); every scenario comes back once, ``run``
    and ``run_compiled`` agree in iterations and flags and in x to 1e-9 of
    max|x|, 4 scenarios equal dedicated ``SimpleOptimizer`` solves to 1e-6.
    ``solve_resumable`` (B=4096, 200 iterations in segments of 100): stopped
@@ -161,7 +162,8 @@ fails raises and the script exits non-zero without printing a result.
    NCCL (a TCP store on localhost, destroyed at the end): the sharded
    ``BatchedSolver`` on the float64 bench problem, 200 iterations at rtol 0
    and up to RANKS_NITER at rtol 1e-8 (the exit predicate's all_reduce then
-   runs every chunk), bitwise equal to the unsharded solve; per-instance
+   runs every chunk), bitwise equal to the unsharded solve, and the rtol 0
+   solve once more captured and once without graphs; per-instance
    operators sharded (B=4096 lanes of A 64x128), lanes 0, 2048 and 4095
    against ``SimpleOptimizer`` to 1e-9 of max|x|; ``sharded_gram`` of the tall
    Ac (1,048,576 x 1024 float64, 8 GiB) against ``torch.matmul`` to 1e-12
@@ -191,7 +193,10 @@ fails raises and the script exits non-zero without printing a result.
 Captured chunks against chunks without a graph: ``BatchedSolver``,
 ``FusedTwoBlockSolver``, ``FusedSpMSolver``, ``SimpleOptimizer`` and
 ``LargeNTwoBlockSolver`` run each chunk of a solve as a replay of a
-captured CUDA graph; phase 4's two solves, 9a's LargeN solves and every
+captured CUDA graph (``BatchedSolver.solve`` its entry too: prologue,
+factors and iteration 0; ``ScenarioScheduler.run_compiled`` each wave's
+entry, chunks and exit); phase 4's two solves, 9a's LargeN solves and
+sharded bench solve and every
 part of phases 6, 7, 8 and 10 that solves through them (the basis-pursuit
 and SpM fused solves, both phases of ``solve_mixed``, the bench solve, one
 wave of each stream mode, ``solve_resumable``, the realified SpM and basis
@@ -215,6 +220,10 @@ host's launch calls an iteration (a graph replay is one), busy share
 (the fused solves, ``solve_mixed``'s f32 phase, 7d, phase 4's two solves
 and a 20-iteration LargeN solve too).
 
+``--turns`` runs only the parts whose solve or wave is such a one-group
+program (the bench solve of 6, 7a, 7b, 8a-8f and 9a's sharded solve), each
+captured against graph-less; copied into a checkout of another commit it
+times that commit's forms (``phase_turns``).
 ``--variants`` also times both chunks at other tilings and routes, the
 two-block chunk's two products as ``torch.matmul``, the card's L2 read rate,
 the factor refresh's batched inverse by other routes and batched eigh by both
@@ -579,6 +588,14 @@ def phase_scheduler(torch, card, device="cuda", S=SCHED_S, B=SCHED_B, niter_max=
         out[mode] = getattr(sched, mode)(iter(scen))
         sync()
         out[mode + "_s"] = time.perf_counter() - t0
+    # what the stream's wave program holds between runs, its stacks apart
+    waves = [p for k, p in bs._programs.items() if k[0] == "stream"]
+    held = sum(t.untyped_storage().nbytes() for p in waves for t in p.buffers())
+    stacks = sum(t.untyped_storage().nbytes() for p in waves
+                 for t in tuple(p.feed.ov.values()) + tuple(p.feed.out))
+    print(f"[{card}] run_compiled's wave program holds {held / 2**20:.1f} MiB between runs "
+          f"({len(waves)} program; the staged scenarios and the (S+1)-row outputs "
+          f"{stacks / 2**20:.1f} MiB of it)", flush=True)
     host, comp = out["run"], out["run_compiled"]
     for mode, res in (("run", host), ("run_compiled", comp)):
         if [r.scenario_id for r in res] != list(range(S)):
@@ -640,6 +657,9 @@ def phase_scheduler(torch, card, device="cuda", S=SCHED_S, B=SCHED_B, niter_max=
     one_wave = ScenarioScheduler(bs, batch_size=B, chunk_iters=SCHED_CHUNK,
                                  niter_max=SCHED_CHUNK, rtol=0.0, atol=SCHED_ATOL)
     for mode in ("run", "run_compiled"):
+        # a stream of another length is another wave program: made and
+        # captured here, outside the turn
+        getattr(one_wave, mode)(iter(scen[:B]))
         captured_vs_eager(
             torch, card, f"scheduler {mode}, one wave of {SCHED_CHUNK} iterations",
             lambda mode=mode: getattr(one_wave, mode)(iter(scen[:B])), SCHED_CHUNK, [bs],
@@ -647,6 +667,20 @@ def phase_scheduler(torch, card, device="cuda", S=SCHED_S, B=SCHED_B, niter_max=
             + [np.array([(r.iterations, r.converged) for r in res])])
     return {"static_s": t_static, "run_s": out["run_s"], "run_compiled_s": out["run_compiled_s"],
             "solver": bs, "scenarios": scen[:B]}
+
+
+def profile_waves(torch, sched):
+    """``--profile``: one scheduler wave of each stream mode on the solver
+    and scenarios of :func:`phase_scheduler`, profiled captured and without
+    graphs."""
+    from admmsolver_tpu_torch.parallel import ScenarioScheduler
+
+    one_wave = ScenarioScheduler(sched["solver"], batch_size=SCHED_B, chunk_iters=SCHED_CHUNK,
+                                 niter_max=SCHED_CHUNK, rtol=0.0, atol=SCHED_ATOL)
+    for mode in ("run", "run_compiled"):
+        profile_both(torch, f"scheduler {mode}, one wave of {SCHED_CHUNK} iterations",
+                     lambda mode=mode: getattr(one_wave, mode)(iter(sched["scenarios"])),
+                     SCHED_CHUNK)
 
 
 def phase_resumable(torch, card, A, ys, device="cuda", niter=RESUME_NITER):
@@ -694,11 +728,13 @@ def phase_resumable(torch, card, A, ys, device="cuda", niter=RESUME_NITER):
             t_read.append(time.perf_counter() - t0)
         if not all(torch.equal(a, b) for a, b in zip(back.x, straight.x)):
             raise AssertionError("a checkpoint read back differs from what was written")
-        fresh = iter(range(4))
-        captured_vs_eager(
-            torch, card, f"solve_resumable ({niter} iters in segments of {RESUME_EVERY})",
-            lambda: bs.solve_resumable(os.path.join(tmp, f"turn{next(fresh)}.npz"), ov,
-                                       niter=niter, **kw), niter, [bs])
+        fresh = iter(range(100))
+        what = f"solve_resumable ({niter} iters in segments of {RESUME_EVERY})"
+        resume = lambda: bs.solve_resumable(os.path.join(tmp, f"turn{next(fresh)}.npz"), ov,
+                                            niter=niter, **kw)
+        captured_vs_eager(torch, card, what, resume, niter, [bs])
+        if "--profile" in sys.argv and device == "cuda":
+            profile_both(torch, what, resume, niter)
     B = ys.shape[0]
     print(f"solve_resumable: A {A.shape[0]}x{n}, B={B}, f64, {niter} iterations in segments of "
           f"{RESUME_EVERY}: stopped after one segment and resumed == uninterrupted (atol 0)",
@@ -1799,11 +1835,12 @@ def phase_composites(torch, card, device="cuda", path_values=PATH_VALUES, path_g
     by_phase = {}
     run_group = batch._FedProgram.run_group
 
-    def by_group(self, capture, pool):
+    def by_group(self, *args, **kwargs):
         before = kernels.jacobi_eigh.launches
-        run_group(self, capture, pool)
+        unread = run_group(self, *args, **kwargs)
         by_phase[self.mu.dtype] = (by_phase.get(self.mu.dtype, 0)
                                    + kernels.jacobi_eigh.launches - before)
+        return unread
 
     with mock.patch.object(batch._FedProgram, "run_group", by_group):
         res = counted(lambda: mixed(True))
@@ -2294,13 +2331,7 @@ def phases_1_to_8(torch, card):
         profile_solve(torch, "BatchedSolver f32 solve", "gemm",
                       lambda: bsolve(rtol=0.0, dtype=torch.float32), iters=BATCH_NITER)
         profile_both(torch, "SpM solve_mixed f64 polish", polish, POLISH_NITER)
-        from admmsolver_tpu_torch.parallel import ScenarioScheduler
-        one_wave = ScenarioScheduler(sched["solver"], batch_size=SCHED_B, chunk_iters=SCHED_CHUNK,
-                                     niter_max=SCHED_CHUNK, rtol=0.0, atol=SCHED_ATOL)
-        for mode in ("run", "run_compiled"):
-            profile_both(torch, f"scheduler {mode}, one wave of {SCHED_CHUNK} iterations",
-                         lambda mode=mode: getattr(one_wave, mode)(iter(sched["scenarios"])),
-                         SCHED_CHUNK)
+        profile_waves(torch, sched)
         profile_both(torch, "realified complex SpM solve", complex_spm["solve"], CSPM_NITER)
         profile_both(torch, "realified complex basis-pursuit fused solve", realified["solve"],
                      NITER, kernel_name="fused_two_block")
@@ -2455,6 +2486,7 @@ def phase_world_one(torch, card, device="cuda", backend="nccl", nb=B, ops_b=OPS_
             if not same or not torch.equal(sharded.lane_index.cpu(), torch.arange(nb)):
                 raise AssertionError("the world-size-1 sharded solve departs from the unsharded")
         out["bench"] = plain   # the rtol 1e-8 solve: the two ranks' reference
+        sharded_turn(torch, card, shard, model, ys, profile)
 
         # per-instance operators, sharded
         rng = np.random.RandomState(3)
@@ -2575,6 +2607,75 @@ def phase_world_one(torch, card, device="cuda", backend="nccl", nb=B, ops_b=OPS_
             raise AssertionError("the large-N solve departs from SimpleOptimizer")
         out["large_n_small"] = sres
         return out
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_turn(torch, card, shard, model, ys, profile=False):
+    """9a's sharded bench solve (rtol 0, bench.py's horizon) once more
+    captured and once without graphs, bitwise, after a solve that captures
+    its steps; with ``profile`` profiled both ways."""
+    from admmsolver_tpu_torch.parallel import BatchedSolver
+
+    bs = BatchedSolver(model, sharding=shard)
+    solve = lambda: bs.solve({(0, "y"): ys}, niter=BATCH_NITER, rtol=0.0,
+                             record_residuals=False)
+    solve()
+    what = (f"sharded BatchedSolver f64 solve, world size {shard.mesh.world_size} (B={len(ys)}, "
+            f"{BATCH_NITER} iters)")
+    captured_vs_eager(torch, card, what, solve, BATCH_NITER, [bs])
+    if profile:
+        profile_both(torch, what, solve, BATCH_NITER)
+
+
+def phase_turns(torch, card):
+    """``--turns``: the parts whose solve or wave runs as a one-group program
+    of captured steps (an entry, the chunks, a wave's exit), as phases 6 to
+    9a drive them: the float64 bench solve (6, its time a median of
+    REPEATS), the stream (7a, each mode run twice: the first run of a
+    stream builds its program), ``solve_resumable`` (7b), the families
+    (8a-8f) and the sharded bench solve over one NCCL rank (9a), each once
+    captured and once without graphs, bitwise (``--profile``: profiled both
+    ways).  It calls only the package's entry points, so that this script
+    copied into a checkout of another commit times that commit's forms in
+    the same call: parent, change, change, parent."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from admmsolver_tpu_torch.parallel import BatchedSolver, batch_sharding, make_mesh
+
+    profile = "--profile" in sys.argv
+    A, ys, _ = bench_problem()
+    bs = BatchedSolver(bp_model(A, ys[0]))
+    ys64 = torch.as_tensor(ys, dtype=torch.float64, device="cuda")
+    solve = lambda: bs.solve({(0, "y"): ys64}, niter=BATCH_NITER, rtol=0.0,
+                             record_residuals=False)
+    solve()
+    what = f"BatchedSolver f64 solve (B={B}, {BATCH_NITER} iters)"
+    (t,) = median_wall(torch, [solve])
+    print(f"[{card}] {what}: {t * 1e3:.1f} ms = {B * BATCH_NITER / t:.0f} inst-iters/s",
+          flush=True)
+    captured_vs_eager(torch, card, what, solve, BATCH_NITER, [bs])
+    if profile:
+        profile_both(torch, what, solve, BATCH_NITER)
+    del bs, ys64
+    # the streams once more each: a first run builds and captures its program
+    sched = phase_scheduler(torch, card, again=True)
+    if profile:
+        profile_waves(torch, sched)
+    del sched
+    phase_resumable(torch, card, A, ys)
+    for fam in (phase_cov_denoise, phase_sdp, phase_rpca, phase_group_lasso, phase_huber,
+                phase_tv):
+        fam(torch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0, timeout=datetime.timedelta(seconds=300))
+    try:
+        sharded_turn(torch, card, batch_sharding(make_mesh(1, devices="cuda")),
+                     bp_model(A, ys[0]), ys, profile)
     finally:
         dist.destroy_process_group()
 
@@ -2707,6 +2808,10 @@ def main():
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python "
           f"{sys.version.split()[0]}", flush=True)
+    if "--turns" in sys.argv:
+        phase_turns(torch, card)
+        print(f"chip_smoke --turns: {time.perf_counter() - t_start:.1f} s in all", flush=True)
+        return 0
     fam, kernels_line = phases_1_to_8(torch, card)
 
     # 10. the spectral routes (before 9, whose 16 GiB part frees its tensors last)

@@ -570,9 +570,8 @@ def test_config_loading(tmp_path):
 
 def test_recipe_rules():
     """recipe: unknown names raise; 'auto' is the plain solve; 'mixed' splits
-    the budget 3/4 : 1/4 and reaches the plain solution, honours dtype=, and
-    refuses a budget that cannot be split (tests/test_batch.py:697 runs that
-    one plain)."""
+    the budget 3/4 : 1/4 and reaches the plain solution and honours dtype=
+    (a budget that cannot be split: test_mixed_recipe_at_one_iteration_runs_plain)."""
     rng = np.random.RandomState(18)
     A = rng.randn(30, 80)
     xt = np.zeros((3, 80))
@@ -595,9 +594,27 @@ def test_recipe_rules():
     res = bt32.solve(ov, niter=40, dtype=torch.float64, recipe="mixed",
                      record_residuals=False)
     assert res.x[0].dtype == torch.float64
-    with pytest.raises(ValueError, match="needs niter >= 2"):
-        bt.solve(ov, niter=1, recipe="mixed")
     assert int(bt.solve(ov, niter=1).iterations.max()) == 1
+
+
+@pytest.mark.parametrize("rtol", [0.0, 1e-8], ids=["rtol0", "rtol"])
+def test_mixed_recipe_at_one_iteration_runs_plain(rtol):
+    """recipe='mixed' at niter=1 cannot split the budget into two positive
+    phases: it runs the plain solve, bitwise the port's recipe='plain', and
+    equals the JAX package's recipe='mixed' there (tests/test_batch.py:697)."""
+    _, A, ys = _data(19, 20, 50, 3)
+    bj, bt = _solvers(_bp(J, A, ys[0]))
+    ov = {(0, "y"): ys, (1, "alpha"): np.array([0.05, 0.1, 0.2])}
+    kw = dict(niter=1, rtol=rtol, interval_update_mu=10)
+    mixed = bt.solve(ov, recipe="mixed", **kw)
+    plain = bt.solve(ov, recipe="plain", **kw)
+    assert mixed.x[0].dtype == torch.float64 and mixed.iterations.tolist() == [1] * 3
+    for a, b in zip(mixed.x + mixed.h + (mixed.mu, mixed.iterations, mixed.converged,
+                                         mixed.primal_residual, mixed.dual_residual),
+                    plain.x + plain.h + (plain.mu, plain.iterations, plain.converged,
+                                         plain.primal_residual, plain.dual_residual)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    _assert_same(mixed, bj.solve(ov, recipe="mixed", **kw))
 
 
 @pytest.mark.parametrize("direction", ["jax_to_torch", "torch_to_jax"])

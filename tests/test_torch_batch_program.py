@@ -1,6 +1,8 @@
-"""The batched engine's static chunk program on the CPU (no graph: the
-chunk function runs directly), against the eager loop and against the JAX
-package's one compiled program (``BatchedSolver.solve``, ``_compiled``).
+"""The batched engine's one-group program (``BatchedSolver.solve``: its
+entry and chunks) on the CPU (no graph: each step runs directly), against
+the eager loop, against the JAX package's one compiled program
+(``BatchedSolver.solve``, ``_compiled``) and against a one-group
+``solve_scan`` of the same lanes.
 
 The eager loop (:func:`_eager_run`) is the schedule as plain per-iteration
 steps, with a refactor after iteration 0 and after every chunk and the
@@ -194,6 +196,35 @@ def test_program_equals_eager_loop_and_jax(name, condition):
     _assert_matches_jax(program, JaxBatched(mj).solve(ov, **jkw))
     if condition == "done0":
         assert program.iterations.tolist() == [NITER, 0, NITER]
+
+
+@pytest.mark.parametrize("condition", list(CONDITIONS))
+@pytest.mark.parametrize("name", MODELS)
+def test_solve_equals_one_group_scan(name, condition):
+    """``solve``'s one-group program against ``solve_scan`` of the same
+    lanes as one group (the same entry, chunks and exit through the group
+    program): bitwise.  The scan has no ``done0``: there the lanes that
+    start done keep their initial state, count no iteration and stay done,
+    and the others equal the scan's."""
+    mt, ov, mu0 = _model(name, T)
+    kw = dict(dict(niter=NITER, interval_update_mu=INTERVAL, mu0=mu0), **CONDITIONS[condition])
+    done0 = kw.pop("done0", None)
+    bs = BatchedSolver(mt, device="cpu")
+    got = bs.solve(ov, done0=done0, **kw)
+    scan = BatchedSolver(mt, device="cpu").solve_scan(
+        ov, group_size=B, **dict(dict(record_residuals=True), **kw))
+    if done0 is None:
+        _assert_bitwise(got, scan)
+        return
+    live = torch.as_tensor(~done0)
+    assert got.iterations[~live].tolist() == [0] and got.converged[~live].all()
+    for a in got.x + got.h:
+        assert not a[~live].any()
+    for a, b in zip(got.x + got.h + (got.mu, got.iterations, got.converged, got.primal_residual,
+                                     got.dual_residual),
+                    scan.x + scan.h + (scan.mu, scan.iterations, scan.converged,
+                                       scan.primal_residual, scan.dual_residual)):
+        np.testing.assert_array_equal(a[live].numpy(), b[live].numpy())
 
 
 def test_realified_spm_refactor_stays_kronecker():

@@ -13,8 +13,10 @@ differently: those cases hold mu and counts exactly, x to 2e-5 after
 BatchedSolver's float32 phase (the polished x, as tests/test_torch_mixed.py
 holds a fixed budget), x and h to 1e-6 after the SpM kernel phase and its
 polish's histories to 1%.  Also:
-once warm at rtol 0 no group or phase reads the host, and the programs are
-cached as the JAX package caches its compiled forms.
+once warm at rtol 0 no group or phase reads the host (nor does a plain
+``solve`` or a wave of ``ScenarioScheduler.run_compiled``, the two one-group
+programs beside them), and the programs are cached as the JAX package
+caches its compiled forms.
 """
 import dataclasses
 
@@ -29,7 +31,8 @@ from admmsolver_tpu.parallel import BatchedSolver as JaxBatched
 from admmsolver_tpu.parallel import FusedSpMSolver as JaxFusedSpM
 from admmsolver_tpu_torch import interop
 from admmsolver_tpu_torch.models.applications import spm_model, synthetic_spm_data
-from admmsolver_tpu_torch.parallel import BatchedSolver, FusedSpMSolver, batch, fused
+from admmsolver_tpu_torch.parallel import (BatchedSolver, FusedSpMSolver, ScenarioScheduler,
+                                           batch, fused)
 from test_torch_batch import _assert_same, _bp, _cls
 from test_torch_optimizer_program import _family, _nothing_from_the_host
 
@@ -319,6 +322,48 @@ def test_warm_composites_take_nothing_from_the_host(name, monkeypatch):
         again = call()
         assert guarded, "no warm group ran"
         _assert_bitwise(again, first)
+
+
+@pytest.mark.parametrize("name", ["bp", "spm", "complex", "diag", "cov", "sdp", "rpca",
+                                  "group", "huber", "tv", "box", "realified",
+                                  "realified_spm"])
+def test_warm_solve_and_wave_take_nothing_from_the_host(name, monkeypatch):
+    """Once its program is warm, a plain ``solve`` at rtol 0 reads nothing
+    on the host from its entry to its last chunk, and neither does a wave
+    of ``ScenarioScheduler.run_compiled`` from its entry to its exit (the
+    wave's one read of the harvested count comes after): what a captured
+    step cannot hold."""
+    guarded = []
+    run_group = batch._FedProgram.run_group
+
+    def strict(self, *args, **kwargs):
+        if not self.warm:
+            return run_group(self, *args, **kwargs)
+        guarded.append(type(self).__name__)
+        with _nothing_from_the_host():
+            return run_group(self, *args, **kwargs)
+
+    bs = BatchedSolver(_family(name), device="cpu")
+    k = next(k for k, fn in enumerate(bs.model.functions) if "alpha" in fn.batch_fields)
+    lams = np.linspace(0.2, 0.05, 3)
+    solve = lambda: bs.solve({(k, "alpha"): lams}, niter=12, interval_update_mu=5, rtol=0.0)
+    sched = ScenarioScheduler(bs, batch_size=2, chunk_iters=5, niter_max=10, rtol=0.0,
+                              interval_update_mu=5)
+    drain = lambda: sched.run_compiled({(k, "alpha"): lam} for lam in lams)
+    first = solve(), drain()
+    monkeypatch.setattr(batch._FedProgram, "run_group", strict)
+    again = solve()
+    assert guarded == ["_FedProgram"]
+    _assert_bitwise(again, first[0])
+    guarded.clear()
+    waves = drain()
+    # three scenarios of two waves each in two lanes: four waves
+    assert guarded == ["_WaveProgram"] * 4
+    for a, b in zip(waves, first[1], strict=True):
+        assert (a.scenario_id, a.iterations, a.converged) == (b.scenario_id, b.iterations,
+                                                               b.converged)
+        assert all(np.array_equal(u, v) for u, v in zip(a.x + (a.final_mu,),
+                                                         b.x + (b.final_mu,)))
 
 
 def test_program_cache_reuses_and_drops_the_oldest():

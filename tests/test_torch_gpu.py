@@ -842,7 +842,7 @@ def test_captured_chunks_equal_the_eager_loop(cuda, name):
     captures), on a second one with other data (replays only) and on a
     solve of the capturing solver with ``CAPTURE_CHUNKS`` off (its eager
     work from the graph pool); rtol 0 runs every chunk, so its program holds
-    the chunk lengths 10 and 4 (the short last chunk)."""
+    the entry and the chunk lengths 10 and 4 (the short last chunk)."""
     model, ov, mu0 = _captured_model(name)
     bs = BatchedSolver(model)
     ov2 = {k: v[::-1].copy() for k, v in ov.items()}
@@ -858,36 +858,36 @@ def test_captured_chunks_equal_the_eager_loop(cuda, name):
             assert a.is_cuda and a.dtype == b.dtype
             np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
     programs = list(bs._programs.values())
-    assert len(programs) == 2 and sorted(programs[0].graphs) == [4, 10]
-    assert 10 in programs[1].graphs
+    assert len(programs) == 2 and set(programs[0].graphs) == {"entry", 4, 10}
+    assert {"entry", 10} <= set(programs[1].graphs)
 
 
 def test_captured_replays_do_not_sync(cuda, monkeypatch):
-    """A chunk's replay and its host bookkeeping read nothing on the host:
-    the chunks of a second solve (rtol 0, so no done flag is read) run under
-    ``torch.cuda.set_sync_debug_mode("error")``."""
+    """The replays of the entry and the chunks and their host bookkeeping
+    read nothing on the host: the steps of a second solve (rtol 0, so no
+    done flag is read) run under ``torch.cuda.set_sync_debug_mode("error")``."""
     from admmsolver_tpu_torch.parallel import batch
 
-    run = batch._ChunkProgram.run
+    run = batch._GraphProgram._run_chunk
     replays = []
 
-    def strict(self, n, capture, pool):
+    def strict(self, key, capture, pool):
         torch.cuda.set_sync_debug_mode("error")
         try:
-            run(self, n, capture, pool)
+            run(self, key, capture, pool)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        replays.append(n)
+        replays.append(key)
 
     for name in ("huber", "tv", "sdp_jacobi", "covariance_sign"):
         model, ov, mu0 = _captured_model(name)
         bs = BatchedSolver(model)
         ov = {k: torch.as_tensor(v, device=cuda) for k, v in ov.items()}
         _solve_captured(bs, ov, mu0, True)
-        monkeypatch.setattr(batch._ChunkProgram, "run", strict)
+        monkeypatch.setattr(batch._GraphProgram, "_run_chunk", strict)
         _solve_captured(bs, ov, mu0, True)
-        monkeypatch.setattr(batch._ChunkProgram, "run", run)
-    assert replays == [10, 10, 10, 10, 4] * 4
+        monkeypatch.setattr(batch._GraphProgram, "_run_chunk", run)
+    assert replays == ["entry", 10, 10, 10, 10, 4] * 4
 
 
 def test_jacobi_launches_per_solve_unchanged_by_capture(cuda):

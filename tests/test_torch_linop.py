@@ -329,3 +329,42 @@ def test_lane_operators_compose_kronecker(other):
     assert inv.kind == total.kind
     np.testing.assert_allclose(inv.matvec_rows(total.matvec_rows(v)).numpy(), v.numpy(),
                                atol=1e-10)
+
+
+def _jax_operator(name):
+    """One operator of each of the JAX package's six classes, from a seed."""
+    rng = np.random.RandomState(12)
+    return {
+        "DenseMatrix": lambda: J.DenseMatrix(jnp.asarray(rng.randn(4, 6))),
+        "ScaledIdentityMatrix": lambda: J.ScaledIdentityMatrix((5, 5), 2.5),
+        "DiagonalMatrix": lambda: J.DiagonalMatrix(jnp.asarray(rng.randn(4)), (4, 6)),
+        "PartialDiagonalMatrix": lambda: J.PartialDiagonalMatrix(
+            J.DenseMatrix(jnp.asarray(rng.randn(3, 3))), (2,)),
+        "InterleavedComplexDiagonalMatrix": lambda: J.InterleavedComplexDiagonalMatrix(
+            jnp.asarray(rng.randn(6)), jnp.asarray(rng.randn(6))),
+        "BandedMatrix": lambda: J.BandedMatrix((0, 1), jnp.asarray(rng.randn(2, 7)), (7, 8)),
+    }[name]()
+
+
+@pytest.mark.parametrize("name", ["DenseMatrix", "ScaledIdentityMatrix", "DiagonalMatrix",
+                                  "PartialDiagonalMatrix", "InterleavedComplexDiagonalMatrix",
+                                  "BandedMatrix"])
+def test_to_dense_is_asmatrix_and_matches_jax(name):
+    """Every operator class's ``to_dense`` is its own ``asmatrix`` (not the
+    base class's) and equals the JAX package's ``to_dense`` of the same
+    operator carried over by ``interop``."""
+    from admmsolver_tpu_torch import interop
+
+    j = _jax_operator(name)
+    t = interop._operator(j, "cpu", None)
+    assert type(t).__name__ == name and type(t).to_dense is T.MatrixBase.to_dense
+    dense = t.to_dense()
+    assert isinstance(dense, torch.Tensor) and torch.equal(dense, t.asmatrix())
+    np.testing.assert_allclose(dense.numpy(), np.asarray(j.to_dense()), rtol=0, atol=TOL)
+
+
+def test_to_dense_of_the_base_class_is_not_implemented():
+    """The abstract base has no dense form, in either package."""
+    for P in (J, T):
+        with pytest.raises(NotImplementedError):
+            P.MatrixBase().to_dense()

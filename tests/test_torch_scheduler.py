@@ -196,3 +196,32 @@ def test_run_compiled_mu0():
     assert not np.allclose(r1[0].final_mu, r10[0].final_mu)
     _same(r1, JaxScheduler(bj, mu0=1.0, **kw).run(scen()))
     _same(r10, JaxScheduler(bj, mu0=10.0, **kw).run(scen()))
+
+
+def test_run_compiled_across_program_keys():
+    """Streams of two lengths and two chunk lengths on one solver take
+    three keys of the wave program; each run equals the host loop and the
+    JAX package's, a program of a new key drops the other's stacks (the
+    solver keeps one stream program), and mu0 is a value of the program,
+    not part of its key."""
+    rng = np.random.RandomState(9)
+    A = rng.randn(10, 20)
+    ys = rng.randn(9, 10)
+    bt = BatchedSolver(_template(T, A, ys[0]), device="cpu")
+    bj = JaxBatched(_template(J, A, ys[0]))
+    kw = dict(batch_size=3, niter_max=400, rtol=1e-8)
+    stream = lambda S: ({(0, "y"): ys[i]} for i in range(S))
+    streams = lambda: [k for k in bt._programs if k[0] == "stream"]
+    seen = []
+    for S, chunk, mu0 in ((9, 50, 1.0), (7, 50, 1.0), (9, 40, 1.0), (9, 50, 1.0), (9, 50, 4.0)):
+        st = ScenarioScheduler(bt, chunk_iters=chunk, mu0=mu0, **kw)
+        sj = JaxScheduler(bj, chunk_iters=chunk, mu0=mu0, **kw)
+        comp = st.run_compiled(stream(S))
+        _same(comp, sj.run(stream(S)))
+        _same(comp, st.run(stream(S)))
+        (key,) = streams()
+        seen.append((key, bt._programs[key]))
+    keys = [key for key, _ in seen]
+    assert len(set(keys)) == 3 and keys[0] == keys[3] == keys[4]
+    # the first key's program was dropped for the second and made anew
+    assert seen[3][1] is not seen[0][1] and seen[4][1] is seen[3][1]
