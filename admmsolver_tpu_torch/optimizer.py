@@ -138,6 +138,7 @@ class _RunProgram:
         self.checks = False
         self.graphs = batch._GraphProgram(self._chunk)
 
+    @telemetry.spanned("admm.load")
     def load(self, x, h, mu, tols) -> None:
         """A solve's initial state and tolerances into the buffers."""
         for d, t in zip(self.x + self.x_old + self.h + (self.mu,), x + x + h + (mu,)):
@@ -576,7 +577,8 @@ class ADMMPlan:
         key = (cfg, record, tuple(t.dtype for t in x + h + (mu,)), batch._route_switches())
         program = self._run_cache.get(key)
         if program is None:
-            program = batch._keep(self._run_cache, key, _RunProgram(self, cfg, record, x, h, mu))
+            program = batch._keep(self._run_cache, key,
+                                  lambda: _RunProgram(self, cfg, record, x, h, mu))
         return program
 
     def _graph_pool(self, device: torch.device):
@@ -633,6 +635,7 @@ class SimpleOptimizer:
     float64 (complex128 for complex data).
     """
 
+    @telemetry.spanned("admm.init")
     def __init__(self, model: Model, x0=None, mu=None, max_mu: float = 1e3,
                  dtype=None, device="cuda") -> None:
         if not isinstance(model, Model):
@@ -682,6 +685,7 @@ class SimpleOptimizer:
         return float(np.sum([f(x_) for x_, f in
                              zip(x, self._model.functions)]))
 
+    @telemetry.spanned(telemetry.SOLVE)
     def solve(self, niter: int = 10000, callback=None,
               interval_update_mu: int = 100, update_h: bool = True,
               rtol: float = 1e-12, atol: float = 0.0,
@@ -749,11 +753,12 @@ class SimpleOptimizer:
                     break
         if unread:
             raise_if_not_pd(program.failed)
-        self._take(program)
-        if record_residuals:
-            n = int(program.count)
-            self._primal_residual.extend(program.pbuf[:n].tolist())
-            self._dual_residual.extend(program.dbuf[:n].tolist())
+        with telemetry.span("admm.result"):
+            self._take(program)
+            if record_residuals:
+                n = int(program.count)
+                self._primal_residual.extend(program.pbuf[:n].tolist())
+                self._dual_residual.extend(program.dbuf[:n].tolist())
 
     def _solve_with_callback(self, program: _RunProgram, niter: int, interval: int,
                              callback, capture: bool, pool) -> None:

@@ -283,9 +283,13 @@ class _GraphPool:
             yield
 
 
-def _keep(programs: Dict, key, program):
-    """``program`` stored under ``key`` in a solver's cache of programs, the
-    oldest dropped first once it holds :data:`PROGRAM_CACHE_SIZE`."""
+def _keep(programs: Dict, key, build):
+    """The program ``build()`` makes on a miss of a solver's cache of
+    programs, stored under ``key``, the oldest dropped first once the cache
+    holds :data:`PROGRAM_CACHE_SIZE`."""
+    with telemetry.span("admm.build"):
+        telemetry.count("program_builds")
+        program = build()
     if len(programs) >= PROGRAM_CACHE_SIZE:
         programs.pop(next(iter(programs)))
     programs[key] = program
@@ -298,11 +302,13 @@ def _flags_read(done: torch.Tensor, failed: Optional[torch.Tensor] = None,
     ``failed`` (a factorization's failure flag, raised here); over a
     ``mesh``, the lanes and flags of every rank by one ``all_reduce`` of the
     count of lanes not done and of the failures."""
-    flags = torch.stack([(~done).sum(), (done.new_zeros(()) if failed is None
-                                         else failed).to(torch.int64)])
-    if mesh is not None:
-        flags = mesh.all_reduce(flags)
-    not_done, failures = flags.tolist()
+    with telemetry.span("admm.flags_read"):
+        telemetry.count("flag_reads")
+        flags = torch.stack([(~done).sum(), (done.new_zeros(()) if failed is None
+                                             else failed).to(torch.int64)])
+        if mesh is not None:
+            flags = mesh.all_reduce(flags)
+        not_done, failures = flags.tolist()
     raise_if_not_pd(failures > 0)
     return not_done == 0
 
@@ -338,44 +344,69 @@ class _GraphProgram:
     once a chunk; a replay adds the kernel launches its capture counted.
     Otherwise (the CPU, :data:`CAPTURE_CHUNKS` off, a route a graph cannot
     hold) the chunk runs directly, from the pool where there is one and the
-    program is warm.  A chunk that fails to capture raises."""
+    program is warm.  A chunk that fails to capture raises.
+
+    Inside :func:`~admmsolver_tpu_torch.utils.telemetry.tracing` a key's
+    graph is another one, captured with device marks in it
+    (``chunk.start``, ``chunk.end`` and what the chunk marks:
+    :class:`~admmsolver_tpu_torch.utils.telemetry.Marks`); elsewhere the
+    graphs hold no event node."""
 
     def __init__(self, chunk=None) -> None:
         self.warm = False
         #: chunk key -> (graph, kernel launches of one replay)
         self.graphs: Dict = {}
-        #: host seconds of each key's capture
+        #: chunk key -> (graph, kernel launches, marks): the graphs with marks
+        self.marked: Dict = {}
+        #: host seconds of each key's last capture
         self.capture_s: Dict = {}
         self._chunk_fn = chunk
 
     def _chunk(self, key) -> None:
         self._chunk_fn(key)
 
+    def drop_graphs(self, *keys) -> None:
+        """Forget the graphs of ``keys`` (of every key without), marked or
+        not: they read or write buffers that changed."""
+        for table in (self.graphs, self.marked):
+            for key in keys or list(table):
+                table.pop(key, None)
+
     def _run_chunk(self, key, capture: bool, pool: Optional[_GraphPool]) -> None:
         """One chunk: with ``capture`` (and ``pool``) a replay of its graph,
         once the program is warm; else the chunk itself, from ``pool``
         where there is one and the program is warm."""
-        if not (capture and self.warm):
-            if pool is None:
-                self._chunk(key)
-            else:
-                with pool.allocating() if self.warm else pool.on_stream():
-                    self._chunk(key)
-            if capture:
-                # this key's graph, for the chunks after this one
+        with telemetry.span("admm.chunk", key=key):
+            if not (capture and self.warm):
+                with telemetry.span("admm.eager"):
+                    telemetry.count("eager_chunks")
+                    if pool is None:
+                        self._chunk(key)
+                    else:
+                        with pool.allocating() if self.warm else pool.on_stream():
+                            self._chunk(key)
+                if capture:
+                    # this key's graph, for the chunks after this one
+                    self._capture(key, pool)
+                self.warm = True
+                return
+            marked = telemetry.marking()
+            table = self.marked if marked else self.graphs
+            if key not in table:
                 self._capture(key, pool)
-            self.warm = True
-            return
-        if key not in self.graphs:
-            self._capture(key, pool)
-        graph, launches = self.graphs[key]
-        graph.replay()
-        for kernel, count in zip(_counted_kernels(), launches):
-            kernel.launches += count
+            graph, launches = table[key][:2]
+            if marked:
+                table[key][2].begin()
+            with telemetry.span("admm.replay"):
+                telemetry.count("replays")
+                graph.replay()
+            for kernel, count in zip(_counted_kernels(), launches):
+                kernel.launches += count
 
     def _capture(self, key, pool: _GraphPool) -> None:
         """Capture the chunk of ``key`` (nothing runs) into a graph of
-        ``pool``; a chunk that a graph cannot hold raises."""
+        ``pool``, with device marks inside :func:`~admmsolver_tpu_torch.
+        utils.telemetry.tracing`; a chunk that a graph cannot hold raises."""
         kernels = _counted_kernels()
         before = [kernel.launches for kernel in kernels]
         # torch.cuda.graph empties the allocator's cache as it enters; done
@@ -386,11 +417,19 @@ class _GraphProgram:
         reserved = torch.cuda.memory_reserved(pool.device)
         graph = torch.cuda.CUDAGraph()
         current = torch.cuda.current_stream(pool.device)
+        marks = (telemetry.Marks("chunks_timed", external=True, key=key)
+                 if telemetry.marking() else None)
         t0 = time.perf_counter()
         try:
-            with torch.cuda.device(pool.device), \
+            with telemetry.span("admm.capture", key=key), torch.cuda.device(pool.device), \
                     torch.cuda.graph(graph, pool=pool.mempool.id, stream=pool.stream):
-                self._chunk(key)
+                if marks is None:
+                    self._chunk(key)
+                else:
+                    marks.record("chunk.start")
+                    with telemetry.collecting(marks):
+                        self._chunk(key)
+                    marks.record("chunk.end")
         except BaseException:
             pool.end_failed_capture()
             raise
@@ -400,9 +439,14 @@ class _GraphProgram:
                 kernel.launches = b
             # a capture that fails leaves its stream current
             torch.cuda.set_stream(current)
-        self.capture_s[key] = time.perf_counter() - t0
+        seconds = self.capture_s[key] = time.perf_counter() - t0
+        telemetry.count("captures")
+        telemetry.count("capture_s", seconds)
         pool.bytes += torch.cuda.memory_reserved(pool.device) - reserved
-        self.graphs[key] = (graph, launches)
+        if marks is None:
+            self.graphs[key] = (graph, launches)
+        else:
+            self.marked[key] = (graph, launches, marks)
 
 
 class _ChunkProgram(_GraphProgram):
@@ -464,7 +508,7 @@ class _ChunkProgram(_GraphProgram):
             self.pbuf, self.dbuf = (torch.full((self.pbuf.shape[0], hist), float("nan"),
                                                dtype=self.pbuf.dtype, device=self.pbuf.device)
                                     for _ in range(2))
-            self.graphs.clear()
+            self.drop_graphs()
 
     def _chunk(self, n: int) -> None:
         """Refactor from mu, then ``n`` iterations, their results copied
@@ -523,6 +567,7 @@ class _ChunkProgram(_GraphProgram):
         return self.x + self.h + (self.mu, self.done, self.count, self.pbuf, self.dbuf) + tuple(
             t for k, name in self._fields for t in _leaves(getattr(self.functions[k], name)))
 
+    @telemetry.spanned("admm.result")
     def result(self) -> "BatchResult":
         """The solve's result, copied out of the buffers that the next solve
         overwrites."""
@@ -621,6 +666,7 @@ class _FedProgram(_ChunkProgram):
                     free.remove(t)
                     break
 
+    @telemetry.spanned("admm.load")
     def load(self, tols, stacks: Optional[Dict] = None, seed=(), done=None,
              hist: Optional[int] = None) -> None:
         """A solve's tolerances and (where given) its stacked overrides and
@@ -770,14 +816,21 @@ class _Composite:
     looked up at each pass; else a call such as a fused solver's
     schedule), as many passes as :attr:`repeats` says.  The failure flags
     of the stages' factorizations are read once, after the last stage: at
-    rtol = atol = 0 the composite's one host read before its result."""
+    rtol = atol = 0 the composite's one host read before its result.
 
-    def __init__(self, stages) -> None:
+    With the telemetry switch on, each stage's passes are an ``admm.stage``
+    span (attribute ``label``), and on a CUDA device an event is recorded
+    on the stream before each stage and after the last (:class:`~admmsolver_
+    tpu_torch.utils.telemetry.Marks`): the stages' stream time."""
+
+    def __init__(self, stages, device: torch.device) -> None:
         #: (label of the stage's graph keys, program, one pass: fn(capture,
         #: pool) or None)
         self.stages = stages
         #: passes of each stage in a run
         self.repeats = [1] * len(stages)
+        self.device = device
+        self._marks: Optional[telemetry.Marks] = None
 
     @property
     def capture_s(self) -> Dict:
@@ -790,12 +843,28 @@ class _Composite:
 
     def run(self, captures, pool: Optional[_GraphPool]) -> None:
         """Every stage's passes, each captured where ``captures`` says."""
-        for (_, program, step), n, capture in zip(self.stages, self.repeats, captures):
-            for _ in range(n):
-                (step or program.run_group)(capture, pool)
+        marks = self._stage_marks()
+        for (label, program, step), n, capture in zip(self.stages, self.repeats, captures):
+            with telemetry.span("admm.stage", label=label):
+                if marks is not None:
+                    marks.record(label)
+                for _ in range(n):
+                    (step or program.run_group)(capture, pool)
+        if marks is not None:
+            marks.record("end")
         for _, program, _ in self.stages:
             if program.checks:
                 raise_if_not_pd(program.failed)
+
+    def _stage_marks(self) -> Optional[telemetry.Marks]:
+        """The stages' marks, opened for this run, with the switch on and on
+        a CUDA device; else None."""
+        if not (telemetry.enabled() and self.device.type == "cuda"):
+            return None
+        if self._marks is None:
+            self._marks = telemetry.Marks("stages_timed", program=type(self).__name__)
+        self._marks.begin()
+        return self._marks
 
     def buffers(self) -> Tuple[torch.Tensor, ...]:
         """Every tensor the stages hold between solves, each once (a stage
@@ -847,7 +916,7 @@ class _GroupProgram(_Composite):
         self.groups = _phase_program(solver, cfg, _Feed(ov, seed, stacked, out=out,
                                                         warm=not stacked),
                                      dtype, tols, record, stride, chunked_checks)
-        super().__init__([("groups", self.groups, None)])
+        super().__init__([("groups", self.groups, None)], dev)
 
     def load(self, stacks: Dict, seed, tols) -> None:
         """A solve's stacks and seeds, its number of groups the stacks'."""
@@ -859,12 +928,12 @@ class _GroupProgram(_Composite):
             if feed.stacked:
                 feed.seed = tuple(map(grow, feed.seed))
             feed.out = tuple(map(grow, feed.out))
-            for key in ("entry", "exit"):
-                self.groups.graphs.pop(key, None)
+            self.groups.drop_graphs("entry", "exit")
             self.rows = G
         self.repeats = [G]
         self.groups.load(tols, stacks, seed)
 
+    @telemetry.spanned("admm.result")
     def result(self, n: int) -> "BatchResult":
         """The first ``n`` lanes of the output stacks, copied out."""
         flat = lambda a: a.reshape((-1,) + tuple(a.shape[2:]))[:n].clone()
@@ -893,7 +962,7 @@ class _MixedProgram(_Composite):
         high = _phase_program(solver, cfgs[1], _Feed(ov, low.x + low.h + (low.mu,)),
                               solver.dtype, tols[1], record, stride, chunked_checks)
         self.phases = (low, high)
-        super().__init__([("phase 1", low, None), ("phase 2", high, None)])
+        super().__init__([("phase 1", low, None), ("phase 2", high, None)], solver.device)
 
     def load(self, stacks: Dict, seed, tols) -> None:
         low, high = self.phases
@@ -901,6 +970,7 @@ class _MixedProgram(_Composite):
         # the second phase shares the stacks; its seeds are the first's state
         high.load(tols[1])
 
+    @telemetry.spanned("admm.result")
     def result(self) -> "BatchResult":
         low, high = self.phases
         joined = lambda name: torch.cat([getattr(p, name)[:, :p.hist] for p in self.phases], 1)
@@ -936,6 +1006,7 @@ class BatchedSolver:
     indices in ``lane_index``.
     """
 
+    @telemetry.spanned("admm.init")
     def __init__(self, model: Model, dtype=None, device="cuda", sharding=None) -> None:
         if not isinstance(model, Model):
             raise TypeError(f"expected a Model, got {type(model).__name__}")
@@ -1054,6 +1125,7 @@ class BatchedSolver:
                           fact_incr=float(fact_incr),
                           th_change=float(th_change), relax=float(relax))
 
+    @telemetry.spanned("admm.inputs")
     def _initial_state(self, B: int, dtype: torch.dtype, x0, h0, mu0, done0):
         """State tensors of a batch of ``B`` on the solver's device."""
         plan, dev = self.plan, self.device
@@ -1236,10 +1308,11 @@ class BatchedSolver:
         carry = (x, h, mu, None, torch.zeros(B, dtype=torch.bool, device=dev),
                  torch.zeros(B, dtype=torch.int32, device=dev), nan(), nan())
         feed = _Feed(slots, None, done=torch.zeros(B, dtype=torch.bool, device=dev), slots=True)
-        return _keep(self._programs, key, _FedProgram(
+        return _keep(self._programs, key, lambda: _FedProgram(
             self, cfg, feed, self._bound(slots), carry, tols, record, stride, chunked_checks,
             freeze))
 
+    @telemetry.spanned(telemetry.SOLVE)
     def solve(self,
               overrides: Optional[Dict] = None,
               batch_size: Optional[int] = None,
@@ -1313,6 +1386,7 @@ class BatchedSolver:
         return self._solve_lanes(B, cfg, overrides, dtype, x0, h0, mu0, done0,
                                  (rtol, atol), record, stride, bool(chunked_checks))
 
+    @telemetry.spanned(telemetry.SOLVE)
     def solve_path(self,
                    field: Tuple[int, str],
                    values,
@@ -1434,13 +1508,14 @@ class BatchedSolver:
                tols[0] > 0 or tols[1] > 0, _route_switches())
         program = self._programs.get(key)
         if program is None:
-            program = _keep(self._programs, key, _GroupProgram(
+            program = _keep(self._programs, key, lambda: _GroupProgram(
                 self, cfg, stacks, seed, stacked, tols, record, stride, bool(chunked_checks),
                 dtype))
         program.load(stacks, seed, tols)
         program.run((capture,), pool)
         return program
 
+    @telemetry.spanned(telemetry.SOLVE)
     def solve_scan(self,
                    overrides: Dict,
                    group_size: int = 1,
@@ -1517,6 +1592,7 @@ class BatchedSolver:
         return self._groups("scan", cfg, stacks, tuple(map(stack, x + h + (mu,))), True, tols,
                             record, stride, chunked_checks, self.dtype).result(B)
 
+    @telemetry.spanned(telemetry.SOLVE)
     def solve_resumable(self,
                         path: str,
                         overrides: Optional[Dict] = None,
@@ -1583,6 +1659,7 @@ class BatchedSolver:
             res = load_batch_result(path, device=self.device)
         return self._local(res, B)
 
+    @telemetry.spanned(telemetry.SOLVE)
     def solve_mixed(self,
                     overrides: Optional[Dict] = None,
                     niter_low: int = 2000,
@@ -1693,7 +1770,7 @@ class BatchedSolver:
                tuple(r > 0 or a > 0 for r, a in tols), _route_switches())
         program = self._programs.get(key)
         if program is None:
-            program = _keep(self._programs, key, _MixedProgram(
+            program = _keep(self._programs, key, lambda: _MixedProgram(
                 self, cfgs, stacks, x + h + (mu,), tols, low, record, stride,
                 bool(chunked_checks)))
         program.load(stacks, x + h + (mu,), tols)

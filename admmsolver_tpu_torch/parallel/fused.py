@@ -139,8 +139,9 @@ class _FusedProgram(batch._GraphProgram):
             self.pbuf, self.dbuf = (torch.full((nchunks, t.shape[1]), float("nan"),
                                                dtype=t.dtype, device=t.device)
                                     for t in (self.pbuf, self.dbuf))
-            self.graphs.clear()
+            self.drop_graphs()
 
+    @telemetry.spanned("admm.load")
     def load(self, state, inputs, knobs, nchunks: int) -> None:
         """A solve's initial state, inputs and knobs into the buffers, and
         its number of chunks."""
@@ -231,7 +232,7 @@ class _FusedSolverBase:
         capture = self._captures()
         program = self._programs.get(key)
         if program is None:
-            program = batch._keep(self._programs, key, _FusedProgram(
+            program = batch._keep(self._programs, key, lambda: _FusedProgram(
                 self._step, state, inputs, nchunks, prologue))
         program.reserve(nchunks)
         program.load(state, inputs, knobs, nchunks)
@@ -260,6 +261,7 @@ class FusedTwoBlockSolver(_FusedSolverBase):
     the JAX solver does.
     """
 
+    @telemetry.spanned("admm.init")
     def __init__(self, model: Model, tile_b: int = 128, device="cuda") -> None:
         if model.num_func != 2:
             raise ValueError("fused path covers 2-block models")
@@ -364,6 +366,7 @@ class FusedTwoBlockSolver(_FusedSolverBase):
         count = count + active.to(count.dtype) * n_iters
         return (x0n, x1n, hn, mu, done_new, count), (pn, dn)
 
+    @telemetry.spanned(telemetry.SOLVE)
     def solve(self,
               overrides: Optional[Dict] = None,
               batch_size: Optional[int] = None,
@@ -388,9 +391,30 @@ class FusedTwoBlockSolver(_FusedSolverBase):
             B = batch_size
         if B is None:
             raise ValueError("pass overrides or batch_size")
+        Bp = ((B + self.tile_b - 1) // self.tile_b) * self.tile_b
+        state, inputs = self._kernel_inputs(overrides, B, Bp, mu0, x0, x1, h0, done0)
+        interval, niter = int(interval_update_mu), int(niter)
+        can_finish = rtol > 0 or atol > 0
+        program = self._run((interval, Bp, str(self.device), can_finish), state, inputs,
+                            (rtol, atol, fact_incr, th_change, max_mu),
+                            niter, interval, can_finish, done0 is not None)
+        x0f, x1f, hf, muf, done, count = program.state
+        # copies: the next solve overwrites the buffers
+        with telemetry.span("admm.result"):
+            primal, dual = program.histories(B)
+            return FusedResult(
+                x0=x0f[:B].clone(), x1=x1f[:B].clone(), h=hf[:B].clone(),
+                mu=muf[:B, 0].clone(), iterations=torch.clamp_max(count[:B], niter),
+                converged=done[:B].clone(), primal_residual=primal, dual_residual=dual)
+
+    @telemetry.spanned("admm.inputs")
+    def _kernel_inputs(self, overrides: Dict, B: int, Bp: int, mu0, x0, x1, h0, done0):
+        """The initial state (x0, x1, h, mu, done, count) and the inputs (the
+        lanes' A†y scaled by their weight, both weights) of a batch of B
+        lanes padded to Bp: padding lanes copy lane 0's data and start
+        done."""
         dev = self.device
         f32 = dict(dtype=torch.float32, device=dev)
-        Bp = ((B + self.tile_b - 1) // self.tile_b) * self.tile_b
 
         def pad_first(a):
             # padding lanes copy lane 0's data; they start done
@@ -437,15 +461,4 @@ class FusedTwoBlockSolver(_FusedSolverBase):
         # padding lanes start done: they never iterate
         d0 = torch.cat([d0, torch.ones(Bp - B, dtype=torch.bool, device=dev)])
         state = (x0a, x1a, ha, mu, d0, torch.zeros(Bp, dtype=torch.int32, device=dev))
-        interval, niter = int(interval_update_mu), int(niter)
-        can_finish = rtol > 0 or atol > 0
-        program = self._run((interval, Bp, str(dev), can_finish), state,
-                            (acy, alpha_ls, alpha1), (rtol, atol, fact_incr, th_change, max_mu),
-                            niter, interval, can_finish, done0 is not None)
-        x0f, x1f, hf, muf, done, count = program.state
-        primal, dual = program.histories(B)
-        # copies: the next solve overwrites the buffers
-        return FusedResult(
-            x0=x0f[:B].clone(), x1=x1f[:B].clone(), h=hf[:B].clone(), mu=muf[:B, 0].clone(),
-            iterations=torch.clamp_max(count[:B], niter), converged=done[:B].clone(),
-            primal_residual=primal, dual_residual=dual)
+        return state, (acy, alpha_ls, alpha1)

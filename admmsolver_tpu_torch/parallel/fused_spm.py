@@ -43,6 +43,7 @@ from ..models.objectivefunc import (ConstrainedLeastSquares, L1Regularizer,
                                     LeastSquares, NonNegativePenalty, inv_hpd)
 from ..models.problem import Model
 from ..ops import kernels
+from ..utils import telemetry
 from . import batch
 from .batch import BatchedSolver, BatchResult
 from .fused import _check_fused_overrides, _FusedProgram, _FusedSolverBase, _is_identity_si
@@ -91,6 +92,7 @@ class FusedSpMSolver(_FusedSolverBase):
     no padding.
     """
 
+    @telemetry.spanned("admm.init")
     def __init__(self, model: Model, tile_b: int = 256, device="cuda") -> None:
         if int(tile_b) < 1:
             raise ValueError(f"tile_b must be positive, got {tile_b}")
@@ -170,9 +172,11 @@ class FusedSpMSolver(_FusedSolverBase):
         mu1, mu2 = mu[:, 0], mu[:, 1]
 
         M, b2 = self._factors(mu1, mu2, alpha_ls, acy)
+        telemetry.mark("refresh.end")
         thr = (0.5 * alpha1 / mu1)[:, None]
         x0n, x1n, x2n, h10n, h20n, x0p = kernels.fused_spm_chunk(
             self.P, M, b2, mu, thr, x0, x1, x2, h10, h20, n_iters=n_iters)
+        telemetry.mark("kernel.end")
         active = ~done
         am = active[:, None]
         x0n = torch.where(am, x0n, x0)
@@ -214,6 +218,7 @@ class FusedSpMSolver(_FusedSolverBase):
         count = count + active.to(count.dtype) * n_iters
         return (x0n, x1n, x2n, h10n, h20n, mu, done_new, count), (pn, dn)
 
+    @telemetry.spanned("admm.inputs")
     def _kernel_inputs(self, overrides: Dict, B: int, mu0, done0):
         """The kernel phase's initial state (five blocks, mu, done, count),
         its inputs (the lanes' data, whose A†y the program's first chunk
@@ -244,6 +249,7 @@ class FusedSpMSolver(_FusedSolverBase):
                  torch.zeros(B, dtype=torch.int32, device=dev))
         return state, (first, alpha_ls, alpha1), has_y
 
+    @telemetry.spanned(telemetry.SOLVE)
     def solve(self,
               overrides: Optional[Dict] = None,
               batch_size: Optional[int] = None,
@@ -273,13 +279,15 @@ class FusedSpMSolver(_FusedSolverBase):
                             can_finish, done0 is not None,
                             prologue=self._acy_of if has_y else None)
         # copies: the next solve overwrites the buffers
-        x0, x1, x2, h10, h20, mu, done, count = (t.clone() for t in program.state)
-        primal, dual = program.histories(B)
+        with telemetry.span("admm.result"):
+            x0, x1, x2, h10, h20, mu, done, count = (t.clone() for t in program.state)
+            primal, dual = program.histories(B)
         return FusedSpMResult(
             x=(x0, x1, x2), h=(h10, h20), mu=mu,
             iterations=torch.clamp_max(count, niter), converged=done,
             primal_residual=primal, dual_residual=dual)
 
+    @telemetry.spanned(telemetry.SOLVE)
     def solve_mixed(self,
                     overrides: Optional[Dict] = None,
                     niter_low: int = 2000,
@@ -371,7 +379,7 @@ class FusedSpMSolver(_FusedSolverBase):
                batch._route_switches())
         program = self._programs.get(key)
         if program is None:
-            program = batch._keep(self._programs, key, _MixedProgram(
+            program = batch._keep(self._programs, key, lambda: _MixedProgram(
                 self, bs, state, inputs, niter_low, interval, finish[0], has_y, stacks,
                 done0 is not None, cfg, tols, record, stride, bool(chunked_checks)))
         program.load(state, inputs, (0.0, low_atol, fact_incr, th_change, max_mu), stacks,
@@ -408,7 +416,7 @@ class _MixedProgram(batch._Composite):
         schedule = lambda capture, pool: self.kernel.run_schedule(
             niter_low, interval, can_finish, False, capture, pool, "FusedSpMSolver")
         super().__init__([("kernel phase", self.kernel, schedule),
-                          ("polish", self.polish, None)])
+                          ("polish", self.polish, None)], solver.device)
 
     def load(self, state, inputs, knobs, stacks: Dict, tols) -> None:
         self.kernel.load(state, inputs, knobs, self.nchunks)
@@ -416,6 +424,7 @@ class _MixedProgram(batch._Composite):
             self.polish.feed.done.copy_(state[6])
         self.polish.load(tols, stacks)
 
+    @telemetry.spanned("admm.result")
     def result(self, niter_low: int) -> BatchResult:
         p = self.polish
         return BatchResult(x=tuple(map(torch.clone, p.x)), h=tuple(map(torch.clone, p.h)),

@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops.linop import _asarray
+from ..utils import telemetry
 from . import batch
 from .mesh import Mesh
 
@@ -205,6 +206,7 @@ class LargeNTwoBlockSolver:
     so no rank holds an (N, N) matrix or all of ``U``.
     """
 
+    @telemetry.spanned("admm.init")
     def __init__(self, A, mesh: Mesh, prox: str = "l1",
                  alpha_ls: float = 1.0, alpha1: float = 0.1,
                  axis_name: Optional[str] = None) -> None:
@@ -273,6 +275,7 @@ class LargeNTwoBlockSolver:
         return (batch.CAPTURE_CHUNKS and self.mesh.device.type == "cuda"
                 and (group is None or dist.get_backend(group) == "nccl"))
 
+    @telemetry.spanned(telemetry.SOLVE)
     def solve(self, y, niter: int = 10000, mu0: float = 1.0,
               rtol: float = 1e-12, atol: float = 0.0,
               interval_update_mu: int = 100) -> LargeNResult:
@@ -298,7 +301,7 @@ class LargeNTwoBlockSolver:
         program = self._programs.get((niter, interval))
         if program is None:
             program = batch._keep(self._programs, (niter, interval),
-                                  _LargeNProgram(self, niter, interval))
+                                  lambda: _LargeNProgram(self, niter, interval))
         program.load(acy, mu0, (rtol, atol))
         del acy
         capture = self.captures

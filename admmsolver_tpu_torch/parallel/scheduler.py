@@ -29,6 +29,7 @@ import torch
 
 from ..models.objectivefunc import raise_if_not_pd
 from ..ops.linop import _real_dtype
+from ..utils import telemetry
 from . import batch
 from .batch import BatchedSolver, _cast_like
 
@@ -77,6 +78,7 @@ class ScenarioScheduler:
         solve_kw.setdefault("recipe", "plain")
         self.solve_kw = solve_kw
 
+    @telemetry.spanned(telemetry.SOLVE)
     def run(self, scenarios: Iterable[Dict]) -> List[ScenarioResult]:
         """Drain a (possibly lazy) stream: one ``BatchedSolver.solve`` per
         wave, with the lane state mirrored on the host in between."""
@@ -159,6 +161,7 @@ class ScenarioScheduler:
         results.sort(key=lambda r: r.scenario_id)
         return results
 
+    @telemetry.spanned(telemetry.SOLVE)
     def run_compiled(self, scenarios: Iterable[Dict]) -> List[ScenarioResult]:
         """Drain a materialized stream with the lane state kept on the device.
 
@@ -231,7 +234,7 @@ class ScenarioScheduler:
         if program is None:
             for other in [k for k, p in solver._programs.items() if isinstance(p, _WaveProgram)]:
                 del solver._programs[other]
-            program = batch._keep(solver._programs, key, _WaveProgram(
+            program = batch._keep(solver._programs, key, lambda: _WaveProgram(
                 solver, cfg, stacks, S, self.B, self.niter_max, tols))
         return program
 
@@ -334,14 +337,17 @@ class _WaveProgram(batch._FedProgram):
         the wave's one host read of the harvested count, which also takes
         the failure flag of the factorizations (raised here)."""
         self.run_group(capture, pool)
-        harvested, failures = torch.stack(
-            [self.harvested, self.failed.to(torch.int64)]).tolist()
+        with telemetry.span("admm.flags_read"):
+            telemetry.count("flag_reads")
+            harvested, failures = torch.stack(
+                [self.harvested, self.failed.to(torch.int64)]).tolist()
         raise_if_not_pd(failures > 0)
         return harvested >= self.S
 
     def buffers(self) -> Tuple[torch.Tensor, ...]:
         return super().buffers() + (self.sid, self.iters, self.nxt, self.harvested, self.mu0)
 
+    @telemetry.spanned("admm.result")
     def results(self) -> List[ScenarioResult]:
         """Every scenario's result, from the outputs in one copy each."""
         S, nx = self.S, len(self.x)
