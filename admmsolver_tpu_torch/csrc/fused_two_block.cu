@@ -14,10 +14,12 @@
 // and returns (x0, x1, h, x0_prev), x0_prev being the x0 the last
 // iteration started from.
 //
-// Two kernels compute it; the wrapper (ops/kernels.py, _two_block_tiling)
-// takes the tensor-core kernel wherever a block can hold 32 lanes and the
-// FMA kernel otherwise.  Both are full f32 in meaning: plain TF32 keeps
-// ~1e-3 relative accuracy, which corrupts the shifted-quadratic solve.
+// Three kernels compute it; the wrapper (ops/kernels.py, _two_block_tiling)
+// takes the wgmma kernel for a thin basis (R <= 128, the last section of
+// this file), the mma.sync tensor-core kernel wherever else a block can
+// hold 32 lanes and the FMA kernel otherwise.  All are full f32 in meaning:
+// plain TF32 keeps ~1e-3 relative accuracy, which corrupts the
+// shifted-quadratic solve.
 //
 // What bounds them on this card (NVIDIA H100 80GB HBM3, 700 W; times per
 // 100 iterations at B=4096, N=512, R=256 from `chip_smoke.py --variants`):
@@ -74,12 +76,45 @@
 //    stages with plain loads instead of bulk copies, and there is no
 //    cluster.
 //
+// The wgmma kernel (thin basis, R <= 128; the last section of this file)
+// replaces, for that shape, the same TPU kernel (admmsolver_tpu/ops/
+// kernels.py `fused_two_block_chunk`), which the mma.sync kernel above
+// served at every R.  At the benchmark's shape (B = 4096, N = 1000,
+// R = 100) what bounds it on this card, per 100-iteration chunk:
+//  * The tensor rate of the three products: 3 x 4 B N R multiply-adds with
+//    R padded to 128 rows in product 1 and K = R padded to 104 in product
+//    2, at the dense TF32 rate, ~1.2 ms (`wgmma.m64n32k8` with A from
+//    registers runs at 17 clocks an instruction, ~90% of that rate, in a
+//    kernel that does nothing else).  The design puts the basis on the
+//    64-row side of each product, so that R = 100 fills 78% of the rows
+//    where the mma.sync kernel left over half its warps without columns,
+//    and splits the basis into head and tail in registers.
+//  * The L2 stream of the basis: every block reads U and Ut once an
+//    iteration, 1 MB with the padding, ~1.1 ms at the 11.6 TB/s measured
+//    below.  The design moves each 8 KB tile with one TMA copy from a
+//    producer warp, 3 tiles ahead (a pair multicast, or starting each
+//    block's walk over the tiles at another place, measured no gain here).
+//  * Neither is what it meets: it takes 6.0-6.2 ms against the mma.sync
+//    kernel's 10.7 in the same calls (H100 80GB HBM3, 700 W).  Its two
+//    consumer warpgroups (two warps to a scheduler, 240 registers a
+//    thread) spend most of a chunk on each atom's own latency (wait for
+//    the tile, load and split its operands, the products, the rounded add
+//    that restarts the head chain every 32 steps of k) and on the
+//    epilogues (removing the prox arithmetic alone saves 0.8 ms); the
+//    products add 2.3 ms to the 3.7 ms the kernel takes without them.
+//    Taking turns at the epilogues gains 4%, a tile's h and acy fetched a
+//    tile ahead and moved as float4s a few %; deeper pipelining (two atoms
+//    in flight) needs registers the warpgroups do not have and spills.
+//
 // Within a kernel the order of every sum is fixed, whatever TB, KT, the
 // stage count and the cluster size: all tilings of one kernel give the
-// same bits, and the two kernels differ by rounding only.
+// same bits, and the kernels differ by rounding only.  Nor does a lane's
+// place in the batch change a bit: every block walks its tiles in one order.
 //
 // Plain C interface, loaded with ctypes (admmsolver_tpu_torch/ops/_build.py).
 
+#include <cuda.h>           // CUtensorMap and its enums (types only)
+#include <cudaTypedefs.h>   // PFN_cuTensorMapEncodeTiled, taken from the driver at run time
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -956,6 +991,623 @@ __global__ void __launch_bounds__(TC_THREADS, 1) fused_two_block_tc_kernel(
   }
 }
 
+// ---------------------------------------------------------------------
+// The thin-basis kernel (R <= 128) on wgmma, with the basis streamed by
+// TMA.  Both products have the shared basis on the 64-row side of
+// `wgmma.m64n32k8` (TF32) and the block's 32 lanes on its N = 32 side:
+//
+//     product 1, (v U)ᵀ = Ut · vᵀ:  M = R (one or two 64-row tiles), K = N
+//     product 2, x0ᵀ = U · wᵀ:      M = N (64-row tiles), K = R
+//
+// so no warp idles because R is small (R = 100 computes 128 rows, 22%
+// padding).  A block is two consumer warpgroups and a producer warpgroup
+// (its first two warps load, one ring each; setmaxnreg gives the consumers
+// 240 registers).  Warpgroup g takes the 64-row tiles m = g, g + 2, ... of
+// product 2 in ascending order, the same in every block, so that product
+// 1's partial sums are added in one order and a lane's bits do not depend
+// on its place in the batch (starting each block at another tile, to
+// spread the blocks' copies over L2, measured no faster); each tile's
+// epilogue (prox, dual ascent, the next v) writes the tile's 64 columns of
+// v, and the same warpgroup then runs product 1's share of the next
+// iteration over those 64 steps of k, into a partial (vU)ᵀ that the two
+// warpgroups add at the iteration's end (w = (vU)·dinv).  So v is read by
+// product 1 as it is produced, and the tiles of U and Ut alternate in one
+// ring per warpgroup.  The two warpgroups take turns at their epilogues,
+// so that one's arithmetic runs beside the other's products.
+//
+// Split TF32 (three products, f32 sums): the basis tile (the A operand) is
+// loaded from shared memory into registers and split there into head
+// (rounded to TF32) and tail, so U and Ut are streamed once, as they are.
+// The lanes' operand (B, from shared memory) is v itself, which the tensor
+// core cuts to TF32 by truncation, beside its tail v - trunc(v) rounded to
+// TF32, which the epilogue writes into a two-atom slice that product 1
+// reads right after; likewise w and its tail.  A product is then
+// A_hi·B + A_hi·B_lo + A_lo·B.  The head·head chain restarts every 32 steps
+// of k (an atom, a 128-byte row of fp32) and is added to the f32 sum by a
+// rounded add; the tails' chain runs through the product and is added
+// last, as in the kernel above.  Every A operand of an atom is made ready
+// before its products are issued: left to itself the compiler computes one
+// between two products in a register a product still reads, and then has
+// every product wait for the one before it (3x slower).
+//
+// Shared memory (a 1024-byte aligned base): v, 32 lanes by N rounded up to
+// 64, in 128-byte-swizzled atoms of 32 k (the wgmma B layout: lane rows
+// 128 bytes apart, 16-byte chunks XOR-ed with the lane); w and its tail
+// (R rounded up to 32); each warpgroup's tail slice (two atoms), which also
+// takes the accumulator tile on its way into the epilogue and the partial
+// (vU)ᵀ on its way to the other warpgroup; and one ring of `stages` 8 KB
+// stages per warpgroup, each a 64-row, 32-column tile of U or Ut as TMA
+// lays it out with 128-byte swizzle.  h stays in its output array (through
+// L2), as in the kernel above; the epilogue reads and writes it, acy and
+// the outputs as float4 runs of one lane, h and acy a tile ahead.
+// ---------------------------------------------------------------------
+
+constexpr int WG_TB = 32;
+constexpr int WG_CONSUMERS = 256;            // two consumer warpgroups
+constexpr int WG_THREADS = WG_CONSUMERS + 128;  // and a producer warpgroup (one warp loads)
+constexpr int WG_PRODUCER_REGS = 24, WG_CONSUMER_REGS = 240;
+constexpr int WG_ATOM = WG_TB * 32;          // floats of a lane-operand atom: 32 lanes x 32 k
+constexpr int WG_TILE = 64 * 32;             // floats of a ring stage: 64 rows x 32 k
+constexpr int WG_MAX_R = 128;
+
+size_t smem_bytes_wg(int n, int r, int stages) {
+  const size_t atoms = 2 * (size_t)((n + 63) / 64) + 2 * (size_t)((r + 31) / 32) + 4;
+  return 1024 + sizeof(float) * (atoms * WG_ATOM + 2 * (size_t)stages * WG_TILE + 3 * WG_TB) +
+         (size_t)32 * stages;
+}
+
+// Offset in floats of (row, k) in a 128-byte-swizzled tile of 32-float rows.
+__host__ __device__ constexpr int sw128(int row, int k) {
+  return row * 32 + ((((k >> 2) ^ row) & 7) << 2) + (k & 3);
+}
+
+// Lane `b`, step `k` of a lane operand held in atoms of 32 k.
+__host__ __device__ constexpr int wg_at(int b, int k) { return (k >> 5) * WG_ATOM + sw128(b, k & 31); }
+
+// v - trunc(v), rounded to TF32: the tail the tensor core adds to v cut to TF32.
+__device__ __forceinline__ float tf32_tail(float x) {
+  const float head = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+  return __uint_as_float(tf32_big(x - head));
+}
+
+// wgmma descriptor of a K-major operand at `p` in the 128-byte-swizzled
+// layout: 8-row groups 1024 bytes apart (leading offset unused, 1).
+__device__ __forceinline__ uint64_t wg_desc(const float* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Pins the order of register reads and writes against the asynchronous wgmma.
+__device__ __forceinline__ void wg_pin(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+
+// d = a·B (ACC = 0) or d += a·B, a 64 x 8 TF32 from registers, B 8 x 32 at `desc`.
+template <int ACC>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(ACC));
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int x, int y,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+// mbar_wait that traps after ~2^34 clocks (seconds): a pipeline that can
+// never complete fails its launch instead of holding the card.
+__device__ __forceinline__ void wg_mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+template <int ID, int COUNT>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, %1;" ::"n"(ID), "n"(COUNT) : "memory");
+}
+
+// A warpgroup's tiles m = wg, wg + 2, ... of product 2, in the order it
+// takes them (ascending, in every block): T of them, k = T being the first
+// again (the next iteration's, whose h and acy are fetched a tile ahead).
+struct WgOrder {
+  int wg, T;
+  __device__ WgOrder(int wg_, int MT) : wg(wg_), T((MT - wg_ + 1) / 2) {}
+  __device__ __forceinline__ int tile(int k) const { return wg + 2 * (k % T); }
+};
+
+// Producer warp of a ring: the ring's next tile (at column x, row y of Ut
+// or U) into its next stage once the consumers are done with it.  With
+// bulk copies one TMA copy by lane 0 (128-byte swizzle, zeros past the
+// edges); otherwise the warp loads the tile into the same layout.
+__device__ __forceinline__ void wg_put(const CUtensorMap* map, const float* __restrict__ src,
+                                       int rows, int cols, int x, int y, bool bulk,
+                                       float* ring_s, Ring& ring, int lane) {
+  wg_mbar_wait(ring.empty(), ring.phase ^ 1);
+  float* dst = ring_s + ring.stage * WG_TILE;
+  if (bulk) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(ring.full(), (uint32_t)(WG_TILE * 4));
+      tma_load(smem_u32(dst), map, x, y, ring.full());
+    }
+  } else {
+#pragma unroll 4
+    for (int row = 0; row < 64; ++row) {
+      const int r = y + row;
+      dst[sw128(row, lane)] =
+          (r < rows && x + lane < cols) ? __ldg(src + (size_t)r * cols + x + lane) : 0.f;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(ring.full());
+  }
+  ring.advance();
+}
+
+// Consumer warpgroup: one atom (NS <= 4 steps of 8 k) of the tile in the
+// ring's next stage times the lane operand B (v or w, cut to TF32 by the
+// tensor core) at `bhi` and its tail at `blo`.  This thread loads its
+// fragments of the tile (rows 16 warp + g and + 8, columns t and t + 4 of
+// each step; `arow` = its offset of row 16 warp + g, column t) and splits
+// them into head (rounded to TF32) and tail, the last two steps' while the
+// first two steps' products run; each warp hands the stage back once its
+// products are issued.  The chain A_hi·B starts at the atom and is added to
+// `acc` by rounded f32 adds; A_hi·B_lo + A_lo·B goes on in `small` (started
+// where FIRST).  Every operand is made ready before its products are
+// issued: left to itself the compiler computes one between two products,
+// in a register a product still reads, and then has every product wait for
+// the one before it (3x slower).
+template <int NS, int FIRST>
+__device__ __forceinline__ void wg_atom(float (&acc)[16], float (&small)[16],
+                                        const float* __restrict__ ring_s, Ring& ring, int arow,
+                                        int g, uint64_t bhi, uint64_t blo, int lane) {
+  constexpr int H = NS < 2 ? NS : 2;
+  wg_mbar_wait(ring.full(), ring.phase);
+  const float* A = ring_s + ring.stage * WG_TILE;
+  uint32_t hi[NS][4], lo[NS][4];
+  float big[16];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int s0 = half ? H : 0, s1 = half ? NS : H;
+    if (s0 == s1) break;
+    float x[NS][4];
+#pragma unroll
+    for (int s = s0; s < s1; ++s) {
+      const int c0 = ((2 * s) ^ g) << 2, c1 = ((2 * s + 1) ^ g) << 2;
+      x[s][0] = A[arow + c0];
+      x[s][1] = A[arow + 256 + c0];
+      x[s][2] = A[arow + c1];
+      x[s][3] = A[arow + 256 + c1];
+    }
+#pragma unroll
+    for (int s = s0; s < s1; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        hi[s][i] = tf32_big(x[s][i]);
+        lo[s][i] = __float_as_uint(x[s][i] - __uint_as_float(hi[s][i]));
+        asm volatile("" : "+r"(hi[s][i]), "+r"(lo[s][i])::"memory");
+      }
+    if (half == 0) wg_pin(small);
+    wg_fence();
+#pragma unroll
+    for (int s = s0; s < s1; ++s) {
+      if (s == 0) {
+        wgmma_tf32<0>(big, hi[0], bhi);
+        wgmma_tf32<1 - FIRST>(small, hi[0], blo);
+      } else {
+        wgmma_tf32<1>(big, hi[s], bhi + 2 * s);
+        wgmma_tf32<1>(small, hi[s], blo + 2 * s);
+      }
+      wgmma_tf32<1>(small, lo[s], bhi + 2 * s);
+    }
+    wg_commit();
+  }
+  __syncwarp();
+  if (lane == 0) mbar_arrive(ring.empty());
+  ring.advance();
+  wg_wait_all();
+  wg_pin(big);
+  wg_pin(small);
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] += big[i];
+}
+
+// An atom of `ns` steps (1..4).
+template <int FIRST>
+__device__ __forceinline__ void wg_atom_n(int ns, float (&acc)[16], float (&small)[16],
+                                          const float* ring_s, Ring& ring, int arow, int g,
+                                          uint64_t bhi, uint64_t blo, int lane) {
+  if (ns >= 4) wg_atom<4, FIRST>(acc, small, ring_s, ring, arow, g, bhi, blo, lane);
+  else if (ns == 3) wg_atom<3, FIRST>(acc, small, ring_s, ring, arow, g, bhi, blo, lane);
+  else if (ns == 2) wg_atom<2, FIRST>(acc, small, ring_s, ring, arow, g, bhi, blo, lane);
+  else wg_atom<1, FIRST>(acc, small, ring_s, ring, arow, g, bhi, blo, lane);
+}
+
+// The atoms a < na of one accumulator tile's sum over K (the lane operand
+// of atom a at `desc(a, bhi, blo)`), the tail chain added last.
+template <class Desc>
+__device__ __forceinline__ void wg_sum(float (&acc)[16], int na, int K, const float* ring_s,
+                                       Ring& ring, int arow, int g, int lane, Desc desc) {
+  float small[16];
+  for (int a = 0; a < na; ++a) {
+    uint64_t bhi, blo;
+    desc(a, bhi, blo);
+    const int ns = min(4, (K - 32 * a + 7) / 8);
+    if (a == 0) wg_atom_n<1>(ns, acc, small, ring_s, ring, arow, g, bhi, blo, lane);
+    else wg_atom_n<0>(ns, acc, small, ring_s, ring, arow, g, bhi, blo, lane);
+  }
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] += small[i];
+}
+
+// Product 1's share of tile m's 64 columns of v (written just before, its
+// tail in `lo`): p1[rt] += Ut[64 rt.., 64 m..] · v[.., 64 m..]ᵀ.
+__device__ __forceinline__ void wg_product1(float (&p1)[2][16], int m, int N, int RT,
+                                            const float* v_s, const float* lo,
+                                            const float* ring_s, Ring& ring, int arow, int g,
+                                            int lane) {
+  const int nk = min(2, (N - 64 * m + 31) / 32);
+  auto desc = [&](int j, uint64_t& bhi, uint64_t& blo) {
+    bhi = wg_desc(v_s + (2 * m + j) * WG_ATOM);
+    blo = wg_desc(lo + j * WG_ATOM);
+  };
+  wg_sum(p1[0], nk, N - 64 * m, ring_s, ring, arow, g, lane, desc);
+  if (RT > 1) wg_sum(p1[1], nk, N - 64 * m, ring_s, ring, arow, g, lane, desc);
+}
+
+// h and acy of tile m's elements of this thread, lane `L` and the four
+// columns 64 m + 4 q + 16 i + (0..3) for i < 4, from L2: as float4 where
+// `vec` (rows 16-byte aligned), else one by one.
+__device__ __forceinline__ void wg_fetch(float4 (&hv)[4], float4 (&av)[4], const float* ho,
+                                         const float* __restrict__ acy, int m, int q, int b,
+                                         int B, int N, bool vec) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = 64 * m + 4 * q + 16 * i;
+    const size_t gi = (size_t)b * N + n;
+    if (b < B && n < N && vec) {
+      hv[i] = __ldcs(reinterpret_cast<const float4*>(ho + gi));
+      av[i] = __ldcs(reinterpret_cast<const float4*>(acy + gi));
+    } else {
+      float h4[4], a4[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = b < B && n + j < N;
+        h4[j] = ok ? __ldcg(ho + gi + j) : 0.f;
+        a4[j] = ok ? __ldg(acy + gi + j) : 0.f;
+      }
+      hv[i] = make_float4(h4[0], h4[1], h4[2], h4[3]);
+      av[i] = make_float4(a4[0], a4[1], a4[2], a4[3]);
+    }
+  }
+}
+
+// Stores four consecutive columns from n of row `p` (n and the row start
+// 16-byte aligned where `vec`), none at or past `N`.
+__device__ __forceinline__ void wg_store4(float* p, int n, int N, bool vec, const float (&x)[4],
+                                          bool cg) {
+  if (vec && n + 3 < N) {
+    const float4 v = make_float4(x[0], x[1], x[2], x[3]);
+    if (cg) __stcg(reinterpret_cast<float4*>(p + n), v);
+    else *reinterpret_cast<float4*>(p + n) = v;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (n + j < N) {
+        if (cg) __stcg(p + n + j, x[j]);
+        else p[n + j] = x[j];
+      }
+  }
+}
+
+// w = (p1 of both warpgroups) * dinv (this thread's elements of it in
+// `dv`), and its tail.  Warpgroup wg finishes
+// the row tile rt = wg with the other's partial, passed through the tail
+// slices (free here: every product is done).
+__device__ __forceinline__ void wg_finish_w(float (&p1)[2][16], float* w_s, float* wlo_s,
+                                            float* lo_s, const float (&dv)[16], int wg, int wl,
+                                            int row0, int lane0, int R, int RA, int RT) {
+  const int other = 1 - wg;
+  if (other < RT) {
+    float* mine = lo_s + 2 * wg * WG_ATOM;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) mine[e * 128 + wl] = other == 0 ? p1[0][e] : p1[1][e];
+  }
+  named_sync<3, WG_CONSUMERS>();
+  if (wg < RT) {
+    const float* theirs = lo_s + 2 * other * WG_ATOM;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int r = 64 * wg + row0 + 8 * ((e >> 1) & 1), ln = lane0 + 8 * (e >> 2) + (e & 1);
+      const float sum = (wg == 0 ? p1[0][e] : p1[1][e]) + theirs[e * 128 + wl];
+      const float wv = r < R ? sum * dv[e] : 0.f;
+      if (r < RA * 32) {
+        w_s[wg_at(ln, r)] = wv;
+        wlo_s[wg_at(ln, r)] = tf32_tail(wv);
+      }
+    }
+  }
+  fence_async_shared();
+  named_sync<3, WG_CONSUMERS>();
+#pragma unroll
+  for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) p1[rt][e] = 0.f;
+}
+
+template <int WG>
+__device__ __forceinline__ void wg_sync() {
+  named_sync<1 + WG, 128>();
+}
+
+// The epilogue turn: warpgroup WG waits for it on barrier 4 + WG, which the
+// other warpgroup arrives at once its own epilogue is done.
+template <int WG>
+__device__ __forceinline__ void wg_turn_wait() {
+  asm volatile("bar.sync %0, %1;" ::"n"(4 + WG), "n"(WG_CONSUMERS) : "memory");
+}
+
+template <int WG>
+__device__ __forceinline__ void wg_turn_pass() {
+  asm volatile("bar.arrive %0, %1;" ::"n"(5 - WG), "n"(WG_CONSUMERS) : "memory");
+}
+
+// prox: bit 1 set = nonneg (else soft-threshold), bit 0 set = `_even` mode.
+__global__ void __launch_bounds__(WG_THREADS, 1) fused_two_block_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tmU, const __grid_constant__ CUtensorMap tmUt,
+    const float* __restrict__ U, const float* __restrict__ Ut,
+    const float* __restrict__ dinv, const float* __restrict__ acy,
+    const float* __restrict__ mu, const float* __restrict__ thr,
+    const float* __restrict__ x0, const float* __restrict__ x1,
+    const float* __restrict__ h, float* __restrict__ x0o,
+    float* __restrict__ x1o, float* __restrict__ ho, float* __restrict__ x0p,
+    int B, int N, int R, int n_iters, int prox, int thin, int stages, int bulk, int vec) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  float* base = reinterpret_cast<float*>(smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u));
+  const int MT = (N + 63) / 64;    // 64-row tiles of product 2
+  const int RA = (R + 31) / 32;    // atoms of w
+  const int RT = (R + 63) / 64;    // 64-row tiles of product 1
+  float* v_s = base;
+  float* w_s = v_s + 2 * MT * WG_ATOM;
+  float* wlo_s = w_s + RA * WG_ATOM;
+  float* lo_s = wlo_s + RA * WG_ATOM;          // two atoms per warpgroup
+  float* ring_s = lo_s + 4 * WG_ATOM;          // `stages` stages per warpgroup
+  float* mu_s = ring_s + 2 * stages * WG_TILE;
+  float* rmu_s = mu_s + WG_TB;
+  float* thr_s = rmu_s + WG_TB;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(thr_s + WG_TB);  // per ring: full, empty
+
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * WG_TB;
+
+  if (tid == 0) {
+    for (int s = 0; s < 2 * stages; ++s) {
+      mbar_init(smem_u32(bars + s + (s / stages) * stages), 1);             // full
+      mbar_init(smem_u32(bars + s + (s / stages + 1) * stages), 4);         // empty
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (bulk && tid % 128 == 0) {
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tmU)) : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&tmUt)) : "memory");
+  }
+  for (int idx = tid; idx < (2 * MT + 2 * RA + 4) * WG_ATOM; idx += WG_THREADS) v_s[idx] = 0.f;
+  for (int r = tid; r < WG_TB; r += WG_THREADS) {
+    const bool ok = b0 + r < B;
+    mu_s[r] = ok ? mu[b0 + r] : 1.f;
+    rmu_s[r] = 1.f / mu_s[r];
+    thr_s[r] = ok ? thr[b0 + r] : 0.f;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < WG_TB * N; idx += WG_THREADS) {
+    const int r = idx / N, n = idx % N;
+    if (b0 + r >= B) continue;
+    const size_t gi = (size_t)(b0 + r) * N + n;
+    const float hv = h[gi], x1v = x1[gi];
+    ho[gi] = hv;  // h lives in its output array
+    v_s[wg_at(r, n)] = acy[gi] + hv + mu_s[r] * x1v;
+    if (n_iters <= 1) x0p[gi] = x0[gi];
+    if (n_iters == 0) {
+      x0o[gi] = x0[gi];
+      x1o[gi] = x1v;
+    }
+  }
+  fence_async_shared();
+  __syncthreads();
+  if (n_iters == 0) return;
+
+  // The two roles never meet again (each ends the kernel itself), which is
+  // what lets the compiler give each its own register budget.
+  if (tid >= WG_CONSUMERS) {
+    // ---- producer: warp 0 fills ring 0, warp 1 ring 1 ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(WG_PRODUCER_REGS));
+    const int pw = (tid - WG_CONSUMERS) / 32, lane = tid % 32;
+    if (pw < 2) {
+      // The tiles in the order the warpgroup's atoms use them: product 1 of
+      // its tiles (it = -1), then per iteration and tile product 2's atoms
+      // of U and, but in the last iteration, product 1's of Ut.
+      Ring ring(smem_u32(bars + 2 * stages * pw), stages);
+      float* rs = ring_s + pw * stages * WG_TILE;
+      const WgOrder order(pw, MT);
+      for (int it = -1; it < n_iters; ++it) {
+        for (int k = 0; k < order.T; ++k) {
+          const int m = order.tile(k);
+          if (it >= 0)
+            for (int a = 0; a < RA; ++a)
+              wg_put(&tmU, U, N, R, 32 * a, 64 * m, bulk, rs, ring, lane);
+          if (it < n_iters - 1) {
+            const int nk = min(2, (N - 64 * m + 31) / 32);
+            for (int rt = 0; rt < RT; ++rt)
+              for (int j = 0; j < nk; ++j)
+                wg_put(&tmUt, Ut, R, N, 32 * (2 * m + j), 64 * rt, bulk, rs, ring, lane);
+          }
+        }
+      }
+    }
+    return;
+  }
+  // ---- consumer warpgroups ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(WG_CONSUMER_REGS));
+  const int wg = tid / 128, wl = tid % 128, wq = wl / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int arow = (16 * wq + g) * 32 + t;
+  // This thread's elements of a 64 x 32 accumulator tile: element e is
+  // row row0 + 8 ((e >> 1) & 1) of the tile (the basis side), lane
+  // lane0 + 8 (e >> 2) + (e & 1).
+  const int row0 = 16 * wq + g, lane0 = 2 * t;
+  const bool nonneg = prox & 2;
+  const bool even = prox & 1;
+  Ring ring(smem_u32(bars + 2 * stages * wg), stages);
+  const float* rs = ring_s + wg * stages * WG_TILE;
+  float* my_lo = lo_s + 2 * wg * WG_ATOM;
+
+  // The epilogues take the accumulator tile through the tail slices: thread
+  // wl handles lane L = wl / 4 at columns 4 q + 16 i (q = wl % 4, i < 4).
+  const int L = wl >> 2, q = wl & 3, bL = b0 + L;
+  const float muL = mu_s[L], rmuL = rmu_s[L], thrL = thr_s[L];
+
+  // dinv at this thread's elements of the row tile rt = wg of w
+  float dv[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const int r = 64 * wg + row0 + 8 * ((e >> 1) & 1), b = b0 + lane0 + 8 * (e >> 2) + (e & 1);
+    dv[e] = (wg < RT && r < R && b < B) ? __ldg(dinv + (size_t)b * R + r) : 0.f;
+  }
+  float p1[2][16];
+  float4 hv[4], av[4];
+#pragma unroll
+  for (int rt = 0; rt < 2; ++rt)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) p1[rt][e] = 0.f;
+
+  const WgOrder order(wg, MT);
+  // The two warpgroups take turns at their epilogues, so that one's
+  // arithmetic runs beside the other's products (where they have as many
+  // tiles; warpgroup 0 goes first).
+  const bool turns = MT % 2 == 0;
+  if (turns && wg == 1) wg_turn_pass<1>();
+  if (order.T > 0) {
+    // h and acy run a tile ahead of the epilogues that use them.
+    wg_fetch(hv, av, ho, acy, order.tile(0), q, bL, B, N, vec);
+    // Product 1 of the first iteration, from the v loaded above.
+    for (int k = 0; k < order.T; ++k) {
+      const int m = order.tile(k);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int c = row0 + 8 * ((e >> 1) & 1), ln = lane0 + 8 * (e >> 2) + (e & 1);
+        my_lo[wg_at(ln, c)] = tf32_tail(v_s[wg_at(ln, 64 * m + c)]);
+      }
+      fence_async_shared();
+      if (wg == 0) wg_sync<0>(); else wg_sync<1>();
+      wg_product1(p1, m, N, RT, v_s, my_lo, rs, ring, arow, g, lane);
+    }
+  }
+  wg_finish_w(p1, w_s, wlo_s, lo_s, dv, wg, wl, row0, lane0, R, RA, RT);
+
+  for (int it = 0; it < n_iters; ++it) {
+    const bool last = it == n_iters - 1;
+    const bool before_last = it == n_iters - 2;
+    for (int k = 0; k < order.T; ++k) {
+      const int m = order.tile(k);
+      float acc[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+      wg_sum(acc, RA, R, rs, ring, arow, g, lane, [&](int a, uint64_t& bhi, uint64_t& blo) {
+        bhi = wg_desc(w_s + a * WG_ATOM);
+        blo = wg_desc(wlo_s + a * WG_ATOM);
+      });
+      // The tile (x0 = w Ut before the thin term) into the tail slices, in
+      // the lane operand's layout (the tail of v takes each element's place
+      // below), then per thread four runs of four columns of one lane.
+      if (turns) {
+        if (wg == 0) wg_turn_wait<0>(); else wg_turn_wait<1>();
+      }
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        my_lo[wg_at(lane0 + 8 * (e >> 2) + (e & 1), row0 + 8 * ((e >> 1) & 1))] = acc[e];
+      if (wg == 0) wg_sync<0>(); else wg_sync<1>();
+      // x0 (+ v/mu), prox, dual ascent, the next v and its tail.
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 4 * q + 16 * i, n = 64 * m + c;
+        float4* xp = reinterpret_cast<float4*>(my_lo + wg_at(L, c));
+        float4* vp = reinterpret_cast<float4*>(v_s + wg_at(L, n));
+        const float4 x4 = *xp;
+        const float4 v4 = thin ? *vp : make_float4(0.f, 0.f, 0.f, 0.f);
+        float x0n[4] = {x4.x, x4.y, x4.z, x4.w}, vv[4] = {v4.x, v4.y, v4.z, v4.w};
+        float hh[4] = {hv[i].x, hv[i].y, hv[i].z, hv[i].w};
+        const float aa[4] = {av[i].x, av[i].y, av[i].z, av[i].w};
+        float x1n[4], tail[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          update(x0n[j], x1n[j], hh[j], vv[j], muL, rmuL, thrL, aa[j], thin, nonneg,
+                 even && ((n + j) & 1));
+          if (n + j >= N) vv[j] = 0.f;
+          tail[j] = tf32_tail(vv[j]);
+        }
+        *vp = make_float4(vv[0], vv[1], vv[2], vv[3]);
+        *xp = make_float4(tail[0], tail[1], tail[2], tail[3]);
+        if (bL < B && n < N) {
+          const size_t row = (size_t)bL * N;
+          wg_store4(ho + row, n, N, vec, hh, true);
+          if (last) {
+            wg_store4(x0o + row, n, N, vec, x0n, false);
+            wg_store4(x1o + row, n, N, vec, x1n, false);
+          } else if (before_last) {
+            wg_store4(x0p + row, n, N, vec, x0n, false);
+          }
+        }
+      }
+      if (turns && !(wg == 1 && last && k + 1 == order.T)) {
+        if (wg == 0) wg_turn_pass<0>(); else wg_turn_pass<1>();
+      }
+      // the warpgroup's next tile, in this iteration or the next
+      if (k + 1 < order.T || !last) wg_fetch(hv, av, ho, acy, order.tile(k + 1), q, bL, B, N, vec);
+      if (!last) {
+        fence_async_shared();
+        if (wg == 0) wg_sync<0>(); else wg_sync<1>();
+        wg_product1(p1, m, N, RT, v_s, my_lo, rs, ring, arow, g, lane);
+      }
+    }
+    if (!last) wg_finish_w(p1, w_s, wlo_s, lo_s, dv, wg, wl, row0, lane0, R, RA, RT);
+  }
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 typedef void (*ChunkKernel)(const float*, const float*, const float*, const float*,
@@ -993,6 +1645,55 @@ int launch(ChunkKernel kernel, int threads, int tb, size_t smem, const ChunkArgs
                            a.x0o, a.x1o, a.ho, a.x0p, a.B, a.N, a.R, a.n_iters, a.prox, a.thin,
                            stages, cl, bulk);
   if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A TMA map of the row-major (rows, cols) float matrix at `p`, read in
+// boxes of 32 columns by `box_rows` rows with 128-byte swizzle; false where
+// none can be made.
+bool tensor_map(CUtensorMap* map, const float* p, int rows, int cols, int box_rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(float)};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
+  const cuuint32_t elems[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(p), dims, strides, box,
+                elems, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The wgmma kernel: bulk (TMA) copies where N and R are multiples of 4 and
+// the bases 16-byte aligned, else plain loads.  No cluster.
+int launch_wgmma(const ChunkArgs& a, int stages, int cl, cudaStream_t stream) {
+  if (a.R > WG_MAX_R || stages < 2 || stages > 8 || cl != 1) return cudaErrorInvalidValue;
+  CUtensorMap map_u = {}, map_ut = {};
+  int bulk = a.N % 4 == 0 && a.R % 4 == 0 && aligned16(a.U) && aligned16(a.Ut);
+  if (bulk) bulk = tensor_map(&map_u, a.U, a.N, a.R, 64) && tensor_map(&map_ut, a.Ut, a.R, a.N, 64);
+  // rows of the lane state 16-byte aligned: its epilogue moves float4s
+  const int vec = a.N % 4 == 0 && aligned16(a.acy) && aligned16(a.ho) && aligned16(a.x0o) &&
+                  aligned16(a.x1o) && aligned16(a.x0p);
+  const size_t smem = smem_bytes_wg(a.N, a.R, stages);
+  cudaError_t err = cudaFuncSetAttribute(fused_two_block_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  fused_two_block_wgmma_kernel<<<(a.B + WG_TB - 1) / WG_TB, WG_THREADS, smem, stream>>>(
+      map_u, map_ut, a.U, a.Ut, a.dinv, a.acy, a.mu, a.thr, a.x0, a.x1, a.h, a.x0o, a.x1o, a.ho,
+      a.x0p, a.B, a.N, a.R, a.n_iters, a.prox, a.thin, stages, bulk, vec);
   return cudaGetLastError();
 }
 
@@ -1036,6 +1737,7 @@ int fused_two_block_l2_probe(int device, const float* buf, int n, int passes, in
 // Dynamic shared memory, in bytes, of a block of `tb` lanes with `stages`
 // k-tiles of depth `kt` in its ring; `tc` = the tensor-core kernel.
 size_t fused_two_block_smem_bytes(int tb, int n, int r, int kt, int stages, int tc) {
+  if (tc == 2) return smem_bytes_wg(n, r, stages);
   return tc ? smem_bytes_tc(n, r, kt, stages) : smem_bytes(tb, n, r, kt, stages);
 }
 
@@ -1051,8 +1753,9 @@ const char* fused_two_block_error_string(int err) {
 // Launch on `stream` without synchronising; returns cudaGetLastError()
 // after the launch (0 on success).  `tc` = 0: the FMA kernel, (tb, kt) one
 // of the instantiations below; `tc` = 1: the split-TF32 tensor-core kernel,
-// tb = 32, kt 16 or 32.  stages 2..16, cluster 1..8 (above 1 only when N
-// and R are multiples of 4).
+// tb = 32, kt 16 or 32; `tc` = 2: the wgmma kernel, tb = 32, kt = 32 (its
+// atom), R <= 128, stages 2..8 per warpgroup, cluster 1.  stages 2..16,
+// cluster 1..8 otherwise (above 1 only when N and R are multiples of 4).
 int fused_two_block_launch(int device, const float* U, const float* Ut,
                            const float* dinv, const float* acy, const float* mu,
                            const float* thr, const float* x0, const float* x1,
@@ -1065,6 +1768,10 @@ int fused_two_block_launch(int device, const float* U, const float* Ut,
   cudaStream_t s = (cudaStream_t)stream;
   const ChunkArgs a = {U, Ut, dinv, acy, mu, thr, x0, x1, h, x0o, x1o, ho, x0p,
                        B, N, R, n_iters, prox, thin};
+  if (tc == 2) {
+    if (tb != WG_TB || kt != 32) return cudaErrorInvalidValue;
+    return launch_wgmma(a, stages, cluster, s);
+  }
   if (tc) {
     if (tb != TC_TB) return cudaErrorInvalidValue;
     const size_t smem = smem_bytes_tc(N, R, kt, stages);

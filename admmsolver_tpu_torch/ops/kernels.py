@@ -26,11 +26,12 @@ M hk0``, L1, nonnegativity through a shared projector ``P``):
 On CUDA tensors each wrapper launches its hand-written kernel
 (``csrc/fused_two_block.cu``, ``csrc/fused_spm.cu``); on CPU tensors it
 runs its ``*_reference``, the same math in torch ops.  float32 only.  Each
-source holds two kernels: one that runs the products shared by all lanes
-on the tensor cores in split TF32 (every f32 operand as a TF32 head plus a
-TF32 tail, three products each, f32 sums: f32 accuracy, unlike plain TF32,
+source holds a kernel that runs the products shared by all lanes on the
+tensor cores in split TF32 (every f32 operand as a TF32 head plus a TF32
+tail, three products each, f32 sums: f32 accuracy, unlike plain TF32,
 which stays banned) and one in f32 FMA for the shapes the first is not
-built for; the wrappers choose (``_two_block_tiling``, ``_spm_tiling``).
+built for; the two-block source also a wgmma kernel for the thin basis
+(R <= 128).  The wrappers choose (``_two_block_tiling``, ``_spm_tiling``).
 Penalty updates and convergence checks run between chunks
 (:mod:`admmsolver_tpu_torch.parallel.fused`,
 :mod:`admmsolver_tpu_torch.parallel.fused_spm`).
@@ -58,6 +59,12 @@ _TWO_BLOCK_CW = 256
 # clusters of this many blocks sharing each k-tile.
 _TWO_BLOCK_STAGES = 4
 _TWO_BLOCK_CLUSTER = 2
+# The wgmma kernel (route 2): the widest thin basis it takes, and at most
+# this many stages in each of its two rings.
+_TWO_BLOCK_WG_MAX_R = 128
+_TWO_BLOCK_WG_STAGES = 4
+#: The routes of the two-block kernel by ``TwoBlockTiling.tensor_cores``.
+TWO_BLOCK_ROUTES = {2: "wgmma", 1: "mma_sync", 0: "fma"}
 
 Chunk = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -114,14 +121,21 @@ class TwoBlockTiling(NamedTuple):
     kt: int           # rows of a k-tile of U or Ut
     stages: int       # k-tiles in the shared-memory ring
     cluster: int      # blocks that share each k-tile by multicast
-    tensor_cores: int  # 1: both products in split TF32 on the tensor cores
+    tensor_cores: int  # 2: wgmma (R <= 128), 1: mma.sync, both split TF32; 0: f32 FMA
 
 
 def _two_block_smem_bytes(tb: int, N: int, R: int, kt: int, stages: int,
                           tensor_cores: int = 0) -> int:
     """Dynamic shared memory of one block of the CUDA kernel, in bytes (the
     kernel's own layout: the ring of k-tiles, then v, h and w k-major, mu
-    and thr, two barriers per stage; see ``csrc/fused_two_block.cu``)."""
+    and thr, two barriers per stage; see ``csrc/fused_two_block.cu``).
+    The wgmma kernel (``tensor_cores`` 2): a 1024-byte alignment margin, v
+    (N rounded up to 64), w and its tail (R rounded up to 32) and two tail
+    slices of 64 k, all in 4 KiB atoms of 32 lanes; two rings of ``stages``
+    8 KiB tiles; mu, 1/mu, thr; two barriers per stage and ring."""
+    if tensor_cores == 2:
+        atoms = 2 * -(-N // 64) + 2 * -(-R // 32) + 4
+        return 1024 + 4 * (1024 * atoms + 2 * stages * 2048 + 96) + 32 * stages
     nk, rk = -(-N // kt) * kt, -(-R // kt) * kt
     # The tensor-core kernel pads a k-tile's rows and keeps h in device memory.
     row, state = (_TWO_BLOCK_CW + 8, nk + rk) if tensor_cores else (_TWO_BLOCK_CW, 2 * nk + rk)
@@ -130,23 +144,31 @@ def _two_block_smem_bytes(tb: int, N: int, R: int, kt: int, stages: int,
 
 def _two_block_tiling(N: int, R: int, smem_limit: int, aligned: bool = True,
                       tensor_cores: bool = True) -> TwoBlockTiling:
-    """The tiling for a launch: the most lanes per block whose state fits
-    ``smem_limit`` bytes beside a ring of at least two k-tiles (more lanes
-    per block mean fewer passes of U and Ut through L2), the deeper k-tile
-    of those the kernel is built for, then the deepest ring up to
-    ``_TWO_BLOCK_STAGES``.  Blocks of 32 lanes run the tensor-core kernel
-    unless ``tensor_cores`` is false (the FMA kernel at 32 lanes is built
-    for 32-row k-tiles only).
+    """The tiling for a launch.  A thin basis (R <= ``_TWO_BLOCK_WG_MAX_R``)
+    runs the wgmma kernel (32 lanes a block, route 2, no cluster) with the
+    deepest pair of rings up to ``_TWO_BLOCK_WG_STAGES`` that fits
+    ``smem_limit`` bytes, where two stages fit and ``tensor_cores`` holds.
+    Otherwise: the most lanes per block whose state fits beside a ring of
+    at least two k-tiles (more lanes per block mean fewer passes of U and
+    Ut through L2), the deeper k-tile of those the kernel is built for,
+    then the deepest ring up to ``_TWO_BLOCK_STAGES``.  Blocks of 32 lanes
+    run the mma.sync tensor-core kernel unless ``tensor_cores`` is false
+    (the FMA kernel at 32 lanes is built for 32-row k-tiles only).
     A cluster shares each k-tile between its blocks by multicast; it needs
     bulk copies, hence N and R multiples of 4 and 16-byte aligned bases
     (``aligned``)."""
+    cluster = _TWO_BLOCK_CLUSTER if aligned and N % 4 == 0 and R % 4 == 0 else 1
+    if tensor_cores and R <= _TWO_BLOCK_WG_MAX_R:
+        fits = [s for s in range(2, _TWO_BLOCK_WG_STAGES + 1)
+                if _two_block_smem_bytes(32, N, R, 32, s, 2) <= smem_limit]
+        if fits:
+            return TwoBlockTiling(32, 32, max(fits), 1, 2)
     for tb in _TILES:
         tc = int(bool(tensor_cores) and tb == 32)
         for kt in ((32, 16) if tc else (32,) if tb == 32 else (16,)):
             fits = [s for s in range(2, _TWO_BLOCK_STAGES + 1)
                     if _two_block_smem_bytes(tb, N, R, kt, s, tc) <= smem_limit]
             if fits:
-                cluster = _TWO_BLOCK_CLUSTER if aligned and N % 4 == 0 and R % 4 == 0 else 1
                 return TwoBlockTiling(tb, kt, max(fits), cluster, tc)
     raise ValueError(
         f"N={N}, R={R} needs {_two_block_smem_bytes(1, N, R, 16, 2)} bytes of "
@@ -181,6 +203,7 @@ def _two_block_launch(args, n_iters: int, prox: str, thin: bool,
         raise RuntimeError("fused_two_block_chunk launch failed: "
                            + lib.fused_two_block_error_string(err).decode())
     fused_two_block_chunk.launches += 1
+    fused_two_block_chunk.routes[TWO_BLOCK_ROUTES[tiling.tensor_cores]].launches += 1
     return outs
 
 
@@ -201,8 +224,9 @@ def fused_two_block_chunk(U, Ut, dinv, acy, mu, thr, x0, x1, h,
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel on
     the current stream without synchronising (and count it in
-    ``fused_two_block_chunk.launches``); they must be contiguous.  The
-    tensor-core kernel splits every operand into a TF32 head and tail: a
+    ``fused_two_block_chunk.launches`` and, by route, in
+    ``fused_two_block_chunk.routes``); they must be contiguous.  The
+    tensor-core kernels split every operand into a TF32 head and tail: a
     lane that holds an inf, a NaN or a value within 2^-12 of the largest
     float comes out as NaN where the plain version may give inf, and no
     other lane is touched.
@@ -220,8 +244,20 @@ def fused_two_block_chunk(U, Ut, dinv, acy, mu, thr, x0, x1, h,
     return _two_block_launch(args, n_iters, prox, thin)
 
 
+class _Launches:
+    """The launches of one route of a kernel's wrapper, counted apart;
+    telemetry reports them as ``kernel.<__name__>.launches``."""
+
+    def __init__(self, name: str) -> None:
+        self.__name__ = name
+        self.launches = 0
+
+
 #: Number of kernel launches (CUDA tensors only) since the last reset.
 fused_two_block_chunk.launches = 0
+#: The same, by route (``TWO_BLOCK_ROUTES``).
+fused_two_block_chunk.routes = {name: _Launches(f"fused_two_block_chunk.{name}")
+                                for name in TWO_BLOCK_ROUTES.values()}
 
 
 # ---------------------------------------------------------------------

@@ -197,10 +197,12 @@ def _route_switches() -> tuple:
 
 
 def _counted_kernels() -> tuple:
-    """The kernel wrappers that count their launches."""
+    """The kernel wrappers that count their launches, and the two-block
+    kernel's per-route counters."""
     from ..ops import kernels
 
-    return (kernels.jacobi_eigh, kernels.fused_two_block_chunk, kernels.fused_spm_chunk)
+    return (kernels.jacobi_eigh, kernels.fused_two_block_chunk, kernels.fused_spm_chunk,
+            *kernels.fused_two_block_chunk.routes.values())
 
 
 def _leaves(v) -> List[torch.Tensor]:

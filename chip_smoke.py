@@ -53,7 +53,9 @@ fails raises and the script exits non-zero without printing a result.
    to 0 just before and read just after) and agrees with the same solve
    through the plain version.  Basis pursuit recovers every lane's planted
    signal to 1e-2 * max|x*|; SpM gives finite outputs, a nonnegative
-   spectrum and the sum rule (median |x0.prj_sum - 1| <= 1e-3).
+   spectrum and the sum rule (median |x0.prj_sum - 1| <= 1e-3).  Basis
+   pursuit once more at the benchmark's shape (N=1000, R=100): every launch
+   on the wgmma route (``launches_wgmma`` in the kernels line).
 4. ``SimpleOptimizer`` in float64 on the GPU, through its run program (each
    chunk a replay of a captured graph): one bench instance recovered; one
    SpM instance for 1000 iterations with the sum rule to 1e-6; each once
@@ -254,6 +256,9 @@ POLISH_NITER = 200  # float64 iterations after the SPM_NITER float32 ones
 KERNEL_TOL = 5e-4   # tests/test_kernels.py, tests/test_fused_spm.py short-horizon bound
 SOLVE_TOL = 2e-2    # benches/kernel_hw_check.py fixed-point bound
 PROX_MODES = ("l1", "l1_even", "nonneg", "nonneg_even")
+# the benchmark's basis pursuit (portbench bp_n1000_m100): the thin basis of
+# a 100 x 1000 A, whose chunks run on the wgmma kernel (R <= 128)
+BENCH_M, BENCH_N = 100, 1000
 REPEATS = 3
 INNER = 4           # calls in a row inside one CUDA-event timing
 PEAK_F32_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
@@ -371,6 +376,74 @@ def kernel_inputs(torch, solver, prox, seed):
     acy, x0, x1, h = (torch.as_tensor(s * rng.randn(B, solver.N), **f32)
                       for s in (1.0, 0.3, 0.3, 1.0))
     return (solver.U, solver.Ut, dinv.contiguous(), acy, mu, thr.contiguous(), x0, x1, h)
+
+
+def bench_shape_chunk(torch, card, kernels, smem_limit):
+    """One 100-iteration chunk at the benchmark's shape (B=4096, N=1000,
+    R=100) on the kernel's route there (wgmma) and on the mma.sync kernel it
+    replaces (``prev_ms``), in the same turns; each held to KERNEL_TOL of
+    the plain version over 21 iterations first.  Returns the wgmma time,
+    the mma.sync time and the two tilings."""
+    from admmsolver_tpu_torch.parallel import FusedTwoBlockSolver
+
+    rng = np.random.RandomState(5)
+    A = rng.randn(BENCH_M, BENCH_N)
+    solver = FusedTwoBlockSolver(bp_model(A, A @ rng.randn(BENCH_N)), device="cuda")
+    args = kernel_inputs(torch, solver, "l1", seed=97)
+    # the mma.sync kernel's tiling at this shape before the wgmma route
+    tilings = [kernels._two_block_tiling(BENCH_N, BENCH_M, smem_limit),
+               kernels.TwoBlockTiling(32, 32, 2, 2, 1)]
+    if [kernels.TWO_BLOCK_ROUTES[t.tensor_cores] for t in tilings] != ["wgmma", "mma_sync"]:
+        raise AssertionError(f"unexpected routes at the benchmark's shape: {tilings}")
+    want = kernels.fused_two_block_chunk_reference(*args, n_iters=21, prox="l1", thin=True)
+    for t in tilings:
+        got = kernels._two_block_launch(args, 21, "l1", True, t)
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"two-block chunk at the benchmark's shape, tiling {tuple(t)}: "
+                                 f"max abs diff {err:.3e} above {KERNEL_TOL}")
+    ms, prev_ms = median_ms(torch, [lambda t=t: kernels._two_block_launch(args, 100, "l1", True, t)
+                                    for t in tilings])
+    print(f"[{card}] one chunk at the benchmark's shape (B={B}, N={BENCH_N}, R={BENCH_M}, 100 "
+          f"iters, l1, thin): wgmma kernel {tuple(tilings[0])} {ms:.3f} ms, the mma.sync kernel "
+          f"{tuple(tilings[1])} {prev_ms:.3f} ms", flush=True)
+    return ms, prev_ms, tilings
+
+
+def bench_shape_solve(torch, card, kernels, plain_chunk):
+    """A FusedTwoBlockSolver.solve at the benchmark's shape (B planted
+    20-sparse signals of a 100 x 1000 A, NITER iterations), held to
+    SOLVE_TOL of the same solve through the plain chunk.  Every launch of
+    the solve, graph replays included, must be on the wgmma route; returns
+    that route's launches."""
+    from admmsolver_tpu_torch.parallel import FusedTwoBlockSolver
+
+    rng = np.random.RandomState(6)
+    A = rng.randn(BENCH_M, BENCH_N)
+    xtrue = np.zeros((B, BENCH_N))
+    for b in range(B):
+        xtrue[b, rng.choice(BENCH_N, SPARSITY, replace=False)] = rng.randn(SPARSITY)
+    ys = torch.as_tensor(xtrue @ A.T, dtype=torch.float32, device="cuda")
+    solver = FusedTwoBlockSolver(bp_model(A, xtrue[0] @ A.T), device="cuda")
+    solve = lambda: solver.solve({(0, "y"): ys}, niter=NITER, rtol=0.0)
+    chunk = kernels.fused_two_block_chunk
+    launches = chunk.launches
+    chunk.routes["wgmma"].launches = 0
+    res = solve()
+    torch.cuda.synchronize()
+    on_wgmma, launches = chunk.routes["wgmma"].launches, chunk.launches - launches
+    if on_wgmma == 0 or on_wgmma != launches:
+        raise AssertionError(f"the solve at the benchmark's shape made {launches} launches, "
+                             f"{on_wgmma} on the wgmma route")
+    res_plain = plain_chunk_solve(plain_chunk, solve)
+    dev = float(np.abs(res.x0.cpu().numpy() - res_plain.x0.cpu().numpy()).max())
+    print(f"[{card}] fused solve at the benchmark's shape (B={B}, N={BENCH_N}, R={BENCH_M}, "
+          f"{NITER} iters): {on_wgmma} launches, all on the wgmma route; kernel vs plain: max "
+          f"|x0 diff| {dev:.3e} (bound {SOLVE_TOL})", flush=True)
+    if not dev <= SOLVE_TOL:
+        raise AssertionError(f"the solve at the benchmark's shape departs from the plain "
+                             f"solve by {dev}")
+    return on_wgmma
 
 
 def spm_kernel_inputs(torch, solver, ys, seed):
@@ -2021,6 +2094,7 @@ def phases_1_to_8(torch, card):
           flush=True)
     if not dev <= SOLVE_TOL:
         raise AssertionError(f"kernel solve departs from plain solve by {dev}")
+    launches_wgmma = bench_shape_solve(torch, card, kernels, plain_chunk)
 
     # 3b. the SpM slice through the kernel, then through the plain version
     gs_dev = torch.as_tensor(gs, device="cuda")
@@ -2166,6 +2240,7 @@ def phases_1_to_8(torch, card):
         bound, bound_by = fma_bound, "operations"
     t_kernel, t_plain = median_wall(torch, [solve, lambda: plain_chunk_solve(plain_chunk, solve)])
     (t_opt,) = median_wall(torch, [opt_run])
+    bench_ms, bench_prev_ms, bench_tilings = bench_shape_chunk(torch, card, kernels, smem_limit)
     print(f"[{card}] one chunk (B={B}, N={N}, R={M}, 100 iters, l1, thin), tiling "
           f"{tuple(tiling)}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
           f"({bound_by}; as f32 FMA {fma_bound:.3f} ms)")
@@ -2338,16 +2413,21 @@ def phases_1_to_8(torch, card):
 
     # No single PyTorch call computes either chunk, so there is no library time.
     # prev_ms is the replaced design's time where this run still builds and
-    # times it (the SpM FMA kernel); the two-block kernel's is no longer built.
+    # times it: the SpM FMA kernel, and the mma.sync two-block kernel at the
+    # benchmark's shape, where the wgmma kernel replaces it.
     return fam, {"kernels": [
         {"name": "fused_two_block_chunk", "route": "cuda",
          "source": "admmsolver_tpu_torch/csrc/fused_two_block.cu",
          "replaces": "admmsolver_tpu/ops/kernels.py:119",
          "launches": launches, "launches_realified": realified["launches"],
+         "launches_wgmma": launches_wgmma,
          "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
          "fma_bound_ms": fma_bound,
-         "fma_max_abs_err": max(fma_err.values())},
+         "fma_max_abs_err": max(fma_err.values()),
+         "bench_shape": [B, BENCH_N, BENCH_M], "bench_shape_ms": bench_ms,
+         "bench_shape_tiling": list(bench_tilings[0]), "prev_ms": bench_prev_ms,
+         "prev_tiling": list(bench_tilings[1])},
         {"name": "fused_spm_chunk", "route": "cuda",
          "source": "admmsolver_tpu_torch/csrc/fused_spm.cu",
          "replaces": "admmsolver_tpu/ops/kernels.py:271",

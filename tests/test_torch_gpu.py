@@ -52,15 +52,60 @@ def _inputs(thin, prox, B, N, device, seed=3, R=None):
             for a in (U, U.T, dinv, acy, mu, thr, x0, x1, h)]
 
 
+def _tiling(args, **kw):
+    """The wrapper's tiling for these chunk inputs (``tensor_cores=False``:
+    the FMA kernel's)."""
+    from admmsolver_tpu_torch.ops import kernels
+
+    N, R = args[0].shape
+    limit = torch.cuda.get_device_properties(args[0].device).shared_memory_per_block_optin
+    return kernels._two_block_tiling(N, R, limit, _bulk(args), **kw)
+
+
+def _bulk(args):
+    """Whether the kernels can copy U and Ut in bulk: 16-byte aligned bases."""
+    return all(t.data_ptr() % 16 == 0 for t in args[:2])
+
+
+def _mma_sync_tiling(args):
+    """A tiling of the mma.sync kernel for inputs the wrapper gives the
+    wgmma kernel (R <= 128): two stages, and a pair cluster where N and R
+    are multiples of 4 and the bases aligned (bulk copies)."""
+    from admmsolver_tpu_torch.ops.kernels import TwoBlockTiling
+
+    N, R = args[0].shape
+    return TwoBlockTiling(32, 32, 2, 2 if N % 4 == 0 and R % 4 == 0 and _bulk(args) else 1, 1)
+
+
+def _routes(args):
+    """How to run a chunk on these inputs: the wrapper (None) and, where it
+    takes the wgmma kernel (R <= 128), the mma.sync kernel too, so that
+    both tensor-core kernels meet each case."""
+    return [None] + ([_mma_sync_tiling(args)] if _tiling(args).tensor_cores == 2 else [])
+
+
+def _run(args, n_iters, prox, thin, tiling):
+    from admmsolver_tpu_torch.ops.kernels import _two_block_launch
+
+    if tiling is None:
+        return fused_two_block_chunk(*args, n_iters=n_iters, prox=prox, thin=thin)
+    return _two_block_launch(args, n_iters, prox, thin, tiling)
+
+
 def _check_chunk(args, n_iters, prox, thin):
-    launches = fused_two_block_chunk.launches
-    got = fused_two_block_chunk(*args, n_iters=n_iters, prox=prox, thin=thin)
+    from admmsolver_tpu_torch.ops.kernels import TWO_BLOCK_ROUTES
+
+    route = fused_two_block_chunk.routes[TWO_BLOCK_ROUTES[_tiling(args).tensor_cores]]
+    launches, on_route = fused_two_block_chunk.launches, route.launches
+    outs = [_run(args, n_iters, prox, thin, t) for t in _routes(args)]
     want = fused_two_block_chunk_reference(*args, n_iters=n_iters, prox=prox, thin=thin)
     torch.cuda.synchronize()
-    assert fused_two_block_chunk.launches == launches + 1
-    for g, w in zip(got, want):
-        assert g.is_cuda and g.shape == w.shape
-        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0, atol=ATOL)
+    assert fused_two_block_chunk.launches == launches + len(outs)
+    assert route.launches == on_route + 1
+    for got in outs:
+        for g, w in zip(got, want):
+            assert g.is_cuda and g.shape == w.shape
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("thin", [True, False], ids=["thin", "full"])
@@ -78,6 +123,7 @@ def test_cuda_kernel_matches_plain_version(cuda, prox, thin, B, N):
     (129, 512, None),   # B one past a multiple of the lane tile and of the cluster
     (129, 132, 77),     # R > N/2, N and R ragged against the k-tile; R odd: no bulk copies
     (70, 600, None),    # 32 lanes do not fit: the FMA kernel at 16 lanes
+    (129, 300, 131),    # R > 128 (mma.sync), R odd: no bulk copies
 ])
 def test_cuda_kernel_short_chunks_and_ragged_shapes(cuda, n_iters, B, N, R):
     """x0_prev leaves the loop one iteration before the last, or is the
@@ -88,26 +134,48 @@ def test_cuda_kernel_short_chunks_and_ragged_shapes(cuda, n_iters, B, N, R):
 TILINGS_TC = [(32, 32, 2, 1, 1), (32, 32, 2, 2, 1), (32, 16, 4, 2, 1), (32, 16, 2, 4, 1)]
 TILINGS_FMA = [(32, 32, 2, 2, 0), (32, 32, 2, 1, 0), (16, 16, 4, 2, 0), (16, 16, 2, 1, 0),
                (8, 16, 4, 1, 0), (4, 16, 2, 4, 0), (2, 16, 4, 1, 0), (1, 16, 4, 1, 0)]
+TILINGS_WG = [(32, 32, 2, 1, 2), (32, 32, 3, 1, 2), (32, 32, 4, 1, 2)]
 
 
-@pytest.mark.parametrize("tilings", [TILINGS_TC, TILINGS_FMA], ids=["tensor-cores", "fma"])
+@pytest.mark.parametrize("tilings", [TILINGS_TC, TILINGS_FMA, TILINGS_WG],
+                         ids=["tensor-cores", "fma", "wgmma"])
 def test_cuda_kernel_tilings_agree(cuda, tilings):
     """Lanes per block, k-tile depth, stages and cluster size do not change
     a bit: every sum runs over k in the same order.  The
-    two routes (split TF32 on the tensor cores, f32 FMA) differ by rounding
-    only."""
+    routes (split TF32 on the tensor cores, f32 FMA) differ by rounding
+    only.  The wgmma kernel (R <= 128) runs at R = 100."""
     from admmsolver_tpu_torch.ops.kernels import TwoBlockTiling, _two_block_launch
 
-    args = _inputs(True, "l1_even", 129, 512, cuda, seed=5)
+    args = _inputs(True, "l1_even", 129, 512, cuda, seed=5,
+                   R=100 if tilings is TILINGS_WG else None)
     outs = [_two_block_launch(args, 5, "l1_even", True, TwoBlockTiling(*t)) for t in tilings]
     torch.cuda.synchronize()
     for out in outs[1:]:
         for g, w in zip(out, outs[0]):
             assert torch.equal(g, w)
-    other = TILINGS_FMA[0] if tilings is TILINGS_TC else TILINGS_TC[0]
+    other = TILINGS_TC[0] if tilings is TILINGS_FMA else TILINGS_FMA[0]
     ref = _two_block_launch(args, 5, "l1_even", True, TwoBlockTiling(*other))
     for g, w in zip(outs[0], ref):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("route", ["wgmma", "mma_sync", "fma"])
+def test_cuda_kernel_lanes_keep_their_bits_at_any_place(cuda, route):
+    """A lane's result does not depend on its place in the batch: the lanes
+    shifted by 37 places (into other blocks, other places in a block and a
+    cluster) come out shifted, bit for bit."""
+    from admmsolver_tpu_torch.ops.kernels import TWO_BLOCK_ROUTES
+
+    args = _inputs(True, "l1", 129, 512, cuda, seed=6, R=100)
+    tiling = {"wgmma": _tiling(args), "mma_sync": _mma_sync_tiling(args),
+              "fma": _tiling(args, tensor_cores=False)}[route]
+    assert TWO_BLOCK_ROUTES[tiling.tensor_cores] == route
+    moved = args[:2] + [a.roll(37, dims=0).contiguous() for a in args[2:]]
+    got = _run(args, 7, "l1", True, tiling)
+    got_moved = _run(moved, 7, "l1", True, tiling)
+    torch.cuda.synchronize()
+    for g, m in zip(got, got_moved):
+        assert torch.equal(g.roll(37, dims=0), m)
 
 
 def test_cuda_kernel_shared_memory_matches_the_wrapper(cuda):
@@ -119,7 +187,8 @@ def test_cuda_kernel_shared_memory_matches_the_wrapper(cuda):
 
     lib = _build.load_libraries()["fused_two_block"]
     for tb, N, R, kt, stages, tc in [(32, 512, 256, 32, 2, 1), (32, 512, 256, 32, 2, 0),
-                                     (16, 600, 300, 16, 3, 0), (1, 33, 7, 16, 2, 0)]:
+                                     (16, 600, 300, 16, 3, 0), (1, 33, 7, 16, 2, 0),
+                                     (32, 1000, 100, 32, 3, 2), (32, 998, 97, 32, 2, 2)]:
         assert lib.fused_two_block_smem_bytes(tb, N, R, kt, stages, tc) == \
             _two_block_smem_bytes(tb, N, R, kt, stages, tc)
     args = _inputs(True, "l1", 8, 64, cuda)
@@ -138,26 +207,136 @@ def test_cuda_kernel_large_magnitudes_and_non_finite_lanes(cuda, thin):
     args = _inputs(thin, "nonneg", B, N, cuda, seed=9)
     want = fused_two_block_chunk_reference(*args, n_iters=21, prox="nonneg", thin=thin)
     big = args[:3] + [args[3] * scale] + args[4:6] + [a * scale for a in args[6:]]
-    got = fused_two_block_chunk(*big, n_iters=21, prox="nonneg", thin=thin)
-    torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert bool(torch.isfinite(g).all())
-        np.testing.assert_allclose((g / scale).cpu().numpy(), w.cpu().numpy(), rtol=0, atol=ATOL)
-
     bad = [a.clone() for a in args]
     bad[3][5, 7] = float("inf")     # acy of lane 5
     bad[8][40, 0] = float("nan")    # h of lane 40
     bad[6][66, 3] = float("-inf")   # x0 of lane 66: read by no iteration
-    got = fused_two_block_chunk(*bad, n_iters=3, prox="nonneg", thin=thin)
     ref = fused_two_block_chunk_reference(*bad, n_iters=3, prox="nonneg", thin=thin)
     clean = fused_two_block_chunk_reference(*args, n_iters=3, prox="nonneg", thin=thin)
+    # the wrapper's kernel (wgmma at this R) and the mma.sync kernel
+    for tiling in _routes(args):
+        got = _run(big, 21, "nonneg", thin, tiling)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert bool(torch.isfinite(g).all())
+            np.testing.assert_allclose((g / scale).cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                       atol=ATOL)
+
+        got = _run(bad, 3, "nonneg", thin, tiling)
+        torch.cuda.synchronize()
+        for g, r, c in zip(got, ref, clean):
+            lanes = torch.isfinite(g).all(dim=1)
+            assert torch.equal(lanes, torch.isfinite(r).all(dim=1))
+            assert lanes.sum().item() == B - 2
+            np.testing.assert_allclose(g[lanes].cpu().numpy(), c[lanes].cpu().numpy(),
+                                       rtol=0, atol=ATOL)
+
+
+# The wgmma kernel (R <= 128): the benchmark's shape, a ragged one (plain
+# loads, no vector epilogue) and small full bases.
+WGMMA_SHAPES = [(4096, 1000, 100, True), (4000, 998, 97, True), (4096, 128, 128, False),
+                (4000, 97, 97, False)]
+# Most that a split-TF32 kernel's max abs difference to the plain version
+# may be, as a multiple of the f32 FMA kernel's on the same inputs, where
+# that is above ATOL (chip_smoke.py's TC_ERR_RATIO: over a 100-iteration
+# chunk both kernels' f32 sums drift from the plain version's by more than
+# the 21-iteration ATOL).
+TC_ERR_RATIO = 2.0
+
+
+def _route_errors(args, n_iters, prox, thin):
+    """Max abs differences to the plain version of the kernel's wgmma,
+    mma.sync and FMA routes on the same inputs, and the wgmma route's
+    outputs; the wgmma launch is counted on its route."""
+    from admmsolver_tpu_torch.ops import kernels
+
+    tilings = [_tiling(args), _mma_sync_tiling(args), _tiling(args, tensor_cores=False)]
+    assert [kernels.TWO_BLOCK_ROUTES[t.tensor_cores] for t in tilings] == \
+        ["wgmma", "mma_sync", "fma"]
+    before = kernels.fused_two_block_chunk.routes["wgmma"].launches
+    outs = [kernels._two_block_launch(args, n_iters, prox, thin, t) for t in tilings]
+    want = fused_two_block_chunk_reference(*args, n_iters=n_iters, prox=prox, thin=thin)
+    torch.cuda.synchronize()
+    assert kernels.fused_two_block_chunk.routes["wgmma"].launches == before + 1
+    errs = [max(float((g - w).abs().max()) for g, w in zip(out, want)) for out in outs]
+    return errs, outs[0], want
+
+
+@pytest.mark.parametrize("n_iters", [1, 100])
+@pytest.mark.parametrize("prox", ["l1", "nonneg", "l1_even"])
+@pytest.mark.parametrize("B,N,R,thin", WGMMA_SHAPES)
+def test_wgmma_kernel_matches_plain_version(cuda, B, N, R, thin, prox, n_iters):
+    """The thin-basis kernel on wgmma against the plain version: within
+    ATOL after one iteration, and after a 100-iteration chunk within ATOL or
+    TC_ERR_RATIO times the FMA kernel's error, as the mma.sync kernel is."""
+    args = _inputs(thin, prox, B, N, cuda, seed=11, R=R if thin else None)
+    (e_wg, e_mma, e_fma), got, want = _route_errors(args, n_iters, prox, thin)
+    bound = ATOL if n_iters == 1 else max(ATOL, TC_ERR_RATIO * e_fma)
+    assert e_wg <= bound, (e_wg, e_mma, e_fma)
+    assert e_mma <= max(ATOL, TC_ERR_RATIO * e_fma)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+    if n_iters == 1:
+        assert torch.equal(got[3], args[6])
+
+
+def test_wgmma_kernel_keeps_non_finite_values_in_their_lanes(cuda):
+    """At the benchmark's shape an inf or a NaN in a lane's state leaves
+    every other lane as if it were not there."""
+    B, N, R = 4096, 1000, 100
+    args = _inputs(True, "l1", B, N, cuda, seed=12, R=R)
+    bad = [a.clone() for a in args]
+    bad[3][5, 7] = float("inf")      # acy of lane 5
+    bad[8][1000, 999] = float("nan")  # h of lane 1000, the last column
+    bad[7][4095, 0] = float("-inf")  # x1 of the last lane
+    got = fused_two_block_chunk(*bad, n_iters=21, prox="l1", thin=True)
+    ref = fused_two_block_chunk_reference(*bad, n_iters=21, prox="l1", thin=True)
+    clean = fused_two_block_chunk_reference(*args, n_iters=21, prox="l1", thin=True)
     torch.cuda.synchronize()
     for g, r, c in zip(got, ref, clean):
         lanes = torch.isfinite(g).all(dim=1)
         assert torch.equal(lanes, torch.isfinite(r).all(dim=1))
-        assert lanes.sum().item() == B - 2
+        assert lanes.sum().item() == B - 3
         np.testing.assert_allclose(g[lanes].cpu().numpy(), c[lanes].cpu().numpy(),
                                    rtol=0, atol=ATOL)
+
+
+def test_wgmma_solve_matches_mma_sync_solve(cuda, monkeypatch):
+    """A FusedTwoBlockSolver.solve at the benchmark's shape (A 100 x 1000,
+    4096 noisy measurements of one answer at lambda 0.1, 300 iterations)
+    through the wgmma kernel against the same solve through the mma.sync
+    kernel: x within ATOL, or within TC_ERR_RATIO times the distance of the
+    FMA kernel's solve from the mma.sync one (f32 sums in another order,
+    carried through 300 iterations); every chunk on its route."""
+    from functools import partial
+
+    from admmsolver_tpu_torch.ops import kernels
+    from admmsolver_tpu_torch.ops.kernels import TwoBlockTiling
+
+    rng = np.random.RandomState(13)
+    A = rng.randn(100, 1000)
+    xt = np.zeros(1000)
+    xt[rng.choice(1000, 20, replace=False)] = rng.randn(20)
+    ys = (A @ xt)[None] + 0.01 * rng.randn(4096, 100)
+    routes = kernels.fused_two_block_chunk.routes
+    tiling = kernels._two_block_tiling
+    choose = {"wgmma": tiling, "mma_sync": lambda *a, **k: TwoBlockTiling(32, 32, 2, 2, 1),
+              "fma": partial(tiling, tensor_cores=False)}
+    x = {}
+    for name in ("wgmma", "mma_sync", "fma"):
+        monkeypatch.setattr(kernels, "_two_block_tiling", choose[name])
+        before = {k: c.launches for k, c in routes.items()}
+        launches = fused_two_block_chunk.launches
+        r = FusedTwoBlockSolver(_bp(A, ys[0]), device=cuda).solve({(0, "y"): ys}, niter=300)
+        torch.cuda.synchronize()
+        chunks = fused_two_block_chunk.launches - launches
+        assert chunks >= 4   # iteration 0 and three chunks, and the captures' warm runs
+        assert {k: c.launches - before[k] for k, c in routes.items()} == \
+            {k: chunks * (k == name) for k in routes}
+        x[name] = torch.cat([r.x0, r.x1], dim=1).cpu().numpy()
+    gap = np.abs(x["wgmma"] - x["mma_sync"]).max()
+    fma_gap = np.abs(x["fma"] - x["mma_sync"]).max()
+    assert gap <= max(ATOL, TC_ERR_RATIO * fma_gap), (gap, fma_gap)
 
 
 def test_cuda_kernel_zero_iterations_and_checks(cuda):

@@ -107,12 +107,12 @@ H100_SMEM = 232448  # opt-in shared memory per block of an H100, in bytes
 
 
 @pytest.mark.parametrize("N,R,want", [
-    # the bench shape: 32 lanes on the tensor cores, three 32-row k-tiles, pairs of blocks
+    # chip_smoke's shape: 32 lanes on mma.sync, three 32-row k-tiles, pairs of blocks
     (512, 256, (32, 32, 3, 2, 1)),
-    # a small full basis leaves room for the deepest ring
-    (128, 128, (32, 32, 4, 2, 1)),
+    # a small full basis (R <= 128): the wgmma kernel with the deepest rings
+    (128, 128, (32, 32, 4, 1, 2)),
     # R not a multiple of 4: no bulk copies, hence no cluster
-    (100, 50, (32, 32, 4, 1, 1)),
+    (100, 50, (32, 32, 4, 1, 2)),
     # 32 lanes fit with shallower k-tiles only
     (1024, 512, (32, 16, 2, 2, 1)),
     # 32 lanes do not fit: the FMA kernel at fewer lanes
@@ -139,6 +139,57 @@ def test_two_block_tiling_choice(N, R, want):
     assert _two_block_tiling(N, R, H100_SMEM, aligned=False).cluster == 1
 
 
+@pytest.mark.parametrize("N,R,want", [
+    # the benchmark's shape (bp.fused_f32): wgmma, two rings of three stages, no cluster
+    (1000, 100, (32, 32, 3, 1, 2)),
+    # the widest thin basis the wgmma kernel takes
+    (1000, 128, (32, 32, 3, 1, 2)),
+    (256, 128, (32, 32, 4, 1, 2)),
+    # one past it, and chip_smoke's N=512, R=256: the mma.sync kernel
+    (1000, 129, (32, 32, 2, 1, 1)),
+    (1000, 132, (32, 32, 2, 2, 1)),
+    # v of N = 1200 leaves no room for two stages: the mma.sync kernel
+    (1200, 100, (32, 16, 3, 2, 1)),
+    # R or N not a multiple of 4: no bulk copies (the wgmma kernel's plain loads)
+    (998, 97, (32, 32, 3, 1, 2)),
+    (998, 100, (32, 32, 3, 1, 2)),
+    (1000, 97, (32, 32, 3, 1, 2)),
+    # 32 lanes do not fit: the FMA kernel
+    (2048, 2048, (8, 16, 2, 2, 0)),
+])
+def test_two_block_route_choice(N, R, want):
+    """R <= 128 takes the wgmma kernel wherever its two rings fit two
+    stages; a wider basis the mma.sync kernel, and fewer than 32 lanes the
+    FMA kernel, as before."""
+    from admmsolver_tpu_torch.ops.kernels import (TWO_BLOCK_ROUTES, TwoBlockTiling,
+                                                  _two_block_smem_bytes, _two_block_tiling)
+
+    got = _two_block_tiling(N, R, H100_SMEM)
+    assert got == TwoBlockTiling(*want)
+    assert _two_block_smem_bytes(got.lanes, N, R, got.kt, got.stages,
+                                 got.tensor_cores) <= H100_SMEM
+    if TWO_BLOCK_ROUTES[got.tensor_cores] == "wgmma":
+        assert R <= 128
+        if got.stages < 4:
+            assert _two_block_smem_bytes(32, N, R, 32, got.stages + 1, 2) > H100_SMEM
+    else:
+        assert R > 128 or _two_block_smem_bytes(32, N, R, 32, 2, 2) > H100_SMEM
+
+
+def test_two_block_wgmma_shared_memory():
+    """The wgmma kernel's layout: v in 64-column slices, w and its tail in
+    32-column atoms, two tail slices, two rings of 8 KiB stages, mu, 1/mu and
+    thr, two barriers per stage and ring, and the 1024-byte alignment margin."""
+    from admmsolver_tpu_torch.ops.kernels import _two_block_smem_bytes
+
+    atom = 32 * 32 * 4
+    for N, R, stages in [(1000, 100, 3), (64, 32, 2), (97, 97, 4)]:
+        atoms = 2 * -(-N // 64) + 2 * -(-R // 32) + 4
+        want = 1024 + atoms * atom + 2 * stages * 8192 + 3 * 32 * 4 + 2 * stages * 2 * 8
+        assert _two_block_smem_bytes(32, N, R, 32, stages, 2) == want
+    assert _two_block_smem_bytes(32, 1000, 100, 32, 3, 2) == 230880
+
+
 def test_two_block_tiling_limits():
     from admmsolver_tpu_torch.ops.kernels import _two_block_tiling
 
@@ -149,3 +200,65 @@ def test_two_block_tiling_limits():
     assert _two_block_tiling(1024, 512, H100_SMEM, tensor_cores=False)[::4] == (16, 0)
     with pytest.raises(ValueError, match="shared memory"):
         _two_block_tiling(40000, 40000, H100_SMEM)
+
+
+class _FakeTwoBlockLibrary:
+    """The C interface of the two-block kernel's library, recording each
+    launch's tiling instead of launching: the wrapper's path to the launch
+    and its counters run on the CPU."""
+
+    def __init__(self, smem_limit):
+        self.smem_limit = smem_limit
+        self.tilings = []
+
+    def fused_two_block_max_smem(self, device, limit):
+        limit._obj.value = self.smem_limit
+        return 0
+
+    def fused_two_block_launch(self, *args):
+        self.tilings.append(tuple(args[-6:-1]))
+        return 0
+
+    def fused_two_block_error_string(self, err):
+        return b"no launch"
+
+
+@pytest.mark.parametrize("N,R,smem,route", [
+    (1000, 100, H100_SMEM, "wgmma"),      # the benchmark's shape
+    (998, 97, H100_SMEM, "wgmma"),        # ragged: the same route without a cluster
+    (512, 256, H100_SMEM, "mma_sync"),    # chip_smoke's shape
+    (512, 256, H100_SMEM // 2, "fma"),    # 16 lanes a block
+])
+def test_two_block_route_counters(monkeypatch, N, R, smem, route):
+    """Each launch counts once in ``launches`` and once in its route's
+    counter, which telemetry reports as ``kernel.fused_two_block_chunk.
+    <route>.launches``; an mma.sync tiling given for a thin basis counts on
+    the mma.sync route."""
+    from admmsolver_tpu_torch.ops import _build, kernels
+    from admmsolver_tpu_torch.utils import telemetry
+
+    lib = _FakeTwoBlockLibrary(smem)
+    monkeypatch.setattr(_build, "load_libraries", lambda: {"fused_two_block": lib})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("Stream", (), {"cuda_stream": 0})())
+    B = 3
+    args = [torch.zeros(shape) for shape in ((N, R), (R, N), (B, R), (B, N), (B, 1), (B, 1),
+                                             (B, N), (B, N), (B, N))]
+    routes = kernels.fused_two_block_chunk.routes
+    before = {name: c.launches for name, c in routes.items()}
+    launches = kernels.fused_two_block_chunk.launches
+    telemetry.reset()
+    kernels._two_block_launch(args, 5, "l1", True)
+    assert lib.tilings[-1] == tuple(kernels._two_block_tiling(N, R, smem))
+    assert kernels.fused_two_block_chunk.launches == launches + 1
+    assert {name: c.launches - before[name] for name, c in routes.items()} == \
+        {name: int(name == route) for name in routes}
+    counters = telemetry.snapshot()["counters"]
+    assert counters["kernel.fused_two_block_chunk.launches"] == 1
+    for name in routes:
+        assert counters[f"kernel.fused_two_block_chunk.{name}.launches"] == int(name == route)
+
+    kernels._two_block_launch(args, 5, "l1", True, kernels.TwoBlockTiling(32, 32, 2, 1, 1))
+    assert lib.tilings[-1] == (32, 32, 2, 1, 1)
+    assert routes["mma_sync"].launches - before["mma_sync"] == 1 + int(route == "mma_sync")
