@@ -57,5 +57,5 @@ from .config import ADMMConfig
 from .parallel.batch import BatchedSolver, BatchResult
 from .parallel.fused import FusedTwoBlockSolver, FusedResult
 from .parallel.fused_spm import FusedSpMSolver, FusedSpMResult
-from .parallel.scheduler import ScenarioScheduler, ScenarioResult
+from .parallel.scheduler import ScenarioScheduler, ScenarioResult, StreamResult
 from .ops.kernels import fused_two_block_chunk, fused_spm_chunk

@@ -10,10 +10,13 @@ the slowest lane of a static batch.
 Runs on top of :class:`~admmsolver_tpu_torch.parallel.batch.BatchedSolver`.
 The penalty-update schedule restarts every wave, as the reference's does
 under repeated ``solve()`` calls (``optimizer.py:310,319``).  :meth:`run`
-keeps the lane state on the host between waves; :meth:`run_compiled` keeps
+keeps the lane state on the host between waves; :meth:`run_stacked` keeps
 it on the device in one wave program (:class:`_WaveProgram`), whose entry,
 chunks and exit (the harvest and refill) are replays of captured graphs
-where a solve's chunks are.
+where a solve's chunks are: a stream of stacked tensors in, a
+:class:`StreamResult` of tensors out, all on the solver's device.
+:meth:`run_compiled` is the same drain for a list of per-scenario dicts,
+stacked on the host and unpacked into :class:`ScenarioResult` s.
 
 On a sharded solver every rank drives the same stream through :meth:`run`:
 each wave's flags, counts and states are gathered to every rank, so that all
@@ -33,7 +36,7 @@ from ..utils import telemetry
 from . import batch
 from .batch import BatchedSolver, _cast_like
 
-__all__ = ["ScenarioScheduler", "ScenarioResult"]
+__all__ = ["ScenarioScheduler", "ScenarioResult", "StreamResult"]
 
 
 @dataclasses.dataclass
@@ -45,6 +48,19 @@ class ScenarioResult:
     iterations: int
     converged: bool
     final_mu: np.ndarray
+
+
+@dataclasses.dataclass
+class StreamResult:
+    """Outcome of a stacked stream (:meth:`ScenarioScheduler.run_stacked`),
+    row ``s`` scenario ``s``, every tensor on the solver's device: ``x``
+    one (S, n) tensor a block, ``iterations`` (S,), ``converged`` (S,) and
+    ``final_mu`` (S, npairs)."""
+
+    x: Tuple[torch.Tensor, ...]
+    iterations: torch.Tensor
+    converged: torch.Tensor
+    final_mu: torch.Tensor
 
 
 def _host(a: torch.Tensor) -> np.ndarray:
@@ -163,48 +179,74 @@ class ScenarioScheduler:
 
     @telemetry.spanned(telemetry.SOLVE)
     def run_compiled(self, scenarios: Iterable[Dict]) -> List[ScenarioResult]:
-        """Drain a materialized stream with the lane state kept on the device.
+        """Drain a materialized stream with the lane state kept on the device:
+        the scenarios stacked on the host into ``(S, ...)`` arrays, then
+        :meth:`run_stacked`, then one :class:`ScenarioResult` a scenario.
 
         The JAX package runs this as one compiled ``while_loop`` (one
         dispatch for the whole stream, ``scheduler.py:164-323``).  Here it
         is one wave program (:class:`_WaveProgram`) whose waves the host
-        starts: the overrides of all S scenarios are staged once a run as
-        ``(S, ...)`` tensors in the solver's dtype; each wave's entry
-        gathers every lane's rows by its scenario id, its chunks run the
-        wave's iterations, and its exit scatters the finished lanes into
-        ``(S+1)``-row outputs (row S takes the lanes that finish nothing)
-        and refills the freed lanes with the next scenarios in lane order,
-        zero state and ``mu0``: the lanes :meth:`run` assigns.  The host
-        reads one number a wave, the count of harvested scenarios (with the
-        factorizations' failure flag), beside the done flags the chunks
-        read where a wave has more than one and a lane can finish.
-
-        Semantics match :meth:`run`.  ``solve_kw`` beyond the penalty knobs
-        and ``recipe="plain"``, and a sharded solver (whose lanes are spread
-        over the ranks), fall back to :meth:`run`.
+        starts (:meth:`run_stacked`).  Semantics match :meth:`run`.
         """
         scen = list(scenarios)
         if not scen:
             return []
+        with telemetry.span("admm.stream_in"):
+            keys = tuple(sorted(scen[0].keys()))
+            for sid, ov in enumerate(scen):
+                if tuple(sorted(ov.keys())) != keys:
+                    raise ValueError(f"scenario {sid} keys {sorted(ov.keys())} != {keys}")
+            stacks = {k: torch.as_tensor(np.stack([np.asarray(ov[k]) for ov in scen]))
+                      for k in keys}
+        r = self.run_stacked(stacks)
+        xs = [a.cpu().numpy() for a in r.x]
+        mus, its, cvs = (a.cpu().numpy() for a in (r.final_mu, r.iterations, r.converged))
+        return [ScenarioResult(scenario_id=s, x=tuple(a[s].copy() for a in xs),
+                               iterations=int(its[s]), converged=bool(cvs[s]),
+                               final_mu=mus[s].copy())
+                for s in range(len(scen))]
+
+    @telemetry.spanned(telemetry.SOLVE)
+    def run_stacked(self, overrides: Dict) -> StreamResult:
+        """Drain a stream of stacked scenarios with the lane state kept on
+        the device.
+
+        ``overrides``: ``{(block, field): tensor (S, ...)}``, row ``s``
+        scenario ``s``, on any device and in any dtype; cast to the
+        solver's dtype (floats to its real type, complex to its complex
+        type: :func:`~admmsolver_tpu_torch.parallel.batch._cast_like`) and
+        device.  Each wave's entry gathers every lane's rows by its
+        scenario id, its chunks run the wave's iterations, and its exit
+        scatters the finished lanes into ``(S+1)``-row outputs (row S takes
+        the lanes that finish nothing) and refills the freed lanes with the
+        next scenarios in lane order, zero state and ``mu0``: the lanes
+        :meth:`run` assigns.  The host reads one number a wave, the count
+        of harvested scenarios (with the factorizations' failure flag),
+        beside the done flags the chunks read where a wave has more than
+        one and a lane can finish.
+
+        Semantics match :meth:`run`.  ``solve_kw`` beyond the penalty knobs
+        and ``recipe="plain"``, and a sharded solver (whose lanes are spread
+        over the ranks), fall back to :meth:`run` over the rows; the result
+        is stacked all the same.
+        """
+        solver = self.solver
+        S = solver._validate_overrides(overrides)
+        if S is None:
+            raise ValueError("run_stacked needs at least one override to stack the stream on")
+        dtype, dev = solver.dtype, solver.device
+        # solve()'s dtype discipline: f64 scenario values must not promote
+        # an f32 solve
+        stacks = {k: _cast_like(dtype, overrides[k], dev) for k in sorted(overrides)}
         extra = {k: v for k, v in self.solve_kw.items()
                  if k not in ("interval_update_mu", "update_h", "fact_incr",
                               "th_change", "max_mu", "recipe")}
         if (extra or self.solve_kw.get("recipe", "plain") != "plain"
-                or self.solver.sharding is not None):
-            return self.run(scen)
+                or solver.sharding is not None or S == 0):
+            rows = {k: _host(v) for k, v in stacks.items()}
+            res = self.run({k: v[s] for k, v in rows.items()} for s in range(S))
+            return self._stacked(res)
 
-        solver = self.solver
-        keys = tuple(sorted(scen[0].keys()))
-        for sid, ov in enumerate(scen):
-            if tuple(sorted(ov.keys())) != keys:
-                raise ValueError(f"scenario {sid} keys {sorted(ov.keys())} != {keys}")
-        solver._validate_overrides({k: np.stack([np.asarray(scen[0][k])]) for k in keys})
-        S, B = len(scen), self.B
-        dtype, dev = solver.dtype, solver.device
-        # solve()'s dtype discipline: f64 scenario values must not promote
-        # an f32 solve
-        stacks = {k: _cast_like(dtype, np.stack([np.asarray(ov[k]) for ov in scen]), dev)
-                  for k in keys}
         kw = self.solve_kw
         cfg = solver._config(self.chunk_iters, kw.get("interval_update_mu", 100),
                              kw.get("update_h", True), kw.get("max_mu", 1e3),
@@ -216,7 +258,24 @@ class ScenarioScheduler:
         pool = solver._graph_pool(capture)
         while not program.wave(capture, pool):
             pass
-        return program.results()
+        out = program.results()
+        if telemetry.enabled():
+            telemetry.count("stream.lane_iters", int(out.iterations.sum()))
+        return out
+
+    def _stacked(self, res: List[ScenarioResult]) -> StreamResult:
+        """The results of :meth:`run` as one :class:`StreamResult` (the
+        counts int32, as the wave program keeps them)."""
+        plan, dev, S = self.solver.plan, self.solver.device, len(res)
+        rows = lambda vals, dt, *shape: torch.as_tensor(
+            np.array(vals, dtype=dt).reshape((S,) + shape), device=dev)
+        xdt, rdt = (torch.empty(0, dtype=d).numpy().dtype
+                    for d in (self.solver.dtype, _real_dtype(self.solver.dtype)))
+        return StreamResult(
+            x=tuple(rows([r.x[b] for r in res], xdt, n) for b, n in enumerate(plan.block_sizes)),
+            iterations=rows([r.iterations for r in res], np.int32),
+            converged=rows([r.converged for r in res], np.bool_),
+            final_mu=rows([r.final_mu for r in res], rdt, plan.npairs))
 
     def _program(self, cfg, stacks: Dict, S: int, tols) -> "_WaveProgram":
         """The stream's wave program, made on a miss.  The key: the JAX
@@ -235,12 +294,13 @@ class ScenarioScheduler:
             for other in [k for k, p in solver._programs.items() if isinstance(p, _WaveProgram)]:
                 del solver._programs[other]
             program = batch._keep(solver._programs, key, lambda: _WaveProgram(
-                solver, cfg, stacks, S, self.B, self.niter_max, tols))
+                solver, cfg, {k: batch._fresh(v) for k, v in stacks.items()}, S, self.B,
+                self.niter_max, tols))
         return program
 
 
 class _WaveProgram(batch._FedProgram):
-    """A wave of :meth:`ScenarioScheduler.run_compiled`: the body of the JAX
+    """A wave of :meth:`ScenarioScheduler.run_stacked`: the body of the JAX
     package's ``while_loop`` (``scheduler.py:263-296``) step for step, as a
     fed program of B lanes (:class:`~admmsolver_tpu_torch.parallel.batch.
     _FedProgram`) whose state buffers carry the lanes from wave to wave.
@@ -271,7 +331,7 @@ class _WaveProgram(batch._FedProgram):
         out = (tuple(zeros(S + 1, n) for n in plan.block_sizes)
                + (zeros(S + 1, plan.npairs, dt=rdt), zeros(S + 1, dt=torch.int32),
                   zeros(S + 1, dt=torch.bool)))
-        # the run's staged scenarios, which no one else holds, become the stacks
+        # copies of the first run's stacks, which no one else holds, become the stacks
         feed = batch._Feed(dict(stacks), None, out=out)
         # the buffers sized by a wave of the first scenarios
         first = torch.arange(B, device=dev).clamp_max(S - 1)
@@ -285,6 +345,8 @@ class _WaveProgram(batch._FedProgram):
         self.sid = zeros(B, dt=torch.long)
         self.iters = zeros(B, dt=torch.int32)
         self.nxt, self.harvested = zeros(dt=torch.long), zeros(dt=torch.long)
+        # the harvested count of the last read (the host's copy)
+        self.seen = 0
         self.mu0 = zeros(dt=rdt)
 
     def load(self, tols, stacks: Dict, mu0: float) -> None:
@@ -296,6 +358,7 @@ class _WaveProgram(batch._FedProgram):
         self.sid.masked_fill_(self.sid >= self.S, -1)
         self.nxt.fill_(min(B, self.S))
         self.harvested.zero_()
+        self.seen = 0
         self.iters.zero_()
         self.mu0.fill_(mu0)
         for a in self.x + self.h + self.feed.out:
@@ -332,28 +395,38 @@ class _WaveProgram(batch._FedProgram):
         self.nxt.add_(nfin)
         self.harvested.add_(nfin)
 
+    def run(self, n: int, capture: bool, pool) -> None:
+        """One chunk of the wave, its lane slots counted."""
+        super().run(n, capture, pool)
+        telemetry.count("stream.slot_iters", self.sid.shape[0] * n)
+
     def wave(self, capture: bool, pool) -> bool:
         """One wave (:meth:`run_group`); whether the stream is drained, from
         the wave's one host read of the harvested count, which also takes
-        the failure flag of the factorizations (raised here)."""
-        self.run_group(capture, pool)
-        with telemetry.span("admm.flags_read"):
-            telemetry.count("flag_reads")
-            harvested, failures = torch.stack(
-                [self.harvested, self.failed.to(torch.int64)]).tolist()
-        raise_if_not_pd(failures > 0)
+        the failure flag of the factorizations (raised here).  Counts the
+        wave, the scenarios it harvested and its lane slots: B a wave
+        iteration, iteration 0 here and the chunks' in :meth:`run`."""
+        with telemetry.span("admm.wave"):
+            self.run_group(capture, pool)
+            with telemetry.span("admm.flags_read"):
+                telemetry.count("flag_reads")
+                harvested, failures = torch.stack(
+                    [self.harvested, self.failed.to(torch.int64)]).tolist()
+            raise_if_not_pd(failures > 0)
+            telemetry.count("waves")
+            telemetry.count("scenarios_out", harvested - self.seen)
+            telemetry.count("stream.slot_iters", self.sid.shape[0])
+            self.seen = harvested
         return harvested >= self.S
 
     def buffers(self) -> Tuple[torch.Tensor, ...]:
         return super().buffers() + (self.sid, self.iters, self.nxt, self.harvested, self.mu0)
 
     @telemetry.spanned("admm.result")
-    def results(self) -> List[ScenarioResult]:
-        """Every scenario's result, from the outputs in one copy each."""
+    def results(self) -> StreamResult:
+        """Every scenario's result, copied out of the outputs that the next
+        run overwrites."""
         S, nx = self.S, len(self.x)
-        outs = [o[:S].cpu().numpy() for o in self.feed.out]
-        xs, (mus, its, cvs) = outs[:nx], outs[nx:]
-        return [ScenarioResult(scenario_id=s, x=tuple(a[s].copy() for a in xs),
-                               iterations=int(its[s]), converged=bool(cvs[s]),
-                               final_mu=mus[s].copy())
-                for s in range(S)]
+        outs = [o[:S].clone() for o in self.feed.out]
+        mus, its, cvs = outs[nx:]
+        return StreamResult(x=tuple(outs[:nx]), iterations=its, converged=cvs, final_mu=mus)

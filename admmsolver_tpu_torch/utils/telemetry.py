@@ -10,8 +10,10 @@ observability is the residual history lists and a per-iteration
   a ``torch.profiler`` records (the marks inside captured graphs only
   inside ``tracing()``: :func:`marking`);
 * :func:`span` — a named stretch of the host's work (``admm.solve``,
-  ``admm.chunk``, ``admm.replay``, ...): an event on the profiler's timeline
-  and a record kept here; :func:`count` — a counter; :class:`Marks` —
+  ``admm.chunk``, ``admm.replay``, ``admm.wave``, ...): an event on the
+  profiler's timeline and a record kept here; :func:`count` — a counter
+  (``flag_reads``, ``replays``, a stream's ``waves``, ``scenarios_out``,
+  ``stream.slot_iters`` and ``stream.lane_iters``, ...); :class:`Marks` —
   timing events on the device (inside a captured graph, or on the stream
   around a composite's stages), read without waiting for them;
   :func:`snapshot` / :func:`reset` — everything recorded since the last

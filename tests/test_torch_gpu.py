@@ -570,6 +570,30 @@ def test_scheduler_run_compiled_on_cuda_matches_run(cuda):
             np.testing.assert_allclose(a.x[0], b.x[0], rtol=0, atol=1e-9 * scale)
 
 
+def test_scheduler_run_stacked_takes_and_gives_card_tensors(cuda):
+    """A stream already on the card (float32 stacks into a float64 solver)
+    drains without a host copy of its inputs; its results stay on the card
+    and equal ``run_compiled``'s bit for bit."""
+    from admmsolver_tpu_torch.parallel import ScenarioScheduler
+
+    rng = np.random.RandomState(6)
+    A = rng.randn(12, 24)
+    ys, alphas = rng.randn(13, 12), 10.0 ** rng.uniform(-2.5, -0.5, 13)
+    sched = ScenarioScheduler(BatchedSolver(_bp(A, ys[0])), batch_size=4, chunk_iters=50,
+                              niter_max=500, rtol=0.0, atol=1e-9)
+    stacks = {(0, "y"): torch.as_tensor(ys, device=cuda).float(),
+              (1, "alpha"): torch.as_tensor(alphas, device=cuda).float()}
+    r = sched.run_stacked(stacks)
+    assert all(t.device.type == "cuda" for t in r.x + (r.iterations, r.converged, r.final_mu))
+    assert r.x[0].dtype == torch.float64
+    rows = {k: v.double().cpu().numpy() for k, v in stacks.items()}
+    comp = sched.run_compiled({k: v[i] for k, v in rows.items()} for i in range(13))
+    assert r.iterations.tolist() == [c.iterations for c in comp]
+    assert r.converged.tolist() == [c.converged for c in comp]
+    for b in range(2):
+        assert np.array_equal(r.x[b].cpu().numpy(), np.stack([c.x[b] for c in comp]))
+
+
 def test_solve_resumable_on_cuda(cuda, tmp_path):
     """Stopped after one segment and resumed from the file on the card:
     equal to the uninterrupted run, exactly."""
