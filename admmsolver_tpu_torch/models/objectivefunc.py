@@ -30,8 +30,6 @@ the JAX package, so both packages iterate on the same eigenbasis.
 """
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import copy
 from typing import NamedTuple, Optional, Sequence, Union
 
@@ -52,7 +50,12 @@ from ..ops.linop import (
     add,
     asmatrixtype,
     matmul,
+    _DEFERRED_INFOS,
+    any_not_pd,
+    deferred_cholesky_checks,
+    inv_hpd,
     matrix_hash,
+    raise_if_not_pd,
     static_structure,
     structure_is_static,
     svd_via_gram,
@@ -89,64 +92,6 @@ class SpectralShift(NamedTuple):
 
     shift: torch.Tensor
     thin: bool
-
-
-#: The device-side ``info`` of each Cholesky factorization that :func:`inv_hpd`
-#: makes inside :func:`deferred_cholesky_checks`, or None outside it.
-_DEFERRED_INFOS: contextvars.ContextVar = contextvars.ContextVar("deferred_cholesky_infos",
-                                                                 default=None)
-
-
-@contextlib.contextmanager
-def deferred_cholesky_checks():
-    """Inside the block, :func:`inv_hpd` keeps each factorization's ``info``
-    on the device (``torch.linalg.cholesky_ex``) and appends it to the list
-    this yields, where ``torch.linalg.cholesky`` would read it on the host at
-    once: a CUDA graph cannot hold that read.  The caller checks the list
-    later with :func:`raise_if_not_pd`.  Nor does the factors' structure
-    read a value (:func:`~admmsolver_tpu_torch.ops.linop.static_structure`):
-    a spectral shift takes the thin basis wherever there is one, as the JAX
-    package's traced solve does (the engine's penalties are positive)."""
-    infos: list = []
-    token = _DEFERRED_INFOS.set(infos)
-    try:
-        with static_structure():
-            yield infos
-    finally:
-        _DEFERRED_INFOS.reset(token)
-
-
-def any_not_pd(infos) -> torch.Tensor:
-    """A boolean device scalar: whether any factorization of ``infos`` (a
-    list of ``cholesky_ex`` infos) failed."""
-    return torch.stack([(info != 0).any() for info in infos]).any()
-
-
-def raise_if_not_pd(failed) -> None:
-    """Raise what ``torch.linalg.cholesky`` raises when ``failed`` (a value
-    of :func:`any_not_pd`, read on the host here) is set."""
-    if bool(failed):
-        raise torch.linalg.LinAlgError(
-            "inv_hpd: the factorization could not be completed because a matrix is not "
-            "positive-definite")
-
-
-def inv_hpd(a: torch.Tensor) -> torch.Tensor:
-    """Inverse of Hermitian positive-definite matrices ``(..., n, n)`` by a
-    (batched) Cholesky factorization ``a = L L†``: ``a^{-1} = L^{-†} L^{-1}``
-    with ``L^{-1}`` from one batched triangular solve (the reference calls
-    ``np.linalg.inv``, ``objectivefunc.py:11,94``); like the reference, a
-    matrix that is not positive definite raises: at once, or inside
-    :func:`deferred_cholesky_checks` where its caller reads the infos."""
-    infos = _DEFERRED_INFOS.get()
-    if infos is None:
-        L = torch.linalg.cholesky(a)
-    else:
-        L, info = torch.linalg.cholesky_ex(a)
-        infos.append(info)
-    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device).expand_as(a)
-    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
-    return Linv.mH @ Linv
 
 
 def _tridiag_of(offsets, bands: torch.Tensor):

@@ -39,17 +39,22 @@ _LAUNCH_ARGTYPES = {
     # device, input, scratch, 2 outputs, batch, n, sweeps, float64, mode,
     # threads, stream
     "jacobi_eigh": [_INT] + [_PTR] * 4 + [_INT] * 6 + [_PTR],
+    # device, 8 inputs (AcA, W, C, D, alpha, mu1, mu2, acy), 3 outputs (M,
+    # b2, info), B, nl, nc, the strides of alpha, mu1, mu2 and acy's rows,
+    # block kernel, stream
+    "spm_factor_refresh": [_INT] + [_PTR] * 11 + [_INT] * 8 + [_PTR],
 }
 # (lanes per block, N, R, k-tile depth, stages, tensor cores); (lanes per
-# block, nl, nw); (n, float64, mode)
+# block, nl, nw); (n, float64, mode); (nl, nc, block kernel)
 _SMEM_ARGTYPES = {"fused_two_block": [_INT] * 6, "fused_spm": [_INT] * 3,
-                  "jacobi_eigh": [_INT] * 3}
+                  "jacobi_eigh": [_INT] * 3, "spm_factor_refresh": [_INT] * 3}
 # Other functions of a library: name -> argument types (result: int).
 _OTHER_ARGTYPES = {
     # device, buffer, floats, passes, rotate, blocks, out, stream
     "fused_two_block": {"fused_two_block_l2_probe": [_INT, _PTR] + [_INT] * 4 + [_PTR] * 2},
     "fused_spm": {},
     "jacobi_eigh": {},
+    "spm_factor_refresh": {},
 }
 
 
@@ -112,8 +117,8 @@ def _finish_builds(running) -> None:
 @functools.lru_cache(maxsize=None)
 def load_libraries() -> Dict[str, ctypes.CDLL]:
     """The loaded kernel libraries by source name (``fused_two_block``,
-    ``fused_spm``, ``jacobi_eigh``), each built first if its source has no
-    build.
+    ``fused_spm``, ``jacobi_eigh``, ``spm_factor_refresh``), each built
+    first if its source has no build.
 
     The compiler's report (registers, shared memory, spills) is kept
     beside each library as ``<name>_<hash>.log``.

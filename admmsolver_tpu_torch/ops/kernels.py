@@ -23,9 +23,13 @@ M hk0``, L1, nonnegativity through a shared projector ``P``):
     x2  = max(-(h20 - mu2·P x0)/mu2, 0)
     h10 += mu1 (x1 - x0);  h20 += mu2 (x2 - P x0)
 
+:func:`spm_factor_refresh` — the SpM chunk's per-lane factor ``M``, ``b2``
+(an HPD inverse with the sum rule folded in), once a chunk before it.
+
 On CUDA tensors each wrapper launches its hand-written kernel
-(``csrc/fused_two_block.cu``, ``csrc/fused_spm.cu``); on CPU tensors it
-runs its ``*_reference``, the same math in torch ops.  float32 only.  Each
+(``csrc/fused_two_block.cu``, ``csrc/fused_spm.cu``,
+``csrc/spm_factor_refresh.cu``); on CPU tensors it runs its
+``*_reference``, the same math in torch ops.  float32 only.  Each chunk
 source holds a kernel that runs the products shared by all lanes on the
 tensor cores in split TF32 (every f32 operand as a TF32 head plus a TF32
 tail, three products each, f32 sums: f32 accuracy, unlike plain TF32,
@@ -45,9 +49,11 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
+from .linop import defer_cholesky_info, inv_hpd
 
 __all__ = ["fused_two_block_chunk", "fused_two_block_chunk_reference",
            "fused_spm_chunk", "fused_spm_chunk_reference",
+           "spm_factor_refresh", "spm_factor_refresh_reference",
            "jacobi_eigh", "jacobi_eigh_reference"]
 
 _PROX = {"l1": 0, "l1_even": 1, "nonneg": 2, "nonneg_even": 3}
@@ -410,6 +416,146 @@ fused_spm_chunk.launches = 0
 
 
 # ---------------------------------------------------------------------
+# SpM factor refresh (the affine map the SpM chunk kernel reads)
+# ---------------------------------------------------------------------
+
+#: The widest nl and the most sum-rule rows the warp kernel takes.
+_REFRESH_WARP_NL = 32
+_REFRESH_WARP_NC = 4
+#: The kernels of :func:`spm_factor_refresh` on a CUDA device.
+REFRESH_ROUTES = ("warp", "block")
+
+
+def spm_factor_refresh_reference(AcA, W, C, D, alpha_ls, mu1, mu2,
+                                 acy) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch version of :func:`spm_factor_refresh`, on any device and
+    in any dtype: batched Cholesky inverses (``inv_hpd``) and products."""
+    eye = torch.eye(AcA.shape[0], dtype=AcA.dtype, device=AcA.device)
+    Mpen = (alpha_ls[:, None, None] * AcA
+            + mu1[:, None, None] * eye
+            + mu2[:, None, None] * W)
+    M = inv_hpd(Mpen)                                   # (B, nl, nl)
+    b2 = None
+    if C is not None:
+        Bf = M
+        xi2 = -(Bf @ C.T)                               # (B, nl, nc)
+        Sinv = -inv_hpd(-(C @ xi2))                     # (B, nc, nc)
+        M = Bf - xi2 @ (Sinv @ (C @ Bf))
+        b2 = (xi2 @ (Sinv @ D)[:, :, None])[:, :, 0]
+    aMy = alpha_ls[:, None] * (M @ acy[:, :, None])[:, :, 0]
+    return M.contiguous(), (aMy if b2 is None else aMy + b2).contiguous()
+
+
+def _refresh_route(device: torch.device, dtype: torch.dtype, nl: int, nc: int) -> str:
+    """"plain" on the CPU; on a CUDA device, float32 only, the warp kernel
+    ("warp", a warp a lane in registers) at nl <= 32 with at most 4 sum-rule
+    rows and the block kernel ("block", a block a lane in shared memory) at
+    any other shape."""
+    if device.type == "cpu":
+        return "plain"
+    if device.type != "cuda":
+        raise ValueError(f"no spm_factor_refresh for device {device}")
+    if dtype != torch.float32:
+        raise TypeError(f"spm_factor_refresh is float32 only on CUDA, got {dtype}")
+    return "warp" if nl <= _REFRESH_WARP_NL and nc <= _REFRESH_WARP_NC else "block"
+
+
+def _check_refresh(AcA, W, C, D, alpha_ls, mu1, mu2, acy) -> None:
+    B, nl = acy.shape
+    if B == 0 or nl == 0:
+        raise ValueError(f"empty problem: B={B}, nl={nl}")
+    shapes = {"AcA": (AcA, (nl, nl)), "W": (W, (nl, nl)), "alpha_ls": (alpha_ls, (B,)),
+              "mu1": (mu1, (B,)), "mu2": (mu2, (B,))}
+    if C is not None:
+        shapes.update(C=(C, (C.shape[0], nl)), D=(D, (C.shape[0],)))
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if t.dtype != acy.dtype or t.device != acy.device:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, acy {acy.dtype} on "
+                             f"{acy.device}")
+
+
+def _refresh_launch(AcA, W, C, D, alpha_ls, mu1, mu2, acy, route: str):
+    """Launch the CUDA kernel of ``route`` ("warp" or "block") on checked
+    CUDA float32 tensors; returns (M, b2, info).  A route that does not take
+    the shape fails at the launch."""
+    B, nl = acy.shape
+    device = acy.device
+    lib = _build.load_libraries()["spm_factor_refresh"]
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    nc = 0 if C is None else C.shape[0]
+    block = int(route == "block")
+    if block:
+        limit = ctypes.c_int()
+        err = lib.spm_factor_refresh_max_smem(index, ctypes.byref(limit))
+        if err:
+            raise RuntimeError(lib.spm_factor_refresh_error_string(err).decode())
+        need = lib.spm_factor_refresh_smem_bytes(nl, nc, 1)
+        if need > limit.value:
+            raise ValueError(f"nl={nl}, nc={nc} needs {need} bytes of shared memory for one "
+                             f"lane, above this device's {limit.value}-byte limit per block")
+    if acy.stride(1) != 1:
+        acy = acy.contiguous()
+    shared = [t.contiguous() for t in (AcA, W)]
+    if nc:
+        shared += [C.contiguous(), D.contiguous()]
+    M = torch.empty((B, nl, nl), dtype=acy.dtype, device=device)
+    b2 = torch.empty((B, nl), dtype=acy.dtype, device=device)
+    info = torch.empty((B,), dtype=torch.int32, device=device)
+    ptrs = [t.data_ptr() for t in shared] + [None] * (4 - len(shared))
+    err = lib.spm_factor_refresh_launch(
+        index, *ptrs, *(t.data_ptr() for t in (alpha_ls, mu1, mu2, acy, M, b2, info)),
+        B, nl, nc, alpha_ls.stride(0), mu1.stride(0), mu2.stride(0), acy.stride(0), block,
+        torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        raise RuntimeError("spm_factor_refresh launch failed: "
+                           + lib.spm_factor_refresh_error_string(err).decode())
+    spm_factor_refresh.launches += 1
+    spm_factor_refresh.routes[route].launches += 1
+    return M, b2, info
+
+
+def spm_factor_refresh(AcA, W, C, D, alpha_ls, mu1, mu2,
+                       acy) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The SpM chunk's per-lane affine factor ``x0 = b2 - M hk0``:
+
+        Mpen = alpha AcA + mu1 I + mu2 W,   Bf = Mpen^{-1}
+        M = Bf - xi2 Sinv (C Bf),  b2 = alpha M acy + xi2 Sinv D,
+        xi2 = -Bf C^T,  Sinv = -(-C xi2)^{-1}
+
+    (M = Bf, b2 = alpha Bf acy without a sum rule, ``C`` and ``D`` None).
+    Shapes: ``AcA``, ``W`` (nl, nl) and ``C`` (nc, nl), ``D`` (nc,) shared
+    by all lanes; ``alpha_ls``, ``mu1``, ``mu2`` (B,), ``acy`` (B, nl).
+    Returns ``M`` (B, nl, nl) and ``b2`` (B, nl), contiguous.
+
+    CPU tensors run the plain version.  CUDA tensors, float32 only, launch a
+    kernel (``csrc/spm_factor_refresh.cu``) on the current stream without
+    synchronising: the warp kernel at nl <= 32 with at most 4 sum-rule rows,
+    the block kernel at any other shape (:func:`_refresh_route`); each
+    launch counts in ``spm_factor_refresh.launches`` and in its route's
+    ``.routes[...]``.  The kernels' not-positive-definite infos (one int32
+    a lane) go where ``inv_hpd``'s go: inside ``deferred_cholesky_checks``
+    into its list, else read at once, raising ``LinAlgError``.
+    """
+    nc = 0 if C is None else C.shape[0]
+    route = _refresh_route(acy.device, acy.dtype, AcA.shape[0], nc)
+    if route == "plain":
+        return spm_factor_refresh_reference(AcA, W, C, D, alpha_ls, mu1, mu2, acy)
+    _check_refresh(AcA, W, C, D, alpha_ls, mu1, mu2, acy)
+    M, b2, info = _refresh_launch(AcA, W, C, D, alpha_ls, mu1, mu2, acy, route)
+    defer_cholesky_info(info)
+    return M, b2
+
+
+#: Number of kernel launches (CUDA tensors only) since the last reset.
+spm_factor_refresh.launches = 0
+#: Launches by kernel (``REFRESH_ROUTES``).
+spm_factor_refresh.routes = {name: _Launches(f"spm_factor_refresh.{name}")
+                             for name in REFRESH_ROUTES}
+
+
+# ---------------------------------------------------------------------
 # Batched Jacobi eigendecomposition
 # ---------------------------------------------------------------------
 
@@ -595,3 +741,15 @@ def jacobi_eigh(a: torch.Tensor, sweeps: int) -> Tuple[torch.Tensor, torch.Tenso
 
 #: Number of kernel launches (CUDA tensors only) since the last reset.
 jacobi_eigh.launches = 0
+
+
+_LAUNCH_COUNTERS = (jacobi_eigh, fused_two_block_chunk, fused_spm_chunk, spm_factor_refresh,
+                    *fused_two_block_chunk.routes.values(), *spm_factor_refresh.routes.values())
+
+
+def launch_counters() -> tuple:
+    """Every launch counter of the port's kernels, each with ``.launches``
+    and a ``__name__``: the wrappers, then the routes of the two-block
+    kernel and of the factor refresh.  Bound when the module loads, so that
+    a wrapper replaced by its plain version (in a test) leaves them."""
+    return _LAUNCH_COUNTERS

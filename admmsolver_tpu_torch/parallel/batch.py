@@ -197,12 +197,11 @@ def _route_switches() -> tuple:
 
 
 def _counted_kernels() -> tuple:
-    """The kernel wrappers that count their launches, and the two-block
-    kernel's per-route counters."""
+    """The kernels' launch counters (:func:`~admmsolver_tpu_torch.ops.
+    kernels.launch_counters`)."""
     from ..ops import kernels
 
-    return (kernels.jacobi_eigh, kernels.fused_two_block_chunk, kernels.fused_spm_chunk,
-            *kernels.fused_two_block_chunk.routes.values())
+    return kernels.launch_counters()
 
 
 def _leaves(v) -> List[torch.Tensor]:
@@ -466,7 +465,7 @@ class _ChunkProgram(_GraphProgram):
     only in a full chunk, so one program of each length serves every chunk
     of a solve; the history slot of each iteration is computed on the
     device.  The Cholesky factorizations keep their info on the device
-    (:func:`~admmsolver_tpu_torch.models.objectivefunc.deferred_cholesky_checks`),
+    (:func:`~admmsolver_tpu_torch.ops.linop.deferred_cholesky_checks`),
     gathered in :attr:`failed`.
 
     Its chunks are keyed by their length alone (:class:`_GraphProgram`).

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..models.objectivefunc import (ConstrainedLeastSquares, L1Regularizer,
-                                    LeastSquares, NonNegativePenalty, inv_hpd)
+                                    LeastSquares, NonNegativePenalty)
 from ..models.problem import Model
 from ..ops import kernels
 from ..utils import telemetry
@@ -136,28 +136,18 @@ class FusedSpMSolver(_FusedSolverBase):
         if self.is_cls:
             self.C = torch.as_tensor(_dense32(f0._C), **f32)      # (nc, nl)
             self.D = torch.as_tensor(_dense32(f0._D), **f32)      # (nc,)
-        self.eye = torch.eye(self.nl, **f32)
         self._init_programs()
 
     # -- factor refresh (chunk boundaries) -----------------------------
     def _factors(self, mu1, mu2, alpha_ls, acy):
-        """Per-lane affine factor: M (B, nl, nl) and b2 (B, nl).
+        """Per-lane affine factor: M (B, nl, nl) and b2 (B, nl)
+        (:func:`~admmsolver_tpu_torch.ops.kernels.spm_factor_refresh`: on
+        the card one kernel launch at nl <= 32).
 
         ``mu1``/``mu2``/``alpha_ls``: (B,); ``acy`` = A†y (B, nl).
         """
-        Mpen = (alpha_ls[:, None, None] * self.AcA
-                + mu1[:, None, None] * self.eye
-                + mu2[:, None, None] * self.W)
-        M = inv_hpd(Mpen)                                   # (B, nl, nl)
-        b2 = None
-        if self.is_cls:
-            Bf = M
-            xi2 = -(Bf @ self.C.T)                          # (B, nl, nc)
-            Sinv = -inv_hpd(-(self.C @ xi2))                # (B, nc, nc)
-            M = Bf - xi2 @ (Sinv @ (self.C @ Bf))
-            b2 = (xi2 @ (Sinv @ self.D)[:, :, None])[:, :, 0]
-        aMy = alpha_ls[:, None] * (M @ acy[:, :, None])[:, :, 0]
-        return M.contiguous(), (aMy if b2 is None else aMy + b2).contiguous()
+        C, D = (self.C, self.D) if self.is_cls else (None, None)
+        return kernels.spm_factor_refresh(self.AcA, self.W, C, D, alpha_ls, mu1, mu2, acy)
 
     def _acy_of(self, data):
         """A†y of the lanes' data (B, M)."""

@@ -133,16 +133,13 @@ class _Log:
 
 
 def _kernels() -> dict:
-    """The hand-written kernels' wrappers, whose ``.launches`` count their
-    launches, and the two-block kernel's routes (``fused_two_block_chunk.
-    wgmma``, ``.mma_sync``, ``.fma``), by name (imported only once the
-    port's kernels are)."""
+    """The kernels' launch counters (``ops.kernels.launch_counters``: the
+    wrappers and their routes, e.g. ``fused_two_block_chunk.wgmma``), by
+    name (imported only once the port's kernels are)."""
     kernels = sys.modules.get("admmsolver_tpu_torch.ops.kernels")
     if kernels is None:
         return {}
-    return {f.__name__: f for f in (kernels.fused_two_block_chunk, kernels.fused_spm_chunk,
-                                    kernels.jacobi_eigh,
-                                    *kernels.fused_two_block_chunk.routes.values())}
+    return {f.__name__: f for f in kernels.launch_counters()}
 
 
 _log = _Log()

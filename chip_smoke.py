@@ -140,6 +140,16 @@ fails raises and the script exits non-zero without printing a result.
    memory (ptxas's report in the build log).  10e: 8b and 8c through the
    warp path and through the block kernel, eight solves of each in turns
    whose order flips every pair; x of the two within WARP_VS_BLOCK_TOL.
+   10f (after 10, before 11): the SpM factor refresh kernel alone at the
+   spm.fused_f32 cell's shape (B 4096, nl 30, the sum rule): its M and b2
+   against the float64 plain version, at most REFRESH_ERR_RATIO times the
+   float32 plain version's error; its time beside the plain version's in
+   the same CUDA-graph turns, and its bound; no local memory.  Its
+   ``refresh`` row on the ``kernels`` line also holds the refresh kernel's
+   launches in 3b's SpM solve (``launches``), in 5c's ``solve_mixed``
+   (``launches_solve_mixed``) and in 11d (``launches_phase_11``), each
+   required to equal the chunk kernel's launches in the same run: one a
+   chunk.
 
 11. The composite drivers (run after 10, before 9), each one program whose
    groups or phases hand over on the card.  11a the λ-path of bench_lpath
@@ -151,7 +161,8 @@ fails raises and the script exits non-zero without printing a result.
    through ``solve_mixed(fused=True)`` (300 f32 + 100 f64 iterations, rtol
    0; PSD as 8b; Jacobi launches > 0 in each phase); 11d
    ``FusedSpMSolver.solve_mixed(fused=True)`` at 5c's inputs (chunk kernel
-   launches > 0, its time beside the two phases alone).  Each part once
+   launches > 0 and as many refresh launches, its time beside the two
+   phases alone).  Each part once
    captured and once without graphs (``captured_vs_eager``), and against its
    loop or two-dispatch form (11b: its first and last groups solved alone),
    bitwise; ms a solve of each form; ``--profile``: host launch calls a
@@ -326,6 +337,12 @@ JACOBI_MODE = {8: "warp", 12: "warp", 32: "warp", 34: "tile", 64: "tile", 96: "t
                128: "tile"}
 JACOBI_BLOCK_GLOBAL = {(128, "float64")}
 JACOBI_MAIN = (128, 96, "float64")   # the kernels line's shape: 10c's Gram route
+# 10f: the SpM factor refresh alone at the spm.fused_f32 cell's shape
+# (portbench/configs/spm_nl30_nw61.json), penalties at its mu0 and spread over
+# [1e-3, 1e3]; the kernel's error against the float64 plain version may be at
+# most this multiple of the float32 plain version's
+REFRESH_B, REFRESH_NL, REFRESH_NW, REFRESH_MU0 = 4096, 30, 61, 0.1
+REFRESH_ERR_RATIO = 2.0
 # 11. the composite drivers: bench_lpath (benches/bench_workloads.py:566-590),
 # benches/scan_large_hw.py:24-42, bench_sdp's mixed recipe (:263-276) and 5c
 PATH_VALUES, PATH_GS, PATH_NITER = 1024, 256, 100
@@ -1578,16 +1595,15 @@ def jacobi_bound_ms(B, n, sweeps, dtype_bits):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def jacobi_ptxas():
-    """{"warp <f|d> N" | "tile <f|d>" | "block <f|d> MODE": (registers,
-    stack frame bytes, spill bytes stored and loaded)} of every Jacobi
-    kernel (the warp path, the tile path, the block kernel), from
-    ptxas's report in the build log beside the Jacobi library."""
+def ptxas_report(source: str, kinds) -> dict:
+    """{"<kind> <groups>": (registers, stack frame bytes, spill bytes stored
+    and loaded)} of every kernel of ``csrc/<source>.cu`` whose mangled name
+    matches one of ``kinds`` ((kind, regex) pairs, the regex's groups naming
+    the instantiation), from ptxas's report in the build log beside the
+    library."""
     from admmsolver_tpu_torch.ops import _build
 
-    log = _build._lib_path(_build.SOURCE_DIR / "jacobi_eigh.cu").with_suffix(".log")
-    kinds = (("warp", r"jacobi_warp_kernelI([df])Li(\d+)E"),
-             ("tile", r"jacobi_tile_kernelI([df])E"), ("block", r"jacobi_kernelI([df])Li(\d+)E"))
+    log = _build._lib_path(_build.SOURCE_DIR / f"{source}.cu").with_suffix(".log")
     out, entry = {}, None
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line or "Function properties for" in line:
@@ -1603,6 +1619,14 @@ def jacobi_ptxas():
         elif entry and "Used" in line and "registers" in line:
             out[entry][0] = int(re.search(r"Used (\d+) registers", line).group(1))
     return {key: tuple(val) for key, val in sorted(out.items())}
+
+
+def jacobi_ptxas():
+    """ptxas's report of every Jacobi kernel (the warp path, the tile path,
+    the block kernel), keyed "warp <f|d> N", "tile <f|d>", "block <f|d> MODE"."""
+    return ptxas_report("jacobi_eigh", (("warp", r"jacobi_warp_kernelI([df])Li(\d+)E"),
+                                        ("tile", r"jacobi_tile_kernelI([df])E"),
+                                        ("block", r"jacobi_kernelI([df])Li(\d+)E")))
 
 
 def phase_jacobi_alone(torch, card, device="cuda", shapes=JACOBI_SHAPES):
@@ -1712,6 +1736,85 @@ def phase_jacobi_alone(torch, card, device="cuda", shapes=JACOBI_SHAPES):
     return rows
 
 
+def phase_refresh_alone(torch, card, device="cuda", B=REFRESH_B, nl=REFRESH_NL,
+                        nw=REFRESH_NW):
+    """10f. The SpM factor refresh kernel alone at the spm.fused_f32 cell's
+    shape: its M and b2 against the float64 plain version, lane by lane (the
+    largest error over the lane's largest entry), at most REFRESH_ERR_RATIO
+    times the float32 plain version's (the library's Cholesky inverses on the
+    card), with every penalty at the cell's mu0 and log-uniform on [1e-3,
+    1e3]; then the kernel's time and the float32 plain version's at mu0 in
+    the same CUDA-graph turns (kernel, plain, plain, kernel), the kernel's
+    eager call and the bound (M, b2 and the inputs once over 3.35 TB/s, or
+    nl^3 + 2 nc nl^2 + nl^2 multiply-adds a lane at 67 TFLOP/s).  On the
+    card no instantiation may use local memory."""
+    from admmsolver_tpu_torch.models.applications import spm_model, synthetic_spm_data
+    from admmsolver_tpu_torch.ops import kernels
+    from admmsolver_tpu_torch.parallel import FusedSpMSolver
+
+    if device == "cuda":
+        ptxas = ptxas_report("spm_factor_refresh",
+                             (("NP", r"spm_factor_refresh_kernelILi(\d+)E"),))
+        print(f"10f refresh kernel, ptxas (registers, stack frame, spill bytes): {ptxas}",
+              flush=True)
+        if sorted(ptxas) != ["NP 16", "NP 32", "NP 8"] or any(st or sp for _, st, sp
+                                                              in ptxas.values()):
+            raise AssertionError(f"10f: instantiations {sorted(ptxas)} (NP 8, 16, 32 "
+                                 f"expected), or one uses local memory: {ptxas}")
+    s, g, prj_sum, prj_w, _, _ = synthetic_spm_data(nl=nl, nw=nw)
+    solver = FusedSpMSolver(spm_model(s, g, prj_sum, prj_w, alpha_l1=1e-5), device=device)
+    rng = np.random.RandomState(7)
+    f32 = dict(dtype=torch.float32, device=device)
+    acy = torch.as_tensor(g[None] + 1e-5 * rng.randn(B, nl), **f32) @ solver.Ac.T
+    alpha = torch.ones(B, **f32)
+    shared = (solver.AcA, solver.W, solver.C, solver.D)
+    row = {"B": B, "nl": nl, "nc": int(solver.C.shape[0])}
+    for band, mu in (("mu0", torch.full((B, 2), REFRESH_MU0, **f32)),
+                     ("1e-3..1e3", torch.as_tensor(10.0 ** rng.uniform(-3, 3, (B, 2)), **f32))):
+        args = shared + (alpha, mu[:, 0], mu[:, 1], acy)
+        got = kernels.spm_factor_refresh(*args)
+        plain = kernels.spm_factor_refresh_reference(*args)
+        truth = kernels.spm_factor_refresh_reference(*(t.double() for t in args))
+        errs = {}
+        for name, k in (("M", 0), ("b2", 1)):
+            lane = lambda t: (t[k].double() - truth[k]).flatten(1).abs().max(1).values
+            scale = truth[k].flatten(1).abs().max(1).values
+            errs[name] = [float((lane(t) / scale).max()) for t in (got, plain)]
+        print(f"10f refresh, penalties {band}: largest lane error against float64, kernel / "
+              f"plain float32: M {errs['M'][0]:.3e} / {errs['M'][1]:.3e}, b2 "
+              f"{errs['b2'][0]:.3e} / {errs['b2'][1]:.3e}", flush=True)
+        row[f"err_{band}"] = errs
+        if not all(e[0] <= REFRESH_ERR_RATIO * e[1] for e in errs.values()):
+            raise AssertionError(f"10f: the kernel's error at {band} is above "
+                                 f"{REFRESH_ERR_RATIO} times the plain version's: {errs}")
+    if device != "cuda":
+        return row
+    mu = torch.full((B, 2), REFRESH_MU0, **f32)
+    args = shared + (alpha, mu[:, 0], mu[:, 1], acy)
+    from admmsolver_tpu_torch.models.objectivefunc import deferred_cholesky_checks
+
+    def deferred(fn):
+        def run():
+            with deferred_cholesky_checks():
+                fn(*args)
+        return run
+
+    fns = [deferred(kernels.spm_factor_refresh), deferred(kernels.spm_factor_refresh_reference)]
+    times = graph_ms(torch, fns + fns[::-1])
+    row["ms_turns"], row["plain_ms_turns"] = [times[0], times[3]], [times[1], times[2]]
+    row["ms"], row["plain_ms"] = 0.5 * (times[0] + times[3]), 0.5 * (times[1] + times[2])
+    row["call_ms"] = median_ms(torch, [deferred(kernels.spm_factor_refresh)])[0]
+    nc = row["nc"]
+    flops = 2.0 * B * (nl ** 3 + 2 * nc * nl * nl + nl * nl)
+    row["bound_ms"], row["bound_by"] = bound_ms(flops / PEAK_F32_FLOPS, args + tuple(got))
+    print(f"[{card}] 10f SpM factor refresh (B {B}, nl {nl}, nc {nc}, mu {REFRESH_MU0}): kernel "
+          f"{row['ms_turns'][0]:.4f} / {row['ms_turns'][1]:.4f} ms, plain "
+          f"{row['plain_ms_turns'][0]:.4f} / {row['plain_ms_turns'][1]:.4f} ms (graph "
+          f"replays), kernel called eagerly {row['call_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    return row
+
+
 def phase_spectral(torch, card, fam, device="cuda"):
     """Phase 10: 10a-10c drive the other spectral routes through
     BatchedSolver and hold each against phase 8's solve (``fam``: 8a-8c
@@ -1779,7 +1882,8 @@ def counted_run(run):
     from admmsolver_tpu_torch.ops import kernels
 
     counted = {"fused_two_block_chunk": kernels.fused_two_block_chunk,
-               "fused_spm_chunk": kernels.fused_spm_chunk, "jacobi_eigh": kernels.jacobi_eigh}
+               "fused_spm_chunk": kernels.fused_spm_chunk, "jacobi_eigh": kernels.jacobi_eigh,
+               "spm_factor_refresh": kernels.spm_factor_refresh}
     for kernel in counted.values():
         kernel.launches = 0
     res = run()
@@ -1950,6 +2054,11 @@ def phase_composites(torch, card, device="cuda", path_values=PATH_VALUES, path_g
     spm_launches = out["launches"]["fused_spm_chunk"] - launches["fused_spm_chunk"]
     if cuda and not spm_launches > 0:
         raise AssertionError(f"{what}: the kernel phase launched no kernel")
+    refresh_launches = (out["launches"]["spm_factor_refresh"]
+                        - launches["spm_factor_refresh"])
+    if cuda and refresh_launches != spm_launches:
+        raise AssertionError(f"{what}: {refresh_launches} factor refresh launches for "
+                             f"{spm_launches} chunks (one a chunk expected)")
     composite_loop_check(torch, what, res, composite(False))
     m_sum = float(np.median(np.abs(res.x[0].cpu().numpy() @ prj_sum - 1.0)))
     print(f"{what}: {spm_launches} kernel launches, min spectrum "
@@ -1991,7 +2100,7 @@ def phases_1_to_8(torch, card):
     t0 = time.perf_counter()
     libs = _build.load_libraries()
     print(f"build: {time.perf_counter() - t0:.3f} s for {len(libs)} kernels", flush=True)
-    if sorted(libs) != ["fused_spm", "fused_two_block", "jacobi_eigh"]:
+    if sorted(libs) != ["fused_spm", "fused_two_block", "jacobi_eigh", "spm_factor_refresh"]:
         raise AssertionError(f"unexpected kernel libraries {sorted(libs)}")
     smem_limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     for name, lib in sorted(libs.items()):
@@ -2100,11 +2209,17 @@ def phases_1_to_8(torch, card):
     gs_dev = torch.as_tensor(gs, device="cuda")
     spm_solve = lambda: spm.solve({(0, "y"): gs_dev}, niter=SPM_NITER, mu0=SPM_MU0, rtol=0.0)
     kernels.fused_spm_chunk.launches = 0
+    kernels.spm_factor_refresh.launches = 0
     sres = spm_solve()
     torch.cuda.synchronize()
     spm_launches = kernels.fused_spm_chunk.launches
+    refresh_launches = kernels.spm_factor_refresh.launches
     if spm_launches == 0:
         raise AssertionError("the fused SpM solve launched no kernel")
+    if refresh_launches != spm_launches:
+        raise AssertionError(f"the fused SpM solve launched the factor refresh kernel "
+                             f"{refresh_launches} times in {spm_launches} chunks (one a chunk "
+                             "expected)")
     outs = [*sres.x, *sres.h, sres.mu]
     if not all(bool(torch.isfinite(t).all()) for t in outs):
         raise AssertionError("the fused SpM solve gave non-finite values")
@@ -2204,11 +2319,17 @@ def phases_1_to_8(torch, card):
                                           niter=POLISH_NITER, mu0=SPM_MU0, rtol=0.0,
                                           record_residuals=False)
     kernels.fused_spm_chunk.launches = 0
+    kernels.spm_factor_refresh.launches = 0
     mres = mixed_solve()
     torch.cuda.synchronize()
     mixed_launches = kernels.fused_spm_chunk.launches
+    mixed_refresh_launches = kernels.spm_factor_refresh.launches
     if mixed_launches == 0:
         raise AssertionError("solve_mixed's float32 phase launched no kernel")
+    if mixed_refresh_launches != mixed_launches:
+        raise AssertionError(f"solve_mixed's float32 phase launched the factor refresh kernel "
+                             f"{mixed_refresh_launches} times in {mixed_launches} chunks (one "
+                             "a chunk expected)")
     mouts = [*mres.x, *mres.h, mres.mu]
     if not all(t.dtype == torch.float64 and t.is_cuda and bool(torch.isfinite(t).all())
                for t in mouts):
@@ -2435,7 +2556,9 @@ def phases_1_to_8(torch, card):
          "max_abs_err": spm_err, "ms": spm_ms,
          "plain_ms": spm_plain_ms, "bound_ms": spm_bound, "bound_by": spm_bound_by,
          "library_ms": None, "prev_ms": spm_prev_ms, "fma_bound_ms": spm_fma_bound,
-         "fma_max_abs_err": spm_fma_err}]}
+         "fma_max_abs_err": spm_fma_err}],
+        "refresh": {"name": "spm_factor_refresh", "launches": refresh_launches,
+                    "launches_solve_mixed": mixed_refresh_launches}}
 
 
 # 9. multi-device on the one card: world size 1 through NCCL, two ranks through gloo
@@ -2898,9 +3021,12 @@ def main():
     kernels_line["kernels"].append(phase_spectral(torch, card, fam))
     del fam
 
+    # 10f. the SpM factor refresh alone (its launches on the main path kept beside)
+    kernels_line["refresh"].update(phase_refresh_alone(torch, card))
+
     # 11. the composite drivers, each one program
     composites = phase_composites(torch, card)
-    for entry in kernels_line["kernels"]:
+    for entry in kernels_line["kernels"] + [kernels_line["refresh"]]:
         entry["launches_phase_11"] = composites["launches"][entry["name"]]
 
     # 9. multi-device, once the earlier phases' tensors are freed

@@ -1301,6 +1301,236 @@ def test_fused_spm_not_positive_definite_raises_on_the_card(cuda, rtol):
         _fused_solve(solver, {**ov, (0, "alpha"): alpha}, True, rtol=rtol, **kw)
 
 
+# SpM factor refresh kernel
+# ---------------------------------------------------------------------
+
+def _refresh_inputs(nl, nc, B, device, seed=0):
+    """Arguments of spm_factor_refresh: a Gram AcA, W = PᵀP, a random C and D
+    shared; per-lane penalties in [0.5, 2], alphas in [0.5, 2] and acy."""
+    rng = np.random.RandomState(seed + 100 * nl + 10 * nc + B)
+    f32 = dict(dtype=torch.float32, device=device)
+    A = rng.randn(nl + 3, nl) / np.sqrt(nl)
+    P = rng.randn(2 * nl + 1, nl) / np.sqrt(2 * nl)
+    t = lambda x: torch.as_tensor(x, **f32)
+    C, D = (t(rng.randn(nc, nl)), t(rng.randn(nc))) if nc else (None, None)
+    mu = t(rng.uniform(0.5, 2.0, (B, 2)))
+    return (t(A.T @ A), t(P.T @ P), C, D, t(rng.uniform(0.5, 2.0, B)), mu[:, 0], mu[:, 1],
+            t(rng.randn(B, nl)))
+
+
+def _lane_errors(got, want):
+    """Each lane's largest |got - want| over its largest |want|."""
+    scale = want.flatten(1).abs().max(1).values
+    return ((got.double() - want.double()).flatten(1).abs().max(1).values / scale).cpu()
+
+
+def _check_refresh_kernel(cuda, nl, nc, route):
+    """One launch of ``route`` a call at ragged batch sizes; M and b2 within
+    1e-5 of the lane's largest entry of the plain version's (cuSOLVER's
+    Cholesky inverses; the two round differently).  A route the wrapper
+    would not take at the shape is launched directly."""
+    from admmsolver_tpu_torch.ops import kernels
+
+    wrapper = kernels._refresh_route(torch.device(cuda), torch.float32, nl, nc) == route
+    counters = (kernels.spm_factor_refresh, kernels.spm_factor_refresh.routes[route])
+    for B in (1, 33, 300, 4096):
+        args = _refresh_inputs(nl, nc, B, cuda)
+        launches = [c.launches for c in counters]
+        if wrapper:
+            got = kernels.spm_factor_refresh(*args)
+        else:
+            got = kernels._refresh_launch(*args, route)[:2]
+        want = kernels.spm_factor_refresh_reference(*args)
+        torch.cuda.synchronize()
+        assert [c.launches for c in counters] == [n + 1 for n in launches]
+        for g, w in zip(got, want):
+            assert g.is_cuda and g.shape == w.shape and g.is_contiguous()
+            errs = _lane_errors(g, w)
+            assert float(errs.max()) <= 1e-5, (B, float(errs.max()))
+
+
+@pytest.mark.parametrize("nl,nc", [(nl, nc) for nl in (1, 2, 7, 12, 17, 30, 32)
+                                   for nc in (0, 1, 2, 4) if nc < nl or nc == 0])
+def test_cuda_refresh_kernel_matches_plain_version(cuda, nl, nc):
+    """The warp kernel (nl <= 32, nc <= 4).  nc < nl: at nc = nl the fold
+    leaves M = 0 but for rounding."""
+    _check_refresh_kernel(cuda, nl, nc, "warp")
+
+
+@pytest.mark.parametrize("nl,nc", [(1, 0), (7, 2), (30, 1), (32, 4), (12, 5), (30, 8),
+                                   (33, 0), (33, 1), (64, 4), (100, 1)])
+def test_cuda_refresh_block_kernel_matches_plain_version(cuda, nl, nc):
+    """The block kernel: the wrapper's at nl > 32 or nc > 4, launched
+    directly at the warp kernel's shapes."""
+    _check_refresh_kernel(cuda, nl, nc, "block")
+
+
+def test_cuda_refresh_refuses_what_it_cannot_run(cuda):
+    """float64 on the card raises, as does a width whose one lane needs more
+    shared memory than a block has; neither falls back to the library."""
+    from admmsolver_tpu_torch.ops.kernels import spm_factor_refresh
+
+    args = _refresh_inputs(30, 1, 8, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        spm_factor_refresh(*(None if t is None else t.double() for t in args))
+    with pytest.raises(ValueError, match="shared memory"):
+        spm_factor_refresh(*_refresh_inputs(300, 1, 2, cuda))
+
+
+@pytest.mark.parametrize("lo,hi", [(1e-3, 1e-3), (1e3, 1e3), (1e-3, 1e3)])
+def test_cuda_refresh_kernel_no_less_accurate_than_the_library(cuda, lo, hi):
+    """At the spm.fused_f32 cell's inputs (nl 30, nw 61, the sum rule, noise
+    1e-5, B 4096) and penalties log-uniform on [lo, hi], the kernel's
+    largest lane error in M and in b2 against the float64 plain version is
+    at most twice the float32 plain version's."""
+    from admmsolver_tpu_torch.ops.kernels import spm_factor_refresh, spm_factor_refresh_reference
+
+    s, g, prj_sum, prj_w, _, _ = synthetic_spm_data(nl=30, nw=61)
+    solver = FusedSpMSolver(spm_model(s, g, prj_sum, prj_w, alpha_l1=1e-5), device=cuda)
+    rng = np.random.RandomState(11)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    B = 4096
+    acy = torch.as_tensor(g[None] + 1e-5 * rng.randn(B, 30), **f32) @ solver.Ac.T
+    mu = torch.as_tensor(np.exp(rng.uniform(np.log(lo), np.log(hi), (B, 2))), **f32)
+    args = (solver.AcA, solver.W, solver.C, solver.D, torch.ones(B, **f32), mu[:, 0],
+            mu[:, 1], acy)
+    got = spm_factor_refresh(*args)
+    plain = spm_factor_refresh_reference(*args)
+    truth = spm_factor_refresh_reference(*(t.double() for t in args))
+    for k in range(2):
+        kernel_err = float(_lane_errors(got[k], truth[k]).max())
+        plain_err = float(_lane_errors(plain[k], truth[k]).max())
+        assert kernel_err <= 2 * plain_err, (k, kernel_err, plain_err)
+
+
+@pytest.mark.parametrize("nc,route", [(1, "warp"), (5, "block")])
+def test_cuda_refresh_kernel_reports_lanes_not_positive_definite(cuda, nc, route):
+    """A lane whose penalty matrix is not positive definite gets the info
+    cholesky_ex gives it, in the deferred checks' list; outside them the
+    call raises LinAlgError.  A sum rule whose -S is not positive definite
+    (C = 0) reports nl + 1 in every lane."""
+    from admmsolver_tpu_torch.models.objectivefunc import deferred_cholesky_checks
+    from admmsolver_tpu_torch.ops.kernels import spm_factor_refresh
+
+    nl, B = 12, 37
+    AcA, W, C, D, alpha, mu1, mu2, acy = _refresh_inputs(nl, nc, B, cuda)
+    alpha[5] = -1e4
+    launches = spm_factor_refresh.routes[route].launches
+    with deferred_cholesky_checks() as infos:
+        spm_factor_refresh(AcA, W, C, D, alpha, mu1, mu2, acy)
+    assert spm_factor_refresh.routes[route].launches == launches + 1
+    Mpen = (alpha[:, None, None] * AcA + mu1[:, None, None] * torch.eye(nl, device=cuda)
+            + mu2[:, None, None] * W)
+    want = torch.linalg.cholesky_ex(Mpen).info
+    assert len(infos) == 1 and infos[0].dtype == torch.int32
+    assert int(want[5]) > 0 and int((want != 0).sum()) == 1
+    assert torch.equal(infos[0], want)
+    with pytest.raises(torch.linalg.LinAlgError):
+        spm_factor_refresh(AcA, W, C, D, alpha, mu1, mu2, acy)
+    alpha[5] = 1.0
+    with deferred_cholesky_checks() as infos:
+        spm_factor_refresh(AcA, W, torch.zeros_like(C), D, alpha, mu1, mu2, acy)
+    assert torch.equal(infos[0].cpu(), torch.full((B,), nl + 1, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("nl", [30, 40])
+def test_cuda_refresh_kernel_captured_replay_equals_eager(cuda, nl):
+    """The kernel (warp at nl 30, block at 40) captured in a CUDA graph:
+    each replay gives the bits of an eager call on the inputs the graph's
+    buffers hold."""
+    from admmsolver_tpu_torch.models.objectivefunc import deferred_cholesky_checks
+    from admmsolver_tpu_torch.ops.kernels import spm_factor_refresh
+
+    args = _refresh_inputs(nl, 1, 300, cuda)
+    mu1 = args[5]
+    with deferred_cholesky_checks():
+        spm_factor_refresh(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with deferred_cholesky_checks() as infos, torch.cuda.graph(graph):
+        out = spm_factor_refresh(*args)
+    for scale in (1.0, 3.0):
+        mu1.mul_(scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        with deferred_cholesky_checks():
+            want = spm_factor_refresh(*args)
+        for g, w in zip(out, want):
+            assert torch.equal(g, w)
+        assert not infos[0].any()
+
+
+def test_fused_spm_refresh_launches_once_a_chunk(cuda):
+    """A solve of 45 iterations in chunks of 10 (six chunks) launches the
+    warp refresh kernel six times, captured (replays add their capture's
+    count) or not; the block kernel none."""
+    from admmsolver_tpu_torch.ops.kernels import spm_factor_refresh
+
+    solver, ov, _, kw = _fused_case("spm", cuda)
+    counters = (spm_factor_refresh, *spm_factor_refresh.routes.values())
+    counts = []
+    for capture in (True, True, False):
+        for c in counters:
+            c.launches = 0
+        _fused_solve(solver, ov, capture, **kw)
+        counts.append([c.launches for c in counters])
+    assert counts == [[6, 6, 0]] * 3
+
+
+def _plain_refresh_gap(model, gs, cuda, monkeypatch, **kw):
+    """(the solve through the refresh kernels, its largest lane gap to the
+    same solve with the plain refresh): the gap in x0 and x2 is the largest
+    difference over the lane's largest |x|, or the median lane's if
+    larger."""
+    from admmsolver_tpu_torch.ops import kernels
+
+    got = FusedSpMSolver(model, device=cuda).solve({(0, "y"): gs}, **kw)
+    launches = kernels.spm_factor_refresh.launches
+    with monkeypatch.context() as m:
+        m.setattr(kernels, "spm_factor_refresh", kernels.spm_factor_refresh_reference)
+        want = FusedSpMSolver(model, device=cuda).solve({(0, "y"): gs}, **kw)
+    assert kernels.spm_factor_refresh.launches == launches
+    gap = torch.zeros(len(gs), dtype=torch.float64)
+    for k in (0, 2):
+        lane = want.x[k].double().abs().max(1).values
+        scale = torch.clamp_min(lane, float(lane.median()))
+        diff = (got.x[k].double() - want.x[k].double()).abs().max(1).values
+        gap = torch.maximum(gap, (diff / scale).cpu())
+    return got, float(gap.max())
+
+
+def test_fused_spm_solve_with_refresh_kernel_matches_plain_refresh(cuda, monkeypatch):
+    """The spm.fused_f32 cell's solve (nl 30, nw 61, B 4096, 2000 iterations
+    from mu0 0.1, rtol 0) through the refresh kernel against the same solve
+    through the plain refresh: every lane's gap within the cell's lane
+    level, 1.5e-3."""
+    s, g, prj_sum, prj_w, _, _ = synthetic_spm_data(nl=30, nw=61)
+    model = spm_model(s, g, prj_sum, prj_w, alpha_l1=1e-5)
+    gs = g[None] + 1e-5 * np.random.RandomState(5).randn(4096, 30)
+    _, gap = _plain_refresh_gap(model, gs, cuda, monkeypatch, niter=2000, mu0=0.1, rtol=0.0)
+    assert gap <= 1.5e-3, gap
+
+
+def test_fused_spm_solve_wider_than_a_warp_takes_the_block_kernel(cuda, monkeypatch):
+    """A solve at nl 40 (nw 81, B 256, 500 iterations) refreshes through the
+    block kernel, once a chunk, and matches the plain-refresh solve within
+    the same lane level."""
+    from admmsolver_tpu_torch.ops import kernels
+    from admmsolver_tpu_torch.parallel import batch
+
+    s, g, prj_sum, prj_w, _, _ = synthetic_spm_data(nl=40, nw=81)
+    model = spm_model(s, g, prj_sum, prj_w, alpha_l1=1e-5)
+    gs = g[None] + 1e-5 * np.random.RandomState(6).randn(256, 40)
+    counters = (kernels.spm_factor_refresh.routes["warp"],
+                kernels.spm_factor_refresh.routes["block"])
+    before = [c.launches for c in counters]
+    got, gap = _plain_refresh_gap(model, gs, cuda, monkeypatch, niter=500, mu0=0.1,
+                                  interval_update_mu=50, rtol=0.0)
+    nchunks = len(batch._schedule(500, 50))
+    assert [c.launches - n for c, n in zip(counters, before)] == [0, nchunks]
+    assert gap <= 1.5e-3, gap
+
+
 def _single(name):
     """(model, mu0) of the single-instance program's card tests: lane 0 of
     the captured-chunk models, and the 3-block SpM model."""

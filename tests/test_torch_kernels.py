@@ -262,3 +262,34 @@ def test_two_block_route_counters(monkeypatch, N, R, smem, route):
     kernels._two_block_launch(args, 5, "l1", True, kernels.TwoBlockTiling(32, 32, 2, 1, 1))
     assert lib.tilings[-1] == (32, 32, 2, 1, 1)
     assert routes["mma_sync"].launches - before["mma_sync"] == 1 + int(route == "mma_sync")
+
+
+def _c_params(source: str, function: str) -> list:
+    """The parameter types of ``function``'s definition in ``source``, each
+    as "ptr" or "int"."""
+    import re
+
+    m = re.search(rf"^\w[\w\s\*]*\b{function}\(([^)]*)\)\s*\{{", source, re.M)
+    assert m, function
+    kinds = []
+    for param in m.group(1).split(","):
+        words = param.replace("*", " * ").split()
+        kinds.append("ptr" if "*" in words else "int" if words[0] == "int" else words[0])
+    return kinds
+
+
+@pytest.mark.parametrize("name", ["fused_two_block", "fused_spm", "jacobi_eigh",
+                                  "spm_factor_refresh"])
+def test_c_interfaces_match_their_declarations(name):
+    """Each library's launch and shared-memory functions take the arguments
+    ``ops/_build.py`` declares for ctypes, in number and kind (a mismatch
+    passes the stream in another argument's place on the card)."""
+    import ctypes
+
+    from admmsolver_tpu_torch.ops import _build
+
+    source = (_build.SOURCE_DIR / f"{name}.cu").read_text()
+    kind = lambda t: "ptr" if t is ctypes.c_void_p else "int" if t is ctypes.c_int else t
+    for function, declared in ((f"{name}_launch", _build._LAUNCH_ARGTYPES[name]),
+                               (f"{name}_smem_bytes", _build._SMEM_ARGTYPES[name])):
+        assert _c_params(source, function) == [kind(t) for t in declared], function
