@@ -38,7 +38,7 @@ import torch
 
 from .backend import default_dtype
 from .config import ADMMConfig
-from .models.objectivefunc import any_not_pd, deferred_cholesky_checks, raise_if_not_pd
+from .models.objectivefunc import raise_if_not_pd
 from .models.problem import Model
 from .ops.linop import (LaneOperators, MatrixBase, ScaledIdentityMatrix,
                         _asarray, _match_precision)
@@ -112,17 +112,16 @@ class _RunProgram:
     from mu, then runs its iterations, each freezing the state once done;
     the penalty update fires at its last iteration where the key says so and
     the solve is not done.  So three chunks serve a solve (iteration 0, a
-    full chunk of ``interval_update_mu``, the remainder: :func:`~admmsolver_
-    tpu_torch.parallel.batch._schedule`), run directly or, on a CUDA device,
-    captured once each into a graph and replayed (:class:`~admmsolver_tpu_
-    torch.parallel.batch._GraphProgram`, which it holds).  The Cholesky
-    factorizations keep their info on the device, gathered in
-    :attr:`failed`.
+    full chunk of ``interval_update_mu``, the remainder: :attr:`keys`), run
+    through the schedule of the :class:`~admmsolver_tpu_torch.parallel.
+    batch._GraphProgram` it holds (``graph_program``, which also holds the
+    histories and the Cholesky factorizations' failure flag, :attr:`failed`):
+    directly or, on a CUDA device, captured once each into a graph and
+    replayed.
     """
 
-    def __init__(self, plan: "ADMMPlan", cfg: ADMMConfig, record: bool, x, h, mu) -> None:
-        from .parallel import batch   # batch imports this module
-
+    def __init__(self, plan: "ADMMPlan", cfg: ADMMConfig, record: bool, x, h, mu,
+                 graph_program) -> None:
         self.plan, self.cfg = plan, cfg
         self.hist = cfg.niter if record else 1
         self.x, self.x_old, self.h = (tuple(t.clone(memory_format=torch.contiguous_format)
@@ -131,12 +130,12 @@ class _RunProgram:
         dev = mu.device
         self.done = torch.zeros((), dtype=torch.bool, device=dev)
         self.count = torch.zeros((), dtype=torch.long, device=dev)
-        self.pbuf, self.dbuf = (torch.full((self.hist,), float("nan"), dtype=mu.dtype,
-                                           device=dev) for _ in range(2))
         self.tols = (mu.new_zeros(()), mu.new_zeros(()))
-        self.failed = torch.zeros((), dtype=torch.bool, device=dev)
-        self.checks = False
-        self.graphs = batch._GraphProgram(self._chunk)
+        self.graphs = graph_program(self.done, "SimpleOptimizer", self.x + self.h, (self.hist,),
+                                    mu.dtype, chunk=self._chunk)
+        self.pbuf, self.dbuf, self.failed = self.graphs.pbuf, self.graphs.dbuf, self.graphs.failed
+        #: the chunks of a solve of ``cfg``
+        self.keys = self.graphs.schedule(cfg.niter, cfg.interval_update_mu)
 
     @telemetry.spanned("admm.load")
     def load(self, x, h, mu, tols) -> None:
@@ -147,17 +146,13 @@ class _RunProgram:
             d.fill_(t)
         self.done.fill_(False)
         self.count.zero_()
-        self.pbuf.fill_(float("nan"))
-        self.dbuf.fill_(float("nan"))
+        self.graphs.clear_histories()
         self.failed.fill_(False)
 
     def _chunk(self, key) -> None:
         n, update = key
-        with deferred_cholesky_checks() as infos:
+        with self.graphs.factorizing():
             factors = self.plan.compute_factors(self.mu)
-        if infos:
-            self.checks = True
-            self.failed.logical_or_(any_not_pd(infos))
         for j in range(n):
             self._iteration(factors, update and j == n - 1)
 
@@ -198,11 +193,6 @@ class _RunProgram:
             self.mu.copy_(torch.where(done, mu, mu_new))
         self.count.add_(active.to(self.count.dtype))
         self.done.copy_(done)
-
-    def run(self, key, capture: bool, pool) -> None:
-        """One chunk: a replay of its graph where ``capture``, else run
-        directly."""
-        self.graphs._run_chunk(key, capture, pool)
 
     def buffers(self) -> Tuple[torch.Tensor, ...]:
         """Every tensor the program holds between solves."""
@@ -295,10 +285,9 @@ class ADMMPlan:
         # E[(j,i)] acts on x_i (optimizer.py:251-274).
         self.E_ij = [model.E[(i, j)] for (i, j) in self.pairs]
         self.E_ji = [model.E[(j, i)] for (i, j) in self.pairs]
-        #: the single-instance run programs by key (:meth:`_compiled_run`)
-        self._run_cache: Dict[tuple, _RunProgram] = {}
-        #: the memory of their graphs, made by the first captured solve
-        self._pool = None
+        #: the single-instance run programs by key and the memory of their
+        #: graphs (:meth:`_compiled_run`), made by the first solve
+        self._programs = None
 
     def _check_uniform_mu(self, k, f, diag_terms) -> None:
         """Verify blockwise-uniform penalty contracts at plan-build time.
@@ -569,25 +558,16 @@ class ADMMPlan:
     # ------------------------------------------------------------------
     def _compiled_run(self, cfg: ADMMConfig, record: bool, x, h, mu) -> _RunProgram:
         """The run program of a solve of the state ``x, h, mu``: cached per
-        plan as the JAX package's ``_run_cache`` (``optimizer.py:406-422``),
-        keyed by ``(cfg, record)`` with the state's dtypes and the route
-        switches a graph keeps, at most 32, the oldest dropped first."""
+        plan as the JAX package's ``_run_cache`` (``optimizer.py:406-422``,
+        :class:`~admmsolver_tpu_torch.parallel.batch._ProgramCache`), keyed
+        by ``(cfg, record)`` with the state's dtypes."""
         from .parallel import batch   # batch imports this module
 
-        key = (cfg, record, tuple(t.dtype for t in x + h + (mu,)), batch._route_switches())
-        program = self._run_cache.get(key)
-        if program is None:
-            program = batch._keep(self._run_cache, key,
-                                  lambda: _RunProgram(self, cfg, record, x, h, mu))
-        return program
-
-    def _graph_pool(self, device: torch.device):
-        """The plan's graph pool, made by its first captured solve."""
-        from .parallel import batch
-
-        if self._pool is None:
-            self._pool = batch._GraphPool(device)
-        return self._pool
+        if self._programs is None:
+            self._programs = batch._ProgramCache(mu.device)
+        return self._programs.program(
+            (cfg, record, tuple(t.dtype for t in x + h + (mu,))),
+            lambda: _RunProgram(self, cfg, record, x, h, mu, batch._GraphProgram))
 
     def is_complex(self) -> bool:
         """True when any operator or objective data is complex; drives the
@@ -714,11 +694,7 @@ class SimpleOptimizer:
             # The reference's `for iter in range(0)` is a no-op
             # (optimizer.py:310).
             return
-        from .parallel import batch   # batch imports this module
-
         interval = int(interval_update_mu)
-        if interval < 1:
-            raise ValueError(f"interval_update_mu must be >= 1, got {interval}")
         plan = self._plan
         cfg = ADMMConfig(
             niter=1 if callback is not None else int(niter), interval_update_mu=interval,
@@ -731,27 +707,15 @@ class SimpleOptimizer:
         state = (self._x, self._h, self._mu)
         program = plan._compiled_run(cfg, record, *state)
         program.load(*state, (rtol, atol))
-        dev = self._mu.device
-        capture = batch._captures(self._model.functions, self._mu.dtype, dev)
-        pool = plan._graph_pool(dev) if capture else plan._pool
+        capture = plan._programs.captures(self._model.functions, self._mu.dtype)
+        pool = plan._programs.graph_pool(capture)
         if callback is not None:
             self._solve_with_callback(program, int(niter), interval, callback, capture, pool)
             return
         # no iteration converges where neither tolerance can be met (a model
         # without pairs converges at once)
         can_finish = rtol > 0 or atol > 0 or not plan.npairs
-        schedule = batch._schedule(cfg.niter, interval)
-        unread = False
-        for k, key in enumerate(schedule):
-            program.run(key, capture, pool)
-            telemetry.check_chunk("SimpleOptimizer", program.x, program.h)
-            unread = program.checks
-            if can_finish and k + 1 < len(schedule):
-                done = batch._flags_read(program.done, program.failed if unread else None)
-                unread = False
-                if done:
-                    break
-        if unread:
+        if program.graphs.run_schedule(program.keys, capture, pool, can_finish):
             raise_if_not_pd(program.failed)
         with telemetry.span("admm.result"):
             self._take(program)
@@ -766,13 +730,11 @@ class SimpleOptimizer:
         iteration a chunk (refactor, the iteration, the penalty update where
         the schedule fires), the state and the iteration's history row taken
         after each, then ``callback``; the loop stops at the converging
-        iteration (JAX ``optimizer.py:600-620``)."""
-        from .parallel import batch
-
+        iteration (JAX ``optimizer.py:600-620``): each a schedule of one
+        step, the flags read after it, the last too."""
         for it in range(niter):
-            program.run((1, it % interval == 0), capture, pool)
-            telemetry.check_chunk("SimpleOptimizer", program.x, program.h)
-            done = batch._flags_read(program.done, program.failed if program.checks else None)
+            program.graphs.run_schedule([(1, it % interval == 0)], capture, pool, False)
+            done = program.graphs.flags_read()
             self._take(program)
             self._primal_residual.append(float(program.pbuf[0]))
             self._dual_residual.append(float(program.dbuf[0]))

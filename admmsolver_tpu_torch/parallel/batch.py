@@ -18,14 +18,15 @@ the batched analogue of the reference's hash-keyed cache
 the done flags once per chunk, never per iteration, and not at all when no
 lane can finish (``rtol <= 0`` and ``atol <= 0``).
 
-A solve runs through a static program of one group (:class:`_FedProgram`
-on :class:`_ChunkProgram`, the JAX package's one compiled program of a
-solve, ``batch.py:251-470``): fixed buffers for the state and the solve's
-inputs, an entry step (prologue, binding, factors, iteration 0) and the
-chunks' work over them, and on a CUDA device one captured CUDA graph for
-the entry and one a chunk length, each replayed once a solve or a chunk.
-A solver keeps its programs in a cache like the JAX
-package's (:data:`PROGRAM_CACHE_SIZE`, the oldest dropped first), and their
+A solve runs through a static program of one group (:class:`_FedProgram`,
+the JAX package's one compiled program of a solve, ``batch.py:251-470``):
+fixed buffers for the state and the solve's inputs, an entry step
+(prologue, binding, factors, iteration 0) and the chunks' work over them,
+and on a CUDA device one captured CUDA graph for the entry and one a chunk
+length, each replayed once a solve or a chunk.  Every program of the port
+runs its steps through the one schedule of :class:`_GraphProgram`, and
+every solver keeps its programs in a :class:`_ProgramCache` like the JAX
+package's (:data:`PROGRAM_CACHE_SIZE`, the oldest dropped first), their
 graphs in one memory pool (:class:`_GraphPool`).  The chunk runs directly,
 without a graph, on the CPU, with :data:`CAPTURE_CHUNKS` off, and for a
 model with a route that a graph cannot hold (:meth:`~admmsolver_tpu_torch.
@@ -106,6 +107,12 @@ def _to_state_dtype(a, dtype, device=None) -> torch.Tensor:
                 "discard its imaginary part; pass dtype=complex")
         a = a.real
     return a.to(device=device, dtype=dtype)
+
+
+def _history_length(niter: int, record: bool, stride: int) -> int:
+    """The columns of a solve's histories: one a ``stride`` iterations (the
+    last in-window value wins), one without ``record``."""
+    return (niter + stride - 1) // stride if record else 1
 
 
 def _parse_record_residuals(record_residuals) -> Tuple[bool, int]:
@@ -221,6 +228,16 @@ def _storage(t: torch.Tensor) -> int:
     return t.untyped_storage().data_ptr()
 
 
+def _each_once(tensors) -> Tuple[torch.Tensor, ...]:
+    """``tensors`` with each memory once: the first tensor that views it."""
+    seen, out = set(), []
+    for t in tensors:
+        if _storage(t) not in seen:
+            seen.add(_storage(t))
+            out.append(t)
+    return tuple(out)
+
+
 def _fresh(v, keep=frozenset()):
     """``v`` with every tensor of it a new contiguous copy, but those that
     view the memory at an address in ``keep``."""
@@ -284,19 +301,6 @@ class _GraphPool:
             yield
 
 
-def _keep(programs: Dict, key, build):
-    """The program ``build()`` makes on a miss of a solver's cache of
-    programs, stored under ``key``, the oldest dropped first once the cache
-    holds :data:`PROGRAM_CACHE_SIZE`."""
-    with telemetry.span("admm.build"):
-        telemetry.count("program_builds")
-        program = build()
-    if len(programs) >= PROGRAM_CACHE_SIZE:
-        programs.pop(next(iter(programs)))
-    programs[key] = program
-    return program
-
-
 def _flags_read(done: torch.Tensor, failed: Optional[torch.Tensor] = None,
                 mesh=None) -> bool:
     """Whether every lane is done, in one host read that also takes
@@ -314,46 +318,79 @@ def _flags_read(done: torch.Tensor, failed: Optional[torch.Tensor] = None,
     return not_done == 0
 
 
-def _schedule(niter: int, interval: int):
-    """The chunks of a one-program solve as (iterations, penalty update):
-    iteration 0, the full chunks of ``interval``, the remainder (reference
-    ``optimizer.py:319-320``: the update fires after iteration 0 and after
-    every full chunk, never after the remainder)."""
-    nfull, nrem = divmod(niter - 1, interval)
-    return [(1, True)] + [(interval, True)] * nfull + ([(nrem, False)] if nrem else [])
+class _ProgramCache(dict):
+    """A solver's programs by key, oldest first: at most
+    :data:`PROGRAM_CACHE_SIZE`, the oldest dropped at a miss (the JAX package's
+    ``_compiled_cache``, ``batch.py:141,261-262``), each key with the route
+    switches a graph keeps (:func:`_route_switches`).  It decides whether a
+    solve captures (:meth:`captures`) and holds the graph pool that every
+    program of the solver captures into (:meth:`graph_pool`)."""
 
+    def __init__(self, device) -> None:
+        super().__init__()
+        self.device = torch.device(device)
+        #: the memory of the programs' graphs, made by the first captured solve
+        self.pool: Optional[_GraphPool] = None
 
-def _captures(functions, dtype: torch.dtype, device: torch.device) -> bool:
-    """Whether a solve of ``functions`` (a state of ``dtype`` on ``device``)
-    replays its chunks as captured graphs: with :data:`CAPTURE_CHUNKS`, on a
-    CUDA device, where every objective declares its steps capturable."""
-    return CAPTURE_CHUNKS and device.type == "cuda" and all(
-        f.capturable(_real_dtype(dtype), device) for f in functions)
+    def program(self, key: tuple, build):
+        """The program of ``key``, which ``build()`` makes on a miss."""
+        key = key + (_route_switches(),)
+        program = self.get(key)
+        if program is None:
+            with telemetry.span("admm.build"):
+                telemetry.count("program_builds")
+                program = build()
+            if len(self) >= PROGRAM_CACHE_SIZE:
+                self.pop(next(iter(self)))
+            self[key] = program
+        return program
+
+    def captures(self, functions=(), dtype=None, allowed: bool = True) -> bool:
+        """Whether a solve replays its steps as captured graphs: with
+        :data:`CAPTURE_CHUNKS` and ``allowed``, on a CUDA device, where every
+        objective of ``functions`` declares its steps capturable (a state of
+        ``dtype``)."""
+        return CAPTURE_CHUNKS and allowed and self.device.type == "cuda" and all(
+            f.capturable(_real_dtype(dtype), self.device) for f in functions)
+
+    def graph_pool(self, capture: bool) -> Optional[_GraphPool]:
+        """The graph pool, made by the first solve that captures."""
+        if capture and self.pool is None:
+            self.pool = _GraphPool(self.device)
+        return self.pool
 
 
 class _GraphProgram:
-    """What every static chunk program shares: a chunk (:meth:`_chunk`, by
-    a key that names its length and kind) that reads and writes only the
+    """What every static program shares: its steps (:meth:`_chunk`, by a key
+    that names a step's length and kind), which read and write only the
     program's buffers, run directly or, on a CUDA device, captured once a
-    key into a graph of the solver's pool and replayed.  A program that
-    holds one of these rather than deriving from it passes its chunk
-    function as ``chunk``.
+    key into a graph of the solver's pool and replayed; the schedule of a
+    solve's steps with the host's reads of the done flags between them
+    (:meth:`run_schedule`); the failure flag of the steps' factorizations
+    (:meth:`factorizing`); and the residual histories (:attr:`pbuf`,
+    :attr:`dbuf`).  A program that holds one of these rather than deriving
+    from it passes its step function as ``chunk``.
 
-    On a CUDA device a captured solve runs the program's first chunk
+    On a CUDA device a captured solve runs the program's first step
     eagerly (libraries load, caches fill), then captures each key once
     into a graph of the solver's pool (:class:`_GraphPool`) and replays it
-    once a chunk; a replay adds the kernel launches its capture counted.
+    once a step; a replay adds the kernel launches its capture counted.
     Otherwise (the CPU, :data:`CAPTURE_CHUNKS` off, a route a graph cannot
-    hold) the chunk runs directly, from the pool where there is one and the
-    program is warm.  A chunk that fails to capture raises.
+    hold) the step runs directly, from the pool where there is one and the
+    program is warm.  A step that fails to capture raises.
 
     Inside :func:`~admmsolver_tpu_torch.utils.telemetry.tracing` a key's
     graph is another one, captured with device marks in it
-    (``chunk.start``, ``chunk.end`` and what the chunk marks:
+    (``chunk.start``, ``chunk.end`` and what the step marks:
     :class:`~admmsolver_tpu_torch.utils.telemetry.Marks`); elsewhere the
     graphs hold no event node."""
 
-    def __init__(self, chunk=None) -> None:
+    #: whether the host may read the done flags after a solve's first step
+    #: (a fed program's entry is followed by its first chunk unread)
+    reads_after_entry = True
+
+    def __init__(self, done: torch.Tensor, what: str, checked, hist_shape, hist_dtype,
+                 hist_axis: int = 0, chunk=None) -> None:
         self.warm = False
         #: chunk key -> (graph, kernel launches of one replay)
         self.graphs: Dict = {}
@@ -362,9 +399,85 @@ class _GraphProgram:
         #: host seconds of each key's last capture
         self.capture_s: Dict = {}
         self._chunk_fn = chunk
+        #: the lanes' done flags; the solver that a check of the state between
+        #: steps names, and the state it checks (:func:`~admmsolver_tpu_torch.
+        #: utils.telemetry.check_chunk`)
+        self.done, self.what, self.checked = done, what, tuple(checked)
+        #: whether a step factorizes, and whether a factorization failed
+        #: (:meth:`factorizing`)
+        self.checks = False
+        self.failed = torch.zeros((), dtype=torch.bool, device=done.device)
+        #: the axis of the histories that their rows run along (:meth:`reserve`)
+        self.hist_axis = hist_axis
+        self.pbuf, self.dbuf = (torch.full(hist_shape, float("nan"), dtype=hist_dtype,
+                                           device=done.device) for _ in range(2))
 
     def _chunk(self, key) -> None:
         self._chunk_fn(key)
+
+    @staticmethod
+    def schedule(niter: int, interval: int):
+        """The chunks of a solve as (iterations, penalty update): iteration
+        0, the full chunks of ``interval``, the remainder (reference
+        ``optimizer.py:319-320``: the update fires after iteration 0 and
+        after every full chunk, never after the remainder)."""
+        if niter < 1 or interval < 1:
+            raise ValueError(f"niter and interval_update_mu must be >= 1, got {niter}, "
+                             f"{interval}")
+        nfull, nrem = divmod(niter - 1, interval)
+        return [(1, True)] + [(interval, True)] * nfull + ([(nrem, False)] if nrem else [])
+
+    def run_schedule(self, keys, capture: bool, pool: Optional[_GraphPool], can_finish: bool,
+                     read_flags=None, all_done: bool = False) -> bool:
+        """A solve's steps ``keys`` in order (:meth:`_run_chunk`): the first,
+        its entry (a fed program's ``"entry"``, iteration 0 of the others),
+        then the others while a lane is not done (``all_done``: every lane
+        starts done).  Where a lane can finish, the host reads the done flags
+        (:meth:`flags_read`) after each step that is not the last, but not
+        after the entry where :attr:`reads_after_entry` is off.  Returns
+        whether the failure flag is left unread, for the caller to read."""
+        unread = False
+        for k, key in enumerate(keys):
+            if k and all_done:
+                break
+            self._run_chunk(key, capture, pool)
+            telemetry.check_chunk(self.what, self.checked)
+            unread = self.checks
+            if can_finish and k + 1 < len(keys) and (k or self.reads_after_entry):
+                all_done, unread = self.flags_read(read_flags), False
+        return unread
+
+    def flags_read(self, read_flags=None) -> bool:
+        """Whether every lane is done, in one host read ``read_flags(done,
+        failed or None)`` (None: :func:`_flags_read`) that also takes the
+        failure flag where a step factorizes."""
+        return (read_flags or _flags_read)(self.done, self.failed if self.checks else None)
+
+    @contextlib.contextmanager
+    def factorizing(self):
+        """A step's factorizations, their Cholesky infos kept on the device
+        (:func:`~admmsolver_tpu_torch.models.objectivefunc.
+        deferred_cholesky_checks`) and gathered in :attr:`failed`."""
+        with deferred_cholesky_checks() as infos:
+            yield
+        if infos:
+            self.checks = True
+            self.failed.logical_or_(any_not_pd(infos))
+
+    def reserve(self, n: int) -> None:
+        """Histories of at least ``n`` rows along :attr:`hist_axis`: longer
+        ones than the program holds are new buffers, and so need new
+        graphs."""
+        shape = list(self.pbuf.shape)
+        if n > shape[self.hist_axis]:
+            shape[self.hist_axis] = n
+            self.pbuf, self.dbuf = (self.pbuf.new_full(shape, float("nan")) for _ in range(2))
+            self.drop_graphs()
+
+    def clear_histories(self) -> None:
+        """NaN in every row of the histories: rows no iteration writes."""
+        self.pbuf.fill_(float("nan"))
+        self.dbuf.fill_(float("nan"))
 
     def drop_graphs(self, *keys) -> None:
         """Forget the graphs of ``keys`` (of every key without), marked or
@@ -450,135 +563,6 @@ class _GraphProgram:
             self.marked[key] = (graph, launches, marks)
 
 
-class _ChunkProgram(_GraphProgram):
-    """The chunks of a static program of one cache key: the counterpart of
-    the JAX package's compiled ``_build`` (``batch.py:345-470``) from the
-    chunk after iteration 0 on; :class:`_FedProgram` adds its entry.
-
-    It owns the buffers a chunk reads and writes: the state x, h, mu, done,
-    count and the histories, the per-solve fields of the bound objectives
-    (overrides and what the prologue derives from them), the tolerances and
-    the first global iteration of the chunk.  A chunk (:meth:`_chunk`)
-    refactors from mu, runs its iterations and copies the results into the
-    buffers; the factors live only inside it, so that old and new factors
-    never coexist.  The penalty update fires at the chunk's last position
-    only in a full chunk, so one program of each length serves every chunk
-    of a solve; the history slot of each iteration is computed on the
-    device.  The Cholesky factorizations keep their info on the device
-    (:func:`~admmsolver_tpu_torch.ops.linop.deferred_cholesky_checks`),
-    gathered in :attr:`failed`.
-
-    Its chunks are keyed by their length alone (:class:`_GraphProgram`).
-    The fields take new buffers but those that view memory at an address
-    in ``keep`` (the program's own slots).
-    """
-
-    def __init__(self, plan: ADMMPlan, cfg: ADMMConfig, template, functions, carry,
-                 record: bool, stride: int, chunked_checks: bool, freeze: bool,
-                 keep=frozenset()) -> None:
-        super().__init__()
-        self.plan, self.cfg = plan, cfg
-        self.chunked_checks, self.freeze = chunked_checks, freeze
-        # the fields a solve supplies: those its bound objectives do not share
-        # with the template
-        self._fields = [(k, name) for k, (f, t) in enumerate(zip(functions, template))
-                        if f is not t for name, v in vars(f).items()
-                        if v is not vars(t).get(name) and _leaves(v)]
-        self.functions = list(functions)
-        for k in {k for k, _ in self._fields}:
-            self.functions[k] = copy.copy(functions[k])
-        for k, name in self._fields:
-            setattr(self.functions[k], name, _fresh(getattr(functions[k], name), keep))
-        x, h, mu, _, done, count, pbuf, dbuf = carry
-        self.x, self.h = tuple(map(_fresh, x)), tuple(map(_fresh, h))
-        self.mu, self.done, self.count, self.pbuf, self.dbuf = map(
-            _fresh, (mu, done, count, pbuf, dbuf))
-        dev = mu.device
-        self.tols = (mu.new_zeros(()), mu.new_zeros(()))
-        self.record, self.stride = record, stride
-        # the first global iteration of the chunk, and the chunk's offsets
-        self.it = torch.ones(1, dtype=torch.long, device=dev)
-        self.steps = torch.arange(cfg.interval_update_mu, device=dev)
-        self.failed = torch.zeros((), dtype=torch.bool, device=dev)
-        self.checks = False
-
-    def reserve(self, hist: int) -> None:
-        """History buffers of at least ``hist`` columns: longer ones than the
-        program holds are new buffers, and so need new graphs."""
-        if hist > self.pbuf.shape[1]:
-            self.pbuf, self.dbuf = (torch.full((self.pbuf.shape[0], hist), float("nan"),
-                                               dtype=self.pbuf.dtype, device=self.pbuf.device)
-                                    for _ in range(2))
-            self.drop_graphs()
-
-    def _chunk(self, n: int) -> None:
-        """Refactor from mu, then ``n`` iterations, their results copied
-        into the buffers.  The penalty schedule repeats every chunk, so the
-        iterations take the first chunk's global indices 1..n."""
-        plan, cfg = self.plan, self.cfg
-        with deferred_cholesky_checks() as infos:
-            factors = plan.compute_factors(self.mu, self.functions, batched=True)
-        if infos:
-            self.checks = True
-            self.failed.logical_or_(any_not_pd(infos))
-        carry = (self.x, self.h, self.mu, factors, self.done, self.count, self.pbuf, self.dbuf)
-        slots = torch.div(self.it + self.steps[:n], self.stride,
-                          rounding_mode="floor") if self.record else None
-        last = cfg.interval_update_mu - 1
-        for j in range(n):
-            # each iteration steps the buffers: the previous state is theirs,
-            # so a chunk holds one new state at a time beside them
-            x, h, mu, _, done, count = plan.iteration(
-                carry, slots[j:j + 1] if self.record else 0, 1 + j, cfg, self.tols,
-                self.functions, compute_residuals=not self.chunked_checks or j == last,
-                freeze=self.freeze)[:6]
-            for d, t in zip(self.x + self.h + (self.mu, self.done, self.count),
-                            x + h + (mu, done, count)):
-                d.copy_(t)
-            del x, h, mu, done, count
-        self.it.add_(cfg.interval_update_mu)
-
-    def run(self, n: int, capture: bool, pool: Optional[_GraphPool]) -> None:
-        """One chunk of ``n`` iterations (:meth:`_GraphProgram._run_chunk`)."""
-        self._run_chunk(n, capture, pool)
-
-    def run_chunks(self, niter: int, can_finish: bool, capture: bool,
-                   pool: Optional[_GraphPool], read_flags, all_done: bool = False) -> bool:
-        """The chunks after iteration 0: ``interval_update_mu`` iterations
-        each (those past ``niter`` not run) until every lane is done.  The
-        host reads the done flags, with the failure flag of the
-        factorizations (``read_flags(done, failed or None)``, true when
-        every lane is done), only after a chunk that is not the last where
-        a lane can finish.  Returns whether the failure flag is left
-        unread."""
-        interval = self.cfg.interval_update_mu
-        it, unread = 1, self.checks
-        while it < niter and not all_done:
-            self.run(min(interval, niter - it), capture, pool)
-            it += interval
-            telemetry.check_chunk("BatchedSolver", self.x, self.h)
-            unread = self.checks
-            if can_finish and it < niter:
-                all_done = read_flags(self.done, self.failed if unread else None)
-                unread = False
-        return unread
-
-    def buffers(self) -> Tuple[torch.Tensor, ...]:
-        """Every tensor the program holds between solves."""
-        return self.x + self.h + (self.mu, self.done, self.count, self.pbuf, self.dbuf) + tuple(
-            t for k, name in self._fields for t in _leaves(getattr(self.functions[k], name)))
-
-    @telemetry.spanned("admm.result")
-    def result(self) -> "BatchResult":
-        """The solve's result, copied out of the buffers that the next solve
-        overwrites."""
-        return BatchResult(x=tuple(map(torch.clone, self.x)), h=tuple(map(torch.clone, self.h)),
-                           mu=self.mu.clone(), iterations=self.count.clone(),
-                           converged=self.done.clone(),
-                           primal_residual=self.pbuf[:, :self.hist].clone(),
-                           dual_residual=self.dbuf[:, :self.hist].clone())
-
-
 @dataclasses.dataclass
 class _Feed:
     """Where a fed chunk program (:class:`_FedProgram`) takes each group's
@@ -607,55 +591,91 @@ class _Feed:
     slots: bool = False
 
 
-class _FedProgram(_ChunkProgram):
-    """A chunk program whose solves begin on the card: the JAX package's
-    compiled ``run`` of one batch (``batch.py:405-466``, :meth:`BatchedSolver.
-    _run`) and its group body as the composites scan or chain it
-    (``batch.py:266-343``, ``:895-921``).
+class _FedProgram(_GraphProgram):
+    """A static program of one cache key whose solves begin on the card: the
+    JAX package's compiled ``_build`` and ``run`` of one batch (``batch.py:
+    345-470``, :meth:`BatchedSolver._run`) and its group body as the
+    composites scan or chain it (``batch.py:266-343``, ``:895-921``).
 
-    Besides the chunks (keys: their lengths) it has two steps, keys of the
-    same :class:`_GraphProgram`, captured where the chunks are:
+    It owns the buffers its steps read and write: the state x, h, mu, done,
+    count and the histories, the per-solve fields of the bound objectives
+    (overrides and what the prologue derives from them: new buffers but
+    those that view a slot of the feed), the tolerances and the first
+    global iteration of a chunk.  Its steps, keys of one
+    :class:`_GraphProgram`:
 
     * ``"entry"`` takes the group's overrides (:meth:`_overrides`: group
       ``group``, a device index, of the feed's stacks, or a plain solve's
       slots), runs the prologue and binds them into the program's field
       buffers, seeds the state from the feed, resets the histories, and
-      runs the factors and iteration 0 (under deferred Cholesky checks)
-      from the done flags of :meth:`_done0`;
+      runs the factors and iteration 0 from the done flags of
+      :meth:`_done0`;
+    * a chunk (key: its length, :meth:`_iterate`) refactors from mu, runs
+      its iterations and copies the results into the buffers; the factors
+      live only inside it, so that old and new factors never coexist.  The
+      penalty update fires at the chunk's last position only in a full
+      chunk, so one step of each length serves every chunk of a solve; the
+      history slot of each iteration is computed on the device;
     * ``"exit"`` copies x, h, mu, done, count and the histories into rows
       ``group * gs`` of the feed's output stacks, seeds the next group of a
       path from this group's last lane, and advances ``group``.
 
     So the host reads nothing between groups; :meth:`run_group` reads the
     done flags only before a chunk where a lane can finish.  The Cholesky
-    failure flag gathers over every group and is read once after the last
-    (:meth:`_Composite.run`), or after a plain solve's last chunk."""
+    factorizations keep their info on the device (:meth:`factorizing`):
+    the failure flag gathers over every group and is read once after the
+    last (:meth:`_Composite.run`), or after a plain solve's last chunk."""
 
-    def __init__(self, solver: "BatchedSolver", cfg: ADMMConfig, feed: _Feed, functions, carry,
-                 tols, record: bool, stride: int, chunked_checks: bool,
+    reads_after_entry = False
+
+    def __init__(self, solver: "BatchedSolver", cfg: ADMMConfig, feed: _Feed, functions, B: int,
+                 dtype: torch.dtype, tols, record: bool, stride: int, chunked_checks: bool,
                  freeze: Optional[bool] = None) -> None:
         rtol, atol = tols
         self.can_finish = rtol > 0 or atol > 0
-        if freeze is None:
-            freeze = self.can_finish or feed.done is not None
+        self.freeze = (self.can_finish or feed.done is not None) if freeze is None else freeze
+        self.plan, self.cfg, self.chunked_checks = solver.plan, cfg, chunked_checks
+        # the fields a solve supplies: those its bound objectives do not share
+        # with the template
+        self._fields = [(k, name) for k, (f, t) in enumerate(zip(functions, solver.model.functions))
+                        if f is not t for name, v in vars(f).items()
+                        if v is not vars(t).get(name) and _leaves(v)]
+        self.functions = list(functions)
+        for k in {k for k, _ in self._fields}:
+            self.functions[k] = copy.copy(functions[k])
         slots = {_storage(v) for v in feed.ov.values()} if feed.slots else frozenset()
-        super().__init__(solver.plan, cfg, solver.model.functions, functions, carry, record,
-                         stride, chunked_checks, freeze, slots)
+        for k, name in self._fields:
+            setattr(self.functions[k], name, _fresh(getattr(functions[k], name), slots))
+        dev = solver.device
+        zeros = lambda *shape, dt=dtype: torch.zeros((B,) + shape, dtype=dt, device=dev)
+        self.x = tuple(zeros(n) for n in self.plan.block_sizes)
+        self.h = tuple(zeros(n) for n in self.plan.pair_sizes)
+        self.mu, self.count = zeros(self.plan.npairs, dt=_real_dtype(dtype)), zeros(dt=torch.int32)
+        self.hist = _history_length(cfg.niter, record, stride)
+        super().__init__(zeros(dt=torch.bool), "BatchedSolver", self.x + self.h, (B, self.hist),
+                         torch.float64, hist_axis=1)
+        self.tols = (self.mu.new_zeros(()), self.mu.new_zeros(()))
+        self.record, self.stride = record, stride
+        # the first global iteration of a chunk, and a chunk's offsets
+        self.it = torch.ones(1, dtype=torch.long, device=dev)
+        self.steps = torch.arange(cfg.interval_update_mu, device=dev)
         # the solver holds the program
         self._bound = weakref.WeakMethod(solver._bound)
         self.feed = feed
-        self.hist = self.pbuf.shape[1]
-        self.group = torch.zeros(1, dtype=torch.long, device=self.mu.device)
+        self.group = torch.zeros(1, dtype=torch.long, device=dev)
         if feed.slots:
             self._share_slots(slots)
+
+    def _field_buffers(self) -> List[torch.Tensor]:
+        """The tensors of the fields a solve supplies."""
+        return [t for k, name in self._fields for t in _leaves(getattr(self.functions[k], name))]
 
     def _share_slots(self, slots) -> None:
         """Each slot that no field holds (the prologue derives fields from
         it) takes the memory of a field buffer of its shape and dtype where
         there is one: the entry has derived every field before it writes
         one, and nothing reads the slot after."""
-        fields = [t for k, name in self._fields
-                  for t in _leaves(getattr(self.functions[k], name))]
+        fields = self._field_buffers()
         held = {_storage(t) for t in fields}
         free = [t for t in fields if _storage(t) not in slots]
         for k, v in self.feed.ov.items():
@@ -698,7 +718,7 @@ class _FedProgram(_ChunkProgram):
         elif key == "exit":
             self._exit()
         else:
-            super()._chunk(key)
+            self._iterate(key)
 
     def _overrides(self) -> Dict:
         """The overrides of the entry's group, in the state's dtype."""
@@ -728,24 +748,44 @@ class _FedProgram(_ChunkProgram):
             seed = [(a.index_select(0, self.group)[0] if feed.stacked else a).to(b.dtype)
                     for a, b in zip(feed.seed, state)]
         nx, mu = len(self.x), seed.pop()
-        self.pbuf.fill_(float("nan"))
-        self.dbuf.fill_(float("nan"))
+        self.clear_histories()
         # iteration 0 (the mu update fires at global_it=0, reference
         # optimizer.py:319-320)
-        with deferred_cholesky_checks() as infos:
+        with self.factorizing():
             carry = plan.iteration(
                 (tuple(seed[:nx]), tuple(seed[nx:]), mu,
                  plan.compute_factors(mu, functions, batched=True), self._done0(),
                  torch.zeros_like(self.count), self.pbuf, self.dbuf),
                 0, 0, self.cfg, self.tols, functions, freeze=self.freeze)
-        if infos:
-            self.checks = True
-            self.failed.logical_or_(any_not_pd(infos))
         x, h, mu, _, done, count = carry[:6]
         for d, t in zip(self.x + self.h + (self.mu, self.done, self.count),
                         x + h + (mu, done, count)):
             d.copy_(t)
         self.it.fill_(1)
+
+    def _iterate(self, n: int) -> None:
+        """A chunk: refactor from mu, then ``n`` iterations, their results
+        copied into the buffers.  The penalty schedule repeats every chunk,
+        so the iterations take the first chunk's global indices 1..n."""
+        plan, cfg = self.plan, self.cfg
+        with self.factorizing():
+            factors = plan.compute_factors(self.mu, self.functions, batched=True)
+        carry = (self.x, self.h, self.mu, factors, self.done, self.count, self.pbuf, self.dbuf)
+        slots = torch.div(self.it + self.steps[:n], self.stride,
+                          rounding_mode="floor") if self.record else None
+        last = cfg.interval_update_mu - 1
+        for j in range(n):
+            # each iteration steps the buffers: the previous state is theirs,
+            # so a chunk holds one new state at a time beside them
+            x, h, mu, _, done, count = plan.iteration(
+                carry, slots[j:j + 1] if self.record else 0, 1 + j, cfg, self.tols,
+                self.functions, compute_residuals=not self.chunked_checks or j == last,
+                freeze=self.freeze)[:6]
+            for d, t in zip(self.x + self.h + (self.mu, self.done, self.count),
+                            x + h + (mu, done, count)):
+                d.copy_(t)
+            del x, h, mu, done, count
+        self.it.add_(cfg.interval_update_mu)
 
     def _exit(self) -> None:
         feed = self.feed
@@ -759,17 +799,17 @@ class _FedProgram(_ChunkProgram):
         self.group.add_(1)
 
     def run_group(self, capture: bool, pool: Optional[_GraphPool], niter: Optional[int] = None,
-                  read_flags=_flags_read, all_done: bool = False) -> bool:
-        """One group: its entry, then its chunks up to ``niter`` (None: the
-        program's; :meth:`run_chunks`, the done flags read by ``read_flags``
-        only where a lane can finish, none with ``all_done``), then its
-        exit where the feed has one.  Returns whether the failure flag is
-        left unread (a composite reads it after its last stage:
-        :meth:`_Composite.run`)."""
-        self._run_chunk("entry", capture, pool)
-        telemetry.check_chunk("BatchedSolver", self.x, self.h)
-        unread = self.run_chunks(self.cfg.niter if niter is None else niter, self.can_finish,
-                                 capture, pool, read_flags, all_done)
+                  read_flags=None, all_done: bool = False) -> bool:
+        """One group: its entry and its chunks up to ``niter`` (None: the
+        program's) through the schedule (:meth:`run_schedule`: the done
+        flags read by ``read_flags`` only where a lane can finish, none with
+        ``all_done``), then its exit where the feed has one.  Returns
+        whether the failure flag is left unread (a composite reads it after
+        its last stage: :meth:`_Composite.run`)."""
+        chunks = self.schedule(self.cfg.niter if niter is None else niter,
+                               self.cfg.interval_update_mu)[1:]
+        unread = self.run_schedule(["entry"] + [n for n, _ in chunks], capture, pool,
+                                   self.can_finish, read_flags, all_done)
         if self.feed.out is not None:
             self._run_chunk("exit", capture, pool)
         return unread
@@ -778,14 +818,20 @@ class _FedProgram(_ChunkProgram):
         """Every tensor the program holds between solves, each memory once
         (a slot may be a field buffer)."""
         feed = self.feed
-        seen, out = set(), []
-        for t in (super().buffers() + tuple(feed.ov.values()) + tuple(feed.seed or ())
-                  + (self.group,) + ((feed.done,) if feed.done is not None else ())
-                  + tuple(feed.out or ())):
-            if _storage(t) not in seen:
-                seen.add(_storage(t))
-                out.append(t)
-        return tuple(out)
+        return _each_once(self.x + self.h + (self.mu, self.done, self.count, self.pbuf, self.dbuf)
+                          + tuple(self._field_buffers()) + tuple(feed.ov.values())
+                          + tuple(feed.seed or ()) + (self.group,)
+                          + ((feed.done,) if feed.done is not None else ()) + tuple(feed.out or ()))
+
+    @telemetry.spanned("admm.result")
+    def result(self) -> "BatchResult":
+        """The solve's result, copied out of the buffers that the next solve
+        overwrites."""
+        return BatchResult(x=tuple(map(torch.clone, self.x)), h=tuple(map(torch.clone, self.h)),
+                           mu=self.mu.clone(), iterations=self.count.clone(),
+                           converged=self.done.clone(),
+                           primal_residual=self.pbuf[:, :self.hist].clone(),
+                           dual_residual=self.dbuf[:, :self.hist].clone())
 
 
 def _phase_program(solver: "BatchedSolver", cfg: ADMMConfig, feed: _Feed, dtype: torch.dtype,
@@ -793,19 +839,9 @@ def _phase_program(solver: "BatchedSolver", cfg: ADMMConfig, feed: _Feed, dtype:
     """A fed program of ``solver`` whose groups have the lanes of ``feed``'s
     stacks, its state in ``dtype`` (its buffers sized by group 0's bound
     objectives, bound here on the host)."""
-    dev = solver.device
     ov = {k: _cast_like(dtype, v[0]) for k, v in feed.ov.items()}
     gs = (feed.seed[-1][0] if feed.stacked else feed.seed[-1]).shape[0]
-    plan = solver.plan
-    hist = (cfg.niter + stride - 1) // stride if record else 1
-    rdt = _real_dtype(dtype)
-    x = tuple(torch.zeros(gs, n, dtype=dtype, device=dev) for n in plan.block_sizes)
-    h = tuple(torch.zeros(gs, n, dtype=dtype, device=dev) for n in plan.pair_sizes)
-    nan = lambda: torch.full((gs, hist), float("nan"), dtype=torch.float64, device=dev)
-    carry = (x, h, torch.zeros(gs, plan.npairs, dtype=rdt, device=dev), None,
-             torch.zeros(gs, dtype=torch.bool, device=dev),
-             torch.zeros(gs, dtype=torch.int32, device=dev), nan(), nan())
-    return _FedProgram(solver, cfg, feed, solver._bound(ov), carry, tols, record, stride,
+    return _FedProgram(solver, cfg, feed, solver._bound(ov), gs, dtype, tols, record, stride,
                        chunked_checks)
 
 
@@ -870,13 +906,7 @@ class _Composite:
     def buffers(self) -> Tuple[torch.Tensor, ...]:
         """Every tensor the stages hold between solves, each once (a stage
         may seed from another's buffers or share its stacks)."""
-        seen, out = set(), []
-        for _, program, _ in self.stages:
-            for t in program.buffers():
-                if t.untyped_storage().data_ptr() not in seen:
-                    seen.add(t.untyped_storage().data_ptr())
-                    out.append(t)
-        return tuple(out)
+        return _each_once(t for _, program, _ in self.stages for t in program.buffers())
 
 
 class _GroupProgram(_Composite):
@@ -907,7 +937,7 @@ class _GroupProgram(_Composite):
         self.rows = G
         ov = {k: v.clone() for k, v in stacks.items()}
         seed = tuple(a.clone(memory_format=torch.contiguous_format) for a in seed)
-        hist = (cfg.niter + stride - 1) // stride if record else 1
+        hist = _history_length(cfg.niter, record, stride)
         rdt = _real_dtype(dtype)
         rows = lambda *shape, dt: torch.zeros((G, gs) + shape, dtype=dt, device=dev)
         out = (tuple(rows(n, dt=dtype) for n in plan.block_sizes)
@@ -1017,10 +1047,8 @@ class BatchedSolver:
         self.plan = ADMMPlan(self.model, self.device)
         # real problems get a real state (see ADMMPlan.is_complex)
         self.dtype = self.plan.default_dtype() if dtype is None else _as_dtype(dtype)
-        #: the chunk programs by key (:meth:`_program`), oldest first
-        self._programs: Dict[tuple, _ChunkProgram] = {}
-        #: the memory of the programs' graphs, made by the first captured solve
-        self._pool: Optional[_GraphPool] = None
+        #: the programs by key, and the memory of their graphs
+        self._programs = _ProgramCache(self.device)
 
     # -- parameter binding -------------------------------------------------
     def _bind(self, ov: Dict):
@@ -1235,8 +1263,7 @@ class BatchedSolver:
 
     # -- the chunk schedule ------------------------------------------------
     def _run(self, cfg: ADMMConfig, ov: Dict, x, h, mu, tols, done0,
-             record: bool, stride: int, chunked_checks: bool,
-             read_done0: bool = True) -> BatchResult:
+             record: bool, stride: int, chunked_checks: bool) -> BatchResult:
         """One batch through the schedule, as one group of a fed program
         (:meth:`_program`; the JAX package's compiled ``run``, ``batch.py:
         249-264, 405-466``): its entry (the prologue, the overrides bound
@@ -1247,71 +1274,48 @@ class BatchedSolver:
         already cast and on the device; ``done0`` is a (B,) mask or None.
         The host reads the done flags, with the failure flag of the
         factorizations, only before a chunk that could be skipped: after a
-        chunk that is not the last, and (``read_done0``) once for
-        ``done0``; the failure flag alone after the last chunk where the
-        model factorizes.  The entry and the chunks are replays of captured
-        graphs where :meth:`_captures`."""
-        niter = cfg.niter
+        chunk that is not the last, and once for a ``done0``; the failure
+        flag alone after the last chunk where the model factorizes.  The
+        entry and the chunks are replays of captured graphs where the
+        solver's cache says (:meth:`_ProgramCache.captures`)."""
         rtol, atol = tols
-        B = mu.shape[0]
-        # Strided history: one slot per `stride` iterations (the last
-        # in-window value wins).
-        hist = (niter + stride - 1) // stride if record else 1
+        hist = _history_length(cfg.niter, record, stride)
         # No lane's flag can change when neither tolerance can be met: then
         # the host never reads the flags.
         can_finish = rtol > 0 or atol > 0
-        all_done = False if done0 is None or not read_done0 else self._all_done(done0)
+        all_done = done0 is not None and self._all_done(done0)
         # no lane to freeze when none starts done and none can finish
         freeze = can_finish or done0 is not None
-        capture = self._captures(self.model.functions, mu.dtype)
-        pool = self._graph_pool(capture)
+        capture = self._programs.captures(self.model.functions, mu.dtype)
+        pool = self._programs.graph_pool(capture)
         key = (dataclasses.replace(cfg, niter=0),
                tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(ov.items())),
-               record, chunked_checks, stride, B, x[0].dtype, str(self.device), freeze,
-               can_finish, _route_switches())
-        program = self._programs.get(key)
-        if program is None:
-            program = self._program(key, cfg, ov, x, h, mu, hist, tols, record, stride,
-                                    chunked_checks, freeze)
+               record, chunked_checks, stride, mu.shape[0], x[0].dtype, str(self.device), freeze,
+               can_finish)
+        program = self._programs.program(key, lambda: self._program(
+            cfg, ov, mu.shape[0], x[0].dtype, tols, record, stride, chunked_checks, freeze))
         program.reserve(hist)
         program.load(tols, ov, x + h + (mu,), done0, hist)
-        if program.run_group(capture, pool, niter, self._all_done, all_done):
+        if program.run_group(capture, pool, cfg.niter, self._all_done, all_done):
             raise_if_not_pd(program.failed)
         return program.result()
 
-    def _captures(self, functions, dtype: torch.dtype) -> bool:
-        """Whether a solve's chunks are replays of captured graphs
-        (:func:`_captures`)."""
-        return _captures(functions, dtype, self.device)
-
-    def _graph_pool(self, create: bool) -> Optional[_GraphPool]:
-        """The solver's graph pool, made by its first captured solve."""
-        if self._pool is None and create:
-            self._pool = _GraphPool(self.device)
-        return self._pool
-
-    def _program(self, key, cfg, ov: Dict, x, h, mu, hist: int, tols, record: bool,
+    def _program(self, cfg, ov: Dict, B: int, dtype: torch.dtype, tols, record: bool,
                  stride: int, chunked_checks: bool, freeze: bool) -> _FedProgram:
-        """A new one-group fed program for ``key``, its slots, field and
-        state buffers sized by this solve's; at most
-        :data:`PROGRAM_CACHE_SIZE` of them, the oldest dropped first.  The
-        key: the JAX package's ``(cfg, ov_keys, record, chunked_checks,
-        record_stride)`` (``batch.py:251-264``) without ``niter`` (the host
-        loop counts the chunks, and a longer history takes new buffers:
-        :meth:`_ChunkProgram.reserve`), with the overrides' shapes and
-        dtypes, what the schedule branches on (B, dtype, device, freeze,
-        whether a lane can finish) and the route switches a graph keeps
-        (:func:`_route_switches`); the tolerances are values of the
+        """A new one-group fed program of B lanes, its slots and field
+        buffers sized by this solve's.  Its key (:meth:`_run`): the JAX package's
+        ``(cfg, ov_keys, record, chunked_checks, record_stride)``
+        (``batch.py:251-264``) without ``niter`` (the host loop counts the
+        chunks, and a longer history takes new buffers:
+        :meth:`_GraphProgram.reserve`), with the overrides' shapes and
+        dtypes and what the schedule branches on (B, dtype, device, freeze,
+        whether a lane can finish); the tolerances are values of the
         program."""
-        B, dev = mu.shape[0], self.device
         slots = {k: _fresh(v) for k, v in ov.items()}
-        nan = lambda: torch.full((B, hist), float("nan"), dtype=torch.float64, device=dev)
-        carry = (x, h, mu, None, torch.zeros(B, dtype=torch.bool, device=dev),
-                 torch.zeros(B, dtype=torch.int32, device=dev), nan(), nan())
-        feed = _Feed(slots, None, done=torch.zeros(B, dtype=torch.bool, device=dev), slots=True)
-        return _keep(self._programs, key, lambda: _FedProgram(
-            self, cfg, feed, self._bound(slots), carry, tols, record, stride, chunked_checks,
-            freeze))
+        feed = _Feed(slots, None, done=torch.zeros(B, dtype=torch.bool, device=self.device),
+                     slots=True)
+        return _FedProgram(self, cfg, feed, self._bound(slots), B, dtype, tols, record, stride,
+                           chunked_checks, freeze)
 
     @telemetry.spanned(telemetry.SOLVE)
     def solve(self,
@@ -1500,18 +1504,15 @@ class BatchedSolver:
         chunked_checks, stride)`` (``batch.py:277``, ``:895``) with the
         shape of a group of each stack and its dtype (not the number of
         groups: :meth:`_GroupProgram.load` grows the stacks), the state
-        dtype, the device, whether a lane can finish and the route switches
-        a graph keeps."""
-        capture = self._captures(self.model.functions, dtype)
-        pool = self._graph_pool(capture)
+        dtype, the device, whether a lane can finish (and the route switches
+        a graph keeps: :class:`_ProgramCache`)."""
+        capture = self._programs.captures(self.model.functions, dtype)
+        pool = self._programs.graph_pool(capture)
         key = (kind, cfg, tuple((k, tuple(v.shape[1:]), v.dtype) for k, v in stacks.items()),
                record, bool(chunked_checks), stride, dtype, str(self.device),
-               tols[0] > 0 or tols[1] > 0, _route_switches())
-        program = self._programs.get(key)
-        if program is None:
-            program = _keep(self._programs, key, lambda: _GroupProgram(
-                self, cfg, stacks, seed, stacked, tols, record, stride, bool(chunked_checks),
-                dtype))
+               tols[0] > 0 or tols[1] > 0)
+        program = self._programs.program(key, lambda: _GroupProgram(
+            self, cfg, stacks, seed, stacked, tols, record, stride, bool(chunked_checks), dtype))
         program.load(stacks, seed, tols)
         program.run((capture,), pool)
         return program
@@ -1750,7 +1751,7 @@ class BatchedSolver:
         keyed as the JAX package's ``("mixed", cfg_lo, cfg_hi, ov_keys,
         record, chunked_checks, stride, low_dtype)`` (``batch.py:314``) with
         the overrides' shapes, B, the dtype, the device, whether a lane of
-        each phase can finish and the route switches."""
+        each phase can finish (and the route switches: :class:`_ProgramCache`)."""
         if niter_low <= 0 or niter <= 0:
             raise ValueError("phase iteration budgets must be positive")
         overrides = dict(overrides or {})
@@ -1764,16 +1765,14 @@ class BatchedSolver:
         x, h, mu, _ = self._initial_state(B, low, x0, h0, mu0, None)
         stacks = {k: _cast_like(self.dtype, v, self.device)[None]
                   for k, v in sorted(overrides.items())}
-        captures = tuple(self._captures(self.model.functions, d) for d in (low, self.dtype))
-        pool = self._graph_pool(any(captures))
+        captures = tuple(self._programs.captures(self.model.functions, d)
+                         for d in (low, self.dtype))
+        pool = self._programs.graph_pool(any(captures))
         key = ("mixed", *cfgs, tuple((k, tuple(v.shape), v.dtype) for k, v in stacks.items()),
                record, bool(chunked_checks), stride, low, B, self.dtype, str(self.device),
-               tuple(r > 0 or a > 0 for r, a in tols), _route_switches())
-        program = self._programs.get(key)
-        if program is None:
-            program = _keep(self._programs, key, lambda: _MixedProgram(
-                self, cfgs, stacks, x + h + (mu,), tols, low, record, stride,
-                bool(chunked_checks)))
+               tuple(r > 0 or a > 0 for r, a in tols))
+        program = self._programs.program(key, lambda: _MixedProgram(
+            self, cfgs, stacks, x + h + (mu,), tols, low, record, stride, bool(chunked_checks)))
         program.load(stacks, x + h + (mu,), tols)
         program.run(captures, pool)
         return program.result()

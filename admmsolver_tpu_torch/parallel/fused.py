@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..models.objectivefunc import (L1Regularizer, NonNegativePenalty, _ShiftedQuadratic,
-                                    any_not_pd, deferred_cholesky_checks, raise_if_not_pd)
+                                    raise_if_not_pd)
 from ..models.problem import Model
 from ..models.realify import RealPartProx
 from ..ops import kernels
@@ -103,15 +103,14 @@ class _FusedProgram(batch._GraphProgram):
     th_change, max_mu) as device scalars, the history row and the
     ``(nchunks, B)`` residual histories, all loaded per solve
     (:meth:`load`).  A chunk (``key`` = (iterations, penalty update,
-    prologue)) runs the solver's ``step`` on them, under deferred Cholesky
-    checks (a failure is gathered in :attr:`failed`), and copies the new
-    state into the buffers and the residuals into the history row, which it
-    advances; rows no chunk wrote stay NaN.  So three graphs serve every
-    solve: iteration 0, a full chunk and the remainder.
+    prologue)) runs the solver's ``step`` on them, its factorizations'
+    failure gathered in :attr:`failed`, and copies the new state into the
+    buffers and the residuals into the history row, which it advances; rows
+    no chunk wrote stay NaN.  So three graphs serve every solve: iteration
+    0, a full chunk and the remainder.
     """
 
     def __init__(self, step, state, inputs, nchunks: int, prologue=None) -> None:
-        super().__init__()
         # the solver's methods, held weakly: the solver holds the program
         self._step = weakref.WeakMethod(step)
         self._prologue = None if prologue is None else weakref.WeakMethod(prologue)
@@ -122,24 +121,15 @@ class _FusedProgram(batch._GraphProgram):
         self.acy = prologue(self.inputs[0]) if prologue is not None else self.inputs[0]
         self.knobs = torch.zeros(5, dtype=torch.float32, device=dev)
         self.row = torch.zeros(1, dtype=torch.long, device=dev)
-        self.failed = torch.zeros((), dtype=torch.bool, device=dev)
-        self.checks = False
-        B = self.state[0].shape[0]
-        self.pbuf, self.dbuf = (torch.full((nchunks, B), float("nan"), dtype=torch.float32,
-                                           device=dev) for _ in range(2))
+        super().__init__(self.state[-2], type(step.__self__).__name__, self.state[:-3],
+                         (nchunks, self.state[0].shape[0]), torch.float32)
 
-    @property
-    def done(self) -> torch.Tensor:
-        return self.state[-2]
-
-    def reserve(self, nchunks: int) -> None:
-        """Histories of at least ``nchunks`` rows: longer ones than the
-        program holds are new buffers, and so need new graphs."""
-        if nchunks > self.pbuf.shape[0]:
-            self.pbuf, self.dbuf = (torch.full((nchunks, t.shape[1]), float("nan"),
-                                               dtype=t.dtype, device=t.device)
-                                    for t in (self.pbuf, self.dbuf))
-            self.drop_graphs()
+    def keys(self, niter: int, interval: int):
+        """The chunk keys of a solve (:meth:`~admmsolver_tpu_torch.parallel.
+        batch._GraphProgram.schedule`), the first with the prologue where
+        the program has one."""
+        return [(n, do_mu, not k and self._prologue is not None)
+                for k, (n, do_mu) in enumerate(self.schedule(niter, interval))]
 
     @telemetry.spanned("admm.load")
     def load(self, state, inputs, knobs, nchunks: int) -> None:
@@ -152,50 +142,20 @@ class _FusedProgram(batch._GraphProgram):
             d.fill_(float(v))
         self.row.zero_()
         self.failed.zero_()
-        self.pbuf.fill_(float("nan"))
-        self.dbuf.fill_(float("nan"))
+        self.clear_histories()
 
     def _chunk(self, key) -> None:
         n_iters, do_mu, prologue = key
         if prologue:
             self.acy.copy_(self._prologue()(self.inputs[0]))
-        with deferred_cholesky_checks() as infos:
+        with self.factorizing():
             state, (pn, dn) = self._step()(self.state, self.acy, *self.inputs[1:],
                                            self.knobs.unbind(), n_iters, do_mu)
-        if infos:
-            self.checks = True
-            self.failed.logical_or_(any_not_pd(infos))
         for d, t in zip(self.state, state):
             d.copy_(t)
         self.pbuf.index_copy_(0, self.row, pn[None])
         self.dbuf.index_copy_(0, self.row, dn[None])
         self.row.add_(1)
-
-    def run_schedule(self, niter: int, interval: int, can_finish: bool, read_done0: bool,
-                     capture: bool, pool, what: str) -> bool:
-        """The solve's chunk schedule (reference ``optimizer.py:319-320``):
-        iteration 0, then full ``interval`` chunks, then a remainder; the
-        penalty update fires after iteration 0 and after every full chunk,
-        never after the remainder.  The chunks after the first run while a
-        lane is not done: the host reads the done flags, with the failure
-        flag of the factorizations, after a chunk that is not the last where
-        a lane can finish, and (``read_done0``) once before the first chunk
-        for a caller's ``done0`` where no such read follows.  Returns whether
-        the failure flag is left unread, for the caller to read."""
-        schedule = batch._schedule(niter, interval)
-        all_done = (read_done0 and not can_finish and len(schedule) > 1
-                    and batch._flags_read(self.done))
-        unread = False
-        for k, (n, do_mu) in enumerate(schedule):
-            if k and all_done:
-                break
-            self._run_chunk((n, do_mu, k == 0 and self._prologue is not None), capture, pool)
-            telemetry.check_chunk(what, self.state[:-3])
-            unread = self.checks
-            if can_finish and k + 1 < len(schedule):
-                all_done = batch._flags_read(self.done, self.failed if unread else None)
-                unread = False
-        return unread
 
     def buffers(self):
         """Every tensor the program holds between solves."""
@@ -207,51 +167,33 @@ class _FusedProgram(batch._GraphProgram):
         return tuple(t[:self.nchunks, :B].T.clone() for t in (self.pbuf, self.dbuf))
 
 
-class _FusedSolverBase:
-    """The run programs of a fused solver, by key, and the graph pool their
-    captures share (:mod:`admmsolver_tpu_torch.parallel.batch`)."""
-
-    def _init_programs(self) -> None:
-        #: the run programs by key (:meth:`_run`), oldest first
-        self._programs: Dict[tuple, _FusedProgram] = {}
-        #: the memory of the programs' graphs, made by the first captured solve
-        self._pool: Optional[batch._GraphPool] = None
-
-    def _run(self, key, state, inputs, knobs, niter: int, interval: int, can_finish: bool,
-             read_done0: bool, prologue=None) -> _FusedProgram:
-        """A solve through the program of ``key`` (made on a miss; at most
-        :data:`~admmsolver_tpu_torch.parallel.batch.PROGRAM_CACHE_SIZE` a
-        solver, the oldest dropped first); its chunks are replays of
-        captured graphs on a CUDA device with
-        :data:`~admmsolver_tpu_torch.parallel.batch.CAPTURE_CHUNKS`.
-        Returns the program, its buffers holding the result."""
-        if niter < 1 or interval < 1:
-            raise ValueError(f"niter and interval_update_mu must be >= 1, got {niter}, "
-                             f"{interval}")
-        nchunks = len(batch._schedule(niter, interval))
-        capture = self._captures()
-        program = self._programs.get(key)
-        if program is None:
-            program = batch._keep(self._programs, key, lambda: _FusedProgram(
-                self._step, state, inputs, nchunks, prologue))
-        program.reserve(nchunks)
-        program.load(state, inputs, knobs, nchunks)
-        if program.run_schedule(niter, interval, can_finish, read_done0, capture, self._pool,
-                                type(self).__name__):
-            raise_if_not_pd(program.failed)
-        return program
-
-    def _captures(self) -> bool:
-        """Whether the kernel's chunks are replays of captured graphs: on a
-        CUDA device with :data:`~admmsolver_tpu_torch.parallel.batch.
-        CAPTURE_CHUNKS`; the solver's graph pool made by the first."""
-        capture = batch.CAPTURE_CHUNKS and self.device.type == "cuda"
-        if capture and self._pool is None:
-            self._pool = batch._GraphPool(self.device)
-        return capture
+def _run(solver, key: tuple, state, inputs, knobs, niter: int, interval: int,
+         can_finish: bool, read_done0: bool, prologue=None) -> _FusedProgram:
+    """A solve of a fused ``solver`` through its program of ``key`` (made on
+    a miss, :class:`~admmsolver_tpu_torch.parallel.batch._ProgramCache`),
+    its chunks replays of captured graphs on a CUDA device with
+    :data:`~admmsolver_tpu_torch.parallel.batch.CAPTURE_CHUNKS`.  The host
+    reads the done flags, with the failure flag of the factorizations,
+    after a chunk that is not the last where a lane can finish, and
+    (``read_done0``) once before the first chunk for a caller's ``done0``
+    where no such read follows.  Returns the program, its buffers holding
+    the result."""
+    nchunks = len(_FusedProgram.schedule(niter, interval))
+    programs = solver._programs
+    capture = programs.captures()
+    pool = programs.graph_pool(capture)
+    program = programs.program(key, lambda: _FusedProgram(solver._step, state, inputs, nchunks,
+                                                          prologue))
+    program.reserve(nchunks)
+    program.load(state, inputs, knobs, nchunks)
+    all_done = read_done0 and not can_finish and nchunks > 1 and batch._flags_read(program.done)
+    if program.run_schedule(program.keys(niter, interval), capture, pool, can_finish,
+                            all_done=all_done):
+        raise_if_not_pd(program.failed)
+    return program
 
 
-class FusedTwoBlockSolver(_FusedSolverBase):
+class FusedTwoBlockSolver:
     """Fused chunk solver for the flagship 2-block family, in float32.
 
     ``device`` is where the solve runs: on ``cuda`` (the default; without a
@@ -316,7 +258,8 @@ class FusedTwoBlockSolver(_FusedSolverBase):
         self.Ut = self.U.T.contiguous()
         # A† on the device once: a copy from the host would wait for the card
         self.Ac = torch.as_tensor(f0._Ac.asmatrix(), **f32)
-        self._init_programs()
+        #: the run programs by key (:func:`_run`), and the memory of their graphs
+        self._programs = batch._ProgramCache(self.device)
 
     def _step(self, state, acy, alpha_ls, alpha1, knobs, n_iters: int, do_mu: bool):
         """One chunk: ``n_iters`` kernel iterations, then residuals,
@@ -395,9 +338,9 @@ class FusedTwoBlockSolver(_FusedSolverBase):
         state, inputs = self._kernel_inputs(overrides, B, Bp, mu0, x0, x1, h0, done0)
         interval, niter = int(interval_update_mu), int(niter)
         can_finish = rtol > 0 or atol > 0
-        program = self._run((interval, Bp, str(self.device), can_finish), state, inputs,
-                            (rtol, atol, fact_incr, th_change, max_mu),
-                            niter, interval, can_finish, done0 is not None)
+        program = _run(self, (interval, Bp, str(self.device), can_finish), state, inputs,
+                       (rtol, atol, fact_incr, th_change, max_mu), niter, interval, can_finish,
+                       done0 is not None)
         x0f, x1f, hf, muf, done, count = program.state
         # copies: the next solve overwrites the buffers
         with telemetry.span("admm.result"):

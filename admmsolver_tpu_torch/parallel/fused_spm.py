@@ -46,7 +46,7 @@ from ..ops import kernels
 from ..utils import telemetry
 from . import batch
 from .batch import BatchedSolver, BatchResult
-from .fused import _check_fused_overrides, _FusedProgram, _FusedSolverBase, _is_identity_si
+from .fused import _check_fused_overrides, _FusedProgram, _is_identity_si, _run
 
 #: the knobs of the one-program mixed solve (the JAX package's fused set,
 #: ``fused_spm.py:477-480``); a solve with another takes the two-dispatch form
@@ -79,7 +79,7 @@ def _dense32(op) -> np.ndarray:
     return np.asarray(a, np.float32)
 
 
-class FusedSpMSolver(_FusedSolverBase):
+class FusedSpMSolver:
     """Fused chunk solver for the SpM 3-block family, in float32.
 
     ``device`` is where the solve runs: on ``cuda`` (the default; without a
@@ -136,7 +136,9 @@ class FusedSpMSolver(_FusedSolverBase):
         if self.is_cls:
             self.C = torch.as_tensor(_dense32(f0._C), **f32)      # (nc, nl)
             self.D = torch.as_tensor(_dense32(f0._D), **f32)      # (nc,)
-        self._init_programs()
+        #: the run programs by key (:func:`~admmsolver_tpu_torch.parallel.fused.
+        #: _run`), and the memory of their graphs
+        self._programs = batch._ProgramCache(self.device)
 
     # -- factor refresh (chunk boundaries) -----------------------------
     def _factors(self, mu1, mu2, alpha_ls, acy):
@@ -264,10 +266,9 @@ class FusedSpMSolver(_FusedSolverBase):
         state, inputs, has_y = self._kernel_inputs(overrides, B, mu0, done0)
         interval, niter = int(interval_update_mu), int(niter)
         can_finish = rtol > 0 or atol > 0
-        program = self._run((interval, B, has_y, str(self.device), can_finish), state, inputs,
-                            (rtol, atol, fact_incr, th_change, max_mu), niter, interval,
-                            can_finish, done0 is not None,
-                            prologue=self._acy_of if has_y else None)
+        program = _run(self, (interval, B, has_y, str(self.device), can_finish), state, inputs,
+                       (rtol, atol, fact_incr, th_change, max_mu), niter, interval, can_finish,
+                       done0 is not None, prologue=self._acy_of if has_y else None)
         # copies: the next solve overwrites the buffers
         with telemetry.span("admm.result"):
             x0, x1, x2, h10, h20, mu, done, count = (t.clone() for t in program.state)
@@ -349,8 +350,10 @@ class FusedSpMSolver(_FusedSolverBase):
         """Both phases through their mixed program (JAX
         ``_solve_mixed_fused``, ``fused_spm.py:498-618``), made on a miss,
         keyed as the JAX package's ``ckey`` (``:581-582``) with the device,
-        whether a lane of each phase can finish, whether the caller marks
-        lanes done and the route switches."""
+        whether a lane of each phase can finish and whether the caller marks
+        lanes done (and the route switches: :class:`~admmsolver_tpu_torch.
+        parallel.batch._ProgramCache`).  Both phases capture into this
+        solver's graph pool."""
         B = _check_fused_overrides(overrides, "FusedSpMSolver.solve_mixed")
         state, inputs, has_y = self._kernel_inputs(overrides, B, mu0, done0)
         interval, niter_low = int(interval_update_mu), int(niter_low)
@@ -365,17 +368,15 @@ class FusedSpMSolver(_FusedSolverBase):
         finish = (low_atol > 0, rtol > 0 or atol > 0)
         key = ("mixed", niter_low, cfg,
                tuple((k, tuple(v.shape), v.dtype) for k, v in stacks.items()), record, stride,
-               bool(chunked_checks), B, has_y, str(self.device), finish, done0 is not None,
-               batch._route_switches())
-        program = self._programs.get(key)
-        if program is None:
-            program = batch._keep(self._programs, key, lambda: _MixedProgram(
-                self, bs, state, inputs, niter_low, interval, finish[0], has_y, stacks,
-                done0 is not None, cfg, tols, record, stride, bool(chunked_checks)))
+               bool(chunked_checks), B, has_y, str(self.device), finish, done0 is not None)
+        program = self._programs.program(key, lambda: _MixedProgram(
+            self, bs, state, inputs, niter_low, interval, finish[0], has_y, stacks,
+            done0 is not None, cfg, tols, record, stride, bool(chunked_checks)))
         program.load(state, inputs, (0.0, low_atol, fact_incr, th_change, max_mu), stacks,
                      tols)
-        program.run((self._captures(), bs._captures(bs.model.functions, torch.float64)),
-                    self._pool)
+        captures = (self._programs.captures(),
+                    bs._programs.captures(bs.model.functions, torch.float64))
+        program.run(captures, self._programs.graph_pool(captures[0]))
         return program.result(niter_low)
 
 
@@ -393,7 +394,7 @@ class _MixedProgram(batch._Composite):
     def __init__(self, solver: FusedSpMSolver, bs: BatchedSolver, state, inputs, niter_low: int,
                  interval: int, can_finish: bool, has_y: bool, stacks: Dict, marks_done: bool,
                  cfg, tols, record: bool, stride: int, chunked_checks: bool) -> None:
-        self.nchunks = len(batch._schedule(niter_low, interval))
+        self.nchunks = len(_FusedProgram.schedule(niter_low, interval))
         self.kernel = _FusedProgram(solver._step, state, inputs, self.nchunks,
                                     solver._acy_of if has_y else None)
         # the caller's done0, which the kernel phase's flags overwrite
@@ -403,8 +404,8 @@ class _MixedProgram(batch._Composite):
         self.polish = batch._phase_program(bs, cfg, feed, torch.float64, tols, record, stride,
                                            chunked_checks)
         # the kernel phase's schedule; its failure flag is read after the polish
-        schedule = lambda capture, pool: self.kernel.run_schedule(
-            niter_low, interval, can_finish, False, capture, pool, "FusedSpMSolver")
+        keys = self.kernel.keys(niter_low, interval)
+        schedule = lambda capture, pool: self.kernel.run_schedule(keys, capture, pool, can_finish)
         super().__init__([("kernel phase", self.kernel, schedule),
                           ("polish", self.polish, None)], solver.device)
 

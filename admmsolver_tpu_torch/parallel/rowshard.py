@@ -33,7 +33,7 @@ the solve can finish.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -120,7 +120,6 @@ class _LargeNProgram(batch._GraphProgram):
     """
 
     def __init__(self, solver: "LargeNTwoBlockSolver", niter: int, interval: int) -> None:
-        super().__init__()
         self.mesh, self.U, self.lam = solver.mesh, solver.U, solver.lam
         self.prox, self.alpha, self.alpha1 = solver.prox, solver.alpha_ls, solver.alpha1
         self.interval = interval
@@ -128,10 +127,9 @@ class _LargeNProgram(batch._GraphProgram):
         self.acy, self.x0, self.x1, self.h = (
             torch.zeros(solver.Ac.shape[0], dtype=solver.Ac.dtype, device=dev) for _ in range(4))
         self.mu = torch.zeros((), dtype=rdt, device=dev)
-        self.done = torch.zeros((), dtype=torch.bool, device=dev)
         self.it = torch.zeros((), dtype=torch.long, device=dev)
-        self.pb, self.db = (torch.full((niter,), float("nan"), dtype=rdt, device=dev)
-                            for _ in range(2))
+        super().__init__(torch.zeros((), dtype=torch.bool, device=dev), "LargeNTwoBlockSolver",
+                         (self.x0, self.x1, self.h), (niter,), rdt)
         self.tols = (self.mu.clone(), self.mu.clone())
 
     def load(self, acy: torch.Tensor, mu0: float, tols) -> None:
@@ -143,8 +141,7 @@ class _LargeNProgram(batch._GraphProgram):
         self.mu.fill_(float(mu0))
         for d, t in zip(self.tols, tols):
             d.fill_(t)
-        self.pb.fill_(float("nan"))
-        self.db.fill_(float("nan"))
+        self.clear_histories()
 
     def _chunk(self, n: int) -> None:
         for _ in range(n):
@@ -176,7 +173,7 @@ class _LargeNProgram(batch._GraphProgram):
                 & (dn / (mu * torch.maximum(n0, n0p)) < rtol))
         conv = conv | ((pn < atol) & (dn < atol))
         slot = self.it.view(1)
-        for buf, value in ((self.pb, pn), (self.db, dn)):
+        for buf, value in ((self.pbuf, pn), (self.dbuf, dn)):
             buf.index_copy_(0, slot, torch.where(active, value, buf.index_select(0, slot)))
         # the penalty update on the reference schedule
         do_mu = active & (self.it % self.interval == 0) & ~conv
@@ -191,8 +188,8 @@ class _LargeNProgram(batch._GraphProgram):
 
     def buffers(self):
         """Every tensor the program holds between solves."""
-        return (self.acy, self.x0, self.x1, self.h, self.mu, self.done, self.it, self.pb,
-                self.db) + self.tols
+        return (self.acy, self.x0, self.x1, self.h, self.mu, self.done, self.it, self.pbuf,
+                self.dbuf) + self.tols
 
 
 class LargeNTwoBlockSolver:
@@ -246,10 +243,9 @@ class LargeNTwoBlockSolver:
         self.mesh, self.prox = mesh, prox
         self.alpha_ls, self.alpha1 = float(alpha_ls), float(alpha1)
         self.N, self.M = N, M
-        #: the solve programs by (niter, interval), oldest first (:meth:`solve`)
-        self._programs: Dict[tuple, _LargeNProgram] = {}
-        #: the memory of their graphs, made by the first captured solve
-        self._pool: Optional[batch._GraphPool] = None
+        #: the solve programs by (niter, interval) (:meth:`solve`), and the
+        #: memory of their graphs
+        self._programs = batch._ProgramCache(mesh.device)
 
     @classmethod
     def from_basis(cls, lam, U, Ac, mesh: Mesh, prox: str = "l1",
@@ -266,14 +262,14 @@ class LargeNTwoBlockSolver:
 
     @property
     def captures(self) -> bool:
-        """Whether a solve replays its chunks as captured graphs: on a CUDA
-        device with :data:`~admmsolver_tpu_torch.parallel.batch.
-        CAPTURE_CHUNKS`, where the mesh has no group or a NCCL one.  A gloo
-        group's collectives run on the host, which a graph cannot hold: its
-        chunks run without graphs."""
+        """Whether a solve replays its chunks as captured graphs
+        (:meth:`~admmsolver_tpu_torch.parallel.batch._ProgramCache.captures`),
+        where the mesh has no group or a NCCL one.  A gloo group's
+        collectives run on the host, which a graph cannot hold: its chunks
+        run without graphs."""
         group = self.mesh.group
-        return (batch.CAPTURE_CHUNKS and self.mesh.device.type == "cuda"
-                and (group is None or dist.get_backend(group) == "nccl"))
+        return self._programs.captures(
+            allowed=group is None or dist.get_backend(group) == "nccl")
 
     @telemetry.spanned(telemetry.SOLVE)
     def solve(self, y, niter: int = 10000, mu0: float = 1.0,
@@ -293,29 +289,18 @@ class LargeNTwoBlockSolver:
         also forms a NCCL communicator before any capture).  The host reads
         the done flag after a chunk only where the solve can finish."""
         niter, interval = int(niter), int(interval_update_mu)
-        if niter < 1 or interval < 1:
-            raise ValueError(f"niter and interval_update_mu must be >= 1, got {niter}, "
-                             f"{interval}")
-        mesh = self.mesh
-        acy = self.Ac @ _asarray(y).to(mesh.device, self.Ac.dtype)
-        program = self._programs.get((niter, interval))
-        if program is None:
-            program = batch._keep(self._programs, (niter, interval),
-                                  lambda: _LargeNProgram(self, niter, interval))
+        keys = [n for n, _ in _LargeNProgram.schedule(niter, interval)]
+        acy = self.Ac @ _asarray(y).to(self.mesh.device, self.Ac.dtype)
+        program = self._programs.program((niter, interval),
+                                         lambda: _LargeNProgram(self, niter, interval))
         program.load(acy, mu0, (rtol, atol))
         del acy
         capture = self.captures
-        if capture and self._pool is None:
-            self._pool = batch._GraphPool(mesh.device)
-        can_finish = rtol > 0 or atol > 0
-        schedule = [n for n, _ in batch._schedule(niter, interval)]
-        for k, n in enumerate(schedule):
-            program._run_chunk(n, capture, self._pool)
-            if can_finish and k + 1 < len(schedule) and batch._flags_read(program.done):
-                break
+        program.run_schedule(keys, capture, self._programs.graph_pool(capture),
+                             rtol > 0 or atol > 0)
         it, done = torch.stack([program.it, program.done.to(program.it.dtype)]).tolist()
         # copies: the next solve overwrites the buffers
         return LargeNResult(x0=program.x0.clone(), x1=program.x1.clone(), h=program.h.clone(),
                             mu=program.mu.clone(), iterations=int(it), converged=bool(done),
-                            primal_residual=program.pb.clone(),
-                            dual_residual=program.db.clone())
+                            primal_residual=program.pbuf.clone(),
+                            dual_residual=program.dbuf.clone())

@@ -254,8 +254,8 @@ class ScenarioScheduler:
         tols = (self.rtol, self.atol)
         program = self._program(cfg, stacks, S, tols)
         program.load(tols, stacks, self.mu0)
-        capture = solver._captures(solver.model.functions, dtype)
-        pool = solver._graph_pool(capture)
+        capture = solver._programs.captures(solver.model.functions, dtype)
+        pool = solver._programs.graph_pool(capture)
         while not program.wave(capture, pool):
             pass
         out = program.results()
@@ -281,22 +281,23 @@ class ScenarioScheduler:
         """The stream's wave program, made on a miss.  The key: the JAX
         package's ``("stream", cfg, keys, S, B, niter_max)``
         (``scheduler.py:228``) with each key's row shape and dtype, the
-        solver's dtype and device, whether a lane can finish and the route
-        switches a graph keeps; ``mu0`` is a value of the program.  A
-        solver keeps the stacks of one stream: a program of another key
-        drops the others."""
-        solver = self.solver
-        key = ("stream", cfg, tuple((k, tuple(v.shape[1:]), v.dtype) for k, v in stacks.items()),
-               S, self.B, self.niter_max, solver.dtype, str(solver.device),
-               tols[0] > 0 or tols[1] > 0, batch._route_switches())
-        program = solver._programs.get(key)
-        if program is None:
-            for other in [k for k, p in solver._programs.items() if isinstance(p, _WaveProgram)]:
-                del solver._programs[other]
-            program = batch._keep(solver._programs, key, lambda: _WaveProgram(
-                solver, cfg, {k: batch._fresh(v) for k, v in stacks.items()}, S, self.B,
-                self.niter_max, tols))
-        return program
+        solver's dtype and device and whether a lane can finish (and the
+        route switches a graph keeps: :class:`~admmsolver_tpu_torch.parallel.
+        batch._ProgramCache`); ``mu0`` is a value of the program.  A solver
+        keeps the stacks of one stream: a program of another key drops the
+        others."""
+        programs = self.solver._programs
+
+        def build() -> _WaveProgram:
+            for other in [k for k, p in programs.items() if isinstance(p, _WaveProgram)]:
+                del programs[other]
+            return _WaveProgram(self.solver, cfg, {k: batch._fresh(v) for k, v in stacks.items()},
+                                S, self.B, self.niter_max, tols)
+
+        return programs.program(
+            ("stream", cfg, tuple((k, tuple(v.shape[1:]), v.dtype) for k, v in stacks.items()),
+             S, self.B, self.niter_max, self.solver.dtype, str(self.solver.device),
+             tols[0] > 0 or tols[1] > 0), build)
 
 
 class _WaveProgram(batch._FedProgram):
@@ -335,12 +336,8 @@ class _WaveProgram(batch._FedProgram):
         feed = batch._Feed(dict(stacks), None, out=out)
         # the buffers sized by a wave of the first scenarios
         first = torch.arange(B, device=dev).clamp_max(S - 1)
-        carry = (tuple(zeros(B, n) for n in plan.block_sizes),
-                 tuple(zeros(B, n) for n in plan.pair_sizes), zeros(B, plan.npairs, dt=rdt),
-                 None, zeros(B, dt=torch.bool), zeros(B, dt=torch.int32),
-                 zeros(B, 1, dt=torch.float64), zeros(B, 1, dt=torch.float64))
         super().__init__(solver, cfg, feed, solver._bound(
-            {k: v.index_select(0, first) for k, v in feed.ov.items()}), carry, tols, False, 1,
+            {k: v.index_select(0, first) for k, v in feed.ov.items()}), B, dtype, tols, False, 1,
             False, freeze=True)
         self.sid = zeros(B, dt=torch.long)
         self.iters = zeros(B, dt=torch.int32)
@@ -395,17 +392,18 @@ class _WaveProgram(batch._FedProgram):
         self.nxt.add_(nfin)
         self.harvested.add_(nfin)
 
-    def run(self, n: int, capture: bool, pool) -> None:
-        """One chunk of the wave, its lane slots counted."""
-        super().run(n, capture, pool)
-        telemetry.count("stream.slot_iters", self.sid.shape[0] * n)
+    def _run_chunk(self, key, capture: bool, pool) -> None:
+        """A step of the wave, its lane slots counted: B a wave iteration,
+        the entry's iteration 0 and the chunks'."""
+        super()._run_chunk(key, capture, pool)
+        if key != "exit":
+            telemetry.count("stream.slot_iters", self.sid.shape[0] * (1 if key == "entry" else key))
 
     def wave(self, capture: bool, pool) -> bool:
         """One wave (:meth:`run_group`); whether the stream is drained, from
         the wave's one host read of the harvested count, which also takes
         the failure flag of the factorizations (raised here).  Counts the
-        wave, the scenarios it harvested and its lane slots: B a wave
-        iteration, iteration 0 here and the chunks' in :meth:`run`."""
+        wave and the scenarios it harvested."""
         with telemetry.span("admm.wave"):
             self.run_group(capture, pool)
             with telemetry.span("admm.flags_read"):
@@ -415,7 +413,6 @@ class _WaveProgram(batch._FedProgram):
             raise_if_not_pd(failures > 0)
             telemetry.count("waves")
             telemetry.count("scenarios_out", harvested - self.seen)
-            telemetry.count("stream.slot_iters", self.sid.shape[0])
             self.seen = harvested
         return harvested >= self.S
 

@@ -275,10 +275,6 @@ INNER = 4           # calls in a row inside one CUDA-event timing
 PEAK_F32_FLOPS = 67e12     # H100 SXM, f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12   # H100 SXM, dense TF32 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-# the runtime calls by which the host puts work on a stream (profiler keys)
-HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
-                     "cudaMemsetAsync")
 # Most that a split-TF32 kernel's max abs difference to the plain version may
 # be, as a multiple of the f32 FMA kernel's on the same inputs.
 TC_ERR_RATIO = {"two-block": 2.0, "SpM": 4.0}
@@ -573,10 +569,14 @@ def bound_ms(t_ops, tensors):
 
 def profile_solve(torch, what, kernel_name, solve, iters=None):
     """torch.profiler over one solve: wall time, device time in the kernels
-    whose name contains ``kernel_name`` and in everything else, and with
-    ``iters`` the launches per iteration; returns the wall time, busy share,
-    launches and the named kernels' time."""
+    whose name contains ``kernel_name`` and in everything else, the busy
+    share (the union of the device's intervals over the wall time, as the
+    benchmark's ``Trace.busy_s`` takes it), and with ``iters`` the launches
+    per iteration; returns the wall time, busy share, launches and the named
+    kernels' time."""
     from torch.profiler import ProfilerActivity, profile
+
+    from portbench.trace import HOST_LAUNCH_CALLS, _union
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         solve()   # the first profiled run pays for starting the tracer
@@ -594,17 +594,20 @@ def profile_solve(torch, what, kernel_name, solve, iters=None):
     total = sum(r[1] for r in rows)
     kern = sum(r[1] for r in rows if kernel_name in r[0])
     launches = sum(r[2] for r in rows)
+    busy = 1e-3 * sum(b - a for a, b in _union([
+        (float(e.time_range.start), float(e.time_range.end)) for e in prof.events()
+        if e.device_type.name == "CUDA"]))
     # the host's calls that put work on the stream: a graph replay is one
     host = sum(e.count for e in events if e.key in HOST_LAUNCH_CALLS)
     print(f"profile, {what}: wall {wall:.2f} ms (profiled), device kernels {total:.2f} ms "
-          f"(busy {total / wall:.2f}), {kernel_name} kernels {kern:.2f} ms, other kernels "
+          f"(busy {busy / wall:.2f}), {kernel_name} kernels {kern:.2f} ms, other kernels "
           f"{total - kern:.2f} ms in {launches} launches"
           + (f" = {launches / iters:.1f} per iteration" if iters else "")
           + f"; host launch calls {host}"
           + (f" = {host / iters:.2f} per iteration" if iters else ""))
     for key, ms, count in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"  {ms:8.3f} ms  x{count:<5d} {key[:90]}")
-    return {"wall_ms": wall, "busy": total / wall, "launches": launches,
+    return {"wall_ms": wall, "busy": busy / wall, "launches": launches,
             "host_launches": host, "kernel_ms": kern}
 
 
@@ -988,7 +991,7 @@ def family_solve(torch, card, what, model, ov, niter, device, lanes=(0,), tol=1e
           + f" = {times[-1] * 1e3 / niter:.3f} ms per iteration"
           + (f"; Jacobi kernel launches in one solve {launches}" if launches else ""),
           flush=True)
-    if device == "cuda" and not bs._captures(bs.model.functions, torch.float64):
+    if device == "cuda" and not bs._programs.captures(bs.model.functions, torch.float64):
         print(f"{what}: chunks without a graph by the declared rule (a route that a CUDA "
               "graph cannot hold)", flush=True)
     else:
@@ -1272,11 +1275,11 @@ def phase_tv(torch, card, device="cuda", N=TV_N, B=TV_B, niter=TV_NITER, lam=TV_
         peak = torch.cuda.max_memory_allocated() - before
         snap = torch.cuda.memory._snapshot()
         torch.cuda.memory._record_memory_history(enabled=None)
-        foot, pool_live, entries = device_footprint(torch, snap, [bs._pool.mempool.id])
+        foot, pool_live, entries = device_footprint(torch, snap, [bs._programs.pool.mempool.id])
         snap = None
         if entries >= TV_TRACE_ENTRIES:
             raise AssertionError("the allocator's trace of the TV part overflowed")
-        pool = bs._pool.bytes
+        pool = bs._programs.pool.bytes
     print(f"TV denoising: mean |x - truth| {err:.4f} (noisy input {noisy:.4f})"
           + ("" if foot is None else f"; device memory over the part, the graph pool "
              f"included, {foot / 2**20:.0f} MiB (limit {TV_MEMORY_LIMIT / 2**20:.0f} MiB; one "
@@ -1344,9 +1347,8 @@ def with_capture(capture, fn):
 def programs_of(solver):
     """(programs by key, graph pool) of a solver, or of a SimpleOptimizer's
     plan: one pool a solver or plan."""
-    if hasattr(solver, "_programs"):
-        return solver._programs, solver._pool
-    return solver._plan._run_cache, solver._plan._pool
+    programs = solver._programs if hasattr(solver, "_programs") else solver._plan._programs
+    return programs, programs.pool
 
 
 def program_stats(solvers):

@@ -16,8 +16,10 @@ iterations, flags and both histories) and the JAX package at
 tests/test_torch_batch.py's tolerances (x and h to 1e-9 of max(1,
 max|x|), mu to rtol 1e-12, equal iterations and flags, histories to rtol
 1e-6 with atol 1e-12 and NaN in the same places).  Then the program's
-buffers, its cache and the declared capturability table, and the deferred
-Cholesky check of the dense factor.
+buffers, its cache and the declared capturability table, the deferred
+Cholesky check of the dense factor, and the host's reads of the done flags
+in the one schedule of every program family, against the JAX package's
+iteration counts.
 """
 import types
 
@@ -35,6 +37,7 @@ from admmsolver_tpu_torch.models.objectivefunc import (any_not_pd, deferred_chol
 from admmsolver_tpu_torch.models.realify import encode
 from admmsolver_tpu_torch.ops import prox
 from admmsolver_tpu_torch.parallel import BatchedSolver, batch
+from admmsolver_tpu_torch.utils import telemetry
 
 torch.set_num_threads(1)
 
@@ -92,8 +95,7 @@ CONDITIONS = {
 }
 
 
-def _eager_run(self, cfg, ov, x, h, mu, tols, done0, record, stride, chunked_checks,
-               read_done0=True):
+def _eager_run(self, cfg, ov, x, h, mu, tols, done0, record, stride, chunked_checks):
     """``BatchedSolver._run`` as the eager loop: iteration 0, then chunks of
     ``interval_update_mu`` plain iterations, each followed by a refactor
     (``inv_hpd`` raising at once), the host reading the done flags where
@@ -110,7 +112,7 @@ def _eager_run(self, cfg, ov, x, h, mu, tols, done0, record, stride, chunked_che
     slot = (lambda git: min(git // stride, hist - 1)) if record else (lambda git: 0)
     nan = lambda: torch.full((B, hist), float("nan"), dtype=torch.float64, device=self.device)
     can_finish = rtol > 0 or atol > 0
-    all_done = False if done0 is None or not read_done0 else self._all_done(done0)
+    all_done = done0 is not None and self._all_done(done0)
     freeze = can_finish or done0 is not None
     if done0 is None:
         done0 = torch.zeros(B, dtype=torch.bool, device=self.device)
@@ -244,7 +246,7 @@ def test_buffers_keep_their_addresses_across_chunks_and_solves(monkeypatch):
     mt, ov, mu0 = _model("huber", T)
     bs = BatchedSolver(mt, device="cpu")
     seen = []
-    chunk = batch._ChunkProgram._chunk
+    chunk = batch._FedProgram._iterate
 
     def recording(self, n):
         chunk(self, n)
@@ -254,7 +256,7 @@ def test_buffers_keep_their_addresses_across_chunks_and_solves(monkeypatch):
             self.mu, self.done, self.count, self.pbuf, self.dbuf, self.it, self.steps,
             self.failed, *fields)])
 
-    monkeypatch.setattr(batch._ChunkProgram, "_chunk", recording)
+    monkeypatch.setattr(batch._FedProgram, "_iterate", recording)
     _solve(bs, ov, mu0, True, rtol=1e-7)
     ov2 = {k: v[::-1].copy() for k, v in ov.items()}
     _solve(bs, ov2, mu0, True, rtol=1e-9)
@@ -394,15 +396,15 @@ def test_uncapturable_model_runs_the_eager_loop_on_the_card(monkeypatch):
     Y = rng.randn(6, 5)
     bs = BatchedSolver(TA.rpca_model(Y, svd_method="xla"), device="cpu")
     functions = bs.model.functions
-    assert not bs._captures(functions, torch.float64)
-    monkeypatch.setattr(bs, "device", CUDA)
-    assert not bs._captures(functions, torch.float64)
+    assert not bs._programs.captures(functions, torch.float64)
+    monkeypatch.setattr(bs._programs, "device", CUDA)
+    assert not bs._programs.captures(functions, torch.float64)
     gram = BatchedSolver(TA.rpca_model(Y, svd_method="gram"), device="cpu")
-    assert not gram._captures(gram.model.functions, torch.float64)
-    monkeypatch.setattr(gram, "device", CUDA)
-    assert gram._captures(gram.model.functions, torch.float64)
+    assert not gram._programs.captures(gram.model.functions, torch.float64)
+    monkeypatch.setattr(gram._programs, "device", CUDA)
+    assert gram._programs.captures(gram.model.functions, torch.float64)
     monkeypatch.setattr(batch, "CAPTURE_CHUNKS", False)
-    assert not gram._captures(gram.model.functions, torch.float64)
+    assert not gram._programs.captures(gram.model.functions, torch.float64)
 
 
 def test_deferred_cholesky_check():
@@ -441,3 +443,156 @@ def test_non_pd_dense_factor_raises_in_the_engine(capture):
             _solve(BatchedSolver(mt, device="cpu"), ov, mu0, True, rtol=0.0)
         else:
             _eager(mt, ov, mu0, rtol=0.0)
+
+
+# ---------------------------------------------------------------------
+# The host's reads of the done flags: the one schedule of every program
+# ---------------------------------------------------------------------
+
+# case -> (niter, interval_update_mu, tolerances for float64, for float32, done0)
+READ_CASES = {
+    "no_lane_can_finish": (41, 10, dict(rtol=0.0), dict(rtol=0.0), False),
+    "done0": (41, 10, dict(rtol=0.0), dict(rtol=0.0), True),
+    "lanes_can_finish": (41, 10, dict(rtol=1e-12), dict(rtol=1e-12), False),
+    "one_chunk": (1, 10, dict(rtol=1e-12), dict(rtol=1e-12), True),
+    "remainder": (45, 10, dict(rtol=1e-12), dict(rtol=1e-12), False),
+    "early_finish": (400, 20, dict(rtol=1e-4), dict(rtol=1e-3), False),
+}
+# solver -> (state in float32, takes done0, reads after its first step,
+#            factorizes: a read between steps takes the failure flag too)
+READ_SOLVERS = {
+    "SimpleOptimizer": (False, False, True, False),
+    "BatchedSolver": (False, True, False, False),
+    "FusedTwoBlockSolver": (True, True, True, False),
+    "FusedSpMSolver": (True, True, True, True),
+    "LargeNTwoBlockSolver": (False, False, True, False),
+}
+
+
+def _read_solves(name):
+    """(port solve, JAX solve) of ``name``, each ``fn(niter, interval,
+    **knobs)`` returning the most iterations any lane ran."""
+    rng = np.random.RandomState(3)
+    if name == "LargeNTwoBlockSolver":
+        from admmsolver_tpu.parallel import make_mesh as jax_mesh
+        from admmsolver_tpu.parallel.rowshard import LargeNTwoBlockSolver as JaxLargeN
+        from admmsolver_tpu_torch.interop import large_n_from_jax
+        from admmsolver_tpu_torch.parallel import make_mesh
+
+        A = rng.randn(16, 64)
+        y = A[:, :4] @ rng.randn(4)
+        js = JaxLargeN(A, jax_mesh(axis_name="n"), prox="l1", alpha1=0.1)
+        ts = large_n_from_jax(js, make_mesh(devices="cpu"))
+        solve = lambda s: lambda niter, interval, **kw: int(
+            s.solve(y, niter=niter, interval_update_mu=interval, **kw).iterations)
+        return solve(ts), solve(js)
+    if name == "FusedSpMSolver":
+        from admmsolver_tpu.parallel import FusedSpMSolver as JaxFusedSpM
+        from admmsolver_tpu_torch.parallel import FusedSpMSolver
+
+        s, g, prj_sum, prj_w, _, _ = TA.synthetic_spm_data(nl=12, nw=25)
+        ov = {(0, "y"): g[None] + 1e-4 * rng.randn(4, g.size)}
+        models = {P: apps.spm_model(s, g, prj_sum, prj_w, alpha_l1=1e-3)
+                  for P, apps in ((J, JA), (T, TA))}
+        ts, js = FusedSpMSolver(models[T], device="cpu"), JaxFusedSpM(models[J], tile_b=4)
+        kw0 = dict(mu0=0.1)
+    else:
+        N = 40
+        A = rng.randn(12, N)
+        xt = np.zeros((4, N))
+        for b in range(4):
+            xt[b, rng.choice(N, 3, replace=False)] = rng.randn(3)
+        ov = {(0, "y"): xt @ A.T}
+        models = {P: P.Model([P.LeastSquares(1.0, A, ov[(0, "y")][0]), P.L1Regularizer(0.1, N)],
+                             [(1, 0, P.identity(N), P.identity(N))]) for P in (J, T)}
+        kw0 = {}
+        if name == "SimpleOptimizer":
+            def solve(P):
+                def run(niter, interval, **kw):
+                    o = P.SimpleOptimizer(models[P], **({"device": "cpu"} if P is T else {}))
+                    o.solve(niter, interval_update_mu=interval, **kw)
+                    return o.iterations
+                return run
+            return solve(T), solve(J)
+        if name == "BatchedSolver":
+            ts, js = BatchedSolver(models[T], device="cpu"), JaxBatched(models[J])
+        else:
+            from admmsolver_tpu.parallel.fused import FusedTwoBlockSolver as JaxFused
+            from admmsolver_tpu_torch.parallel import FusedTwoBlockSolver
+
+            ts = FusedTwoBlockSolver(models[T], tile_b=4, device="cpu")
+            js = JaxFused(models[J], tile_b=4)
+    solve = lambda s: lambda niter, interval, **kw: int(np.max(np.asarray(s.solve(
+        ov, niter=niter, interval_update_mu=interval, **kw0, **kw).iterations)))
+    return solve(ts), solve(js)
+
+
+def _lengths(niter, interval):
+    """The iterations of each step of a solve that runs to ``niter``:
+    iteration 0, the full chunks, the remainder."""
+    nfull, nrem = divmod(niter - 1, interval)
+    return [1] + [interval] * nfull + ([nrem] if nrem else [])
+
+
+def _chunk_keys(name, lengths, interval):
+    """The keys of the steps of ``lengths`` (no penalty update after the
+    remainder)."""
+    update = lambda k, n: k == 0 or n == interval
+    if name == "SimpleOptimizer":
+        return [(n, update(k, n)) for k, n in enumerate(lengths)]
+    if name == "BatchedSolver":
+        return ["entry"] + lengths[1:]
+    if name.startswith("Fused"):
+        # the SpM program makes A†y of the lanes' data in its first step
+        return [(n, update(k, n), k == 0 and name == "FusedSpMSolver")
+                for k, n in enumerate(lengths)]
+    return lengths
+
+
+@pytest.mark.parametrize("name,case", [
+    (name, case) for name, (_, done0, _, _) in READ_SOLVERS.items() for case in READ_CASES
+    if done0 or not READ_CASES[case][4]])
+def test_host_reads_of_the_done_flags(name, case, monkeypatch):
+    """Every program's one schedule: the host reads the done flags only
+    where a lane can finish, after a step that is not the last (not after a
+    fed program's entry), and once for a caller's done0 (the fused solvers
+    only where no such read follows); a solve stops at the first read that
+    finds every lane done.  The steps run and the reads are pinned against
+    the JAX package's iteration counts: the steps are the shortest prefix of
+    the schedule that holds the slowest lane's iterations.  Where the
+    program factorizes, each read between steps takes the failure flag."""
+    f32, _, after_entry, factorizes = READ_SOLVERS[name]
+    niter, interval, tols64, tols32, done0 = READ_CASES[case]
+    kw = dict(tols32 if f32 else tols64)
+    if done0:
+        kw["done0"] = np.zeros(4, bool)
+    port, jax = _read_solves(name)
+    want_iters = jax(niter, interval, **kw)
+    taken, flags_read = [], batch._flags_read
+
+    def reading(done, failed=None, mesh=None):
+        taken.append(failed is not None)
+        return flags_read(done, failed, mesh)
+
+    monkeypatch.setattr(batch, "_flags_read", reading)
+    with telemetry.tracing():
+        telemetry.reset()
+        assert port(niter, interval, **kw) == want_iters
+        snap = telemetry.snapshot()
+    lengths = _lengths(niter, interval)
+    keys = _chunk_keys(name, lengths, interval)
+    ran = next(r for r in range(1, len(keys) + 1) if sum(lengths[:r]) >= want_iters)
+    if not after_entry:
+        ran = max(ran, min(2, len(keys)))   # a chunk follows the entry unread
+    can_finish = kw["rtol"] > 0
+    reads = sum(1 for k in range(ran) if can_finish and k + 1 < len(keys)
+                and (k or after_entry))
+    first = done0 and (name == "BatchedSolver" or not can_finish and len(keys) > 1)
+    assert [r["attrs"]["key"] for r in snap["records"] if r["name"] == "admm.chunk"] \
+        == keys[:ran]
+    assert snap["counters"].get("flag_reads", 0) == len(taken) == reads + first
+    assert taken == [False] * first + [factorizes] * reads
+    if case == "early_finish":
+        assert ran < len(keys)
+    elif not can_finish:
+        assert want_iters == niter

@@ -284,35 +284,6 @@ def test_spm_factor_not_positive_definite_raises(problems, rtol):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("case,reads", [("no_lane_can_finish", 0), ("done0", 1),
-                                         ("lanes_can_finish", 4), ("one_chunk", 0)])
-def test_host_reads_of_the_done_flags(problems, kind, monkeypatch, case, reads):
-    """The host reads the done flags only where a lane can finish, after a
-    chunk that is not the last (41 iterations in chunks of 10: 5 chunks, 4
-    reads), and once for done0 where no lane can finish; the SpM failure
-    flag comes in the same read."""
-    _, ft = _solvers(problems, kind)
-    _, _, ys, _, kw = problems[kind]
-    seen = []
-    flags_read = batch._flags_read
-
-    def counting(done, failed=None, mesh=None):
-        seen.append(failed is not None)
-        return flags_read(done, failed, mesh)
-
-    monkeypatch.setattr(batch, "_flags_read", counting)
-    kw = dict(kw, niter=41, interval_update_mu=10, rtol=0.0)
-    if case == "done0":
-        kw["done0"] = np.zeros(B, bool)
-    elif case == "lanes_can_finish":
-        kw["rtol"] = 1e-12
-    elif case == "one_chunk":
-        kw.update(niter=1, rtol=1e-12, done0=np.zeros(B, bool))
-    ft.solve({(0, "y"): ys}, **kw)
-    assert seen == [kind == "spm" and case == "lanes_can_finish"] * reads
-
-
-@pytest.mark.parametrize("kind", KINDS)
 def test_buffers_keep_their_addresses_across_chunks_and_solves(problems, kind, monkeypatch):
     _, ft = _solvers(problems, kind)
     _, _, ys, ys2, kw = problems[kind]
@@ -344,7 +315,7 @@ def test_program_cache_is_keyed_and_bounded(problems, kind, monkeypatch):
     ft.solve({(0, "y"): ys}, niter=9, interval_update_mu=5, **kw)
     ft.solve({(0, "y"): ys}, niter=9, interval_update_mu=5, rtol=0.0, **kw)
     assert [key[0] for key in ft._programs] == [4, 5, 5]
-    assert [key[-1] for key in ft._programs][1:] == [True, False]
+    assert [key[-2] for key in ft._programs][1:] == [True, False]
     if kind == "spm":
         ft.solve(batch_size=B, niter=9, interval_update_mu=5, rtol=0.0, **kw)
         assert list(ft._programs)[-1][2] is False

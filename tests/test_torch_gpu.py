@@ -1526,7 +1526,7 @@ def test_fused_spm_solve_wider_than_a_warp_takes_the_block_kernel(cuda, monkeypa
     before = [c.launches for c in counters]
     got, gap = _plain_refresh_gap(model, gs, cuda, monkeypatch, niter=500, mu0=0.1,
                                   interval_update_mu=50, rtol=0.0)
-    nchunks = len(batch._schedule(500, 50))
+    nchunks = len(batch._GraphProgram.schedule(500, 50))
     assert [c.launches - n for c, n in zip(counters, before)] == [0, nchunks]
     assert gap <= 1.5e-3, gap
 
@@ -1595,7 +1595,7 @@ def test_simple_optimizer_captured_equals_graph_less(cuda, name):
         _equal(_single_solve(model, mu0, capture, opt, **kw), want)
         launches.append(kernels.jacobi_eigh.launches)
     assert launches[0::2] == launches[1::2]
-    programs = list(opt._plan._run_cache.values())
+    programs = list(opt._plan._programs.values())
     assert sorted(programs[0].graphs.graphs) == [(1, True), (4, False), (10, True)]
 
 
@@ -1617,7 +1617,7 @@ def test_simple_optimizer_cached_program_takes_new_rtol_and_x0(cuda, monkeypatch
     ref._h, ref._mu = tuple(t.clone() for t in opt.h), opt.mu.clone()
     opt._x = tuple(x0)
     got = _single_solve(model, mu0, True, opt, rtol=1e-9)
-    assert captures == [] and len(opt._plan._run_cache) == 1
+    assert captures == [] and len(opt._plan._programs) == 1
     want = _single_solve(model, mu0, False, ref, rtol=1e-9)
     _equal(got[:-3] + [got[-3] - n1] + [g[n1:] for g in got[-2:]], want)
 
@@ -1626,14 +1626,13 @@ def test_simple_optimizer_replays_do_not_sync(cuda, monkeypatch):
     """At rtol = atol = 0 a warm program's chunks read nothing on the host:
     they run under ``torch.cuda.set_sync_debug_mode("error")`` and the done
     flag is never read."""
-    from admmsolver_tpu_torch import optimizer
     from admmsolver_tpu_torch.parallel import batch
 
     for name in ("spm", "tv", "sdp_jacobi", "covariance_sign"):
         model, mu0 = _single(name)
         opt = T.SimpleOptimizer(model, mu=mu0)
         _single_solve(model, mu0, True, opt, record_residuals=False)
-        run = optimizer._RunProgram.run
+        run = batch._GraphProgram._run_chunk
         replays = []
 
         def strict(self, key, capture, pool):
@@ -1647,7 +1646,7 @@ def test_simple_optimizer_replays_do_not_sync(cuda, monkeypatch):
         def no_read(*args, **kwargs):
             raise AssertionError("the done flag was read")
 
-        monkeypatch.setattr(optimizer._RunProgram, "run", strict)
+        monkeypatch.setattr(batch._GraphProgram, "_run_chunk", strict)
         monkeypatch.setattr(batch, "_flags_read", no_read)
         opt.solve(45, interval_update_mu=10, rtol=0.0, record_residuals=False)
         torch.cuda.synchronize()

@@ -191,7 +191,7 @@ def test_two_solves_in_a_row_match_jax(kind):
         oj.solve(niter, **kw)
         ot.solve(niter, **kw)
         _assert_matches_jax(ot, oj)
-    assert len(ot._plan._run_cache) == 2
+    assert len(ot._plan._programs) == 2
 
 
 def test_float32_state_matches_jax_with_float32_histories():
@@ -258,7 +258,7 @@ def test_program_cache_reuses_and_drops_the_oldest():
     solve from that state; the 33rd key drops the oldest."""
     opt = T.SimpleOptimizer(_bp(T, M=10, N=20), device="cpu")
     opt.solve(30, interval_update_mu=10, rtol=1e-3)
-    cache = opt._plan._run_cache
+    cache = opt._plan._programs
     (program,) = cache.values()
     x0, h0, mu0 = [t.clone() for t in opt.x], tuple(t.clone() for t in opt.h), opt.mu.clone()
     opt.solve(30, interval_update_mu=10, rtol=1e-9)

@@ -179,29 +179,6 @@ def test_cached_program_takes_another_rtol():
     assert len(sol._programs) == 2
 
 
-@pytest.mark.parametrize("rtol,reads", [(0.0, 0), (1e-6, None)])
-def test_done_flag_read_only_where_the_solve_can_finish(monkeypatch, rtol, reads):
-    """At rtol = atol = 0 the host reads no done flag between chunks;
-    otherwise once a chunk at most (250 iterations in chunks of 100: iteration
-    0, two full chunks, a remainder)."""
-    from admmsolver_tpu_torch.parallel import batch
-
-    sol, y = _own_solver("remainder")
-    flags_read = batch._flags_read
-    calls = []
-
-    def counting(*args, **kwargs):
-        calls.append(1)
-        return flags_read(*args, **kwargs)
-
-    monkeypatch.setattr(batch, "_flags_read", counting)
-    res = sol.solve(y, niter=250, rtol=rtol, interval_update_mu=100)
-    if reads is None:
-        assert 1 <= len(calls) <= 3
-    else:
-        assert len(calls) == reads and res.iterations == 250
-
-
 def test_which_meshes_capture(monkeypatch):
     """A CUDA device captures its chunks with no group or a NCCL one; a gloo
     group (collectives on the host), the CPU and CAPTURE_CHUNKS off run
@@ -211,19 +188,19 @@ def test_which_meshes_capture(monkeypatch):
     from admmsolver_tpu_torch.parallel import LargeNTwoBlockSolver, batch
     from admmsolver_tpu_torch.parallel.mesh import Mesh
 
-    sol = LargeNTwoBlockSolver.__new__(LargeNTwoBlockSolver)
+    def on(mesh):
+        sol = LargeNTwoBlockSolver.__new__(LargeNTwoBlockSolver)
+        sol.mesh, sol._programs = mesh, batch._ProgramCache(mesh.device)
+        return sol
+
     cuda = torch.device("cuda", 0)
-    sol.mesh = Mesh(0, 1, cuda, ("n",))
-    assert sol.captures
-    sol.mesh = Mesh(0, 1, torch.device("cpu"), ("n",))
-    assert not sol.captures
+    assert on(Mesh(0, 1, cuda, ("n",))).captures
+    assert not on(Mesh(0, 1, torch.device("cpu"), ("n",))).captures
     for backend, captures in (("nccl", True), ("gloo", False)):
         monkeypatch.setattr(dist, "get_backend", lambda group, b=backend: b)
-        sol.mesh = Mesh(0, 1, cuda, ("n",), group=object())
-        assert sol.captures == captures
+        assert on(Mesh(0, 1, cuda, ("n",), group=object())).captures == captures
     monkeypatch.setattr(batch, "CAPTURE_CHUNKS", False)
-    sol.mesh = Mesh(0, 1, cuda, ("n",))
-    assert not sol.captures
+    assert not on(Mesh(0, 1, cuda, ("n",))).captures
 
 
 if __name__ == "__main__":

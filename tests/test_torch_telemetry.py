@@ -85,7 +85,7 @@ def test_batched_solve_spans_and_flag_reads():
     assert solve["attrs"]["entry"] == "BatchedSolver.solve" and solve["parent"] is None
     assert {r["call"] for r in records} == {solve["call"]}
     chunks = [r for r in records if r["name"] == "admm.chunk"]
-    schedule = batch._schedule(1000, 100)
+    schedule = batch._GraphProgram.schedule(1000, 100)
     assert [c["attrs"]["key"] for c in chunks] == ["entry"] + [n for n, _ in schedule[1:]]
     by_id = {r["id"]: r for r in records}
     for r in records[1:]:
@@ -248,7 +248,7 @@ def test_graph_without_the_switch_has_no_event_node(cuda, monkeypatch):
         fs.solve(ov, niter=250, mu0=0.1)
     assert program.graphs and not program.marked
     # a warm program replays every chunk, iteration 0's too
-    assert telemetry.snapshot()["spans"]["admm.replay"]["count"] == len(batch._schedule(250, 100))
+    assert telemetry.snapshot()["spans"]["admm.replay"]["count"] == len(batch._GraphProgram.schedule(250, 100))
     with telemetry.tracing():
         fs.solve(ov, niter=250, mu0=0.1)
     assert set(program.marked) == set(program.graphs)
