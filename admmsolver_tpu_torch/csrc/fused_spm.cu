@@ -58,12 +58,14 @@
 // iterations take 0.99 ms with 16 warps of 2 lanes, 1.15 ms with 8 warps of
 // 4 (fewer shared loads per FMA, but too few warps to hide their latency)
 // and 1.28 ms with 16 warps of 1 lane (two waves); the tensor-core kernel
-// takes 0.48 ms (`chip_smoke.py --variants`).
+// takes 0.39 ms.
 //
 // Plain C interface, loaded with ctypes (admmsolver_tpu_torch/ops/_build.py).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -311,46 +313,51 @@ __global__ void __launch_bounds__(WARP * MAX_WARPS) fused_spm_kernel(
 
 // ---------------------------------------------------------------------
 // The same chunk with the two products against P on the tensor cores, for
-// nl <= 32 and nw <= 256 (the SpM problem's own width, nl = 30, nw = 201).
+// nl <= 32 and nw <= 256 (the SpM problem's own width: the notebook's
+// nl = 30, nw = 61, and nw = 201).
 //
-// A block's 32 lanes are the columns of two small GEMMs per iteration,
-// P^T (nl x nw) * T (nw x 32) and P (nw x nl) * X0 (nl x 32), computed in
-// split TF32: every f32 operand x is big + small, big = x rounded to TF32
+// Split TF32: every f32 operand x is big + small, big = x rounded to TF32
 // and small = x - big, and a product is a_small*b_big + a_big*b_small +
-// a_big*b_big, three `mma.sync.m16n8k8` with f32 accumulation; the dropped
-// term is below 2^-21 of the product.  The tensor core adds into its
-// accumulator by truncation, so no chain of mma is longer than 32 steps of
-// k: P x0 has nl <= 32 steps, and P^T t is split over the 8 warps by ranges
-// of at most 32 frequencies, whose partial sums a rounded f32 add joins.
+// a_big*b_big, three `mma.sync.m16n8k8` with f32 accumulation into three
+// accumulators; the dropped term is below 2^-21 of the product.  The tensor
+// core adds into its accumulator by truncation, so no chain of mma is
+// longer than 32 steps of k: P x0 has nl <= 32 steps, and P^T t runs over
+// nw in chains of four k8 steps whose sums a rounded f32 add joins, inside
+// the warp that owns the output.  M hk0 and the elementwise steps stay f32.
 //
-// What that does about the first kernel's limit (an element of P loaded
-// from shared memory served 2 FMAs): P is not in shared memory at all.
-// Each warp keeps its fragments of P and of P^T in registers for the whole
-// chunk, and per iteration loads 64 words of the lanes' vectors for 192
-// mma.  h20, x1, h10, b2 and x0 live in the registers of the threads that
-// own their elements; shared memory holds T = h20 + mu2*x2 and x0 in
-// [feature][lane] layout (the mma's B operand as it lies), the eight
-// partial sums of P^T t, hk0 and the per-lane M.  M's matvec stays f32
-// FMA, one thread per lane and four rows.  An iteration has four
-// block-wide barriers.
+// A block holds 16 lanes, the 16 rows of every mma tile, in 8 warps, and
+// two blocks share a multiprocessor, so that B = 4096 runs as one wave of
+// 256 blocks.  An iteration is three steps between block-wide barriers:
+//   C. hk0 = u - P^T t.  Warp w < ceil(nl / 8) owns coefficients 8 w ..
+//      8 w + 7 of the 16 lanes over all frequencies (A: t^T, B: P); u =
+//      -h10 - mu1 x1 was left by step D.
+//   D. x0 = b2 - M hk0.  Each thread keeps two rows of one lane's M in
+//      registers (M never passes through shared memory), reads the lane's
+//      hk0 as eight float4, and updates x1, h10 and u of its two elements;
+//      x0 goes out as the A fragments of step A.
+//   A. P x0 (A: x0^T, B: P^T).  Warp w takes the tiles of eight frequencies
+//      w, w + 8, ... below ceil(nw / 8), so that no mma runs on frequencies
+//      all past nw, then x2, h20 and the next t of its elements.  With the
+//      k8 step's frequencies taken in the order 0, 2, 4, 6, 1, 3, 5, 7, the
+//      C fragment of t^T that a thread holds is its own A fragment of step
+//      C: one float4 store a tile.
+// Shared memory: P as TF32 head and rest, rows padded to 36 floats so that
+// the B fragments of both products hit 32 banks; t and h20 in fragment
+// order; x0; hk0 and u; b2 and h10 of step D; five scalars a lane (38 KB at
+// nw = 61).  Where two blocks of that do not fit a multiprocessor (nw > 248
+// on an H100), P is kept once and split at each use.
+//
+// What bounds it: at nl = 30, nw = 61, B = 4096 a 100-iteration chunk
+// takes 0.167-0.173 ms on an H100 (80GB HBM3, 700 W) against 0.38-0.39 ms
+// for the design it replaced (32 lanes and 8 warps a block, M in shared
+// memory, P^T t split over the 8 warps); one block alone a multiprocessor
+// (B = 2112) takes 0.114 ms.  The split products are 384 mma a
+// multiprocessor and iteration (~580 cycles at the measured 1.52 cycles an
+// mma), the shared-memory traffic ~1,600 wavefronts, the issue ~1,650
+// cycles a scheduler, against ~3,200 cycles an iteration: the barriers'
+// chains of loads, mma and elementwise work are what is left, half-hidden
+// by the second block.
 // ---------------------------------------------------------------------
-
-constexpr int TC_LANES = 32;     // lanes per block
-constexpr int TC_WARPS = 8;
-constexpr int TC_THREADS = TC_WARPS * WARP;
-constexpr int TC_LS = 40;        // floats between rows of the [feature][lane] arrays
-constexpr int TC_NL = 32;        // most coefficients: two m16 tiles, four k8 steps
-constexpr int TC_NW = 256;       // most frequencies: four k8 steps for each of 8 warps
-
-// k8 steps of P^T t per warp.
-__host__ __device__ inline int tc_k8w(int nw) { return (((nw + 7) / 8) + TC_WARPS - 1) / TC_WARPS; }
-// Floats between two lanes' M: odd, so that lanes hit different banks.
-__host__ __device__ inline int tc_mst(int nl) { return (nl * nl) | 1; }
-
-size_t smem_bytes_tc(int nl, int nw) {
-  return sizeof(float) * ((size_t)(TC_WARPS * tc_k8w(nw) * 8 + 2 * TC_NL + TC_WARPS * TC_NL) * TC_LS +
-                          (size_t)TC_LANES * tc_mst(nl));
-}
 
 __device__ __forceinline__ unsigned tf32_big(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;  // round to TF32, ties away
@@ -364,48 +371,42 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// acc[mt][nt] += A[mt] * B[nt] over one k8 step in split TF32; `a` holds the
-// raw A fragments of the two m16 tiles, `Bk` points at this thread's (t, g)
-// element of the step's 8 rows of a [feature][lane] array.
-__device__ __forceinline__ void tc_step(float (&acc)[2][4][4], const float (&a)[2][4],
-                                        const float* __restrict__ Bk, bool two_tiles) {
-  unsigned abig[2][4], asmall[2][4], bbig[4][2], bsmall[4][2];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      abig[mt][i] = tf32_big(a[mt][i]);
-      asmall[mt][i] = __float_as_uint(a[mt][i] - __uint_as_float(abig[mt][i]));
-    }
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float y = Bk[i * 4 * TC_LS + nt * 8];
-      bbig[nt][i] = tf32_big(y);
-      bsmall[nt][i] = __float_as_uint(y - __uint_as_float(bbig[nt][i]));
-    }
-  // Up to eight independent accumulators per round, so that no mma waits
-  // for the one before it.
-  const int tiles = two_tiles ? 2 : 1;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      if (mt < tiles) mma_tf32(acc[mt][nt], asmall[mt], bbig[nt]);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      if (mt < tiles) mma_tf32(acc[mt][nt], abig[mt], bsmall[nt]);
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-      if (mt < tiles) mma_tf32(acc[mt][nt], abig[mt], bbig[nt]);
+constexpr int LR_LANES = 16;               // lanes per block: the 16 rows of every mma tile
+constexpr int LR_WARPS = 8;
+constexpr int LR_THREADS = LR_WARPS * WARP;
+constexpr int LR_NL = 32;                  // most coefficients
+constexpr int LR_LDP = LR_NL + 4;          // floats between rows of P: 4 mod 32
+constexpr int LR_LDH = 40;                 // floats between lanes of hk0 and u
+constexpr int LR_HK = LR_LANES * LR_LDH + 16;
+
+// Index of (lane c, coefficient j) in hk0 and u: lanes 8-15 sit 16 floats
+// further, so that lanes c and c + 8 fall on other banks.
+__device__ __forceinline__ int lr_hk(int c, int j) { return c * LR_LDH + (c >> 3) * 16 + j; }
+
+// Bytes of shared memory: P's TF32 head and rest (LDP floats per frequency
+// of 8 nt; P alone where not split), t and h20 as A fragments (128 floats
+// per tile of frequencies each), x0 as A fragments (4 x 128), hk0 and u, b2
+// and h10 by thread (4 x 256), and five scalars of each lane.
+size_t smem_bytes_lr(int nw, bool split) {
+  const size_t nt = (nw + 7) / 8;
+  return sizeof(float) * ((1 + split) * nt * 8 * LR_LDP + 2 * nt * 128 + 4 * 128 + 2 * LR_HK +
+                          4 * LR_THREADS + 5 * LR_LANES);
 }
 
-__global__ void __launch_bounds__(TC_THREADS, 1) fused_spm_tc_kernel(
+__device__ __forceinline__ void tf32_split(const float4 v, unsigned (&big)[4],
+                                           unsigned (&small)[4]) {
+  const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    big[i] = tf32_big(x[i]);
+    small[i] = __float_as_uint(x[i] - __uint_as_float(big[i]));
+  }
+}
+
+// WT: the most tiles of frequencies a warp takes in step A (nw <= 64 WT);
+// SPLIT: P kept as TF32 head and rest, else once and split at each use.
+template <int WT, bool SPLIT>
+__global__ void __launch_bounds__(LR_THREADS, 2) fused_spm_lane_mma_kernel(
     const float* __restrict__ P, const float* __restrict__ M,
     const float* __restrict__ b2, const float* __restrict__ mu,
     const float* __restrict__ thr, const float* __restrict__ x0,
@@ -415,246 +416,321 @@ __global__ void __launch_bounds__(TC_THREADS, 1) fused_spm_tc_kernel(
     float* __restrict__ h10o, float* __restrict__ h20o, float* __restrict__ x0p,
     int B, int nl, int nw, int n_iters) {
   extern __shared__ __align__(16) float smem[];
-  const int k8w = tc_k8w(nw), mst = tc_mst(nl);
-  float* const T_s = smem;                                  // [64 k8w][LS]: h20 + mu2*x2
-  float* const X0_s = T_s + TC_WARPS * k8w * 8 * TC_LS;     // [32][LS]
-  float* const hk_s = X0_s + TC_NL * TC_LS;                 // [32][LS]: hk0
-  float* const part_s = hk_s + TC_NL * TC_LS;               // [8 warps][32][LS]: P^T t by k range
-  float* const M_s = part_s + TC_WARPS * TC_NL * TC_LS;     // [32 lanes][mst]
+  const int nt = (nw + 7) / 8, nk = (nl + 7) / 8;   // tiles of eight frequencies, coefficients
+  float* const Pb = smem;                           // [8 nt][LDP]: P's TF32 head (or P)
+  float* const Ps = Pb + nt * 8 * LR_LDP;           // and the rest
+  float* const TF = Ps + SPLIT * nt * 8 * LR_LDP;   // [nt][32 threads][4]: t as A fragments
+  float* const HF = TF + nt * 128;                  // [nt][32][4]: h20 in the same places
+  float* const XF = HF + nt * 128;                  // [4][32][4]: x0 as A fragments
+  float* const HK = XF + 4 * 128;                   // hk0 by lr_hk
+  float* const U = HK + LR_HK;                      // -h10 - mu1 x1 by lr_hk
+  float* const DS = U + LR_HK;                      // [4][256]: b2, h10 of step D's elements
+  float* const LS = DS + 4 * LR_THREADS;            // [5][16]: mu1, 1/mu1, thr, mu2, 1/mu2
 
-  const int tid = threadIdx.x, wp = tid / WARP;
-  const int g = (tid % WARP) >> 2, t = tid & 3;   // the mma's group and thread in group
-  const int b0 = blockIdx.x * TC_LANES;
-  auto Pat = [&](int w, int l) { return (w < nw && l < nl) ? __ldg(P + (size_t)w * nl + l) : 0.f; };
+  const int tid = threadIdx.x, wp = tid / WARP, q = tid % WARP;
+  const int g = q >> 2, t = q & 3;
+  const int b0 = blockIdx.x * LR_LANES;
 
-  // This warp's fragments of P (rows 16 (wp + 8 mi) ..., for P x0) and of
-  // P^T (frequencies 8 (wp k8w + ks) ..., for its part of P^T t).
-  float pa3[2][4][4], pa1[4][2][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int k8 = 0; k8 < 4; ++k8) {
-      const int r = (wp + TC_WARPS * mi) * 16 + g, c = k8 * 8 + t;
-      pa3[mi][k8][0] = Pat(r, c);
-      pa3[mi][k8][1] = Pat(r + 8, c);
-      pa3[mi][k8][2] = Pat(r, c + 4);
-      pa3[mi][k8][3] = Pat(r + 8, c + 4);
+  for (int idx = tid; idx < nt * 8 * LR_LDP; idx += LR_THREADS) {
+    const int w = idx / LR_LDP, j = idx % LR_LDP;
+    const float p = (w < nw && j < nl) ? __ldg(P + (size_t)w * nl + j) : 0.f;
+    const float big = __uint_as_float(tf32_big(p));
+    if (SPLIT) {
+      Pb[idx] = big;
+      Ps[idx] = p - big;
+    } else {
+      Pb[idx] = p;
     }
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int w = ks < k8w ? (wp * k8w + ks) * 8 + t : nw, l = mt * 16 + g;
-      pa1[ks][mt][0] = Pat(w, l);
-      pa1[ks][mt][1] = Pat(w, l + 8);
-      pa1[ks][mt][2] = Pat(w + 4, l);
-      pa1[ks][mt][3] = Pat(w + 4, l + 8);
-    }
-  const bool two3 = (wp + TC_WARPS) * 16 < nw;  // a second m16 tile of P x0 for this warp
-
-  // Zero what is read beyond nl, nw and B.
-  for (int idx = tid; idx < (TC_WARPS * k8w * 8 + 2 * TC_NL) * TC_LS; idx += TC_THREADS)
-    T_s[idx] = 0.f;
+  }
+  for (int idx = tid; idx < 2 * LR_HK; idx += LR_THREADS) HK[idx] = 0.f;
+  if (tid < LR_LANES) {
+    const int b = b0 + tid;
+    const float m1 = b < B ? mu[2 * (size_t)b] : 1.f, m2 = b < B ? mu[2 * (size_t)b + 1] : 1.f;
+    LS[tid] = m1;
+    LS[LR_LANES + tid] = 1.f / m1;
+    LS[2 * LR_LANES + tid] = b < B ? thr[b] : 0.f;
+    LS[3 * LR_LANES + tid] = m2;
+    LS[4 * LR_LANES + tid] = 1.f / m2;
+  }
   __syncthreads();
 
-  // Elements of the P x0 mapping: frequency 16 (wp + 8 mi) + g + 8 (c / 2),
-  // lane 8 nt + 2 t + (c & 1).  Each keeps its h20 here; mu2 by lane.
-  float h20r[2][4][4], mu2r[8], rmu2r[8];
+  // Step D's elements: lane dl, rows drow0 and drow0 + 16, with the lane's
+  // rows of M in registers.
+  const int dl = 2 * (wp & 3) + (q & 1) + 8 * ((q >> 1) & 1);
+  const int ds = ((q >> 2) & 3) + 4 * (q >> 4);
+  const int drow0 = 8 * (wp >> 2) + ds;
+  const int xslot = (4 * (dl & 7) + (ds & 3)) * 4 + (dl >> 3) + 2 * (ds >> 2);
+  const int bd = b0 + dl;
+  const bool dok = bd < B;
+  float Mr[2][LR_NL];
+  {
+    const float mu1 = LS[dl];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int b = b0 + (j / 2) * 8 + 2 * t + (j & 1);
-    mu2r[j] = b < B ? mu[2 * (size_t)b + 1] : 1.f;
-    rmu2r[j] = 1.f / mu2r[j];
-  }
+    for (int p = 0; p < 2; ++p) {
+      const int i = drow0 + 16 * p;
+      const bool in = dok && i < nl;
+      const size_t gi = (size_t)bd * nl + i;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int w = (wp + TC_WARPS * mi) * 16 + g + 8 * (c / 2);
-        const int lane = nt * 8 + 2 * t + (c & 1), b = b0 + lane;
-        const bool in = b < B && w < nw;
-        const size_t gi = (size_t)b * nw + w;
-        const float h = in ? h20[gi] : 0.f, x = in ? x2[gi] : 0.f;
-        h20r[mi][nt][c] = h;
-        if (w < nw) T_s[w * TC_LS + lane] = h + mu2r[2 * nt + (c & 1)] * x;
-        if (in && n_iters == 0) x2o[gi] = x;
+      for (int j = 0; j < LR_NL; ++j) Mr[p][j] = (in && j < nl) ? M[gi * nl + j] : 0.f;
+      const float x0v = in ? x0[gi] : 0.f, x1v = in ? x1[gi] : 0.f, h = in ? h10[gi] : 0.f;
+      DS[p * LR_THREADS + tid] = in ? b2[gi] : 0.f;
+      DS[(2 + p) * LR_THREADS + tid] = h;
+      XF[128 * (i >> 3) + xslot] = x0v;
+      U[lr_hk(dl, i)] = -h - mu1 * x1v;
+      if (in && n_iters == 0) {
+        x0o[gi] = x0v;
+        x1o[gi] = x1v;
+        h10o[gi] = h;
+        x0p[gi] = x0v;
       }
-  for (int idx = tid; idx < TC_LANES * nl * nl; idx += TC_THREADS) {
-    const int lane = idx / (nl * nl), e = idx % (nl * nl);
-    M_s[lane * mst + e] = b0 + lane < B ? M[(size_t)(b0 + lane) * nl * nl + e] : 0.f;
+    }
   }
-  // Elements of the lane-owner mapping: lane tid % 32, coefficients
-  // tid / 32 + 8 r.  Each keeps its x0, x1, h10 and b2 here.
-  const int ln = tid % WARP, bl = b0 + ln;
-  const float mu1 = bl < B ? mu[2 * (size_t)bl] : 1.f, rmu1 = 1.f / mu1;
-  const float th = bl < B ? thr[bl] : 0.f;
-  float x0r[4], x0old[4], x1r[4], h10r[4], b2r[4];
+
+  // Step A's elements: lanes g, g + 8 and frequencies 8 n + 2 t, + 1 of the
+  // tiles n = wp + 8 r; t and h20 as the A fragments of step C.
+  const int la = b0 + g, lb = la + 8;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = wp + 8 * r;
-    const bool in = bl < B && i < nl;
-    const size_t gi = (size_t)bl * nl + i;
-    x0r[r] = x0old[r] = in ? x0[gi] : 0.f;
-    x1r[r] = in ? x1[gi] : 0.f;
-    h10r[r] = in ? h10[gi] : 0.f;
-    b2r[r] = in ? b2[gi] : 0.f;
+  for (int r = 0; r < WT; ++r) {
+    const int n = wp + LR_WARPS * r;
+    if (n >= nt) break;
+    float tv[4], hv[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int b = c < 2 ? la : lb, w = 8 * n + 2 * t + (c & 1);
+      const bool in = b < B && w < nw;
+      const size_t gi = (size_t)b * nw + w;
+      const float h = in ? h20[gi] : 0.f, x = in ? x2[gi] : 0.f;
+      hv[c] = h;
+      tv[c] = h + LS[3 * LR_LANES + g + 8 * (c >> 1)] * x;
+      if (in && n_iters == 0) x2o[gi] = x;
+    }
+    *reinterpret_cast<float4*>(TF + n * 128 + q * 4) = make_float4(tv[0], tv[2], tv[1], tv[3]);
+    *reinterpret_cast<float4*>(HF + n * 128 + q * 4) = make_float4(hv[0], hv[2], hv[1], hv[3]);
   }
   __syncthreads();
 
-  const float* const Bt = T_s + (wp * k8w * 8 + t) * TC_LS + g;   // B fragments of P^T t
-  const float* const Bx = X0_s + t * TC_LS + g;                   // and of P x0
-  for (int it = 0; it <= n_iters; ++it) {
-    // 1. This warp's part of P^T t, from T as the iteration before (or the
-    //    input state) left it.
-    if (it < n_iters) {
-      float acc[2][4][4];
+  // The B fragment (b0 at p[o0], b1 at p[o1]), head and rest.
+  auto get_b = [&](const float* p, int o0, int o1, unsigned (&big)[2], unsigned (&sml)[2]) {
+    if (SPLIT) {
+      const float* const ps = p + nt * 8 * LR_LDP;
+      big[0] = __float_as_uint(p[o0]);
+      big[1] = __float_as_uint(p[o1]);
+      sml[0] = __float_as_uint(ps[o0]);
+      sml[1] = __float_as_uint(ps[o1]);
+    } else {
+      const float v0 = p[o0], v1 = p[o1];
+      big[0] = tf32_big(v0);
+      big[1] = tf32_big(v1);
+      sml[0] = __float_as_uint(v0 - __uint_as_float(big[0]));
+      sml[1] = __float_as_uint(v1 - __uint_as_float(big[1]));
+    }
+  };
+  // One k8 step of P^T t at tile kk: acc += T^T P over the eight
+  // frequencies of tile kk, for this warp's eight coefficients.
+  const float* const pc = Pb + 2 * t * LR_LDP + 8 * wp + g;   // + 8 LDP kk
+  auto step_c = [&](float (&sb)[4], float (&bs)[4], float (&bb)[4], int kk) {
+    unsigned ab[4], as[4];
+    tf32_split(*reinterpret_cast<const float4*>(TF + kk * 128 + q * 4), ab, as);
+    const int o = kk * 8 * LR_LDP;
+    unsigned bbig[2], bsml[2];
+    get_b(pc, o, o + LR_LDP, bbig, bsml);
+    mma_tf32(sb, as, bbig);
+    mma_tf32(bs, ab, bsml);
+    mma_tf32(bb, ab, bbig);
+  };
+  // One chain of P^T t: k8 steps kk0 .. kk0 + 3 (those below nt where the
+  // chain is the last, partial one), into fresh accumulators, then added
+  // to tot.
+  auto chain = [&](float (&tot)[4], int kk0, auto full_c) {
+    constexpr bool full = decltype(full_c)::value;
+    float sb[4] = {0.f, 0.f, 0.f, 0.f}, bs[4] = {0.f, 0.f, 0.f, 0.f},
+          bb[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+    for (int k = 0; k < 4; ++k) {
+      if (!full && kk0 + k >= nt) break;
+      step_c(sb, bs, bb, kk0 + k);
+    }
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+    for (int c = 0; c < 4; ++c) tot[c] += (sb[c] + bs[c]) + bb[c];
+  };
+  auto iteration = [&](auto last_c) {
+    constexpr bool last = decltype(last_c)::value;
+
+    // C. hk0 = u - P^T t.  Warp wp < nk owns coefficients 8 wp .. 8 wp + 7 of
+    //    the 16 lanes, over all frequencies in chains of four k8 steps.
+    if (wp < nk) {
+      float tot[4] = {0.f, 0.f, 0.f, 0.f};
+      int kk = 0;
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
+      for (int ch = 0; ch < 2 * WT; ++ch) {
+        if (kk + 4 > nt) break;
+        chain(tot, kk, std::true_type{});
+        kk += 4;
+      }
+      if (kk < nt) chain(tot, kk, std::false_type{});
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        if (ks < k8w) tc_step(acc, pa1[ks], Bt + ks * 8 * TC_LS, nl > 16);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int c = 0; c < 4; c += 2) {
-            const int l = mt * 16 + g + 8 * (c / 2);
-            *reinterpret_cast<float2*>(part_s + (wp * TC_NL + l) * TC_LS + nt * 8 + 2 * t) =
-                make_float2(acc[mt][nt][c], acc[mt][nt][c + 1]);
-          }
+      for (int h = 0; h < 2; ++h) {
+        const int o = lr_hk(g + 8 * h, 8 * wp + 2 * t);
+        const float2 u = *reinterpret_cast<const float2*>(U + o);
+        *reinterpret_cast<float2*>(HK + o) = make_float2(u.x - tot[2 * h], u.y - tot[2 * h + 1]);
+      }
     }
     __syncthreads();
-    if (it == n_iters) break;
-    const bool last = it == n_iters - 1;
 
-    // 2a. hk0 = -h10 - mu1*x1 - P^T t, the eight parts added in order.
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = wp + 8 * r;
-      if (i >= nl) continue;
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < TC_WARPS; ++w) s += part_s[(w * TC_NL + i) * TC_LS + ln];
-      hk_s[i * TC_LS + ln] = -h10r[r] - mu1 * x1r[r] - s;
-    }
-    __syncthreads();
-
-    // 2b. x0 = b2 - M hk0, then x1 and h10.
+    // D. x0 = b2 - M hk0, then x1, h10 and the next u.
     {
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      const float* const Ml = M_s + ln * mst;
-#pragma unroll 6
-      for (int j = 0; j < nl; ++j) {
-        const float v = hk_s[j * TC_LS + ln];
+      float acc[2][4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = wp + 8 * r;
-          acc[r] = fmaf(Ml[(i < nl ? i : nl - 1) * nl + j], v, acc[r]);
+      for (int p = 0; p < 2; ++p)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[p][e] = 0.f;
+      const float* const hk = HK + lr_hk(dl, 0);
+#pragma unroll
+      for (int j4 = 0; j4 < LR_NL / 4; ++j4) {
+        const float4 v = *reinterpret_cast<const float4*>(hk + 4 * j4);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          acc[p][0] = fmaf(Mr[p][4 * j4], v.x, acc[p][0]);
+          acc[p][1] = fmaf(Mr[p][4 * j4 + 1], v.y, acc[p][1]);
+          acc[p][2] = fmaf(Mr[p][4 * j4 + 2], v.z, acc[p][2]);
+          acc[p][3] = fmaf(Mr[p][4 * j4 + 3], v.w, acc[p][3]);
         }
       }
+      const float mu1 = LS[dl], rmu1 = LS[LR_LANES + dl], th = LS[2 * LR_LANES + dl];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = wp + 8 * r;
-        if (i >= nl) continue;
-        const float x0n = b2r[r] - acc[r];
-        const float z = -div_by(h10r[r] - mu1 * x0n, mu1, rmu1);
+      for (int p = 0; p < 2; ++p) {
+        const int i = drow0 + 16 * p;
+        const float mx = (acc[p][0] + acc[p][1]) + (acc[p][2] + acc[p][3]);
+        const float x0n = DS[p * LR_THREADS + tid] - mx;
+        const float h = DS[(2 + p) * LR_THREADS + tid];
+        const float z = -div_by(h - mu1 * x0n, mu1, rmu1);
         const float a = fmaxf(fabsf(z) - th, 0.f);
         const float x1n = z > 0.f ? a : (z < 0.f ? -a : z * 0.f);
-        h10r[r] += mu1 * (x1n - x0n);
-        x0old[r] = x0r[r];
-        x0r[r] = x0n;
-        x1r[r] = x1n;
-        X0_s[i * TC_LS + ln] = x0n;
+        const float hn = h + mu1 * (x1n - x0n);
+        DS[(2 + p) * LR_THREADS + tid] = hn;
+        float* const xs = XF + 128 * (i >> 3) + xslot;
+        if (last && dok && i < nl) {
+          const size_t gi = (size_t)bd * nl + i;
+          x0p[gi] = *xs;
+          x0o[gi] = x0n;
+          x1o[gi] = x1n;
+          h10o[gi] = hn;
+        }
+        *xs = x0n;
+        U[lr_hk(dl, i)] = -hn - mu1 * x1n;
       }
     }
     __syncthreads();
 
-    // 3. Px0 = P x0, then x2, h20 and the next iteration's T.
+    // A. P x0 for this warp's tiles of frequencies, then x2, h20 and the
+    //    next t, written as the A fragments of step C.
     {
-      float acc[2][4][4];
+      const float mua = LS[3 * LR_LANES + g], mub = LS[3 * LR_LANES + g + 8];
+      const float rmua = LS[4 * LR_LANES + g], rmub = LS[4 * LR_LANES + g + 8];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int r = 0; r < WT; ++r) {
+        const int n = wp + LR_WARPS * r;
+        if (n >= nt) break;
+        float sb[4] = {0.f, 0.f, 0.f, 0.f}, bs[4] = {0.f, 0.f, 0.f, 0.f},
+              bb[4] = {0.f, 0.f, 0.f, 0.f};
+        const float* const pa = Pb + (8 * n + g) * LR_LDP + t;
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+        for (int kk = 0; kk < LR_NL / 8; ++kk) {
+          unsigned ab[4], as[4];
+          tf32_split(*reinterpret_cast<const float4*>(XF + kk * 128 + q * 4), ab, as);
+          unsigned bbig[2], bsml[2];
+          get_b(pa, 8 * kk, 8 * kk + 4, bbig, bsml);
+          mma_tf32(sb, as, bbig);
+          mma_tf32(bs, ab, bsml);
+          mma_tf32(bb, ab, bbig);
+        }
+        const float4 hf = *reinterpret_cast<const float4*>(HF + n * 128 + q * 4);
+        const float hv[4] = {hf.x, hf.z, hf.y, hf.w};
+        float tv[4], hn[4];
 #pragma unroll
-          for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.f;
-#pragma unroll
-      for (int k8 = 0; k8 < 4; ++k8) {
-        if (k8 * 8 >= nl) continue;
-        const float a[2][4] = {{pa3[0][k8][0], pa3[0][k8][1], pa3[0][k8][2], pa3[0][k8][3]},
-                               {pa3[1][k8][0], pa3[1][k8][1], pa3[1][k8][2], pa3[1][k8][3]}};
-        tc_step(acc, a, Bx + k8 * 8 * TC_LS, two3);
+        for (int c = 0; c < 4; ++c) {
+          const float m = c < 2 ? mua : mub, rm = c < 2 ? rmua : rmub;
+          const float px = (sb[c] + bs[c]) + bb[c];
+          const float z = -div_by(hv[c] - m * px, m, rm);
+          const float x2n = z < 0.f ? 0.f : z;
+          hn[c] = hv[c] + m * (x2n - px);
+          tv[c] = hn[c] + m * x2n;
+          const int b = c < 2 ? la : lb, w = 8 * n + 2 * t + (c & 1);
+          if (last && b < B && w < nw) x2o[(size_t)b * nw + w] = x2n;
+        }
+        *reinterpret_cast<float4*>(HF + n * 128 + q * 4) = make_float4(hn[0], hn[2], hn[1], hn[3]);
+        if (!last)
+          *reinterpret_cast<float4*>(TF + n * 128 + q * 4) =
+              make_float4(tv[0], tv[2], tv[1], tv[3]);
       }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int c = 0; c < 4; c += 2) {
-            const int w = (wp + TC_WARPS * mi) * 16 + g + 8 * (c / 2);
-            float tt[2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float m = mu2r[2 * nt + e], h = h20r[mi][nt][c + e], px = acc[mi][nt][c + e];
-              const float z = -div_by(h - m * px, m, rmu2r[2 * nt + e]);
-              const float x2n = z < 0.f ? 0.f : z;
-              const float hn = h + m * (x2n - px);
-              h20r[mi][nt][c + e] = hn;
-              tt[e] = hn + m * x2n;
-              const int b = b0 + nt * 8 + 2 * t + e;
-              if (last && b < B && w < nw) x2o[(size_t)b * nw + w] = x2n;
-            }
-            if (w < nw)
-              *reinterpret_cast<float2*>(T_s + w * TC_LS + nt * 8 + 2 * t) =
-                  make_float2(tt[0], tt[1]);
-          }
     }
     __syncthreads();
-  }
+  };
+
+  for (int it = 0; it + 1 < n_iters; ++it) iteration(std::false_type{});
+  if (n_iters > 0) iteration(std::true_type{});
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = wp + 8 * r;
-    if (bl >= B || i >= nl) continue;
-    const size_t gi = (size_t)bl * nl + i;
-    x0o[gi] = x0r[r];
-    x1o[gi] = x1r[r];
-    h10o[gi] = h10r[r];
-    x0p[gi] = x0old[r];
+  for (int r = 0; r < WT; ++r) {
+    const int n = wp + LR_WARPS * r;
+    if (n >= nt) break;
+    const float4 hf = *reinterpret_cast<const float4*>(HF + n * 128 + q * 4);
+    const float hv[4] = {hf.x, hf.z, hf.y, hf.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int b = c < 2 ? la : lb, w = 8 * n + 2 * t + (c & 1);
+      if (b < B && w < nw) h20o[(size_t)b * nw + w] = hv[c];
+    }
   }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int w = (wp + TC_WARPS * mi) * 16 + g + 8 * (c / 2);
-        const int b = b0 + nt * 8 + 2 * t + (c & 1);
-        if (b < B && w < nw) h20o[(size_t)b * nw + w] = h20r[mi][nt][c];
-      }
 }
 
-int launch_tc(const float* P, const float* M, const float* b2, const float* mu,
+template <int WT, bool SPLIT>
+int launch_lr(const float* P, const float* M, const float* b2, const float* mu,
               const float* thr, const float* x0, const float* x1, const float* x2,
               const float* h10, const float* h20, float* x0o, float* x1o, float* x2o,
               float* h10o, float* h20o, float* x0p, int B, int nl, int nw, int n_iters,
               cudaStream_t stream) {
-  if (nl > TC_NL || nw > TC_NW) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes_tc(nl, nw);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_spm_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = smem_bytes_lr(nw, SPLIT);
+  cudaError_t err = cudaFuncSetAttribute(fused_spm_lane_mma_kernel<WT, SPLIT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  fused_spm_tc_kernel<<<(B + TC_LANES - 1) / TC_LANES, TC_THREADS, smem, stream>>>(
+  fused_spm_lane_mma_kernel<WT, SPLIT><<<(B + LR_LANES - 1) / LR_LANES, LR_THREADS, smem, stream>>>(
       P, M, b2, mu, thr, x0, x1, x2, h10, h20, x0o, x1o, x2o, h10o, h20o, x0p, B, nl, nw,
       n_iters);
   return cudaGetLastError();
+}
+
+// The tensor-core kernel with at most `tiles` tiles of frequencies a warp
+// (1, 2 or 4); P split in shared memory where two such blocks fit one
+// multiprocessor of `device`.
+int launch_tensor_cores(int device, const float* P, const float* M, const float* b2,
+                        const float* mu, const float* thr, const float* x0, const float* x1,
+                        const float* x2, const float* h10, const float* h20, float* x0o,
+                        float* x1o, float* x2o, float* h10o, float* h20o, float* x0p, int B,
+                        int nl, int nw, int n_iters, int tiles, cudaStream_t s) {
+  if (nl > LR_NL || (nw + 7) / 8 > LR_WARPS * tiles) return cudaErrorInvalidValue;
+  int per_sm = 0, reserved = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, device);
+  if (err != cudaSuccess) return err;
+  const bool split = 2 * (smem_bytes_lr(nw, true) + reserved) <= (size_t)per_sm;
+#define FSPM_LAUNCH_TC(W, S)                                                              \
+  return launch_lr<W, S>(P, M, b2, mu, thr, x0, x1, x2, h10, h20, x0o, x1o, x2o, h10o, h20o, \
+                         x0p, B, nl, nw, n_iters, s)
+  switch (tiles) {
+    case 1:
+      FSPM_LAUNCH_TC(1, true);
+    case 2:
+      FSPM_LAUNCH_TC(2, true);
+    case 4:
+      if (split) FSPM_LAUNCH_TC(4, true);
+      FSPM_LAUNCH_TC(4, false);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef FSPM_LAUNCH_TC
 }
 
 template <int L>
@@ -679,9 +755,9 @@ int launch(const float* P, const float* M, const float* b2, const float* mu,
 extern "C" {
 
 // Dynamic shared memory, in bytes, of a block that holds `lanes` lanes;
-// `lanes` = 0: of a block of the tensor-core kernel.
+// `lanes` = 0: of a block of the tensor-core kernel (P split, its most).
 size_t fused_spm_smem_bytes(int lanes, int nl, int nw) {
-  return lanes ? smem_bytes(lanes, nl, nw) : smem_bytes_tc(nl, nw);
+  return lanes ? smem_bytes(lanes, nl, nw) : smem_bytes_lr(nw, true);
 }
 
 // The device's opt-in shared-memory limit per block, in bytes.
@@ -694,7 +770,9 @@ const char* fused_spm_error_string(int err) { return cudaGetErrorString((cudaErr
 // Launch on `stream` without synchronising; returns cudaGetLastError() after
 // the launch (0 on success).  A block has `warps` warps (1..16) of
 // `lanes_per_warp` lanes (1, 2 or 4) each; `lanes_per_warp` = 0 launches the
-// tensor-core kernel (nl <= 32, nw <= 256; 32 lanes and 8 warps a block).
+// tensor-core kernel (nl <= 32, nw <= 256; 16 lanes and 8 warps a block),
+// `warps` then the most tiles of eight frequencies a warp takes (1, 2 or 4,
+// at least ceil(nw / 64)).
 int fused_spm_launch(int device, const float* P, const float* M, const float* b2,
                      const float* mu, const float* thr, const float* x0, const float* x1,
                      const float* x2, const float* h10, const float* h20, float* x0o,
@@ -707,8 +785,8 @@ int fused_spm_launch(int device, const float* P, const float* M, const float* b2
   if (err != cudaSuccess) return err;
   cudaStream_t s = (cudaStream_t)stream;
   if (lanes_per_warp == 0)
-    return launch_tc(P, M, b2, mu, thr, x0, x1, x2, h10, h20, x0o, x1o, x2o, h10o, h20o, x0p,
-                     B, nl, nw, n_iters, s);
+    return launch_tensor_cores(device, P, M, b2, mu, thr, x0, x1, x2, h10, h20, x0o, x1o, x2o,
+                               h10o, h20o, x0p, B, nl, nw, n_iters, warps, s);
 #define FSPM_LAUNCH(L)                                                                 \
   case L:                                                                              \
     return launch<L>(P, M, b2, mu, thr, x0, x1, x2, h10, h20, x0o, x1o, x2o, h10o, h20o, \

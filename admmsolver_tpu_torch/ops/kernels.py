@@ -274,10 +274,15 @@ SpMChunk = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
                  torch.Tensor, torch.Tensor]
 
 # Lanes per warp the FMA kernel is instantiated for, and its limit on warps
-# per block; the widths up to which the tensor-core kernel is built.
+# per block; the widths up to which the tensor-core kernel is built, and the
+# tiles of eight frequencies a warp of it may take (its instantiations: 8
+# warps a block, so 64, 128 and 256 frequencies).
 _SPM_LANES_PER_WARP = (1, 2, 4)
 _SPM_MAX_WARPS = 16
 _SPM_TC_MAX = (32, 256)   # nl, nw
+_SPM_TC_TILES = (1, 2, 4)
+#: The kernels of :func:`fused_spm_chunk` on a CUDA device, by route.
+SPM_ROUTES = ("mma_sync", "fma")
 
 
 def fused_spm_chunk_reference(P, M, b2, mu, thr, x0, x1, x2, h10, h20,
@@ -322,11 +327,27 @@ def _check_spm(P, M, b2, mu, thr, x0, x1, x2, h10, h20, n_iters):
             raise ValueError(f"tensors on {t.device} and {x0.device}")
 
 
+def _spm_tc_tiling(nl: int, nw: int) -> Optional[Tuple[int, int]]:
+    """The tensor-core kernel's tiling, (0, k), where it takes the widths
+    (nl <= 32, nw <= 256), else None.  A block holds 16 lanes in 8 warps;
+    warp w computes P x0 for the tiles of eight frequencies w, w + 8, ...,
+    so k is the fewest instantiated tiles a warp (``_SPM_TC_TILES``) of at
+    least ceil(nw / 64)."""
+    if nl > _SPM_TC_MAX[0] or nw > _SPM_TC_MAX[1]:
+        return None
+    return 0, next(k for k in _SPM_TC_TILES if 64 * k >= nw)
+
+
+def _spm_route(tiling: Tuple[int, int]) -> str:
+    """The route (``SPM_ROUTES``) a tiling launches."""
+    return SPM_ROUTES[int(tiling[0] != 0)]
+
+
 def _spm_tiling(lib, device: int, B: int, nl: int, nw: int,
                 tensor_cores: bool = True) -> Tuple[int, int]:
-    """(lanes per warp, warps per block) for a launch; (0, 8) is the
-    tensor-core kernel (32 lanes a block), taken wherever nl and nw are
-    within the widths it is built for unless ``tensor_cores`` is false.
+    """(lanes per warp, warps per block) for a launch; (0, k) is the
+    tensor-core kernel (:func:`_spm_tc_tiling`), taken wherever nl and nw
+    are within the widths it is built for unless ``tensor_cores`` is false.
     Otherwise the FMA kernel is cut so: a block should hold
     its multiprocessor's share of the batch, so that the batch runs as one
     wave, within the shared-memory limit; among the lane groups that hold
@@ -336,9 +357,9 @@ def _spm_tiling(lib, device: int, B: int, nl: int, nw: int,
     err = lib.fused_spm_max_smem(device, ctypes.byref(limit))
     if err:
         raise RuntimeError(lib.fused_spm_error_string(err).decode())
-    if (tensor_cores and nl <= _SPM_TC_MAX[0] and nw <= _SPM_TC_MAX[1]
-            and lib.fused_spm_smem_bytes(0, nl, nw) <= limit.value):
-        return 0, 8
+    tc = _spm_tc_tiling(nl, nw) if tensor_cores else None
+    if tc is not None and lib.fused_spm_smem_bytes(0, nl, nw) <= limit.value:
+        return tc
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     per_sm = -(-B // sms)
     best = None
@@ -362,8 +383,9 @@ def _spm_tiling(lib, device: int, B: int, nl: int, nw: int,
 def _spm_launch(args, n_iters: int, tiling: Optional[Tuple[int, int]] = None) -> SpMChunk:
     """Launch the CUDA kernel on checked, contiguous CUDA tensors.
     ``tiling`` = (lanes per warp, warps per block) overrides
-    :func:`_spm_tiling` ((0, 8): the tensor-core kernel); a tiling that does
-    not fit fails at the launch."""
+    :func:`_spm_tiling` ((0, k): the tensor-core kernel with at most k
+    tiles of frequencies a warp); a tiling that does not fit fails at the
+    launch."""
     x0, x2 = args[5], args[7]
     device = x0.device
     B, nl = x0.shape
@@ -379,6 +401,7 @@ def _spm_launch(args, n_iters: int, tiling: Optional[Tuple[int, int]] = None) ->
         raise RuntimeError("fused_spm_chunk launch failed: "
                            + lib.fused_spm_error_string(err).decode())
     fused_spm_chunk.launches += 1
+    fused_spm_chunk.routes[_spm_route((lpw, warps))].launches += 1
     return outs
 
 
@@ -397,7 +420,8 @@ def fused_spm_chunk(P, M, b2, mu, thr, x0, x1, x2, h10, h20,
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel on
     the current stream without synchronising (and count it in
-    ``fused_spm_chunk.launches``); they must be contiguous.
+    ``fused_spm_chunk.launches`` and, by route, in
+    ``fused_spm_chunk.routes``); they must be contiguous.
     """
     args = (P, M, b2, mu, thr, x0, x1, x2, h10, h20)
     _check_spm(*args, n_iters)
@@ -413,6 +437,8 @@ def fused_spm_chunk(P, M, b2, mu, thr, x0, x1, x2, h10, h20,
 
 #: Number of kernel launches (CUDA tensors only) since the last reset.
 fused_spm_chunk.launches = 0
+#: The same, by route (``SPM_ROUTES``).
+fused_spm_chunk.routes = {name: _Launches(f"fused_spm_chunk.{name}") for name in SPM_ROUTES}
 
 
 # ---------------------------------------------------------------------
@@ -744,12 +770,14 @@ jacobi_eigh.launches = 0
 
 
 _LAUNCH_COUNTERS = (jacobi_eigh, fused_two_block_chunk, fused_spm_chunk, spm_factor_refresh,
-                    *fused_two_block_chunk.routes.values(), *spm_factor_refresh.routes.values())
+                    *fused_two_block_chunk.routes.values(), *fused_spm_chunk.routes.values(),
+                    *spm_factor_refresh.routes.values())
 
 
 def launch_counters() -> tuple:
     """Every launch counter of the port's kernels, each with ``.launches``
     and a ``__name__``: the wrappers, then the routes of the two-block
-    kernel and of the factor refresh.  Bound when the module loads, so that
-    a wrapper replaced by its plain version (in a test) leaves them."""
+    kernel, of the SpM chunk kernel and of the factor refresh.  Bound when
+    the module loads, so that a wrapper replaced by its plain version (in a
+    test) leaves them."""
     return _LAUNCH_COUNTERS

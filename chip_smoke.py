@@ -149,7 +149,13 @@ fails raises and the script exits non-zero without printing a result.
    launches in 3b's SpM solve (``launches``), in 5c's ``solve_mixed``
    (``launches_solve_mixed``) and in 11d (``launches_phase_11``), each
    required to equal the chunk kernel's launches in the same run: one a
-   chunk.
+   chunk.  10g: the SpM chunk kernel alone, 100 iterations at the same
+   shape (nw 61), at 3b's nw 201 and at nw 256: its outputs against the
+   float64 plain version, at most CHUNK_ALONE_ERR_RATIO times the FMA
+   kernel's error; its time from CUDA-graph replays beside the FMA kernel's
+   and its bound (``portbench/counts/spm.py``); no instantiation of the
+   kernel may use local memory.  Every launch of 3b's solve takes the
+   tensor-core route (``fused_spm_chunk.routes``).
 
 11. The composite drivers (run after 10, before 9), each one program whose
    groups or phases hand over on the card.  11a the λ-path of bench_lpath
@@ -339,6 +345,15 @@ JACOBI_MAIN = (128, 96, "float64")   # the kernels line's shape: 10c's Gram rout
 # most this multiple of the float32 plain version's
 REFRESH_B, REFRESH_NL, REFRESH_NW, REFRESH_MU0 = 4096, 30, 61, 0.1
 REFRESH_ERR_RATIO = 2.0
+# 10g: the SpM chunk kernel alone at the same shape, at 3b's nw and at the
+# widest nw (where P is not split in shared memory: two blocks an SM need
+# nw <= 248 on an H100), its iterations a chunk, and the most its error
+# against the float64 plain version may be, as a multiple of the FMA kernel's
+# on the same inputs: PERF.md §6 gives the kernel's ratios (split TF32) and a
+# control's (one TF32 mma a product) at each width
+CHUNK_ALONE_NW = (REFRESH_NW, NW, 256)
+CHUNK_ALONE_NITER = 100
+CHUNK_ALONE_ERR_RATIO = 16.0
 # 11. the composite drivers: bench_lpath (benches/bench_workloads.py:566-590),
 # benches/scan_large_hw.py:24-42, bench_sdp's mixed recipe (:263-276) and 5c
 PATH_VALUES, PATH_GS, PATH_NITER = 1024, 256, 100
@@ -1817,6 +1832,83 @@ def phase_refresh_alone(torch, card, device="cuda", B=REFRESH_B, nl=REFRESH_NL,
     return row
 
 
+def phase_spm_chunk_alone(torch, card, device="cuda", B=REFRESH_B, nl=REFRESH_NL,
+                          widths=CHUNK_ALONE_NW):
+    """10g. The SpM chunk kernel alone, CHUNK_ALONE_NITER iterations at the
+    spm.fused_f32 cell's shape (B 4096, nl 30, nw 61; every penalty at the
+    cell's mu0, M and b2 from the solver's factor refresh, a seeded state),
+    at 3b's nw 201 and at nw 256: its outputs against the float64 plain
+    version (the largest absolute error over the six outputs), then its time from
+    CUDA-graph replays beside the FMA kernel's, in the same turns (kernel, FMA,
+    FMA, kernel), with the bound of ``portbench/counts/spm.py``.  On the card
+    the kernel's error may be at most CHUNK_ALONE_ERR_RATIO times the FMA
+    kernel's, and no instantiation of the kernel may use local memory."""
+    from admmsolver_tpu_torch.models.applications import spm_model, synthetic_spm_data
+    from admmsolver_tpu_torch.ops import _build, kernels
+    from admmsolver_tpu_torch.parallel import FusedSpMSolver
+    from portbench.counts import spm as spm_counts
+    from portbench.peaks import peaks_of
+
+    if device == "cuda":
+        ptxas = ptxas_report("fused_spm",
+                             (("tiles", r"fused_spm_lane_mma_kernelILi(\d+)ELb([01])E"),))
+        print(f"10g SpM chunk kernel, ptxas (registers, stack frame, spill bytes): {ptxas}",
+              flush=True)
+        if sorted(ptxas) != ["tiles 1 1", "tiles 2 1", "tiles 4 0", "tiles 4 1"] or any(
+                st or sp for _, st, sp in ptxas.values()):
+            raise AssertionError(f"10g: instantiations {sorted(ptxas)} (tiles 1, 2, 4 with P "
+                                 f"split, 4 without expected), or one uses local memory")
+    rows = []
+    for nw in widths:
+        s, g, prj_sum, prj_w, _, _ = synthetic_spm_data(nl=nl, nw=nw, noise=1e-5)
+        solver = FusedSpMSolver(spm_model(s, g, prj_sum, prj_w, alpha_l1=1e-5), device=device)
+        rng = np.random.RandomState(9)
+        f32 = dict(dtype=torch.float32, device=device)
+        mu = torch.full((B, 2), REFRESH_MU0, **f32)
+        acy = torch.as_tensor(g[None] + 1e-5 * rng.randn(B, g.size), **f32) @ solver.Ac.T
+        M, b2 = solver._factors(mu[:, 0], mu[:, 1], torch.ones(B, **f32), acy)
+        thr = (1e-5 / (2 * mu[:, :1])).contiguous()
+        x0, x1, h10 = (torch.as_tensor(a * rng.randn(B, nl), **f32) for a in (0.3, 0.3, 0.1))
+        x2, h20 = (torch.as_tensor(a * rng.randn(B, nw), **f32) for a in (0.1, 0.01))
+        args = [solver.P.contiguous(), M, b2, mu, thr, x0, x1, x2, h10, h20]
+        truth = kernels.fused_spm_chunk_reference(*(a.double() for a in args),
+                                                  n_iters=CHUNK_ALONE_NITER)
+
+        def error(outs):
+            return max(float((o.double() - t).abs().max()) for o, t in zip(outs, truth))
+
+        row = {"B": B, "nl": nl, "nw": nw, "n_iters": CHUNK_ALONE_NITER,
+               "err": error(kernels.fused_spm_chunk(*args, n_iters=CHUNK_ALONE_NITER))}
+        rows.append(row)
+        if device != "cuda":
+            continue
+        lib = _build.load_libraries()["fused_spm"]
+        row["tiling"] = list(kernels._spm_tiling(lib, 0, B, nl, nw))
+        fma = kernels._spm_tiling(lib, 0, B, nl, nw, tensor_cores=False)
+        runs = {"kernel": lambda: kernels.fused_spm_chunk(*args, n_iters=CHUNK_ALONE_NITER),
+                "fma": lambda: kernels._spm_launch(args, CHUNK_ALONE_NITER, fma)}
+        row["fma_err"] = error(runs["fma"]())
+        names = list(runs)
+        times = graph_ms(torch, [runs[n] for n in names + names[::-1]])
+        for k, name in enumerate(names):
+            row[f"{name}_ms_turns"] = [times[k], times[-1 - k]]
+            row[f"{name}_ms"] = 0.5 * (times[k] + times[-1 - k])
+        peaks = peaks_of(torch.cuda.get_device_name(0))
+        row["bound_ms"] = 1e3 * spm_counts.bound_s(
+            spm_counts.work(B, nl, nw, CHUNK_ALONE_NITER), peaks)
+        row["roofline_pct"] = 100.0 * row["bound_ms"] / row["kernel_ms"]
+        print(f"[{card}] 10g SpM chunk (B {B}, nl {nl}, nw {nw}, {CHUNK_ALONE_NITER} iters, "
+              f"tiling {tuple(row['tiling'])}): kernel {row['kernel_ms_turns'][0]:.4f} / "
+              f"{row['kernel_ms_turns'][1]:.4f} ms, FMA kernel {tuple(fma)} {row['fma_ms']:.4f} ms "
+              f"(graph replays), bound {row['bound_ms']:.4f} ms ({row['roofline_pct']:.2f}%); "
+              f"error against float64: kernel {row['err']:.3e}, FMA {row['fma_err']:.3e} (ratio "
+              f"{row['err'] / row['fma_err']:.2f}, limit {CHUNK_ALONE_ERR_RATIO})", flush=True)
+        if not row["err"] <= CHUNK_ALONE_ERR_RATIO * row["fma_err"]:
+            raise AssertionError(f"10g: the kernel's error at nw {nw} is {row['err']:.3e}, "
+                                 f"above {CHUNK_ALONE_ERR_RATIO} times the FMA kernel's")
+    return rows
+
+
 def phase_spectral(torch, card, fam, device="cuda"):
     """Phase 10: 10a-10c drive the other spectral routes through
     BatchedSolver and hold each against phase 8's solve (``fam``: 8a-8c
@@ -2212,12 +2304,18 @@ def phases_1_to_8(torch, card):
     spm_solve = lambda: spm.solve({(0, "y"): gs_dev}, niter=SPM_NITER, mu0=SPM_MU0, rtol=0.0)
     kernels.fused_spm_chunk.launches = 0
     kernels.spm_factor_refresh.launches = 0
+    for route in kernels.fused_spm_chunk.routes.values():
+        route.launches = 0
     sres = spm_solve()
     torch.cuda.synchronize()
     spm_launches = kernels.fused_spm_chunk.launches
     refresh_launches = kernels.spm_factor_refresh.launches
     if spm_launches == 0:
         raise AssertionError("the fused SpM solve launched no kernel")
+    tc_launches = kernels.fused_spm_chunk.routes["mma_sync"].launches
+    if tc_launches != spm_launches:
+        raise AssertionError(f"{tc_launches} of the fused SpM solve's {spm_launches} launches "
+                             f"took the tensor-core route (all expected)")
     if refresh_launches != spm_launches:
         raise AssertionError(f"the fused SpM solve launched the factor refresh kernel "
                              f"{refresh_launches} times in {spm_launches} chunks (one a chunk "
@@ -2507,7 +2605,8 @@ def phases_1_to_8(torch, card):
         chosen = kernels._spm_tiling(libs["fused_spm"], 0, B, NL, NW)
         print(f"[{card}] SpM chunk tilings (lanes per warp, warps per block), 100 iters; "
               f"the wrapper chooses {chosen}:")
-        for other in ((0, 8), (4, 8), (4, 4), (2, 16), (2, 12), (2, 8), (1, 16), (1, 8)):
+        for other in (kernels._spm_tc_tiling(NL, NW), (4, 8), (4, 4), (2, 16), (2, 12), (2, 8),
+                      (1, 16), (1, 8)):
             (t_ms,) = median_ms(torch, [lambda: kernels._spm_launch(sargs, 100, other)])
             print(f"  {other}: {t_ms:.3f} ms")
         from admmsolver_tpu_torch.models.objectivefunc import inv_hpd
@@ -3025,6 +3124,9 @@ def main():
 
     # 10f. the SpM factor refresh alone (its launches on the main path kept beside)
     kernels_line["refresh"].update(phase_refresh_alone(torch, card))
+
+    # 10g. the SpM chunk kernel alone
+    kernels_line["kernels"][1]["alone"] = phase_spm_chunk_alone(torch, card)
 
     # 11. the composite drivers, each one program
     composites = phase_composites(torch, card)

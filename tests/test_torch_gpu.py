@@ -417,11 +417,18 @@ def _spm_inputs(nl, nw, B, device, seed=3):
     return [solver.P, M, b2, mu, thr, x0, x1, x2, h10, h20]
 
 
-@pytest.mark.parametrize("nl,nw,B", [(12, 25, 37), (30, 201, 64), (33, 70, 5), (2, 3, 3),
-                                     (40, 130, 300), (32, 256, 33), (17, 57, 70)])
+@pytest.mark.parametrize("nl,nw,B", [
+    (12, 25, 37), (30, 201, 64), (33, 70, 5), (2, 3, 3), (40, 130, 300), (32, 256, 33),
+    (17, 57, 70),
+    # the spm.fused_f32 cell's shape, then each side of every nw at which the
+    # tensor-core kernel's tiles a warp (64, 128), its P layout (248 on an
+    # H100) or the route (256) change, and of nl = 32, with a ragged B
+    (30, 61, 4096), (30, 64, 37), (30, 65, 37), (30, 128, 21), (30, 129, 21),
+    (30, 248, 19), (30, 249, 19), (30, 257, 19), (32, 61, 37), (16, 61, 37), (8, 9, 50)])
 def test_cuda_spm_kernel_matches_plain_version(cuda, nl, nw, B):
     """Ragged nl, nw and B (no multiple of 4, of the warp or of the lanes
-    per block), nl above one warp, and the full width nl=30, nw=201."""
+    per block), nl above one warp, the full width nl=30, nw=201, and the
+    benchmark's nl=30, nw=61 at B=4096."""
     args = _spm_inputs(nl, nw, B, cuda)
     launches = fused_spm_chunk.launches
     got = fused_spm_chunk(*args, n_iters=21)
@@ -433,23 +440,70 @@ def test_cuda_spm_kernel_matches_plain_version(cuda, nl, nw, B):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("tiling", [(1, 1), (1, 5), (2, 3), (4, 2), (4, 16), (0, 8)])
+@pytest.mark.parametrize("tiling", [(1, 1), (1, 5), (2, 3), (4, 2), (4, 16), (0, 1), (0, 2),
+                                    (0, 4)])
 def test_cuda_spm_kernel_tilings_agree(cuda, tiling):
     """Every instantiation of the FMA kernel (lanes per warp) and block size
     gives the same bits: a lane's sums do not depend on its neighbours.  The
-    tensor-core kernel, (0, 8), sums in another order and in split TF32, and
-    agrees within the kernel tolerance."""
+    tensor-core kernel, (0, k), sums in another order and in split TF32, and
+    agrees within the kernel tolerance; its instantiations (the most tiles of
+    frequencies a warp takes) give the same bits."""
     from admmsolver_tpu_torch.ops.kernels import _spm_launch
 
     args = _spm_inputs(12, 25, 37, cuda)
     want = _spm_launch(args, 7, (2, 16))
     got = _spm_launch(args, 7, tiling)
+    first = _spm_launch(args, 7, (0, 1))
     torch.cuda.synchronize()
-    for g, w in zip(got, want):
+    for g, w, f in zip(got, want, first):
         if tiling[0]:
             assert torch.equal(g, w)
         else:
             np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0, atol=ATOL)
+            assert torch.equal(g, f)
+
+
+@pytest.mark.parametrize("nw", [61, 201, 256])
+def test_cuda_spm_kernel_lane_bits_do_not_depend_on_its_place(cuda, nw):
+    """A lane's outputs are the same bits at index 0 of B = 4096 lanes, at
+    the last index (the last block's), and in the last, partial block of B =
+    37 (16 lanes a block): nothing of a lane's arithmetic depends on its
+    block, its place in the block or B."""
+    B = 4096
+    args = _spm_inputs(30, nw, B, cuda, seed=5)
+    moved = torch.arange(B, device=cuda)
+    moved[0], moved[-1] = B - 1, 0
+    few = torch.arange(36, -1, -1, device=cuda)         # lane 0 at index 36 of 37
+    at_end = [args[0]] + [a[moved].contiguous() for a in args[1:]]
+    in_few = [args[0]] + [a[few].contiguous() for a in args[1:]]
+    want = fused_spm_chunk(*args, n_iters=21)
+    got_end = fused_spm_chunk(*at_end, n_iters=21)
+    got_few = fused_spm_chunk(*in_few, n_iters=21)
+    torch.cuda.synchronize()
+    for w, e, f in zip(want, got_end, got_few):
+        assert torch.equal(w[0], e[-1])
+        assert torch.equal(w[0], f[-1])
+        assert torch.equal(w[-1], e[0])
+
+
+@pytest.mark.parametrize("nl,nw,B", [(30, 61, 4096), (30, 64, 37), (30, 65, 37), (30, 201, 64),
+                                     (30, 249, 19), (32, 256, 33), (30, 257, 19), (33, 61, 37)])
+def test_cuda_spm_kernel_takes_the_route_its_tiling_names(cuda, nl, nw, B):
+    """Each launch goes through the kernel ``_spm_tiling`` names for its
+    shape, and the counter of that route (``fused_spm_chunk.routes``) moves
+    by one, the other not at all."""
+    from admmsolver_tpu_torch.ops import _build, kernels
+
+    args = _spm_inputs(nl, nw, B, cuda)
+    tiling = kernels._spm_tiling(_build.load_libraries()["fused_spm"], cuda.index or 0, B, nl, nw)
+    route = kernels._spm_route(tiling)
+    assert tiling == (kernels._spm_tc_tiling(nl, nw) or tiling)
+    assert route == ("mma_sync" if nl <= 32 and nw <= 256 else "fma")
+    before = {name: c.launches for name, c in kernels.fused_spm_chunk.routes.items()}
+    fused_spm_chunk(*args, n_iters=3)
+    torch.cuda.synchronize()
+    assert {name: c.launches - before[name] for name, c in kernels.fused_spm_chunk.routes.items()} \
+        == {name: int(name == route) for name in kernels.SPM_ROUTES}
 
 
 def test_cuda_spm_kernel_zero_iterations_and_checks(cuda):

@@ -293,3 +293,99 @@ def test_c_interfaces_match_their_declarations(name):
     for function, declared in ((f"{name}_launch", _build._LAUNCH_ARGTYPES[name]),
                                (f"{name}_smem_bytes", _build._SMEM_ARGTYPES[name])):
         assert _c_params(source, function) == [kind(t) for t in declared], function
+
+
+@pytest.mark.parametrize("nl,nw,want", [
+    # the spm.fused_f32 cell (portbench spm_nl30_nw61): 8 tiles of eight
+    # frequencies, one for each of the block's 8 warps
+    (30, 61, (0, 1)),
+    # each side of the nw at which a warp's tiles double, and chip_smoke 3b's
+    (30, 64, (0, 1)), (30, 65, (0, 2)), (30, 128, (0, 2)), (30, 129, (0, 4)), (30, 201, (0, 4)),
+    # the widest the tensor-core kernel takes, and one past it in nw or nl
+    (32, 256, (0, 4)), (30, 257, None), (33, 61, None),
+    (1, 1, (0, 1)), (16, 9, (0, 1)),
+])
+def test_spm_tensor_core_tiling_choice(nl, nw, want):
+    """The tensor-core kernel takes nl <= 32, nw <= 256; its warps take the
+    fewest instantiated tiles of frequencies (1, 2 or 4) that cover
+    ceil(nw / 8) tiles over 8 warps; wider problems go to the FMA kernel."""
+    from admmsolver_tpu_torch.ops.kernels import _SPM_TC_TILES, _spm_route, _spm_tc_tiling
+
+    got = _spm_tc_tiling(nl, nw)
+    assert got == want
+    if got is not None:
+        tiles = -(-nw // 8)
+        assert 8 * got[1] >= tiles
+        assert all(8 * k < tiles for k in _SPM_TC_TILES if k < got[1])
+        assert _spm_route(got) == "mma_sync"
+    assert _spm_route((2, 16)) == "fma"
+
+
+class _FakeSpMLibrary:
+    """The C interface of the SpM kernel's library, recording each launch's
+    tiling instead of launching: the wrapper's path to the launch and its
+    counters run on the CPU.  Shared memory as ``csrc/fused_spm.cu`` counts
+    it, under an H100's opt-in limit."""
+
+    def __init__(self):
+        self.tilings = []
+
+    def fused_spm_max_smem(self, device, limit):
+        limit._obj.value = H100_SMEM
+        return 0
+
+    def fused_spm_smem_bytes(self, lanes, nl, nw):
+        if lanes == 0:
+            nt = -(-nw // 8)
+            return 4 * (2 * nt * 8 * 36 + 2 * nt * 128 + 4 * 128 + 2 * 656 + 4 * 256 + 5 * 16)
+        nlp, nwp = -(-nl // 4) * 4, -(-nw // 4) * 4
+        ld = nlp + 1
+        return 4 * (nwp * ld + lanes * (5 * nlp + 2 * nwp + -(-nl * ld // 4) * 4))
+
+    def fused_spm_launch(self, *args):
+        self.tilings.append(tuple(args[-3:-1]))
+        return 0
+
+    def fused_spm_error_string(self, err):
+        return b"no launch"
+
+
+@pytest.mark.parametrize("nl,nw,route", [
+    (30, 61, "mma_sync"),    # the benchmark's cell
+    (30, 65, "mma_sync"),
+    (30, 201, "mma_sync"),   # chip_smoke 3b
+    (32, 256, "mma_sync"),
+    (30, 257, "fma"),
+    (33, 61, "fma"),
+])
+def test_spm_route_counters(monkeypatch, nl, nw, route):
+    """Each launch counts once in ``launches`` and once in its route's
+    counter, which telemetry reports as ``kernel.fused_spm_chunk.<route>.
+    launches``; the launch takes the tiling ``_spm_tiling`` names."""
+    from admmsolver_tpu_torch.ops import _build, kernels
+    from admmsolver_tpu_torch.utils import telemetry
+
+    lib = _FakeSpMLibrary()
+    monkeypatch.setattr(_build, "load_libraries", lambda: {"fused_spm": lib})
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("Stream", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: type("Props", (), {"multi_processor_count": 132})())
+    B = 5
+    args = [torch.zeros(shape) for shape in ((nw, nl), (B, nl, nl), (B, nl), (B, 2), (B, 1),
+                                             (B, nl), (B, nl), (B, nw), (B, nl), (B, nw))]
+    routes = kernels.fused_spm_chunk.routes
+    before = {name: c.launches for name, c in routes.items()}
+    launches = kernels.fused_spm_chunk.launches
+    telemetry.reset()
+    kernels._spm_launch(args, 5)
+    assert lib.tilings[-1] == tuple(kernels._spm_tiling(lib, 0, B, nl, nw))
+    assert (lib.tilings[-1] == kernels._spm_tc_tiling(nl, nw)) == (route == "mma_sync")
+    assert kernels.fused_spm_chunk.launches == launches + 1
+    assert {name: c.launches - before[name] for name, c in routes.items()} == \
+        {name: int(name == route) for name in kernels.SPM_ROUTES}
+    counters = telemetry.snapshot()["counters"]
+    assert counters["kernel.fused_spm_chunk.launches"] == 1
+    for name in kernels.SPM_ROUTES:
+        assert counters[f"kernel.fused_spm_chunk.{name}.launches"] == int(name == route)
