@@ -63,6 +63,7 @@ from ..ops.linop import (
 )
 from ..ops.prox import (ROUTE_CAPTURABLE, _jacobi_boundary, project_nonneg, psd_project,
                         psd_route, soft_threshold, svt_sign)
+from ..utils import telemetry
 
 __all__ = [
     "ObjectiveFunctionBase",
@@ -973,13 +974,21 @@ class NuclearNormPenalty(ObjectiveFunctionBase):
         mu0 = torch.broadcast_to(mu_diag, v.shape)[..., 0]
         tau = 0.5 * _match_precision(self._alpha, h) / mu0           # () or (B,)
         route = self.prox_route(X.dtype, X.device)
+        # the thresholds by route, a lane each; device marks around the
+        # threshold in a chunk captured inside telemetry.tracing()
+        telemetry.count(f"prox.svt.{route}", X.numel() // (X.shape[-2] * X.shape[-1]))
+        telemetry.mark("svt.start")
         if route == "sign":
             # above the Gram-Jacobi envelope the SVD-free polar route: the
             # threshold annihilates the polynomial's inexact small directions
-            return svt_sign(X, tau).reshape(v.shape)
-        U, s, Vh = svd_via_gram(X) if route != "svd" else torch.linalg.svd(X, full_matrices=False)
-        s2 = torch.clamp_min(s - tau[..., None], 0.0)
-        return ((U * s2[..., None, :].to(U.dtype)) @ Vh).reshape(v.shape)
+            out = svt_sign(X, tau)
+        else:
+            U, s, Vh = (svd_via_gram(X) if route != "svd"
+                        else torch.linalg.svd(X, full_matrices=False))
+            s2 = torch.clamp_min(s - tau[..., None], 0.0)
+            out = (U * s2[..., None, :].to(U.dtype)) @ Vh
+        telemetry.mark("svt.end")
+        return out.reshape(v.shape)
 
 
 class SemiPositiveDefinitePenalty(ObjectiveFunctionBase):

@@ -374,7 +374,9 @@ class _GraphProgram:
     On a CUDA device a captured solve runs the program's first step
     eagerly (libraries load, caches fill), then captures each key once
     into a graph of the solver's pool (:class:`_GraphPool`) and replays it
-    once a step; a replay adds the kernel launches its capture counted.
+    once a step; a replay adds the kernel launches and the telemetry
+    counts (:func:`~admmsolver_tpu_torch.utils.telemetry.capturing`) its
+    capture counted.
     Otherwise (the CPU, :data:`CAPTURE_CHUNKS` off, a route a graph cannot
     hold) the step runs directly, from the pool where there is one and the
     program is warm.  A step that fails to capture raises.
@@ -392,9 +394,10 @@ class _GraphProgram:
     def __init__(self, done: torch.Tensor, what: str, checked, hist_shape, hist_dtype,
                  hist_axis: int = 0, chunk=None) -> None:
         self.warm = False
-        #: chunk key -> (graph, kernel launches of one replay)
+        #: chunk key -> (graph, kernel launches and telemetry counts of one
+        #: replay, taken at its capture)
         self.graphs: Dict = {}
-        #: chunk key -> (graph, kernel launches, marks): the graphs with marks
+        #: chunk key -> (graph, launches, counts, marks): the graphs with marks
         self.marked: Dict = {}
         #: host seconds of each key's last capture
         self.capture_s: Dict = {}
@@ -508,14 +511,16 @@ class _GraphProgram:
             table = self.marked if marked else self.graphs
             if key not in table:
                 self._capture(key, pool)
-            graph, launches = table[key][:2]
+            graph, launches, counts = table[key][:3]
             if marked:
-                table[key][2].begin()
+                table[key][3].begin()
             with telemetry.span("admm.replay"):
                 telemetry.count("replays")
                 graph.replay()
             for kernel, count in zip(_counted_kernels(), launches):
                 kernel.launches += count
+            for name, n in counts.items():
+                telemetry.count(name, n)
 
     def _capture(self, key, pool: _GraphPool) -> None:
         """Capture the chunk of ``key`` (nothing runs) into a graph of
@@ -533,10 +538,12 @@ class _GraphProgram:
         current = torch.cuda.current_stream(pool.device)
         marks = (telemetry.Marks("chunks_timed", external=True, key=key)
                  if telemetry.marking() else None)
+        counts: Dict[str, float] = {}
         t0 = time.perf_counter()
         try:
             with telemetry.span("admm.capture", key=key), torch.cuda.device(pool.device), \
-                    torch.cuda.graph(graph, pool=pool.mempool.id, stream=pool.stream):
+                    torch.cuda.graph(graph, pool=pool.mempool.id, stream=pool.stream), \
+                    telemetry.capturing(counts):
                 if marks is None:
                     self._chunk(key)
                 else:
@@ -558,9 +565,9 @@ class _GraphProgram:
         telemetry.count("capture_s", seconds)
         pool.bytes += torch.cuda.memory_reserved(pool.device) - reserved
         if marks is None:
-            self.graphs[key] = (graph, launches)
+            self.graphs[key] = (graph, launches, counts)
         else:
-            self.marked[key] = (graph, launches, marks)
+            self.marked[key] = (graph, launches, counts, marks)
 
 
 @dataclasses.dataclass

@@ -13,7 +13,10 @@ observability is the residual history lists and a per-iteration
   ``admm.chunk``, ``admm.replay``, ``admm.wave``, ...): an event on the
   profiler's timeline and a record kept here; :func:`count` — a counter
   (``flag_reads``, ``replays``, a stream's ``waves``, ``scenarios_out``,
-  ``stream.slot_iters`` and ``stream.lane_iters``, ...); :class:`Marks` —
+  ``stream.slot_iters`` and ``stream.lane_iters``, the lane-applications of
+  the singular-value threshold by route ``prox.svt.<route>``, ...; those
+  made inside a captured chunk counted at its capture and added at each
+  replay: :func:`capturing`); :class:`Marks` —
   timing events on the device (inside a captured graph, or on the stream
   around a composite's stages), read without waiting for them;
   :func:`snapshot` / :func:`reset` — everything recorded since the last
@@ -47,8 +50,8 @@ import torch
 import torch.autograd.profiler as _profiler
 
 __all__ = ["trace", "convergence_report", "check_finite_state",
-           "debug_nans", "tracing", "enabled", "span", "spanned", "count", "mark",
-           "marking", "Marks", "snapshot", "reset"]
+           "debug_nans", "tracing", "enabled", "span", "spanned", "count", "capturing",
+           "mark", "marking", "Marks", "snapshot", "reset"]
 
 # Set inside a ``debug_nans()`` scope; read by the engines between chunks.
 _debug_nans = False
@@ -62,6 +65,8 @@ MAX_RECORDS = 1 << 16
 _switch: Optional[bool] = None
 # the marks a capture under way records into (:func:`mark`)
 _collector: Optional["Marks"] = None
+# the counts a capture under way takes for its replays (:func:`capturing`)
+_captured: Optional[Dict[str, float]] = None
 
 
 def _host(a) -> np.ndarray:
@@ -240,9 +245,27 @@ def spanned(name: str):
 
 
 def count(name: str, n: float = 1) -> None:
-    """Add ``n`` to the counter ``name``, with the switch on."""
-    if enabled():
+    """Add ``n`` to the counter ``name``, with the switch on; inside a
+    capture (:func:`capturing`), whatever the switch, to the capture's
+    counts, which each replay of its graph adds."""
+    if _captured is not None:
+        _captured[name] = _captured.get(name, 0) + n
+    elif enabled():
         _log.counters[name] = _log.counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def capturing(counts: Dict[str, float]):
+    """The scope of a graph's capture, in which nothing runs: the counts
+    made in it (the work a replay will do, such as ``prox.svt.<route>``)
+    go to ``counts`` rather than to the log."""
+    global _captured
+    prev = _captured
+    _captured = counts
+    try:
+        yield
+    finally:
+        _captured = prev
 
 
 class Marks:

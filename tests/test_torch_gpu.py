@@ -1917,7 +1917,7 @@ def test_composite_launches_count_in_each_phase(cuda):
             assert kernels.jacobi_eigh.launches == expect
     (program,) = solver._programs.values()
     for phase in program.phases:
-        assert sum(launches[0] for _, launches in phase.graphs.values()) > 0
+        assert sum(launches[0] for _, launches, _ in phase.graphs.values()) > 0
     fs, spm_call = _composite_case("spm_mixed", cuda)
     for _ in range(2):
         fused_spm_chunk.launches = 0

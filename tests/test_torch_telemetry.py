@@ -252,6 +252,6 @@ def test_graph_without_the_switch_has_no_event_node(cuda, monkeypatch):
     with telemetry.tracing():
         fs.solve(ov, niter=250, mu0=0.1)
     assert set(program.marked) == set(program.graphs)
-    assert all(_event_record_nodes(g) == 0 for g, _ in program.graphs.values())
+    assert all(_event_record_nodes(g) == 0 for g, _, _ in program.graphs.values())
     # chunk.start, refresh.end, kernel.end, chunk.end
-    assert all(_event_record_nodes(g) == 4 for g, _, _ in program.marked.values())
+    assert all(_event_record_nodes(g) == 4 for g, _, _, _ in program.marked.values())
